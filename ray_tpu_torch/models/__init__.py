@@ -1,0 +1,11 @@
+"""ray_tpu_torch.models — the decoder-only LM families (GPT-2, Llama)."""
+
+from .configs import PRESETS, get_config  # noqa: F401
+from .convert import params_from_numpy  # noqa: F401
+from .transformer import (  # noqa: F401
+    TransformerConfig,
+    forward,
+    forward_hidden,
+    init_params,
+    lm_head_weights,
+)

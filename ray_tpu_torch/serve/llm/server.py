@@ -1,0 +1,92 @@
+"""LLM server: the serve-facing wrapper around the paged engine.
+
+Port of `LLMServer` from `ray_tpu/serve/llm/server.py`, paged engine
+only. Token-id interface: the payload carries `prompt_tokens`, and text
+encode/decode is the caller's concern. The runtime deployment
+(`build_llm_app`) and the dense engine are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+
+from ..._device import resolve_device
+from ...models import get_config, init_params
+from ...models.transformer import TransformerConfig
+from .paged_engine import PagedEngineConfig, PagedLLMEngine
+
+
+class LLMServer:
+    """Hosts one paged engine (one model replica) on one device."""
+
+    def __init__(
+        self,
+        model: Union[str, TransformerConfig] = "gpt2-tiny",
+        params: Any = None,
+        engine_config: Optional[PagedEngineConfig] = None,
+        seed: int = 0,
+        *,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        if engine_config is not None and not isinstance(engine_config, PagedEngineConfig):
+            raise TypeError(
+                "ray_tpu_torch serves through the paged engine only: pass a "
+                f"PagedEngineConfig, got {type(engine_config).__name__}"
+            )
+        dev = resolve_device(device)
+        config = get_config(model) if isinstance(model, str) else model
+        if params is None:
+            params = init_params(config, seed, device=dev)
+        self.model_config = config
+        self.engine = PagedLLMEngine(config, params, engine_config, device=dev)
+
+    def _submit(self, payload: Dict[str, Any]):
+        prompt = payload["prompt_tokens"]
+        kwargs = {}
+        for name, cast in (("top_k", int), ("top_p", float),
+                           ("stop_token_ids", list),
+                           ("stop_sequences", list)):
+            if name in payload:
+                kwargs[name] = cast(payload[name])
+        stream = self.engine.submit(
+            prompt,
+            int(payload.get("max_tokens", 64)),
+            float(payload.get("temperature", 0.0)),
+            **kwargs,
+        )
+        return prompt, stream
+
+    @staticmethod
+    def _usage(prompt, n: int) -> Dict[str, int]:
+        return {
+            "prompt_tokens": len(prompt),
+            "completion_tokens": n,
+            "total_tokens": len(prompt) + n,
+        }
+
+    def generate(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """{"prompt_tokens": [...], "max_tokens": n, "temperature": t} →
+        {"tokens": [...], "usage": {...}, "ttft_s": s}."""
+        prompt, stream = self._submit(payload)
+        tokens = stream.result()
+        return {
+            "tokens": tokens,
+            "usage": self._usage(prompt, len(tokens)),
+            "ttft_s": stream.ttft_s,
+        }
+
+    def stream_generate(self, payload: Dict[str, Any]):
+        """Token-streaming variant: yields one {"token": id} per generated
+        token as the engine produces it, then a final {"done": true,
+        "usage": ...}."""
+        prompt, stream = self._submit(payload)
+        n = 0
+        for token in stream:
+            n += 1
+            yield {"token": token}
+        yield {"done": True, "usage": self._usage(prompt, n), "ttft_s": stream.ttft_s}
+
+    def shutdown(self) -> None:
+        self.engine.shutdown()

@@ -1,0 +1,228 @@
+"""ray_tpu_torch.ops against ray_tpu.ops on the CPU.
+
+The same inputs, drawn with numpy from a seed, go through the JAX function
+and its port. On the CPU the port's attention functions take their plain
+PyTorch versions; the JAX side runs its Pallas kernels in interpret mode
+(as tests/test_ops.py and tests/test_ragged_attention.py do) and its
+references. Tolerance for everything here: atol = rtol = 1e-5, the size of
+f32 rounding when the two libraries sum in different orders.
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu.ops import layers as jlayers
+from ray_tpu.ops.attention import flash_attention as jflash
+from ray_tpu.ops.attention import flash_attention_with_lse as jflash_lse
+from ray_tpu.ops.attention import mha_reference as jmha
+from ray_tpu.ops.ragged_paged_attention import ragged_paged_attention as jragged
+from ray_tpu.serve.llm.paged import _gather_ref_attention as jgather
+from ray_tpu_torch import ops as tops
+from ray_tpu_torch.ops import layers as tlayers
+from ray_tpu_torch.serve.llm.paged import _gather_ref_attention as tgather
+from ray_tpu_torch.serve.llm.paged import paged_attention as tpaged_attention
+
+REPO = Path(__file__).resolve().parents[1]
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+def _close(jax_out, torch_out, **tol):
+    np.testing.assert_allclose(
+        np.asarray(jax_out), torch_out.detach().numpy(), **(tol or TOL)
+    )
+
+
+# ------------------------------------------------------------------ layers
+
+
+def test_norms_and_activations_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 32)).astype(np.float32)
+    scale = rng.standard_normal((32,)).astype(np.float32)
+    bias = rng.standard_normal((32,)).astype(np.float32)
+    up = rng.standard_normal((3, 5, 32)).astype(np.float32)
+    _close(jlayers.rmsnorm(jnp.asarray(x), jnp.asarray(scale)),
+           tlayers.rmsnorm(_t(x), _t(scale)))
+    _close(jlayers.layernorm(jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias)),
+           tlayers.layernorm(_t(x), _t(scale), _t(bias)))
+    _close(jlayers.gelu(jnp.asarray(x)), tlayers.gelu(_t(x)))
+    _close(jlayers.swiglu(jnp.asarray(x), jnp.asarray(up)),
+           tlayers.swiglu(_t(x), _t(up)))
+
+
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+def test_rope_matches_jax(theta):
+    rng = np.random.default_rng(1)
+    d, max_seq = 16, 64
+    jcos, jsin = jlayers.rope_frequencies(d, max_seq, theta)
+    tcos, tsin = tlayers.rope_frequencies(d, max_seq, theta)
+    _close(jcos, tcos)
+    _close(jsin, tsin)
+    x = rng.standard_normal((2, 3, 10, d)).astype(np.float32)
+    pos = rng.integers(0, max_seq, size=(2, 10)).astype(np.int32)
+    _close(jlayers.apply_rope(jnp.asarray(x), jcos, jsin),
+           tlayers.apply_rope(_t(x), tcos, tsin))
+    _close(jlayers.apply_rope(jnp.asarray(x), jcos, jsin, jnp.asarray(pos)),
+           tlayers.apply_rope(_t(x), tcos, tsin, _t(pos)))
+
+
+# ------------------------------------------------------------------- flash
+
+
+def _qkv(seed, b, hq, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, hq, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("gqa", [False, True])
+def test_flash_forward_matches_jax_pallas(causal, gqa):
+    """S = 96 is not a multiple of the 64-row blocks: the JAX wrapper pads
+    and masks (padded lengths), the port masks at kv_len directly."""
+    q, k, v = _qkv(0, 2, 4, 2 if gqa else 4, 96, 32)
+    ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                 implementation="pallas", block_q=64, block_kv=64)
+    out = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    _close(ref, out)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_lse_matches_jax_pallas(causal):
+    q, k, v = _qkv(1, 1, 4, 2, 80, 32)
+    jout, jlse = jflash_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            causal=causal, implementation="pallas",
+                            block_q=64, block_kv=64)
+    out, lse = tops.flash_attention_with_lse(_t(q), _t(k), _t(v), causal=causal)
+    assert lse.shape == (1, 4, 80, 1) and lse.dtype == torch.float32
+    _close(jout, out)
+    _close(jlse, lse)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_reference_matches_jax_with_kv_len(causal):
+    q, k, v = _qkv(2, 2, 4, 2, 24, 16)
+    ref = jmha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, kv_len=17)
+    out = tops.mha_reference(_t(q), _t(k), _t(v), causal=causal, kv_len=17)
+    _close(ref, out)
+
+
+def test_flash_forward_refuses_gradients():
+    q, k, v = (_t(x).requires_grad_() for x in _qkv(3, 1, 2, 2, 8, 16))
+    with pytest.raises(NotImplementedError, match="backward"):
+        tops.flash_attention(q, k, v)
+    with torch.no_grad():
+        assert tops.flash_attention(q, k, v).shape == (1, 2, 8, 16)
+
+
+# ------------------------------------------------------------------ ragged
+
+BQ = 8
+
+
+def _mixed_batch(seed=0, hq=4, hkv=2, d=16, ps=8, pool=40, maxp=8):
+    """A mixed ragged batch: a prefill chunk at offset 0 (page-misaligned),
+    chunks continuing at nonzero offsets (one full, one partial), two decode
+    lanes, a verify-shaped region with q_len 4, and an inactive lane.
+    Pad rows fill every region past q_len; table entries past a sequence's
+    pages point at the scratch page 0."""
+    rng = np.random.default_rng(seed)
+    q_lens = np.array([13, 16, 11, 1, 1, 4, 0], np.int32)
+    kv_lens = np.array([13, 32, 43, 37, 5, 20, 0], np.int32)
+    counts = np.array([2, 2, 2, 1, 1, 1, 1], np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    t = int(counts.sum()) * BQ
+    tables = np.zeros((len(q_lens), maxp), np.int32)
+    nxt = 1
+    for s in range(len(q_lens)):
+        for j in range((int(kv_lens[s]) + ps - 1) // ps):
+            tables[s, j] = nxt
+            nxt += 1
+    assert nxt <= pool
+    q = rng.standard_normal((hq, t, d)).astype(np.float32)
+    kp = rng.standard_normal((hkv, pool, ps, d)).astype(np.float32)
+    vp = rng.standard_normal((hkv, pool, ps, d)).astype(np.float32)
+    return q, kp, vp, starts, counts, q_lens, kv_lens, tables
+
+
+@pytest.mark.parametrize("shape", [(4, 2, 16), (2, 2, 64)], ids=["gqa_d16", "mha_d64"])
+def test_ragged_plain_matches_jax_kernel_and_reference(shape):
+    hq, hkv, d = shape
+    args = _mixed_batch(hq=hq, hkv=hkv, d=d)
+    jargs = [jnp.asarray(a) for a in args]
+    kernel = np.asarray(jragged(*jargs, block_q=BQ, interpret=True))
+    ref = np.asarray(jragged(*jargs, block_q=BQ, use_kernel=False))
+    out = tops.ragged_paged_attention(*[_t(a) for a in args], block_q=BQ)
+    _close(kernel, out)
+    _close(ref, out)
+    # inactive lane: exact zeros; pad rows: finite
+    lo = int(args[3][-1]) * BQ
+    assert torch.all(out[:, lo : lo + BQ] == 0)
+    assert torch.isfinite(out).all()
+    # CPU tensors take the plain version: the kernel never launched
+    assert tops.RAGGED.launches == 0
+
+
+def test_decode_adapter_matches_jax_gather_reference():
+    rng = np.random.default_rng(4)
+    b, hq, hkv, d, ps, maxp, pool = 3, 4, 2, 16, 8, 4, 16
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    kc = rng.standard_normal((hkv, pool, ps, d)).astype(np.float32)
+    vc = rng.standard_normal((hkv, pool, ps, d)).astype(np.float32)
+    tables = np.array([[1, 2, 3, 0], [4, 0, 0, 0], [5, 6, 7, 8]], np.int32)
+    lengths = np.array([19, 1, 32], np.int32)
+    ref = jgather(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                  jnp.asarray(tables), jnp.asarray(lengths))
+    out = tpaged_attention(_t(q), _t(kc), _t(vc), _t(tables), _t(lengths), page_size=ps)
+    _close(ref, out)
+    _close(ref, tgather(_t(q), _t(kc), _t(vc), _t(tables), _t(lengths)))
+
+
+# ------------------------------------------------------------------ package
+
+
+def test_port_imports_neither_jax_nor_ray_tpu():
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
+        "import ray_tpu_torch.serve.llm\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from ray_tpu_torch.models import get_config, init_params
+    from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedLLMEngine
+    from ray_tpu_torch.serve.llm.paged import init_paged_cache
+
+    config = get_config("llama-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(config)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_cache(config, PagedConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMServer("llama-tiny")
+    cpu_params = init_params(config, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedLLMEngine(config, cpu_params)
