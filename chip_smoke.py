@@ -9,23 +9,35 @@ nonzero and no result line is printed):
 1. env     — torch / CUDA / nvcc versions, the card's name and power limit.
 2. build   — nvcc builds every kernel under ray_tpu_torch/ops/csrc/ (one
              process per source, started together).
-3. kernels — each kernel against its plain PyTorch version at the Llama-3-8B
-             shapes of the serving path, in bf16 and f32, with times, the
-             card's bound and (flash) the PyTorch library yardstick.
+3. kernels — each kernel against its plain PyTorch version, in bf16 and
+             f32, with times, the card's bound and (flash) the PyTorch
+             library yardstick: ragged and flash forward at the Llama-3-8B
+             shapes of the serving path; the flash forward and both flash
+             backward kernels at the GPT-2 124M shape of the train path
+             (B 8, 12 heads, S 1024, D 64) and the backward kernels at a
+             Llama shape too (GQA 32/8, S 931, D 128).
 4. serve   — LLMServer("llama3-8b") at full width and depth on the card,
              random bf16 weights from a seeded torch.Generator, 8 greedy
              requests with prompts of 64-900 tokens, 32 new tokens each.
 5. check   — the dense forward (flash kernel) over prompt + generated tokens
              of 2 requests: every engine token must score within a stated
              margin of the dense argmax.
+6. train   — GPT-2 124M (gpt2-small) at full width and depth, f32 master
+             weights from a seeded torch.Generator, bf16 compute:
+             the kernel path's gradients against attn_impl="xla" on one
+             smaller batch, then TRAIN_STEPS steps of make_train_step on one
+             fixed 8 x 1025 batch; the loss must fall by the stated margin
+             and each backward kernel must launch once per layer per step.
 
 The line before the last lists every kernel with its launches on the main
-path (phases 4-5), its error against the plain version and its times; the
-last line is {"ok": true, "device": {...}}. Needs one CUDA device.
+paths (phases 4-5 and phase 6, each counted from zero just before it), its
+error against the plain version and its times; the last line is
+{"ok": true, "device": {...}}. Needs one CUDA device.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -37,12 +49,33 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models import forward, get_config
-from ray_tpu_torch.ops import FLASH_FWD, KERNELS, RAGGED, ragged_paged_attention
+from ray_tpu_torch.models import count_params, forward, get_config
+from ray_tpu_torch.ops import (
+    FLASH_BWD_DKV,
+    FLASH_BWD_DQ,
+    FLASH_FWD,
+    KERNELS,
+    RAGGED,
+    ragged_paged_attention,
+)
 from ray_tpu_torch.ops._build import build_all
-from ray_tpu_torch.ops.attention import _flash_fwd_plain, flash_attention_with_lse
+from ray_tpu_torch.ops.attention import (
+    _DTYPE_CODES,
+    _LOG2E,
+    _flash_bwd_cuda,
+    _flash_bwd_plain,
+    _flash_fwd_plain,
+    flash_attention_with_lse,
+)
 from ray_tpu_torch.ops.ragged_paged_attention import _ragged_cuda, ragged_reference_attention
 from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedEngineConfig
+from ray_tpu_torch.train import (
+    create_train_state,
+    default_optimizer,
+    global_norm,
+    loss_and_grads,
+    make_train_step,
+)
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 tensor / f32 FMA
@@ -51,13 +84,38 @@ MODEL = "llama3-8b"
 N_REQUESTS = 8
 MAX_TOKENS = 32
 CHECK_MARGIN = 0.25
+TRAIN_MODEL = "gpt2-small"
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+TRAIN_STEPS = 20
+TRAIN_WARMUP = 2  # steps left out of the step-time median
+TRAIN_LR = 1e-3
+# last loss < LOSS_MARGIN x first. The batch is 8192 uniform draws from
+# 50257 ids (about 7.6 k distinct), so a model that has learnt only the
+# batch's unigram distribution sits at ln(7.6 k) ~ 8.9 = 0.82 x ln(50257);
+# going lower means memorizing by position and context, which takes far
+# more than TRAIN_STEPS steps (the JAX package's tiny-vocab overfit test
+# asks for 0.7x in 30). 0.85 asks for most of the way to that floor.
+LOSS_MARGIN = 0.85
+GRAD_CHECK_BATCH, GRAD_CHECK_SEQ = 2, 512
+# kernel path vs attn_impl="xla" gradients in bf16 compute (see _grad_check)
+GRAD_TOL_NORM = 0.01  # relative difference of the global norms
+GRAD_TOL_DIFF = 0.05  # ||g_kernel - g_xla|| / ||g_xla|| over all leaves
+GRAD_TOL_LEAF = 0.10  # the same per leaf, for leaves that hold >= 1e-3 of the norm
+BWD_SHAPES = {  # (B, Hq, Hkv, S, D), causal
+    "gpt2": (TRAIN_BATCH, 12, 12, TRAIN_SEQ, 64),
+    "llama": (1, 32, 8, 931, 128),
+}
 REPLACES = {
     "ragged_paged_attention": "ray_tpu/ops/ragged_paged_attention.py:60",
     "flash_attention_fwd": "ray_tpu/ops/attention.py:83",
+    "flash_attention_bwd_dkv": "ray_tpu/ops/attention.py:215",
+    "flash_attention_bwd_dq": "ray_tpu/ops/attention.py:274",
 }
 SOURCES = {
     "ragged_paged_attention": "ray_tpu_torch/ops/csrc/ragged_paged_attention.cu",
     "flash_attention_fwd": "ray_tpu_torch/ops/csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd_dkv": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": "ray_tpu_torch/ops/csrc/flash_attention_bwd.cu",
 }
 
 
@@ -75,7 +133,12 @@ def _run(cmd) -> str:
 class _Timer:
     """Per-launch CUDA-event timing with the L2 cache flushed before each
     launch (the serving path reads different pages every layer, so a warm
-    50 MB L2 would flatter the kernels)."""
+    50 MB L2 would flatter the kernels). A 2 ms device-side sleep before
+    the start event lets the host enqueue the whole call while the card is
+    still busy, so a call that dispatches many kernels (autograd's
+    backward, a plain version) is timed on the device, not on the host."""
+
+    SLEEP_CYCLES = 4_000_000  # about 2 ms at the H100's ~2 GHz
 
     def __init__(self):
         self.flush = torch.empty(256 * 1024 * 1024, dtype=torch.uint8, device="cuda")
@@ -86,6 +149,7 @@ class _Timer:
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -222,14 +286,7 @@ def phase_kernels(timer: _Timer) -> dict:
             ms = timer.ms(lambda: flash_attention_with_lse(q, k, v, causal=causal), 10)
             plain_ms = timer.ms(
                 lambda: _flash_fwd_plain(q, k, v, causal, 1.0 / np.sqrt(q.shape[-1])), 3)
-            if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, is_causal=causal, enable_gqa=True)
-            else:
-                kx = torch.repeat_interleave(k, q.shape[1] // k.shape[1], dim=1)
-                vx = torch.repeat_interleave(v, q.shape[1] // v.shape[1], dim=1)
-                lib = lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=causal)  # noqa: E731
-            lib_ms = timer.ms(lib, 10)
+            lib_ms = timer.ms(lambda: _sdpa(q, k, v, causal), 10)
             b, hq, s, d = q.shape
             es = q.element_size()
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + b * hq * s * 4
@@ -246,9 +303,140 @@ def phase_kernels(timer: _Timer) -> dict:
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                     bound_by=bound_by, library_ms=lib_ms)
             del q, k, v, out, lse, ref, ref_lse
+        # ---- the train path's shapes: flash forward and both backward kernels
+        fwd_train = _fwd_train_shape(timer, dtype, gen, atol, rtol)
+        for label, shape in BWD_SHAPES.items():
+            bwd = _bwd_checks(timer, dtype, gen, label, shape, atol, rtol)
+            if dtype == torch.bfloat16 and label == "gpt2":
+                results.update(bwd)
+        if dtype == torch.bfloat16:
+            results["flash_attention_fwd"]["train_shape"] = fwd_train
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log("kernels", f"done ({time.perf_counter() - t0:.2f} s)")
     return results
+
+
+def _sdpa(q, k, v, causal):
+    """One PyTorch call computing the flash function: the library yardstick,
+    timed here and never called by the port."""
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+    kx = torch.repeat_interleave(k, q.shape[1] // k.shape[1], dim=1)
+    vx = torch.repeat_interleave(v, q.shape[1] // v.shape[1], dim=1)
+    return F.scaled_dot_product_attention(q, kx, vx, is_causal=causal)
+
+
+def _qkv_do(dtype, gen, shape):
+    b, hq, hkv, s, d = shape
+    q = torch.randn((b, hq, s, d), generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=dtype)
+    do = torch.randn((b, hq, s, d), generator=gen, device="cuda", dtype=dtype)
+    return q, k, v, do
+
+
+def _fwd_train_shape(timer, dtype, gen, atol, rtol) -> dict:
+    """The flash forward kernel at the GPT-2 124M train shape, causal."""
+    b, hq, hkv, s, d = BWD_SHAPES["gpt2"]
+    q, k, v, _ = _qkv_do(dtype, gen, BWD_SHAPES["gpt2"])
+    scale = 1.0 / np.sqrt(d)
+    out, lse = flash_attention_with_lse(q, k, v, causal=True)
+    ref, ref_lse = _flash_fwd_plain(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
+          and torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(out).all()))
+    ms = timer.ms(lambda: flash_attention_with_lse(q, k, v, causal=True), 10)
+    plain_ms = timer.ms(lambda: _flash_fwd_plain(q, k, v, True, scale), 3)
+    lib_ms = timer.ms(lambda: _sdpa(q, k, v, True), 10)
+    es = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + b * hq * s * 4
+    bound, bound_by = _bound_ms(nbytes, 4.0 * b * hq * d * s * (s + 1) / 2, dtype)
+    name = str(dtype).replace("torch.", "")
+    log("kernels", f"flash_attention_fwd {name} causal=True train shape B={b} H={hq} S={s} D={d}: "
+        f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.4f} ({bound_by}) library_ms={lib_ms:.4f}")
+    if not ok:
+        raise AssertionError(f"flash forward disagrees with its plain version at the train shape ({name})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=lib_ms)
+
+
+def _bwd_costs(shape, es) -> dict:
+    """(bytes, flops) of the causal backward: each kernel's own function
+    (dK, dV need the S, dP, dV and dK products; dQ needs S, dP and dQ) and
+    the whole function (5 products of 2 * D flops per unmasked pair; q, k,
+    v, o, dO, dq, dk, dv, lse and delta each moved once)."""
+    b, hq, hkv, s, d = shape
+    pairs = b * hq * s * (s + 1) / 2
+    q_bytes, kv_bytes, row_bytes = b * hq * s * d * es, b * hkv * s * d * es, b * hq * s * 4
+    reads = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes  # q, dO, k, v, lse, delta
+    return {
+        "dkv": (reads + 2 * kv_bytes, 4 * 2.0 * d * pairs),
+        "dq": (reads + q_bytes, 3 * 2.0 * d * pairs),
+        "both": (reads + 2 * q_bytes + 2 * kv_bytes, 5 * 2.0 * d * pairs),
+    }
+
+
+def _bwd_launchers(q, k, v, out, lse, do, scale):
+    """Each backward kernel alone on the wrapper's inputs (for its own time)."""
+    b, hq, s, d = q.shape
+    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    tail = (_DTYPE_CODES[q.dtype], d, b, hq, k.shape[1], s, s, 1, float(scale * _LOG2E),
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    keep = (delta, dq, dk, dv)
+    return (lambda: FLASH_BWD_DKV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *tail),
+            lambda: FLASH_BWD_DQ.launch(*ins, dq.data_ptr(), *tail), keep)
+
+
+def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
+    """Both backward kernels against _flash_bwd_plain on the forward
+    kernel's own out and lse, causal; times of each kernel, of the whole
+    wrapper (delta + both launches), of the plain version and of SDPA's
+    backward through torch.autograd.grad."""
+    b, hq, hkv, s, d = shape
+    q, k, v, do = _qkv_do(dtype, gen, shape)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = flash_attention_with_lse(q, k, v, causal=True)
+    grads = _flash_bwd_cuda(q, k, v, out, lse, do, True, scale)
+    ref = _flash_bwd_plain(q, k, v, out, lse, do, True, scale)
+    torch.cuda.synchronize()
+    errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
+    ok = all(torch.allclose(g.float(), r.float(), atol=atol, rtol=rtol) and bool(torch.isfinite(g).all())
+             for g, r in zip(grads, ref))
+    del grads, ref
+    dkv_fn, dq_fn, keep = _bwd_launchers(q, k, v, out, lse, do, scale)
+    ms_dkv = timer.ms(dkv_fn, 10)
+    ms_dq = timer.ms(dq_fn, 10)
+    ms_all = timer.ms(lambda: _flash_bwd_cuda(q, k, v, out, lse, do, True, scale), 10)
+    plain_ms = timer.ms(lambda: _flash_bwd_plain(q, k, v, out, lse, do, True, scale), 3)
+    del keep
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o = _sdpa(qr, kr, vr, True)
+    lib_ms = timer.ms(lambda: torch.autograd.grad(o, (qr, kr, vr), do, retain_graph=True), 10)
+    del o, qr, kr, vr
+    bounds = {n: _bound_ms(nb, fl, dtype) for n, (nb, fl) in _bwd_costs(shape, q.element_size()).items()}
+    name = str(dtype).replace("torch.", "")
+    log("kernels", f"flash_attention_bwd {name} causal=True {label} B={b} GQA {hq}/{hkv} S={s} D={d}: "
+        f"max_abs_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} "
+        f"atol={atol} rtol={rtol} (P and dS rounded to the input dtype at the same places on "
+        f"both sides; exp2 and f32 sums may differ in the last bit, which can move one bf16 "
+        f"rounding by an ulp) dkv_ms={ms_dkv:.4f} (bound {bounds['dkv'][0]:.4f} "
+        f"{bounds['dkv'][1]}) dq_ms={ms_dq:.4f} (bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}) "
+        f"wrapper_ms={ms_all:.4f} (bound {bounds['both'][0]:.4f} {bounds['both'][1]}) "
+        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA backward)")
+    if not ok:
+        raise AssertionError(f"flash backward kernels disagree with their plain version ({name} {label})")
+    common = dict(plain_ms=plain_ms, library_ms=lib_ms, wrapper_ms=ms_all)
+    return {
+        "flash_attention_bwd_dkv": dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=ms_dkv,
+                                        bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1], **common),
+        "flash_attention_bwd_dq": dict(max_abs_err=errs["dq"], ms=ms_dq, bound_ms=bounds["dq"][0],
+                                       bound_by=bounds["dq"][1], **common),
+    }
 
 
 def phase_serve():
@@ -345,6 +533,115 @@ def phase_check(server, config, prompts, outs) -> None:
         raise AssertionError(f"engine token scores {worst:.4f} below the dense argmax")
 
 
+def _leaf_names(tree, prefix=""):
+    """Names of the leaves in `tree_leaves` order."""
+    names = []
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            names.extend(_leaf_names(value, f"{prefix}{key}."))
+        else:
+            names.append(prefix + key)
+    return names
+
+
+def _grad_check(config, params, tokens) -> None:
+    """The kernel path's gradients against attn_impl="xla" (mha_reference
+    under torch autograd) on the card, same params and tokens, bf16
+    compute. Tolerances (GRAD_TOL_*): the two paths round differently — the
+    kernels keep P in f32 until the bf16 cast before P.V and sum every
+    product in f32, while the reference's attention products run as bf16
+    cuBLAS calls with bf16 outputs, forward and backward — so each
+    attention output and gradient differs by up to a bf16 ulp (2^-8
+    relative), and that passes through 12 layers of the backward. Leaves
+    that hold under 1e-3 of the global norm (bk, whose exact gradient is 0:
+    a per-row constant shift of the scores) are held only through the
+    global difference."""
+    t0 = time.perf_counter()
+    loss_k, _, g_k = loss_and_grads(config, params, tokens, loss_chunk=0)
+    before = FLASH_BWD_DQ.launches
+    loss_x, _, g_x = loss_and_grads(config.replace(attn_impl="xla"), params, tokens, loss_chunk=0)
+    if FLASH_BWD_DQ.launches != before:
+        raise AssertionError("the xla reference path launched a flash kernel")
+    norm_k, norm_x = global_norm(g_k).item(), global_norm(g_x).item()
+    diff = global_norm([a - b for a, b in zip(g_k, g_x)]).item() / norm_x
+    leaf = []
+    for name, a, b in zip(_leaf_names(params), g_k, g_x):
+        nb = b.float().norm().item()
+        if nb >= 1e-3 * norm_x:
+            leaf.append(((a - b).float().norm().item() / nb, name))
+    worst, worst_name = max(leaf)
+    rel_norm = abs(norm_k - norm_x) / norm_x
+    log("train", f"grad check, batch {tokens.shape[0]} x {tokens.shape[1] - 1}: loss kernel "
+        f"{loss_k.item():.6f} xla {loss_x.item():.6f}; global norm kernel {norm_k:.6f} xla "
+        f"{norm_x:.6f} (rel {rel_norm:.3e}, tol {GRAD_TOL_NORM}); ||g_kernel - g_xla|| / ||g_xla|| "
+        f"{diff:.3e} (tol {GRAD_TOL_DIFF}); worst leaf {worst_name} {worst:.3e} (tol "
+        f"{GRAD_TOL_LEAF}, {len(leaf)} of {len(g_k)} leaves hold >= 1e-3 of the norm) "
+        f"({time.perf_counter() - t0:.2f} s)")
+    log("train", "per-leaf relative difference: " + ", ".join(f"{n} {e:.2e}" for e, n in sorted(leaf, reverse=True)))
+    finite = all(bool(torch.isfinite(g).all()) for g in g_k)
+    if not finite or rel_norm > GRAD_TOL_NORM or diff > GRAD_TOL_DIFF or worst > GRAD_TOL_LEAF:
+        raise AssertionError("kernel-path gradients disagree with the xla reference path")
+
+
+def phase_train() -> dict:
+    """GPT-2 124M through make_train_step on the card; returns each
+    kernel's launches over the timed steps (counted from zero just before
+    them)."""
+    t0 = time.perf_counter()
+    config = get_config(TRAIN_MODEL)
+    opt = default_optimizer(TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS)
+    state = create_train_state(config, opt, SEED, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    tokens = torch.randint(0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen,
+                           device="cuda")
+    log("train", f"{TRAIN_MODEL}: {count_params(state.params)} params (f32 masters), "
+        f"{config.n_layers} layers d_model {config.d_model} heads {config.n_heads} vocab "
+        f"{config.vocab_size}, compute {str(config.dtype).replace('torch.', '')}, remat "
+        f"{config.remat}, seed {SEED} ({time.perf_counter() - t0:.2f} s)")
+    _grad_check(config, state.params, tokens[:GRAD_CHECK_BATCH, :GRAD_CHECK_SEQ + 1])
+    step = make_train_step(config, opt, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append(m)
+    launches = {k.name: k.launches for k in KERNELS}
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    step_s = statistics.median(times[TRAIN_WARMUP:])
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    log("train", f"{TRAIN_STEPS} steps on one fixed {TRAIN_BATCH} x {TRAIN_SEQ + 1} batch, "
+        f"lr {TRAIN_LR} (warmup 2, cosine to 0.1x): step median {step_s * 1e3:.2f} ms "
+        f"(min {min(times[TRAIN_WARMUP:]) * 1e3:.2f}, max {max(times[TRAIN_WARMUP:]) * 1e3:.2f}; "
+        f"first {times[0] * 1e3:.2f}) over steps {TRAIN_WARMUP + 1}-{TRAIN_STEPS}, "
+        f"{ntok / step_s:.1f} tokens/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("train", "loss " + " ".join(f"{x:.4f}" for x in losses))
+    log("train", "grad_norm " + " ".join(f"{x:.4f}" for x in gnorms))
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    log("train", f"launches per step {per_step} (each backward kernel must show "
+        f"{config.n_layers}: one per layer) ({time.perf_counter() - t0:.2f} s)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+    if not losses[-1] < LOSS_MARGIN * losses[0]:
+        raise AssertionError(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}: not below "
+                             f"{LOSS_MARGIN} x the first")
+    for kernel in (FLASH_BWD_DKV, FLASH_BWD_DQ):
+        if launches[kernel.name] != config.n_layers * TRAIN_STEPS:
+            raise AssertionError(f"{kernel.name}: {launches[kernel.name]} launches in "
+                                 f"{TRAIN_STEPS} steps, want {config.n_layers} per step")
+    if launches[FLASH_FWD.name] == 0:
+        raise AssertionError("the train path never launched the flash forward kernel")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -360,11 +657,17 @@ def main() -> int:
         phase_check(server, config, prompts, outs)
     finally:
         server.shutdown()
+    serve_launches = {k.name: k.launches for k in KERNELS}
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = phase_train()
     kernels = []
     for k in KERNELS:
+        by_path = {"serve": serve_launches[k.name], "train": train_launches[k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
-            launches=k.launches, **results[k.name]))
+            launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

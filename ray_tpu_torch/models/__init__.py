@@ -4,6 +4,7 @@ from .configs import PRESETS, get_config  # noqa: F401
 from .convert import params_from_numpy  # noqa: F401
 from .transformer import (  # noqa: F401
     TransformerConfig,
+    count_params,
     forward,
     forward_hidden,
     init_params,

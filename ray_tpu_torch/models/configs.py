@@ -52,6 +52,7 @@ def llama3_8b() -> TransformerConfig:
         use_bias=False,
         tie_embeddings=False,
         rope_theta=500000.0,
+        remat=True,
     )
 
 

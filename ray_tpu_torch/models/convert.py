@@ -6,6 +6,12 @@ The tree has the layout `ray_tpu.models.init_params` produces:
 which is exactly what the JAX code computes with after its `.astype(dt)`;
 norm scales and biases stay float32 (the JAX code reads norm scales in
 float32 and casts biases itself).
+
+Training keeps f32 master weights, as the JAX train state does: carry
+them with `params_from_numpy(tree, config, dtype=torch.float32)`. The
+forward's `.to(config.dtype)` then makes the compute-dtype copy on every
+step, as JAX's `.astype(dt)` does, and the gradients reach the f32
+masters through that cast.
 """
 
 from __future__ import annotations

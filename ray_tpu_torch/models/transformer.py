@@ -1,13 +1,22 @@
 """Decoder-only transformer covering the GPT-2 and Llama families.
 
-Port of `ray_tpu/models/transformer.py` (the full-sequence forward; the
-dense-cache `decode_step`/`prefill`/`init_cache` are not ported yet).
-Parameters are a plain dict of tensors in the JAX layout — block weights
-stacked on a leading layer axis, attention weights as (E, H, Dh) /
-(H, Dh, E) — so a JAX parameter pytree converts leaf for leaf
-(`models.convert.params_from_numpy`). The layer stack is a Python loop
-over that axis; attention runs through `ops.flash_attention` (the CUDA
-kernel on the card, its plain version on the CPU).
+Port of `ray_tpu/models/transformer.py` (the full-sequence forward, for
+training and the dense check; the dense-cache `decode_step`/`prefill`/
+`init_cache` are not ported yet). Parameters are a plain dict of tensors
+in the JAX layout — block weights stacked on a leading layer axis,
+attention weights as (E, H, Dh) / (H, Dh, E) — so a JAX parameter pytree
+converts leaf for leaf (`models.convert.params_from_numpy`). The layer
+stack is a Python loop over that axis; attention runs through
+`ops.flash_attention` (the CUDA kernels on the card, forward and
+backward; their plain versions on the CPU), or `mha_reference` when
+`attn_impl="xla"`. `remat=True` wraps each block in
+`torch.utils.checkpoint` (the counterpart of `jax.checkpoint` on the scan
+body) while gradients are being recorded.
+
+Two fields of the JAX config have no counterpart here: `fused_qkv` (the
+same math as one wider product; a performance choice for the MXU) and
+`scan_unroll` (the unroll of `lax.scan` over layers; eager PyTorch runs
+no scan).
 
 Shapes: tokens (B, S) int → logits (B, S, V).
 """
@@ -19,6 +28,7 @@ import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops import (
@@ -51,6 +61,9 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16  # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
+    remat: bool = False  # recompute each block in the backward
+    attn_impl: Optional[str] = None  # None/"pallas"/"pallas_pipelined" → flash kernels; "xla" → reference
+    causal: bool = True  # False → bidirectional encoder
 
     @property
     def kv_heads(self) -> int:
@@ -136,6 +149,11 @@ def init_params(
     return params
 
 
+def count_params(params: Params) -> int:
+    """Number of parameters (elements over every leaf)."""
+    return sum(count_params(v) if isinstance(v, dict) else v.numel() for v in params.values())
+
+
 def layer_params(params: Params, i: int) -> Params:
     """Layer i's weights: views into the stacked block tensors."""
     return {name: w[i] for name, w in params["blocks"].items()}
@@ -163,7 +181,8 @@ def attention_sublayer(
     rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
     positions: Optional[torch.Tensor],
 ) -> torch.Tensor:
-    """Pre-norm causal self-attention + residual on (B, S, E)."""
+    """Pre-norm self-attention (causal unless the config says not) +
+    residual on (B, S, E)."""
     c = config
     dt = c.dtype
     h = _norm(x, lp["ln1_scale"], lp.get("ln1_bias"), c.norm)
@@ -178,7 +197,7 @@ def attention_sublayer(
         cos, sin = rope_tables
         q = apply_rope(q, cos, sin, positions)
         k = apply_rope(k, cos, sin, positions)
-    attn = flash_attention(q, k, v, causal=True)  # (B, H, S, D)
+    attn = flash_attention(q, k, v, causal=c.causal, implementation=c.attn_impl)  # (B, H, S, D)
     b, _, s, _ = attn.shape
     out = attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"].to(dt).reshape(-1, c.d_model)
     if c.use_bias:
@@ -202,6 +221,12 @@ def mlp_sublayer(x: torch.Tensor, lp: Params, config: TransformerConfig) -> torc
     if c.use_bias:
         down = down + lp["b_down"].to(dt)
     return x + down
+
+
+def _block(x, lp, config, rope_tables, positions):
+    """One transformer block on (B, S, E) activations."""
+    x = attention_sublayer(x, lp, config, rope_tables, positions)
+    return mlp_sublayer(x, lp, config)
 
 
 def embed(params: Params, tokens: torch.Tensor, config: TransformerConfig) -> torch.Tensor:
@@ -229,10 +254,13 @@ def forward_hidden(
         rope_tables = None
     else:
         rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=x.device)
+    remat = c.remat and torch.is_grad_enabled()
     for i in range(c.n_layers):
         lp = layer_params(params, i)
-        x = attention_sublayer(x, lp, c, rope_tables, positions)
-        x = mlp_sublayer(x, lp, c)
+        if remat:
+            x = checkpoint(_block, x, lp, c, rope_tables, positions, use_reentrant=False)
+        else:
+            x = _block(x, lp, c, rope_tables, positions)
     return _norm(x, params["lnf_scale"], params.get("lnf_bias"), c.norm)
 
 

@@ -9,7 +9,9 @@ hash of the source, so an edited kernel is rebuilt at its first use.
 
 Nothing here runs at import time: `Kernel.launch` builds its library on
 first use, and `build_all` builds every kernel at once, one `nvcc`
-process per source started together.
+process per source started together. Several `Kernel`s may bind launch
+functions of one source (the flash backward's dkv and dq): the source is
+compiled once and each of them binds the one library.
 """
 
 from __future__ import annotations
@@ -122,21 +124,32 @@ def build_all(kernels: Sequence[Kernel]) -> Dict[str, str]:
     logs: Dict[str, str] = {}
     with _LOCK:
         todo = [k for k in kernels if k._fn is None]
-        procs: List = []
+        # one nvcc per source, however many kernels bind it
+        by_source: Dict[Path, List[Kernel]] = {}
         for k in todo:
-            out = _lib_path(k.source)
-            procs.append((k, out, None if out.exists() else _start_build(k.source, out)))
+            by_source.setdefault(k.source, []).append(k)
+        procs: List = []
+        for source, group in by_source.items():
+            out = _lib_path(source)
+            procs.append((group, out, None if out.exists() else _start_build(source, out)))
         errors: List[str] = []
-        for k, out, proc in procs:
-            if proc is None:
+        for group, out, proc in procs:
+            if proc is None:  # built earlier: keep the log nvcc wrote beside it
+                saved = Path(str(out) + ".log")
+                for k in group:
+                    k.build_log = saved.read_text() if saved.exists() else ""
                 continue
             try:
-                k.build_log = _finish_build(proc)
-                logs[k.name] = k.build_log
+                log = _finish_build(proc)
             except RuntimeError as exc:
-                errors.append(f"{k.name}: {exc}")
+                errors.append(f"{group[0].source.name}: {exc}")
+                continue
+            for k in group:
+                k.build_log = log
+                logs[k.name] = log
         if errors:
             raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-        for k, out, _ in procs:
-            k._bind(out)
+        for group, out, _ in procs:
+            for k in group:
+                k._bind(out)
     return logs

@@ -120,11 +120,74 @@ def test_mha_reference_matches_jax_with_kv_len(causal):
 
 
 def test_flash_forward_refuses_gradients():
+    """flash_attention carries a gradient (its backward is the flash
+    backward's plain version here); flash_attention_with_lse stays
+    forward-only, as in JAX."""
     q, k, v = (_t(x).requires_grad_() for x in _qkv(3, 1, 2, 2, 8, 16))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tops.flash_attention(q, k, v)
+    out = tops.flash_attention(q, k, v)
+    out.sum().backward()
+    assert all(t.grad is not None and t.grad.shape == t.shape for t in (q, k, v))
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        tops.flash_attention_with_lse(q, k, v)
     with torch.no_grad():
-        assert tops.flash_attention(q, k, v).shape == (1, 2, 8, 16)
+        assert tops.flash_attention_with_lse(q, k, v)[0].shape == (1, 2, 8, 16)
+    with pytest.raises(ValueError, match="unknown attention implementation"):
+        tops.flash_attention(q, k, v, implementation="mosaic")
+
+
+# JAX implementation each port implementation is held against; on the CPU
+# the port's None / "pallas" / "pallas_pipelined" all take the flash
+# backward's plain version, "xla" runs mha_reference under torch autograd
+_BWD_PAIRS = {
+    "plain_vs_jax_xla": (None, "xla", {}),
+    "plain_vs_jax_pallas": ("pallas", "pallas", dict(block_q=64, block_kv=64)),
+    "plain_vs_jax_pipelined": ("pallas_pipelined", "pallas_pipelined", dict(block_kv=32)),
+    "xla_vs_jax_xla": ("xla", "xla", {}),
+}
+
+
+@pytest.mark.parametrize("pair", list(_BWD_PAIRS))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("gqa", [False, True])
+def test_flash_backward_matches_jax(pair, causal, gqa):
+    """Gradients of sum(flash(q, k, v) * dO). S = 80 is not a multiple of
+    the port's 64-row tiles; JAX pads: to 128 for "pallas" (K2 in
+    interpret mode) and to 3 kv tiles of 32 for "pallas_pipelined" (K4's
+    interpret twin `_bwd_pipe_interp`)."""
+    import jax
+
+    port_impl, jax_impl, blocks = _BWD_PAIRS[pair]
+    q, k, v = _qkv(5, 1, 4, 2 if gqa else 4, 80, 32)
+    do = np.random.default_rng(6).standard_normal(q.shape).astype(np.float32)
+
+    def jloss(q_, k_, v_):
+        o = jflash(q_, k_, v_, causal=causal, implementation=jax_impl, **blocks)
+        return jnp.sum(o * jnp.asarray(do))
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    out = tops.flash_attention(tq, tk, tv, causal=causal, implementation=port_impl)
+    out.backward(_t(do))
+    for jg, t in zip(jgrads, (tq, tk, tv)):
+        _close(jg, t.grad)
+    assert tops.FLASH_BWD_DKV.launches == 0 and tops.FLASH_BWD_DQ.launches == 0
+
+
+def test_flash_backward_plain_is_the_kernel_contract():
+    """_flash_bwd_plain against autograd of the reference in f32: the
+    explicit formulas (P from lse, dS = P (dP - delta) scale, GQA group
+    sums) are the gradient of the forward."""
+    from ray_tpu_torch.ops.attention import _flash_bwd_plain, _flash_fwd_plain
+
+    q, k, v = (_t(x) for x in _qkv(7, 2, 4, 2, 70, 16))
+    do = _t(np.random.default_rng(8).standard_normal(q.shape).astype(np.float32))
+    for causal in (False, True):
+        out, lse = _flash_fwd_plain(q, k, v, causal, 0.25)
+        grads = _flash_bwd_plain(q, k, v, out, lse, do, causal, 0.25)
+        rq, rk, rv = (x.clone().requires_grad_() for x in (q, k, v))
+        tops.mha_reference(rq, rk, rv, causal=causal, sm_scale=0.25).backward(do)
+        for g, ref in zip(grads, (rq.grad, rk.grad, rv.grad)):
+            torch.testing.assert_close(g, ref, **TOL)
 
 
 # ------------------------------------------------------------------ ragged
@@ -197,7 +260,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     code = (
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
-        "import ray_tpu_torch.serve.llm\n"
+        "import ray_tpu_torch.serve.llm, ray_tpu_torch.train, ray_tpu_torch.ops.losses\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -226,3 +289,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     cpu_params = init_params(config, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedLLMEngine(config, cpu_params)
+    from ray_tpu_torch.train import (
+        create_train_state, default_optimizer, make_eval_step, make_train_step,
+    )
+
+    opt = default_optimizer(1e-3, total_steps=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(config, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_train_state(config, opt, params=cpu_params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(config, opt)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_step(config)
+    assert create_train_state(config, opt, params=cpu_params, device="cpu").step == 0

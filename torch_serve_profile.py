@@ -6,10 +6,11 @@
 Serves the same 8 greedy Llama-3-8B requests as chip_smoke.py (random bf16
 weights from seed 0, prompts of 64-900 tokens, 32 new tokens each) under
 torch.profiler and prints: the wall time of the run, the device's busy time
-(the sum of kernel and copy times on the card) and its idle share, and the
-device time by kernel. The profiler adds host time per operation, so the
-idle share read here is an upper bound of the unprofiled run's. Needs one
-CUDA device.
+(the sum of the times of the kernels and copies that ran on the card; host
+ops, whose device time would count their kernels again, are left out) and
+its idle share, and the device time by kernel. The profiler adds host
+time per operation, so the idle share read here is an upper bound of the
+unprofiled run's. Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch.models import get_config
@@ -58,7 +60,8 @@ def main() -> int:
         assert all(len(o) == 32 for o in outs)
     finally:
         server.shutdown()
-    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA and _device_us(e) > 0]
     busy_us = sum(_device_us(e) for e in events)
     print(f"wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} s, "
           f"idle share {1 - busy_us / 1e6 / wall:.4f} (profiled run)")
