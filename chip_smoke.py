@@ -8,14 +8,19 @@ nonzero and no result line is printed):
 
 1. env     — torch / CUDA / nvcc versions, the card's name and power limit.
 2. build   — nvcc builds every kernel under ray_tpu_torch/ops/csrc/ (one
-             process per source, started together).
+             process per source, started together); `cuobjdump -sass`
+             counts each backward instance's wgmma (HGMMA) and
+             asynchronous copies (LDGSTS, UTMALDG): a bf16 instance
+             without HGMMA fails the phase.
 3. kernels — each kernel against its plain PyTorch version, in bf16 and
              f32, with times, the card's bound and (flash) the PyTorch
              library yardstick: ragged and flash forward at the Llama-3-8B
              shapes of the serving path; the flash forward and both flash
              backward kernels at the GPT-2 124M shape of the train path
              (B 8, 12 heads, S 1024, D 64) and the backward kernels at a
-             Llama shape too (GQA 32/8, S 931, D 128).
+             Llama shape too (GQA 32/8, S 931, D 128), where two runs must
+             give bitwise equal gradients and delta = rowsum(dO * O) is
+             timed apart from the two launches.
 4. serve   — LLMServer("llama3-8b") at full width and depth on the card,
              random bf16 weights from a seeded torch.Generator, 8 greedy
              requests with prompts of 64-900 tokens, 32 new tokens each.
@@ -58,10 +63,11 @@ from ray_tpu_torch.ops import (
     RAGGED,
     ragged_paged_attention,
 )
-from ray_tpu_torch.ops._build import build_all
+from ray_tpu_torch.ops._build import build_all, sass_counts
 from ray_tpu_torch.ops.attention import (
     _DTYPE_CODES,
     _LOG2E,
+    _delta,
     _flash_bwd_cuda,
     _flash_bwd_plain,
     _flash_fwd_plain,
@@ -191,6 +197,24 @@ def phase_build() -> None:
         log("build", f"{k.name}: built={k.built} instances={len(regs)} "
             f"max_registers={max(regs) if regs else 'n/a'} spill_store_bytes={spills}")
     log("build", f"done ({time.perf_counter() - t0:.2f} s)")
+    _check_bwd_sass()
+
+
+SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG")
+
+
+def _check_bwd_sass() -> None:
+    """wgmma and asynchronous copies in each backward instance's SASS; the
+    bf16 instances (the train path's) must run their products on wgmma."""
+    missing = []
+    for fn, counts in sass_counts(FLASH_BWD_DKV, SASS_OPS).items():
+        kind = "bf16" if "bfloat16" in fn else "f32"
+        name = fn.split("flash_bwd_", 1)[-1].split("EEEv", 1)[0]
+        log("build", f"sass flash_bwd_{name} ({kind}): " + " ".join(f"{op}={n}" for op, n in counts.items()))
+        if kind == "bf16" and counts["HGMMA"] == 0:
+            missing.append(name)
+    if missing:
+        raise AssertionError(f"bf16 backward instances without wgmma (HGMMA): {missing}")
 
 
 def _ragged_case(dtype, gen):
@@ -379,24 +403,28 @@ def _bwd_costs(shape, es) -> dict:
     }
 
 
-def _bwd_launchers(q, k, v, out, lse, do, scale):
-    """Each backward kernel alone on the wrapper's inputs (for its own time)."""
+def _bwd_launchers(q, k, v, out, lse, do, scale, dkv=FLASH_BWD_DKV.launch, dq=FLASH_BWD_DQ.launch):
+    """Each backward kernel alone on the wrapper's inputs (for its own
+    time); `dkv` and `dq` take the C launch functions' arguments. The last
+    item keeps delta and the outputs (dq, dk, dv) alive."""
     b, hq, s, d = q.shape
-    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = _delta(do, out)
+    dq_out, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     tail = (_DTYPE_CODES[q.dtype], d, b, hq, k.shape[1], s, s, 1, float(scale * _LOG2E),
             float(scale), torch.cuda.current_stream().cuda_stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
-    keep = (delta, dq, dk, dv)
-    return (lambda: FLASH_BWD_DKV.launch(*ins, dk.data_ptr(), dv.data_ptr(), *tail),
-            lambda: FLASH_BWD_DQ.launch(*ins, dq.data_ptr(), *tail), keep)
+    keep = (delta, dq_out, dk, dv)
+    return (lambda: dkv(*ins, dk.data_ptr(), dv.data_ptr(), *tail),
+            lambda: dq(*ins, dq_out.data_ptr(), *tail), keep)
 
 
 def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
     """Both backward kernels against _flash_bwd_plain on the forward
-    kernel's own out and lse, causal; times of each kernel, of the whole
-    wrapper (delta + both launches), of the plain version and of SDPA's
-    backward through torch.autograd.grad."""
+    kernel's own out and lse, causal, and against their own second run
+    (bitwise: one owner block per output, no atomics); times of each
+    kernel, of delta alone, of the whole wrapper (delta + both launches),
+    of the plain version and of SDPA's backward through
+    torch.autograd.grad."""
     b, hq, hkv, s, d = shape
     q, k, v, do = _qkv_do(dtype, gen, shape)
     scale = 1.0 / np.sqrt(d)
@@ -407,11 +435,14 @@ def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
     errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
     ok = all(torch.allclose(g.float(), r.float(), atol=atol, rtol=rtol) and bool(torch.isfinite(g).all())
              for g, r in zip(grads, ref))
-    del grads, ref
+    again = _flash_bwd_cuda(q, k, v, out, lse, do, True, scale)
+    deterministic = all(torch.equal(a, g) for a, g in zip(again, grads))
+    del grads, ref, again
     dkv_fn, dq_fn, keep = _bwd_launchers(q, k, v, out, lse, do, scale)
     ms_dkv = timer.ms(dkv_fn, 10)
     ms_dq = timer.ms(dq_fn, 10)
     ms_all = timer.ms(lambda: _flash_bwd_cuda(q, k, v, out, lse, do, True, scale), 10)
+    ms_delta = timer.ms(lambda: _delta(do, out), 10)
     plain_ms = timer.ms(lambda: _flash_bwd_plain(q, k, v, out, lse, do, True, scale), 3)
     del keep
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
@@ -427,10 +458,13 @@ def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
         f"rounding by an ulp) dkv_ms={ms_dkv:.4f} (bound {bounds['dkv'][0]:.4f} "
         f"{bounds['dkv'][1]}) dq_ms={ms_dq:.4f} (bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}) "
         f"wrapper_ms={ms_all:.4f} (bound {bounds['both'][0]:.4f} {bounds['both'][1]}) "
-        f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA backward)")
+        f"delta_ms={ms_delta:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA backward) "
+        f"deterministic={deterministic}")
     if not ok:
         raise AssertionError(f"flash backward kernels disagree with their plain version ({name} {label})")
-    common = dict(plain_ms=plain_ms, library_ms=lib_ms, wrapper_ms=ms_all)
+    if not deterministic:
+        raise AssertionError(f"flash backward kernels: two runs differ ({name} {label})")
+    common = dict(plain_ms=plain_ms, library_ms=lib_ms, wrapper_ms=ms_all, delta_ms=ms_delta)
     return {
         "flash_attention_bwd_dkv": dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=ms_dkv,
                                         bound_ms=bounds["dkv"][0], bound_by=bounds["dkv"][1], **common),

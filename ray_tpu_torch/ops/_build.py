@@ -11,7 +11,11 @@ Nothing here runs at import time: `Kernel.launch` builds its library on
 first use, and `build_all` builds every kernel at once, one `nvcc`
 process per source started together. Several `Kernel`s may bind launch
 functions of one source (the flash backward's dkv and dq): the source is
-compiled once and each of them binds the one library.
+compiled once and each of them binds the one library. Nothing links
+against libcuda (`-lcuda`) and no CUTLASS header is needed: the Hopper
+instructions (wgmma, cp.async, the swizzled layout) are inline PTX.
+`sass_counts` reads a built library's instructions back through
+`cuobjdump`, so a run can show which instances use them.
 """
 
 from __future__ import annotations
@@ -115,6 +119,40 @@ class Kernel:
                 f"({self._describe(err).decode()})"
             )
         self.launches += 1
+
+
+def parse_sass(text: str, opcodes: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """{function: {opcode: count}} from `cuobjdump -sass` output: each
+    "Function : <name>" header opens a function, and an instruction counts
+    for an opcode when its mnemonic starts with it (HGMMA.64x64x16... is
+    HGMMA)."""
+    counts: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in text.splitlines():
+        stripped = line.strip()
+        if stripped.startswith("Function :"):
+            current = counts.setdefault(stripped.split(":", 1)[1].strip(), dict.fromkeys(opcodes, 0))
+            continue
+        if current is None or "*/" not in stripped:
+            continue
+        # "/*0090*/   @!P0 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], ... ;"
+        words = stripped.split("*/", 1)[1].split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            for op in opcodes:
+                if words[0].startswith(op):
+                    current[op] += 1
+    return counts
+
+
+def sass_counts(kernel: "Kernel", opcodes: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """`parse_sass` of the kernel's built library, by `cuobjdump` from the
+    toolkit that holds nvcc."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(_lib_path(kernel.source))], check=True,
+                          capture_output=True, text=True).stdout
+    return parse_sass(text, opcodes)
 
 
 def build_all(kernels: Sequence[Kernel]) -> Dict[str, str]:

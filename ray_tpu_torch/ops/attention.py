@@ -187,6 +187,13 @@ def _check_kernel_inputs(q, k, v, *more) -> Tuple[int, int, int, int, int, int]:
     return b, hq, hkv, sq, skv, d
 
 
+def _delta(do, out):
+    """rowsum(dO * O) in f32, (B, Hq, Sq, 1). O is widened inside the
+    multiply (type promotion), one cast kernel fewer than widening both;
+    the products and the sum are those of the plain version, bit for bit."""
+    return (do.float() * out).sum(dim=-1, keepdim=True)
+
+
 def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool, sm_scale: float):
     """Launch the dkv and dq kernels; returns (dq, dk, dv). delta =
     rowsum(dO * O) is computed here in f32, as JAX computes it outside its
@@ -201,7 +208,7 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool, sm_scale: float):
     # dO reaches here as a view of the transposed attention output
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
     lse = lse.contiguous()
-    delta = (do.float() * out.float()).sum(dim=-1, keepdim=True)
+    delta = _delta(do, out)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

@@ -136,12 +136,17 @@ def _bwd_inputs(dtype, shape, causal, seed=2):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("shape", [(2, 4, 4, 200, 64), (1, 8, 2, 131, 128)],
-                         ids=["mha_d64", "gqa_d128"])
+@pytest.mark.parametrize(
+    "shape",
+    [(2, 4, 4, 200, 64), (1, 8, 2, 131, 128), (1, 2, 2, 37, 64), (1, 4, 2, 129, 64),
+     (2, 8, 2, 65, 128)],
+    ids=["mha_d64", "gqa_d128", "short_d64", "edge_d64", "gqa_edge_d128"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, causal):
     """dq, dk, dv of both backward kernels against _flash_bwd_plain; S 200
-    and 131 leave a ragged last tile, GQA 8/2 sums four heads per kv head."""
+    and 131 leave a ragged last tile, GQA 8/2 sums four heads per kv head.
+    The bf16 kernels' tiles are 64 rows: S 37 is under one tile, S 129 and
+    65 are one row past a tile edge."""
     q, k, v, out, lse, do = _bwd_inputs(dtype, shape, causal)
     scale = 1.0 / np.sqrt(shape[-1])
     before = (ops.FLASH_BWD_DKV.launches, ops.FLASH_BWD_DQ.launches)
@@ -153,6 +158,21 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, causal):
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         assert g.dtype == dtype and g.shape == r.shape, name
         torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 12, 12, 300, 64), (1, 8, 2, 200, 128)],
+                         ids=["mha_d64", "gqa_d128"])
+def test_flash_bwd_kernels_are_deterministic(cuda, shape):
+    """Every gradient element has one owner block and a fixed summation
+    order (no atomics), so two calls give bitwise equal dq, dk and dv."""
+    q, k, v, out, lse, do = _bwd_inputs(torch.bfloat16, shape, True, seed=4)
+    scale = 1.0 / np.sqrt(shape[-1])
+    first = _flash_bwd_cuda(q, k, v, out, lse, do, True, scale)
+    second = _flash_bwd_cuda(q, k, v, out, lse, do, True, scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda

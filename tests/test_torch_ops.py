@@ -303,3 +303,27 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eval_step(config)
     assert create_train_state(config, opt, params=cpu_params, device="cpu").step == 0
+
+
+def test_parse_sass_counts_opcodes_per_function():
+    """chip_smoke.py's build phase reads wgmma (HGMMA) and asynchronous
+    copies (LDGSTS, UTMALDG) per kernel from `cuobjdump -sass`; predicated
+    instructions count, the encoding lines and other opcodes do not."""
+    from ray_tpu_torch.ops._build import parse_sass
+
+    text = (
+        "\tcode for sm_90a\n"
+        "\t\tFunction : _Z5dkv_bf16\n"
+        "        /*0000*/   LDGSTS.E.BYPASS.LTC128B.128 [R3], desc[UR4][R4.64] ;  /* 0x0 */\n"
+        "                                                                       /* 0x000fe4 */\n"
+        "        /*0010*/   @!P0 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ ;     /* 0x1 */\n"
+        "        /*0020*/   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR8], R24 ;   /* 0x2 */\n"
+        "        /*0030*/   FFMA R1, R2, R3, R4 ;                                 /* 0x3 */\n"
+        "\t\tFunction : _Z5dkv_f32\n"
+        "        /*0000*/   FFMA R1, R2, R3, R4 ;                                 /* 0x3 */\n"
+    )
+    counts = parse_sass(text, ("HGMMA", "LDGSTS", "UTMALDG"))
+    assert counts == {
+        "_Z5dkv_bf16": {"HGMMA": 2, "LDGSTS": 1, "UTMALDG": 0},
+        "_Z5dkv_f32": {"HGMMA": 0, "LDGSTS": 0, "UTMALDG": 0},
+    }
