@@ -9,18 +9,20 @@ nonzero and no result line is printed):
 1. env     — torch / CUDA / nvcc versions, the card's name and power limit.
 2. build   — nvcc builds every kernel under ray_tpu_torch/ops/csrc/ (one
              process per source, started together); `cuobjdump -sass`
-             counts each backward instance's wgmma (HGMMA) and
-             asynchronous copies (LDGSTS, UTMALDG): a bf16 instance
-             without HGMMA fails the phase.
+             counts the wgmma (HGMMA) and asynchronous copies (LDGSTS,
+             UTMALDG) of each instance of the flash forward and backward
+             kernels: a bf16 instance without HGMMA fails the phase.
 3. kernels — each kernel against its plain PyTorch version, in bf16 and
              f32, with times, the card's bound and (flash) the PyTorch
-             library yardstick: ragged and flash forward at the Llama-3-8B
-             shapes of the serving path; the flash forward and both flash
-             backward kernels at the GPT-2 124M shape of the train path
-             (B 8, 12 heads, S 1024, D 64) and the backward kernels at a
-             Llama shape too (GQA 32/8, S 931, D 128), where two runs must
-             give bitwise equal gradients and delta = rowsum(dO * O) is
-             timed apart from the two launches.
+             library yardstick: ragged at the Llama-3-8B shapes of the
+             serving path; the flash forward and both flash backward
+             kernels at the Llama shape of the dense check (GQA 32/8,
+             S 931, D 128; the forward causal and not) and at the GPT-2
+             124M shape of the train path (B 8, 12 heads, S 1024, D 64).
+             Two runs must be bitwise equal; the bare launches are timed
+             apart from the wrappers (the forward's on contiguous tensors
+             and on the model's transposed views, which it copies; the
+             backward's with delta = rowsum(dO * O)).
 4. serve   — LLMServer("llama3-8b") at full width and depth on the card,
              random bf16 weights from a seeded torch.Generator, 8 greedy
              requests with prompts of 64-900 tokens, 32 new tokens each.
@@ -32,7 +34,7 @@ nonzero and no result line is printed):
              the kernel path's gradients against attn_impl="xla" on one
              smaller batch, then TRAIN_STEPS steps of make_train_step on one
              fixed 8 x 1025 batch; the loss must fall by the stated margin
-             and each backward kernel must launch once per layer per step.
+             and each flash kernel must launch once per layer per step.
 
 The line before the last lists every kernel with its launches on the main
 paths (phases 4-5 and phase 6, each counted from zero just before it), its
@@ -70,6 +72,7 @@ from ray_tpu_torch.ops.attention import (
     _delta,
     _flash_bwd_cuda,
     _flash_bwd_plain,
+    _flash_fwd_cuda,
     _flash_fwd_plain,
     flash_attention_with_lse,
 )
@@ -107,7 +110,7 @@ GRAD_CHECK_BATCH, GRAD_CHECK_SEQ = 2, 512
 GRAD_TOL_NORM = 0.01  # relative difference of the global norms
 GRAD_TOL_DIFF = 0.05  # ||g_kernel - g_xla|| / ||g_xla|| over all leaves
 GRAD_TOL_LEAF = 0.10  # the same per leaf, for leaves that hold >= 1e-3 of the norm
-BWD_SHAPES = {  # (B, Hq, Hkv, S, D), causal
+FLASH_SHAPES = {  # (B, Hq, Hkv, S, D)
     "gpt2": (TRAIN_BATCH, 12, 12, TRAIN_SEQ, 64),
     "llama": (1, 32, 8, 931, 128),
 }
@@ -197,24 +200,26 @@ def phase_build() -> None:
         log("build", f"{k.name}: built={k.built} instances={len(regs)} "
             f"max_registers={max(regs) if regs else 'n/a'} spill_store_bytes={spills}")
     log("build", f"done ({time.perf_counter() - t0:.2f} s)")
-    _check_bwd_sass()
+    _check_flash_sass()
 
 
 SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG")
 
 
-def _check_bwd_sass() -> None:
-    """wgmma and asynchronous copies in each backward instance's SASS; the
-    bf16 instances (the train path's) must run their products on wgmma."""
-    missing = []
-    for fn, counts in sass_counts(FLASH_BWD_DKV, SASS_OPS).items():
-        kind = "bf16" if "bfloat16" in fn else "f32"
-        name = fn.split("flash_bwd_", 1)[-1].split("EEEv", 1)[0]
-        log("build", f"sass flash_bwd_{name} ({kind}): " + " ".join(f"{op}={n}" for op, n in counts.items()))
-        if kind == "bf16" and counts["HGMMA"] == 0:
-            missing.append(name)
-    if missing:
-        raise AssertionError(f"bf16 backward instances without wgmma (HGMMA): {missing}")
+def _check_flash_sass() -> None:
+    """wgmma and asynchronous copies in the SASS of each instance of the
+    flash forward and backward kernels; the bf16 instances (the main paths')
+    must run their products on wgmma, the f32 ones must not (TF32)."""
+    wrong = []
+    for kernel in (FLASH_FWD, FLASH_BWD_DKV):  # one kernel per source
+        for fn, counts in sass_counts(kernel, SASS_OPS).items():
+            kind = "bf16" if "bfloat16" in fn else "f32"
+            name = "flash_" + fn.split("flash_", 1)[-1].split("EEEv", 1)[0]
+            log("build", f"sass {name} ({kind}): " + " ".join(f"{op}={n}" for op, n in counts.items()))
+            if (kind == "bf16") != (counts["HGMMA"] > 0):
+                wrong.append(name)
+    if wrong:
+        raise AssertionError(f"bf16 instances without wgmma (HGMMA), or f32 ones with it: {wrong}")
 
 
 def _ragged_case(dtype, gen):
@@ -248,14 +253,6 @@ def _ragged_case(dtype, gen):
     keys = sum(kl - ql + r + 1 for ql, kl in zip(q_lens, kv_lens) for r in range(ql))
     flops = 4.0 * hq * d * keys
     return q, k_pages, v_pages, desc, dict(block_q=bq, max_q_blocks=chunk_blocks), nbytes, flops
-
-
-def _flash_case(dtype, gen, s=931):
-    b, hq, hkv, d = 1, 32, 8, 128
-    q = torch.randn((b, hq, s, d), generator=gen, device="cuda", dtype=dtype)
-    k = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=dtype)
-    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=dtype)
-    return q, k, v
 
 
 def phase_kernels(timer: _Timer) -> dict:
@@ -297,44 +294,16 @@ def phase_kernels(timer: _Timer) -> dict:
                 bound_by=bound_by, library_ms=None)
         del q, kp, vp, desc, out, ref, q_scaled
         torch.cuda.empty_cache()
-        # ---- flash attention forward
-        for causal in (True, False):
-            q, k, v = _flash_case(dtype, gen)
-            out, lse = flash_attention_with_lse(q, k, v, causal=causal)
-            ref, ref_lse = _flash_fwd_plain(q, k, v, causal, 1.0 / np.sqrt(q.shape[-1]))
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            lse_err = (lse - ref_lse).abs().max().item()
-            ok = (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
-                  and torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-4))
-            ms = timer.ms(lambda: flash_attention_with_lse(q, k, v, causal=causal), 10)
-            plain_ms = timer.ms(
-                lambda: _flash_fwd_plain(q, k, v, causal, 1.0 / np.sqrt(q.shape[-1])), 3)
-            lib_ms = timer.ms(lambda: _sdpa(q, k, v, causal), 10)
-            b, hq, s, d = q.shape
-            es = q.element_size()
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + b * hq * s * 4
-            pairs = s * (s + 1) / 2 if causal else s * s
-            bound, bound_by = _bound_ms(nbytes, 4.0 * b * hq * d * pairs, dtype)
-            log("kernels", f"flash_attention_fwd {name} causal={causal} S={s} GQA {hq}/{k.shape[1]}: "
-                f"max_abs_err={err:.3e} lse_err={lse_err:.3e} atol={atol} rtol={rtol} "
-                f"(lse 1e-4: f32 on both sides) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                f"bound_ms={bound:.4f} ({bound_by}) library_ms={lib_ms:.4f}")
-            if not ok or not torch.isfinite(out).all():
-                raise AssertionError(f"flash kernel disagrees with its plain version ({name})")
-            if dtype == torch.bfloat16 and causal:
-                results["flash_attention_fwd"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                    bound_by=bound_by, library_ms=lib_ms)
-            del q, k, v, out, lse, ref, ref_lse
-        # ---- the train path's shapes: flash forward and both backward kernels
-        fwd_train = _fwd_train_shape(timer, dtype, gen, atol, rtol)
-        for label, shape in BWD_SHAPES.items():
+        # ---- flash forward and both backward kernels, at the dense check's
+        # shape and at the train path's
+        fwd = {(label, causal): _fwd_checks(timer, dtype, gen, label, causal, atol, rtol)
+               for label, causal in (("llama", True), ("llama", False), ("gpt2", True))}
+        for label, shape in FLASH_SHAPES.items():
             bwd = _bwd_checks(timer, dtype, gen, label, shape, atol, rtol)
             if dtype == torch.bfloat16 and label == "gpt2":
                 results.update(bwd)
         if dtype == torch.bfloat16:
-            results["flash_attention_fwd"]["train_shape"] = fwd_train
+            results["flash_attention_fwd"] = dict(fwd["llama", True], train_shape=fwd["gpt2", True])
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log("kernels", f"done ({time.perf_counter() - t0:.2f} s)")
@@ -351,40 +320,77 @@ def _sdpa(q, k, v, causal):
     return F.scaled_dot_product_attention(q, kx, vx, is_causal=causal)
 
 
-def _qkv_do(dtype, gen, shape):
+def _qkv(dtype, gen, shape):
     b, hq, hkv, s, d = shape
     q = torch.randn((b, hq, s, d), generator=gen, device="cuda", dtype=dtype)
     k = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=dtype)
     v = torch.randn((b, hkv, s, d), generator=gen, device="cuda", dtype=dtype)
-    do = torch.randn((b, hq, s, d), generator=gen, device="cuda", dtype=dtype)
-    return q, k, v, do
+    return q, k, v
 
 
-def _fwd_train_shape(timer, dtype, gen, atol, rtol) -> dict:
-    """The flash forward kernel at the GPT-2 124M train shape, causal."""
-    b, hq, hkv, s, d = BWD_SHAPES["gpt2"]
-    q, k, v, _ = _qkv_do(dtype, gen, BWD_SHAPES["gpt2"])
+def _qkv_do(dtype, gen, shape):
+    q, k, v = _qkv(dtype, gen, shape)
+    return q, k, v, torch.randn(q.shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def _fwd_launcher(q, k, v, causal, scale, launch=FLASH_FWD.launch):
+    """The forward kernel alone on the wrapper's inputs (for its own time);
+    `launch` takes the C launch function's arguments. The second item is
+    (out, lse), which the launch fills."""
+    b, hq, s, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s, 1), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _DTYPE_CODES[q.dtype], d, b, hq, k.shape[1], s, k.shape[2], int(causal),
+            float(scale * _LOG2E), torch.cuda.current_stream().cuda_stream)
+    return (lambda: launch(*args)), (out, lse)
+
+
+def _fwd_checks(timer, dtype, gen, label, causal, atol, rtol) -> dict:
+    """The flash forward kernel against _flash_fwd_plain (out and lse) and
+    against its own second run (bitwise: one owner block per output row,
+    one summing order); times of the bare launch, of the wrapper on
+    contiguous tensors and on transposed views as the model's head split
+    hands them (the wrapper copies those), of the plain version and of
+    SDPA."""
+    shape = FLASH_SHAPES[label]
+    b, hq, hkv, s, d = shape
+    q, k, v = _qkv(dtype, gen, shape)
     scale = 1.0 / np.sqrt(d)
-    out, lse = flash_attention_with_lse(q, k, v, causal=True)
-    ref, ref_lse = _flash_fwd_plain(q, k, v, True, scale)
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    ref, ref_lse = _flash_fwd_plain(q, k, v, causal, scale)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
     ok = (torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
           and torch.allclose(lse, ref_lse, atol=1e-4, rtol=1e-4) and bool(torch.isfinite(out).all()))
-    ms = timer.ms(lambda: flash_attention_with_lse(q, k, v, causal=True), 10)
-    plain_ms = timer.ms(lambda: _flash_fwd_plain(q, k, v, True, scale), 3)
-    lib_ms = timer.ms(lambda: _sdpa(q, k, v, True), 10)
-    es = q.element_size()
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * es + b * hq * s * 4
-    bound, bound_by = _bound_ms(nbytes, 4.0 * b * hq * d * s * (s + 1) / 2, dtype)
+    out2, lse2 = flash_attention_with_lse(q, k, v, causal=causal)
+    deterministic = torch.equal(out, out2) and torch.equal(lse, lse2)
+    del out2, lse2, ref, ref_lse
+    launch, keep = _fwd_launcher(q, k, v, causal, scale)
+    ms = timer.ms(launch, 20)
+    del keep
+    wrapper_ms = timer.ms(lambda: _flash_fwd_cuda(q, k, v, causal, scale), 10)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]  # (B, S, H, D) in memory
+    views_ms = timer.ms(lambda: _flash_fwd_cuda(*views, causal, scale), 10)
+    del views
+    plain_ms = timer.ms(lambda: _flash_fwd_plain(q, k, v, causal, scale), 3)
+    lib_ms = timer.ms(lambda: _sdpa(q, k, v, causal), 10)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + b * hq * s * 4
+    pairs = s * (s + 1) / 2 if causal else s * s
+    bound, bound_by = _bound_ms(nbytes, 4.0 * b * hq * d * pairs, dtype)
     name = str(dtype).replace("torch.", "")
-    log("kernels", f"flash_attention_fwd {name} causal=True train shape B={b} H={hq} S={s} D={d}: "
-        f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bound:.4f} ({bound_by}) library_ms={lib_ms:.4f}")
+    log("kernels", f"flash_attention_fwd {name} causal={causal} {label} B={b} GQA {hq}/{hkv} S={s} D={d}: "
+        f"max_abs_err={err:.3e} lse_err={lse_err:.3e} atol={atol} rtol={rtol} "
+        f"(lse 1e-4: f32 on both sides) kernel_ms={ms:.4f} wrapper_ms={wrapper_ms:.4f} "
+        f"wrapper_on_views_ms={views_ms:.4f} (three copies) plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound:.4f} ({bound_by}) library_ms={lib_ms:.4f} (SDPA) deterministic={deterministic}")
     if not ok:
-        raise AssertionError(f"flash forward disagrees with its plain version at the train shape ({name})")
+        raise AssertionError(f"flash forward disagrees with its plain version ({name} {label} causal={causal})")
+    if not deterministic:
+        raise AssertionError(f"flash forward: two runs differ ({name} {label} causal={causal})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, wrapper_ms=wrapper_ms, wrapper_on_views_ms=views_ms)
 
 
 def _bwd_costs(shape, es) -> dict:
@@ -660,19 +666,17 @@ def phase_train() -> dict:
     log("train", "loss " + " ".join(f"{x:.4f}" for x in losses))
     log("train", "grad_norm " + " ".join(f"{x:.4f}" for x in gnorms))
     per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
-    log("train", f"launches per step {per_step} (each backward kernel must show "
+    log("train", f"launches per step {per_step} (each flash kernel must show "
         f"{config.n_layers}: one per layer) ({time.perf_counter() - t0:.2f} s)")
     if not all(np.isfinite(losses)):
         raise AssertionError("non-finite training loss")
     if not losses[-1] < LOSS_MARGIN * losses[0]:
         raise AssertionError(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}: not below "
                              f"{LOSS_MARGIN} x the first")
-    for kernel in (FLASH_BWD_DKV, FLASH_BWD_DQ):
+    for kernel in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
         if launches[kernel.name] != config.n_layers * TRAIN_STEPS:
             raise AssertionError(f"{kernel.name}: {launches[kernel.name]} launches in "
                                  f"{TRAIN_STEPS} steps, want {config.n_layers} per step")
-    if launches[FLASH_FWD.name] == 0:
-        raise AssertionError("the train path never launched the flash forward kernel")
     return launches
 
 

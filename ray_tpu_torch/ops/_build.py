@@ -5,7 +5,8 @@ Each source under `csrc/` is compiled by `nvcc` for Hopper
 a plain C interface and loaded with `ctypes`. No PyTorch header is
 included, so a build takes seconds. Libraries are cached in `_build/`
 beside this file (listed in .gitignore) under a name that carries the
-hash of the source, so an edited kernel is rebuilt at its first use.
+hash of the source and of the headers it includes from `csrc/`, so an
+edited kernel or header is rebuilt at its first use.
 
 Nothing here runs at import time: `Kernel.launch` builds its library on
 first use, and `build_all` builds every kernel at once, one `nvcc`
@@ -23,6 +24,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,7 +36,9 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-I", str(CSRC),  # a variant of a source built from elsewhere finds the headers
 )
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LOCK = threading.Lock()
 
@@ -49,9 +53,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _source_files(source: Path) -> List[Path]:
+    """The source and, after it, every header it includes by a quoted name
+    (resolved beside the including file, then in `csrc/`), nested ones too."""
+    files: List[Path] = []
+    todo = [source]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for name in _INCLUDE.findall(path.read_text()):
+            found = [d / name for d in (path.parent, CSRC) if (d / name).exists()]
+            if found:
+                todo.append(found[0])
+    return files
+
+
 def _lib_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _source_files(source):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def _start_build(source: Path, out: Path) -> subprocess.Popen:

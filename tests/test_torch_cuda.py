@@ -81,24 +81,68 @@ def test_ragged_kernel_matches_plain(cuda, dtype, d):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
+# (B, Hq, Hkv, Sq, Skv, D). The bf16 kernel's tiles are 64 rows: S 37 is
+# under one tile, 64 exactly one, 65 and 129 one row past an edge, 200 a
+# ragged fourth tile, 1024 sixteen whole ones; 100 x 333 (not causal) has
+# Sq != Skv with both edges ragged.
+_FWD_SHAPES = {
+    "gqa_d128_s200_b2": (2, 8, 2, 200, 200, 128),
+    "mha_d64_s37": (1, 2, 2, 37, 37, 64),
+    "gqa_d64_s64": (1, 4, 2, 64, 64, 64),
+    "mha_d128_s65_b3": (3, 2, 2, 65, 65, 128),
+    "gqa_d64_s129_b3": (3, 4, 1, 129, 129, 64),
+    "mha_d64_s200": (1, 3, 3, 200, 200, 64),
+    "gqa_d128_s1024": (1, 8, 2, 1024, 1024, 128),
+    "mha_d64_s1024": (1, 4, 4, 1024, 1024, 64),
+    "gqa_d64_100x333": (1, 4, 2, 100, 333, 64),
+    "mha_d128_100x333_b3": (3, 2, 2, 100, 333, 128),
+}
+
+
+def _fwd_inputs(dtype, shape, seed=1):
+    b, hq, hkv, sq, skv, d = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=gen, device="cuda", dtype=dtype)
+    k = torch.randn((b, hkv, skv, d), generator=gen, device="cuda", dtype=dtype)
+    v = torch.randn((b, hkv, skv, d), generator=gen, device="cuda", dtype=dtype)
+    return q, k, v
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernel_matches_plain(cuda, dtype, causal):
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    shape_q, shape_kv = (2, 8, 200, 128), (2, 2, 200, 128)
-    q = torch.randn(shape_q, generator=gen, device="cuda", dtype=dtype)
-    k = torch.randn(shape_kv, generator=gen, device="cuda", dtype=dtype)
-    v = torch.randn(shape_kv, generator=gen, device="cuda", dtype=dtype)
+@pytest.mark.parametrize(
+    "shape,causal",
+    [(name, causal) for name, dims in _FWD_SHAPES.items() for causal in (False, True)
+     if not causal or dims[3] == dims[4]])  # the causal kernel requires Sq == Skv
+def test_flash_kernel_matches_plain(cuda, dtype, shape, causal):
+    """out and lse of the forward kernel against _flash_fwd_plain (bf16 on
+    wgmma, f32 on FMAs), D 64 and 128, MHA and GQA, batch 1 to 3."""
+    dims = _FWD_SHAPES[shape]
+    q, k, v = _fwd_inputs(dtype, dims)
     before = ops.FLASH_FWD.launches
     out, lse = ops.flash_attention_with_lse(q, k, v, causal=causal)
     assert ops.FLASH_FWD.launches == before + 1
-    ref, ref_lse = _flash_fwd_plain(q, k, v, causal, 1.0 / np.sqrt(128))
+    ref, ref_lse = _flash_fwd_plain(q, k, v, causal, 1.0 / np.sqrt(dims[-1]))
     torch.cuda.synchronize()
     tol = TOLS[dtype]
+    assert out.dtype == dtype and torch.isfinite(out).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["gqa_d128_s200_b2", "mha_d64_s1024", "gqa_d64_100x333"])
+def test_flash_fwd_kernel_is_deterministic(cuda, shape):
+    """Every output row has one owner block and a fixed summation order, so
+    two calls give bitwise equal out and lse."""
+    dims = _FWD_SHAPES[shape]
+    q, k, v = _fwd_inputs(torch.bfloat16, dims, seed=5)
+    causal = dims[3] == dims[4]
+    first = ops.flash_attention_with_lse(q, k, v, causal=causal)
+    second = ops.flash_attention_with_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 @pytest.mark.cuda

@@ -87,28 +87,65 @@ def _qkv(seed, b, hq, hkv, s, d):
     return q, k, v
 
 
+# The port's forward is held against K1 (`_fwd_pallas`, interpret mode) and
+# against K3's interpret twin (`_fwd_pipe_interp`: the skewed schedule with
+# two score slots). 64-row blocks leave two kv tiles at S 96 and S 80, so the
+# pipelined path does not fall back to the classic kernel. All three sum
+# the same f32 terms tile by tile; 1e-5 (the file's TOL) covers the port's
+# one-pass sums in another order.
+_FWD_IMPLS = ("pallas", "pallas_pipelined")
+
+
+@pytest.mark.parametrize("implementation", _FWD_IMPLS)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("gqa", [False, True])
-def test_flash_forward_matches_jax_pallas(causal, gqa):
+def test_flash_forward_matches_jax_pallas(causal, gqa, implementation):
     """S = 96 is not a multiple of the 64-row blocks: the JAX wrapper pads
     and masks (padded lengths), the port masks at kv_len directly."""
     q, k, v = _qkv(0, 2, 4, 2 if gqa else 4, 96, 32)
     ref = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
-                 implementation="pallas", block_q=64, block_kv=64)
-    out = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+                 implementation=implementation, block_q=64, block_kv=64)
+    out = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal, implementation=implementation)
     _close(ref, out)
 
 
+@pytest.mark.parametrize("implementation", _FWD_IMPLS)
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_lse_matches_jax_pallas(causal):
+def test_flash_lse_matches_jax_pallas(causal, implementation):
     q, k, v = _qkv(1, 1, 4, 2, 80, 32)
     jout, jlse = jflash_lse(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                            causal=causal, implementation="pallas",
+                            causal=causal, implementation=implementation,
                             block_q=64, block_kv=64)
     out, lse = tops.flash_attention_with_lse(_t(q), _t(k), _t(v), causal=causal)
     assert lse.shape == (1, 4, 80, 1) and lse.dtype == torch.float32
     _close(jout, out)
     _close(jlse, lse)
+
+
+def test_flash_forward_plain_rounds_p_before_pv():
+    """The contract the bf16 forward kernel keeps: scores and the row sum in
+    f32, p rounded to bf16 before P.V, f32 accumulation, one rounding of O.
+    `_flash_fwd_plain` equals that written out per head, and differs from
+    the same computation with p left in f32."""
+    from ray_tpu_torch.ops.attention import _flash_fwd_plain
+
+    q, k, v = (_t(x).to(torch.bfloat16) for x in _qkv(9, 1, 4, 2, 48, 16))
+    out, lse = _flash_fwd_plain(q, k, v, True, 0.25)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want, unrounded, want_lse = (torch.empty(q.shape) for _ in range(3))
+    keep = torch.tril(torch.ones(48, 48, dtype=torch.bool))
+    for h in range(4):
+        qh, kh, vh = q[0, h].float(), k[0, h // 2].float(), v[0, h // 2].float()
+        s = torch.where(keep, qh @ kh.T * 0.25, torch.tensor(-1e30))
+        m = s.max(dim=-1, keepdim=True).values
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        want[0, h] = p.to(torch.bfloat16).float() @ vh / l
+        unrounded[0, h] = p @ vh / l
+        want_lse[0, h] = (m + torch.log(l)).expand(-1, 16)
+    torch.testing.assert_close(out, want.to(torch.bfloat16), atol=0, rtol=0)
+    torch.testing.assert_close(lse, want_lse[..., :1], atol=1e-6, rtol=1e-6)
+    assert not torch.equal(out, unrounded.to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -327,3 +364,25 @@ def test_parse_sass_counts_opcodes_per_function():
         "_Z5dkv_bf16": {"HGMMA": 2, "LDGSTS": 1, "UTMALDG": 0},
         "_Z5dkv_f32": {"HGMMA": 0, "LDGSTS": 0, "UTMALDG": 0},
     }
+
+
+def test_library_name_follows_included_headers(tmp_path):
+    """A kernel's library is cached under a hash of its source and of the
+    headers it includes by a quoted name, nested ones too: an edited header
+    rebuilds every source that includes it and no other."""
+    from ray_tpu_torch.ops import _build
+
+    (tmp_path / "inner.cuh").write_text("// inner\n")
+    (tmp_path / "tiles.cuh").write_text('#include "inner.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "a.cu").write_text('#include <cuda_runtime.h>\n  #  include "tiles.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    assert _build._source_files(tmp_path / "a.cu") == [
+        tmp_path / "a.cu", tmp_path / "tiles.cuh", tmp_path / "inner.cuh"]
+    before = {n: _build._lib_path(tmp_path / n).name for n in ("a.cu", "b.cu")}
+    assert before["a.cu"].startswith("a-") and before["a.cu"].endswith(".so")
+    (tmp_path / "inner.cuh").write_text("// inner, edited\n")
+    after = {n: _build._lib_path(tmp_path / n).name for n in ("a.cu", "b.cu")}
+    assert after["a.cu"] != before["a.cu"] and after["b.cu"] == before["b.cu"]
+    # both flash sources include the shared Hopper header of csrc/
+    for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+        assert _build.CSRC / "hopper_tiles.cuh" in _build._source_files(_build.CSRC / name)
