@@ -11,11 +11,18 @@ nonzero and no result line is printed):
              process per source, started together); `cuobjdump -sass`
              counts the wgmma (HGMMA) and asynchronous copies (LDGSTS,
              UTMALDG) of each instance of the flash forward and backward
-             kernels: a bf16 instance without HGMMA fails the phase.
+             kernels and of the ragged kernels: a bf16 flash instance
+             without HGMMA, a bf16 ragged main kernel (tile or split
+             decode) without HGMMA or without asynchronous copies, or an
+             f32 instance with HGMMA fails the phase.
 3. kernels — each kernel against its plain PyTorch version, in bf16 and
              f32, with times, the card's bound and (flash) the PyTorch
              library yardstick: ragged at the Llama-3-8B shapes of the
-             serving path; the flash forward and both flash backward
+             serving path, a mixed tick's batch and a decode step's (both
+             also bitwise against a second run, and against the kernel on
+             q scaled beforehand; where the largest error sits, and the
+             device kernels one call runs, read from torch.profiler); the
+             flash forward and both flash backward
              kernels at the Llama shape of the dense check (GQA 32/8,
              S 931, D 128; the forward causal and not) and at the GPT-2
              124M shape of the train path (B 8, 12 heads, S 1024, D 64).
@@ -25,7 +32,9 @@ nonzero and no result line is printed):
              backward's with delta = rowsum(dO * O)).
 4. serve   — LLMServer("llama3-8b") at full width and depth on the card,
              random bf16 weights from a seeded torch.Generator, 8 greedy
-             requests with prompts of 64-900 tokens, 32 new tokens each.
+             requests with prompts of 64-900 tokens, 32 new tokens each;
+             the ragged launches are counted by kind (decode steps, mixed
+             ticks) where they launch, and each kind must occur.
 5. check   — the dense forward (flash kernel) over prompt + generated tokens
              of 2 requests: every engine token must score within a stated
              margin of the dense argmax.
@@ -46,6 +55,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -55,6 +65,8 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch.models import count_params, forward, get_config
 from ray_tpu_torch.ops import (
@@ -76,7 +88,11 @@ from ray_tpu_torch.ops.attention import (
     _flash_fwd_plain,
     flash_attention_with_lse,
 )
-from ray_tpu_torch.ops.ragged_paged_attention import _ragged_cuda, ragged_reference_attention
+from ray_tpu_torch.ops.ragged_paged_attention import (
+    LAUNCHES_BY_KIND,
+    _ragged_cuda,
+    ragged_reference_attention,
+)
 from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedEngineConfig
 from ray_tpu_torch.train import (
     create_train_state,
@@ -200,26 +216,51 @@ def phase_build() -> None:
         log("build", f"{k.name}: built={k.built} instances={len(regs)} "
             f"max_registers={max(regs) if regs else 'n/a'} spill_store_bytes={spills}")
     log("build", f"done ({time.perf_counter() - t0:.2f} s)")
-    _check_flash_sass()
+    _check_sass()
 
 
 SASS_OPS = ("HGMMA", "LDGSTS", "UTMALDG")
 
 
-def _check_flash_sass() -> None:
+def _kernel_name(fn: str) -> str:
+    """flash_fwd_wgmmaILi64E -> flash_fwd_wgmma<64>, ragged_wgmmaILi128ELb1E ->
+    ragged_wgmma<128,1> (demangled template arguments, ints and bools). The
+    kernel's name is the flash_ / ragged_ identifier whose mangled length
+    prefix matches it (the anonymous namespace's own name holds the file's)."""
+    for m in re.finditer(r"(\d+)((?:flash|ragged)_[A-Za-z0-9_]+?)I", fn):
+        digits, name = m.group(1), m.group(2)
+        for k in range(len(digits)):  # the length prefix is the digits' tail
+            if int(digits[k:]) == len(name) and digits[k] != "0":
+                args = fn[m.end():].split("EEEv", 1)[0]
+                vals = re.findall(r"L[a-z](\d+)", args)
+                return name + (f"<{','.join(vals)}>" if vals else "")
+    return fn
+
+
+def _check_sass() -> None:
     """wgmma and asynchronous copies in the SASS of each instance of the
-    flash forward and backward kernels; the bf16 instances (the main paths')
-    must run their products on wgmma, the f32 ones must not (TF32)."""
+    flash forward and backward kernels and of the ragged kernels. The bf16
+    instances of the main paths must run their products on wgmma, and the
+    bf16 ragged main kernels (the tile kernel and the split decode walk,
+    `ragged_wgmma<D,split>`) must also load through asynchronous copies;
+    the f32 instances must not use wgmma (TF32). The ragged combine pass
+    reads each f32 partial once and has nothing to overlap: its counts are
+    printed, not held."""
     wrong = []
-    for kernel in (FLASH_FWD, FLASH_BWD_DKV):  # one kernel per source
+    for kernel in (FLASH_FWD, FLASH_BWD_DKV, RAGGED):  # one kernel per source
         for fn, counts in sass_counts(kernel, SASS_OPS).items():
             kind = "bf16" if "bfloat16" in fn else "f32"
-            name = "flash_" + fn.split("flash_", 1)[-1].split("EEEv", 1)[0]
+            name = _kernel_name(fn)
             log("build", f"sass {name} ({kind}): " + " ".join(f"{op}={n}" for op, n in counts.items()))
-            if (kind == "bf16") != (counts["HGMMA"] > 0):
+            if "combine" in name:
+                continue
+            copies = counts["LDGSTS"] + counts["UTMALDG"]
+            if (kind == "bf16") != (counts["HGMMA"] > 0) or (
+                    kind == "bf16" and name.startswith("ragged") and copies == 0):
                 wrong.append(name)
     if wrong:
-        raise AssertionError(f"bf16 instances without wgmma (HGMMA), or f32 ones with it: {wrong}")
+        raise AssertionError("bf16 instances without wgmma (HGMMA) or, ragged, without "
+                             f"asynchronous copies; or f32 ones with wgmma: {wrong}")
 
 
 def _ragged_case(dtype, gen):
@@ -228,11 +269,30 @@ def _ragged_case(dtype, gen):
     (one on a page boundary), a verify-shaped region (q_len 4) and an
     inactive lane, against the full 32-layer flat pool with layer 7's page
     offset folded into the tables. Unused table entries are scratch page 0."""
+    chunk_blocks = 256 // 8
+    return _ragged_batch(dtype, gen, q_lens=[256, 256, 100, 1, 1, 1, 4, 0],
+                         kv_lens=[256, 512, 612, 301, 901, 64, 704, 0],
+                         counts=[chunk_blocks] * 3 + [1] * 5, max_q_blocks=chunk_blocks)
+
+
+def _ragged_decode_case(dtype, gen):
+    """A decode step of the serve run (89% of its ragged launches): 8 lanes
+    of q_len 1 at the serve prompts' lengths + 16 (mid-way through the
+    first K = 16 decode block), block_q 8, max_q_blocks 1, as
+    `paged_attention` dispatches it."""
+    return _ragged_batch(dtype, gen, q_lens=[1] * 8,
+                         kv_lens=[80, 199, 318, 438, 557, 677, 796, 916],
+                         counts=[1] * 8, max_q_blocks=1)
+
+
+def _ragged_batch(dtype, gen, q_lens, kv_lens, counts, max_q_blocks):
+    """Inputs of one ragged call against the full 32-layer Llama-3-8B pool
+    (layer 7's page offset folded into the tables), with the bytes it must
+    move (q's real rows, every output row of the regions, the pages of each
+    lane's walk, the descriptors; q's padding rows are left out, since no
+    output depends on them) and the flops of its unmasked (query, key)
+    pairs."""
     hq, hkv, d, ps, maxp, bq, num_pages, layers = 32, 8, 128, 64, 16, 8, 256, 32
-    chunk_blocks = 256 // bq
-    q_lens = [256, 256, 100, 1, 1, 1, 4, 0]
-    kv_lens = [256, 512, 612, 301, 901, 64, 704, 0]
-    counts = [chunk_blocks] * 3 + [1] * 5
     starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     t = int(sum(counts)) * bq
     tables = np.zeros((len(q_lens), maxp), np.int32)
@@ -249,10 +309,11 @@ def _ragged_case(dtype, gen):
     desc = [as_i32(x) for x in (starts, counts, q_lens, kv_lens, tables)]
     es = q.element_size()
     pages_read = sum(-(-kl // ps) for kl in kv_lens)
-    nbytes = 2 * q.numel() * es + 2 * pages_read * hkv * ps * d * es + sum(x.numel() * 4 for x in desc)
+    q_bytes = sum(q_lens) * hq * d * es
+    nbytes = q_bytes + q.numel() * es + 2 * pages_read * hkv * ps * d * es + sum(x.numel() * 4 for x in desc)
     keys = sum(kl - ql + r + 1 for ql, kl in zip(q_lens, kv_lens) for r in range(ql))
     flops = 4.0 * hq * d * keys
-    return q, k_pages, v_pages, desc, dict(block_q=bq, max_q_blocks=chunk_blocks), nbytes, flops
+    return q, k_pages, v_pages, desc, dict(block_q=bq, max_q_blocks=max_q_blocks), nbytes, flops
 
 
 def phase_kernels(timer: _Timer) -> dict:
@@ -262,37 +323,22 @@ def phase_kernels(timer: _Timer) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     tol = {
-        torch.bfloat16: (2e-2, 2e-2, "both sides compute in f32 from the same bf16 "
-                         "inputs; summing in another order can move the final bf16 "
-                         "rounding by one ulp (2^-7 at |x|~1)"),
+        torch.bfloat16: (2e-2, 2e-2, "the bf16 kernels round p to bf16 before P.V (the "
+                         "flash kernels too), the plain versions keep p in f32: a relative "
+                         "error of up to 2^-9 in each weight, which with f32 sums in another "
+                         "order moves an output by up to about one bf16 ulp (2^-6 at "
+                         "|x| in [2, 4)) against atol + rtol |x|"),
         torch.float32: (1e-4, 1e-4, "f32 sums over up to 901 keys in another order"),
     }
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         atol, rtol, why = tol[dtype]
-        name = str(dtype).replace("torch.", "")
-        # ---- ragged paged attention
-        q, kp, vp, desc, kw, nbytes, flops = _ragged_case(dtype, gen)
-        sm_scale = 1.0 / np.sqrt(q.shape[-1])
-        q_scaled = (q.float() * sm_scale).to(dtype)
-        out = ragged_paged_attention(q, kp, vp, *desc, **kw)
-        ref = ragged_reference_attention(q_scaled, kp, vp, *desc, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol)
-        ms = timer.ms(lambda: _ragged_cuda(q_scaled, kp, vp, *desc, **kw), 20)
-        plain_ms = timer.ms(lambda: ragged_reference_attention(q_scaled, kp, vp, *desc, **kw), 3)
-        bound, bound_by = _bound_ms(nbytes, flops, dtype)
-        log("kernels", f"ragged_paged_attention {name}: max_abs_err={err:.3e} "
-            f"atol={atol} rtol={rtol} ({why}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={bound:.4f} ({bound_by}) library_ms=null")
-        if not ok or not torch.isfinite(out).all():
-            raise AssertionError(f"ragged kernel disagrees with its plain version ({name})")
+        # ---- ragged paged attention: a mixed tick's batch, a decode step's
+        ragged = {label: _ragged_checks(timer, dtype, gen, label, make, atol, rtol, why)
+                  for label, make in (("mixed", _ragged_case), ("decode", _ragged_decode_case))}
         if dtype == torch.bfloat16:
             results["ragged_paged_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=None)
-        del q, kp, vp, desc, out, ref, q_scaled
+                ragged["mixed"], **{f"decode_{k}": v for k, v in ragged["decode"].items()})
         torch.cuda.empty_cache()
         # ---- flash forward and both backward kernels, at the dense check's
         # shape and at the train path's
@@ -308,6 +354,97 @@ def phase_kernels(timer: _Timer) -> dict:
     torch.cuda.empty_cache()
     log("kernels", f"done ({time.perf_counter() - t0:.2f} s)")
     return results
+
+
+def _ragged_checks(timer, dtype, gen, label, make, atol, rtol, why) -> dict:
+    """The ragged kernels on one batch against ragged_reference_attention
+    (on q scaled and rounded beforehand, as the dispatcher does for the
+    plain version), with where the largest error sits (`_ragged_worst`),
+    against their own second run (bitwise: each output row has one owner,
+    the split partials combine in a fixed order) and against the kernels
+    on the pre-scaled q with scale 1 (bitwise: the kernels' own scaling of
+    q rounds exactly as the dispatcher's); times of the wrapper
+    (`_ragged_cuda`: the zeroed output, the workspace, the kernels) and of
+    the plain version; the ragged device kernels one call runs, read from
+    the profiler."""
+    q, kp, vp, desc, kw, nbytes, flops = make(dtype, gen)
+    sm_scale = 1.0 / np.sqrt(q.shape[-1])
+    q_scaled = (q.float() * sm_scale).to(dtype)
+    out = ragged_paged_attention(q, kp, vp, *desc, **kw)
+    again = _ragged_cuda(q, kp, vp, *desc, sm_scale=sm_scale, **kw)
+    prescaled = _ragged_cuda(q_scaled, kp, vp, *desc, sm_scale=1.0, **kw)
+    ref = ragged_reference_attention(q_scaled, kp, vp, *desc, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol) and bool(torch.isfinite(out).all())
+    worst = _ragged_worst(out, ref, desc, kw["block_q"], atol, rtol)
+    deterministic, same_scaling = torch.equal(out, again), torch.equal(out, prescaled)
+    del again, prescaled, ref
+    ms = timer.ms(lambda: _ragged_cuda(q, kp, vp, *desc, sm_scale=sm_scale, **kw), 20)
+    plain_ms = timer.ms(lambda: ragged_reference_attention(q_scaled, kp, vp, *desc, **kw), 3)
+    bound, bound_by = _bound_ms(nbytes, flops, dtype)
+    per_call = _device_kernels(lambda: _ragged_cuda(q, kp, vp, *desc, sm_scale=sm_scale, **kw))
+    name = str(dtype).replace("torch.", "")
+    log("kernels", f"ragged_paged_attention {name} {label} (S={desc[0].numel()} "
+        f"max_q_blocks={kw['max_q_blocks']}; device kernels a call: {', '.join(per_call)}): "
+        f"max_abs_err={err:.3e} atol={atol} rtol={rtol} ({why}) kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}, {nbytes} bytes) library_ms=null "
+        f"deterministic={deterministic} scaled_in_kernel_bitwise={same_scaling}")
+    log("kernels", f"ragged_paged_attention {name} {label} largest errors: {worst}")
+    if not ok:
+        raise AssertionError(f"ragged kernels disagree with their plain version ({name} {label})")
+    if not deterministic:
+        raise AssertionError(f"ragged kernels: two runs differ ({name} {label})")
+    if not same_scaling:
+        raise AssertionError(f"ragged kernels: q scaled in the kernel differs from q scaled "
+                             f"beforehand ({name} {label})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=None, device_kernels_per_call=len(per_call))
+
+
+def _ragged_worst(out, ref, desc, block_q, atol, rtol) -> str:
+    """The largest error over the real rows and over the padding rows of
+    the regions: its place (head, lane, region row, column), |ref| there,
+    and the largest ratio of error to allclose's allowance atol + rtol
+    |ref| (1 would fail)."""
+    starts, counts, q_lens = (x.tolist() for x in desc[:3])
+    t = out.shape[1]
+    lane_of = np.full(t, -1)
+    row_of = np.zeros(t, np.int64)
+    for s, (st, ct) in enumerate(zip(starts, counts)):
+        lane_of[st * block_q:(st + ct) * block_q] = s
+        row_of[st * block_q:(st + ct) * block_q] = np.arange(ct * block_q)
+    real = torch.tensor((lane_of >= 0) & (row_of < np.array(q_lens)[lane_of]), device=out.device)
+    pad = torch.tensor(lane_of >= 0, device=out.device) & ~real
+    diff = (out.float() - ref.float()).abs()
+    ratio = diff / (atol + rtol * ref.float().abs())
+    parts = []
+    for kind, rows in (("real rows", real), ("padding rows", pad)):
+        if not bool(rows.any()):
+            continue
+        masked = torch.where(rows[None, :, None], diff, -1.0)
+        h, tok, col = np.unravel_index(int(masked.argmax()), tuple(diff.shape))
+        parts.append(f"{kind} {diff[h, tok, col].item():.3e} at head {h} lane {lane_of[tok]} row "
+                     f"{row_of[tok]} column {col}, |ref| {ref[h, tok, col].float().abs().item():.4f}, "
+                     f"largest error / allowance "
+                     f"{torch.where(rows[None, :, None], ratio, 0.0).max().item():.3f}")
+    return "; ".join(parts)
+
+
+def _device_kernels(fn) -> list:
+    """Names of the ragged device kernels that one call of `fn` runs, in
+    order, from a profile of that call alone."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == DeviceType.CUDA and "ragged" in e.name]
+    names = []
+    for e in sorted(kernels, key=lambda e: e.time_range.start):  # mangled or demangled
+        plain = re.search(r"ragged_[a-z_]+<[^>]*>", e.name)
+        names.append(plain.group(0).replace(" ", "") if plain else _kernel_name(e.name))
+    return names
 
 
 def _sdpa(q, k, v, causal):
@@ -499,6 +636,8 @@ def phase_serve():
     stats0 = server.engine.stats()
     for kernel in KERNELS:
         kernel.launches = 0
+    for kind in LAUNCHES_BY_KIND:
+        LAUNCHES_BY_KIND[kind] = 0
     stamps = [[] for _ in prompts]
     t_start = time.perf_counter()
     streams = [server.engine.submit(p, max_tokens=MAX_TOKENS) for p in prompts]
@@ -524,26 +663,27 @@ def phase_serve():
     last_all = max(st[-1][0] for st in stamps)
     decode_tokens = sum(len(st) - 1 for st in stamps)
     stats = {k: v - stats0[k] for k, v in server.engine.stats().items()}
+    split = dict(LAUNCHES_BY_KIND)  # counted where each call launches
     log("serve", f"{N_REQUESTS} requests, prompts {lengths.min()}-{lengths.max()} tokens, "
         f"{MAX_TOKENS} new each: wall {wall:.3f} s, TTFT p50 {statistics.median(ttft):.3f} s "
         f"max {max(ttft):.3f} s, decode {decode_tokens / (last_all - first_all):.1f} tok/s "
         f"(tokens after each request's first, over first-token-to-last-token), "
         f"output {N_REQUESTS * MAX_TOKENS / wall:.1f} tok/s over the wall, mixed ticks "
         f"{stats['mixed_ticks']:.0f}, decode blocks {stats['decode_blocks']:.0f}, "
-        f"ragged launches {RAGGED.launches}")
-    if RAGGED.launches == 0:
-        raise AssertionError("the serving path never launched the ragged kernel")
-    return server, config, prompts, outs
+        f"ragged launches {RAGGED.launches} (mixed ticks {split['mixed']}, decode steps "
+        f"{split['decode']})")
+    return server, config, prompts, outs, split
 
 
-def phase_check(server, config, prompts, outs) -> None:
+def phase_check(server, config, prompts, outs) -> tuple:
     """Teacher-forced dense forward (flash kernel) over prompt + generated
     tokens: the engine's token at each generated position must score within
     CHECK_MARGIN of the dense argmax. Both paths compute in bf16 but round
-    at different places (ragged attention keeps p in f32, flash rounds p to
-    bf16; products of other shapes sum in other orders), so near-ties may
-    flip; the margin is a few bf16 ulps of logits of this size (~0.03-0.06
-    at |logit| 4-8), with room for that drift through 32 layers."""
+    at different places (attention over pages, split at decode, against
+    attention over the whole sequence; products of other shapes sum in
+    other orders), so near-ties may flip; the margin is a few bf16 ulps of logits of this size (~0.03-0.06
+    at |logit| 4-8), with room for that drift through 32 layers. Returns
+    (exact, total, worst gap)."""
     t0 = time.perf_counter()
     before = FLASH_FWD.launches
     picks = [0, len(prompts) - 1]
@@ -562,7 +702,7 @@ def phase_check(server, config, prompts, outs) -> None:
             exact += int((rows.argmax(dim=-1) == chosen).sum())
             total += len(outs[i])
     launched = FLASH_FWD.launches - before
-    log("check", f"margin {CHECK_MARGIN}: bf16 logits, ragged f32-p vs flash bf16-p "
+    log("check", f"margin {CHECK_MARGIN}: bf16 logits; paged (split at decode) and dense "
         f"attention and other product shapes round differently")
     log("check", f"{len(picks)} requests, {total} generated positions: engine token == dense "
         f"argmax at {exact}, worst gap {worst:.4f}, flash launches {launched} "
@@ -571,6 +711,7 @@ def phase_check(server, config, prompts, outs) -> None:
         raise AssertionError("the dense check never launched the flash kernel")
     if worst > CHECK_MARGIN:
         raise AssertionError(f"engine token scores {worst:.4f} below the dense argmax")
+    return exact, total, worst
 
 
 def _leaf_names(tree, prefix=""):
@@ -690,7 +831,10 @@ def main() -> int:
     results = phase_kernels(timer)
     del timer
     torch.cuda.empty_cache()
-    server, config, prompts, outs = phase_serve()
+    server, config, prompts, outs, ragged_split = phase_serve()
+    if min(ragged_split.values()) == 0:
+        raise AssertionError(f"the serving path never launched the ragged kernels of one kind: "
+                             f"{ragged_split}")
     try:
         phase_check(server, config, prompts, outs)
     finally:
@@ -706,6 +850,8 @@ def main() -> int:
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))
+        if k is RAGGED:
+            kernels[-1]["serve_launches_by_kind"] = ragged_split
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

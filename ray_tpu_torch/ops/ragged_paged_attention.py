@@ -22,7 +22,13 @@ Layout (as in the JAX module):
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises on a
 shape or dtype it does not take); a CPU tensor takes the plain version.
-The tensor-parallel `mesh` path of the JAX module is not ported yet.
+The CUDA kernels scale q themselves as they load it, to exactly the
+dispatcher's `bf16(f32(q) * f32(sm_scale))`, so the serve loop spends no
+elementwise launches on it; the plain version takes q already scaled.
+The bf16 decode path (`max_q_blocks == 1`) splits each lane's kv walk
+over several blocks and combines their partials in a second kernel, in
+an f32 workspace this wrapper allocates (`_split_plan`). The
+tensor-parallel `mesh` path of the JAX module is not ported yet.
 """
 
 from __future__ import annotations
@@ -41,10 +47,23 @@ RAGGED = Kernel(
     "ragged_paged_attention",
     "ragged_paged_attention.cu",
     "ragged_paged_attention_launch",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 11 + [ctypes.c_float] + [ctypes.c_int] * 13 + [ctypes.c_void_p],
 )
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (64, 128)
+_TILE_COLS = 64  # kv positions per tile of the bf16 kernels
+# decode splits: aim at this many blocks per SM. At 178 registers a thread
+# (D 128) an SM holds two blocks of the walk, so 2 is one wave; splitting
+# further (shorter walks in a second wave) measured slower on the H100:
+# 0.0305 ms at 4 against 0.0262 at 2 for chip_smoke.py's decode case
+# (`torch_flash_ab.py ragged --waves`)
+_SPLIT_TARGET_WAVES = 2
+_MIN_TILES_PER_SPLIT = 2
+_MAX_SPLITS = 32  # the combine gives each split one lane of a warp
+# RAGGED's launches by the call's shape, counted beside RAGGED.launches:
+# decode steps (max_q_blocks == 1; bf16: the split walk and the combine)
+# and mixed ticks (max_q_blocks > 1; bf16: the tile kernel)
+LAUNCHES_BY_KIND = {"decode": 0, "mixed": 0}
 
 
 # --------------------------------------------------------------- reference
@@ -133,9 +152,50 @@ def ragged_reference_attention(
 # ------------------------------------------------------------------ kernel
 
 
+def _split_plan(num_seqs: int, num_kv_heads: int, max_pages: int, page_size: int,
+                num_sms: int):
+    """(n_splits, tiles_per_split) of the bf16 decode kernel, from sizes
+    the host knows: each lane's kv walk (at most max_pages pages, in
+    64-position tiles) is cut into runs of tiles_per_split tiles (at least
+    2), enough of them that lanes x kv heads x splits reach about
+    _SPLIT_TARGET_WAVES blocks per SM, and at most _MAX_SPLITS."""
+    tiles = -(-max_pages * page_size // _TILE_COLS)
+    want = max(1, -(-_SPLIT_TARGET_WAVES * num_sms // (num_seqs * num_kv_heads)))
+    want = min(want, _MAX_SPLITS)
+    per_split = max(_MIN_TILES_PER_SPLIT, -(-tiles // want))
+    return max(1, -(-tiles // per_split)), per_split
+
+
+def _workspace_layout(rows: int, head_dim: int):
+    """(floats, acc_offset) of the decode workspace: the (m, l) pair of
+    every partial row, then from acc_offset their head_dim accumulator
+    columns. The pairs are rounded up to whole 16-byte units, so the
+    accumulators start on 16 bytes for the combine's float4 loads (D 128)
+    whatever the row count."""
+    acc_offset = 4 * -(-rows // 2)
+    return acc_offset + rows * head_dim, acc_offset
+
+
+def _decode_workspace(q, num_seqs: int, num_kv_heads: int, max_pages: int, page_size: int,
+                      block_q: int):
+    """The bf16 decode path's split plan and f32 workspace: (workspace,
+    ws_ml and ws_acc addresses, n_splits, tiles_per_split), laid out by
+    `_workspace_layout`. It may be freed once the launch is queued, since
+    the caching allocator hands it out again only to work queued after it
+    on the same stream."""
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_splits, per_split = _split_plan(num_seqs, num_kv_heads, max_pages, page_size, sms)
+    rows = num_seqs * num_kv_heads * n_splits * (q.shape[0] // num_kv_heads) * block_q
+    floats, acc_offset = _workspace_layout(rows, q.shape[-1])
+    workspace = torch.empty(floats, dtype=torch.float32, device=q.device)
+    return (workspace, workspace.data_ptr(), workspace[acc_offset:].data_ptr(), n_splits,
+            per_split)
+
+
 def _ragged_cuda(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
-                 *, block_q: int, max_q_blocks: int):
-    """Launch the CUDA kernel on pre-scaled q; returns (Hq, T, D)."""
+                 *, block_q: int, max_q_blocks: int, sm_scale: float):
+    """Launch the CUDA kernels on UNSCALED q (they scale it by sm_scale as
+    they load it); returns (Hq, T, D)."""
     tensors = (q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables)
     if any(x.device != q.device for x in tensors):
         raise ValueError("ragged kernel: every argument must be on q's CUDA device")
@@ -153,10 +213,11 @@ def _ragged_cuda(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
         )
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"ragged kernel supports head_dim in {_KERNEL_HEAD_DIMS}, got {d}")
-    if (hq // hkv) * block_q > 64 or ps > 128:
+    groups = hq // hkv
+    if groups * block_q > 64 or ps > 128:
         raise ValueError(
             f"ragged kernel takes groups*block_q <= 64 and page_size <= 128, got "
-            f"{hq // hkv}*{block_q} and {ps}"
+            f"{groups}*{block_q} and {ps}"
         )
     descs = (starts, counts, q_lens, kv_lens)
     if any(x.shape != (s_count,) for x in descs):
@@ -164,18 +225,25 @@ def _ragged_cuda(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
     if any(x.dtype != torch.int32 for x in descs + (tables,)):
         raise TypeError("ragged kernel: descriptors and tables must be int32")
     q, k_pages, v_pages = q.contiguous(), k_pages.contiguous(), v_pages.contiguous()
+    if any(x.data_ptr() % 16 for x in (q, k_pages, v_pages)):
+        raise ValueError("ragged kernel: q and the pages must start on 16-byte boundaries")
     starts, counts, q_lens, kv_lens, tables = (
         x.contiguous() for x in (starts, counts, q_lens, kv_lens, tables)
     )
     # rows outside every region stay zero, as in the plain version
     out = torch.zeros_like(q)
+    workspace, ws_ml, ws_acc, n_splits, per_split = None, 0, 0, 0, 0
+    if q.dtype == torch.bfloat16 and max_q_blocks == 1 and s_count:
+        workspace, ws_ml, ws_acc, n_splits, per_split = _decode_workspace(
+            q, s_count, hkv, max_pages, ps, block_q)
     RAGGED.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), starts.data_ptr(),
         counts.data_ptr(), q_lens.data_ptr(), kv_lens.data_ptr(), tables.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], d, t, num_pages, ps, max_pages,
-        block_q, hq // hkv, s_count, hkv, max_q_blocks,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        out.data_ptr(), ws_acc, ws_ml, float(sm_scale), _DTYPE_CODES[q.dtype], d, t,
+        num_pages, ps, max_pages, block_q, groups, s_count, hkv, max_q_blocks,
+        n_splits, per_split, torch.cuda.current_stream(q.device).cuda_stream,
     )
+    LAUNCHES_BY_KIND["decode" if max_q_blocks == 1 else "mixed"] += 1
     return out
 
 
@@ -213,9 +281,11 @@ def ragged_paged_attention(
     if max_q_blocks is None:
         # T is exactly the sum of the regions, so T // block_q bounds any one
         max_q_blocks = t // block_q
+    if q.is_cuda:
+        # the kernels scale q as they load it, to the same bf16(f32(q) * f32(scale))
+        return _ragged_cuda(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
+                            block_q=block_q, max_q_blocks=max_q_blocks, sm_scale=sm_scale)
     # q is scaled and rounded to its own dtype BEFORE the kernel, as on the TPU
     q = (q.float() * sm_scale).to(q.dtype)
-    args = (q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables)
-    if q.is_cuda:
-        return _ragged_cuda(*args, block_q=block_q, max_q_blocks=max_q_blocks)
-    return ragged_reference_attention(*args, block_q=block_q, max_q_blocks=max_q_blocks)
+    return ragged_reference_attention(q, k_pages, v_pages, starts, counts, q_lens, kv_lens,
+                                      tables, block_q=block_q, max_q_blocks=max_q_blocks)

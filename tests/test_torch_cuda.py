@@ -25,6 +25,7 @@ import torch
 from ray_tpu_torch import ops
 from ray_tpu_torch.models import TransformerConfig, init_params
 from ray_tpu_torch.ops.attention import _flash_bwd_cuda, _flash_bwd_plain, _flash_fwd_plain
+from ray_tpu_torch.ops.ragged_paged_attention import _ragged_cuda, _split_plan
 from ray_tpu_torch.serve.llm import PagedConfig, PagedEngineConfig, PagedLLMEngine
 from ray_tpu_torch.train import (
     create_train_state,
@@ -44,26 +45,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ragged_inputs(dtype, d, seed=0, hq=8, hkv=2, ps=64, maxp=8, bq=8):
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    q_lens = [64, 40, 1, 1, 4, 0]
-    kv_lens = [64, 168, 65, 300, 130, 0]
-    counts = [8, 8, 1, 1, 1, 1]
-    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    tables = np.zeros((len(q_lens), maxp), np.int32)
-    nxt = 1
-    for s, kl in enumerate(kv_lens):
-        for j in range(-(-kl // ps)):
-            tables[s, j] = nxt
-            nxt += 1
-    t = sum(counts) * bq
-    q = torch.randn((hq, t, d), generator=gen, device="cuda", dtype=dtype)
-    kp = torch.randn((hkv, nxt + 3, ps, d), generator=gen, device="cuda", dtype=dtype)
-    vp = torch.randn((hkv, nxt + 3, ps, d), generator=gen, device="cuda", dtype=dtype)
-    desc = [torch.tensor(np.asarray(x), dtype=torch.int32, device="cuda")
-            for x in (starts, counts, q_lens, kv_lens, tables)]
-    return q, kp, vp, desc, dict(block_q=bq, max_q_blocks=8)
+def _ragged_inputs(dtype, d, seed=0):
+    """A small mixed batch: two prefill regions, decode lanes, a verify
+    region (q_len 4) and an inactive lane, GQA 8/2."""
+    inputs = _ragged_batch(dtype, d, 4, [64, 40, 1, 1, 4, 0], [64, 168, 65, 300, 130, 0],
+                           [8, 8, 1, 1, 1, 1], seed=seed)
+    return (*inputs, dict(block_q=8, max_q_blocks=8))
 
 
 @pytest.mark.cuda
@@ -79,6 +66,145 @@ def test_ragged_kernel_matches_plain(cuda, dtype, d):
     torch.cuda.synchronize()
     tol = TOLS[dtype]
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _ragged_batch(dtype, d, groups, q_lens, kv_lens, counts, *, ps=64, maxp=8, hkv=2, bq=8,
+                  seed=0):
+    """One ragged call's inputs: q (Hq, T, D), a page pool of each lane's
+    pages (at most maxp) plus spares, the descriptors and the tables (unused
+    entries: scratch page 0), made from a seed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    tables = np.zeros((len(q_lens), maxp), np.int32)
+    nxt = 1
+    for s, kl in enumerate(kv_lens):
+        for j in range(min(maxp, -(-kl // ps))):
+            tables[s, j] = nxt
+            nxt += 1
+    t = sum(counts) * bq
+    q = torch.randn((groups * hkv, t, d), generator=gen, device="cuda", dtype=dtype)
+    kp = torch.randn((hkv, nxt + 3, ps, d), generator=gen, device="cuda", dtype=dtype)
+    vp = torch.randn((hkv, nxt + 3, ps, d), generator=gen, device="cuda", dtype=dtype)
+    desc = [torch.tensor(np.asarray(x), dtype=torch.int32, device="cuda")
+            for x in (starts, counts, q_lens, kv_lens, tables)]
+    return q, kp, vp, desc
+
+
+def _ragged_decode_batch(dtype, d, groups, ps=64, maxp=8, seed=0):
+    """A decode step's batch (max_q_blocks 1, every region one q block):
+    lanes of 1 token at kv_len 1, ending on a page boundary, using all
+    max_pages, with a last split of one partial page (two 64-column tiles
+    a split: kv_len 138 leaves tile 2 with 10 columns), a verify region of
+    q_len 4 whose first row's frontier ends one page before the block's
+    (kv_len 258: rows 0 and 1 sit at 254 and 255, so at page size 64 the
+    last split, tile 4 alone, is all masked for them), a q_len 3 region,
+    an inactive lane. Every region with work has padding rows (q_len <
+    block_q)."""
+    cap = maxp * ps
+    q_lens = [1, 1, 1, 1, 4, 3, 0]
+    kv_lens = [1, 2 * ps, cap, 138, 4 * 64 + 2, 70, 0]
+    return _ragged_batch(dtype, d, groups, q_lens, kv_lens, [1] * 7, ps=ps, maxp=maxp,
+                         seed=seed), dict(block_q=8, max_q_blocks=1)
+
+
+def _ragged_mixed_batch(dtype, d, groups, ps=64, maxp=8, seed=0):
+    """A mixed tick's batch (max_q_blocks 32): a fresh 100-token chunk in a
+    16-block region (several 64-row tiles; padding rows in its last working
+    q block, 12, and three q blocks without work after it) and a 37-token
+    one at offset 128, a full 256-token chunk at offset 64, decode lanes
+    (one on a page boundary), a verify region (q_len 4), an inactive
+    lane."""
+    q_lens = [100, 1, 4, 0, 37, 256, 1]
+    kv_lens = [100, 300, 196, 0, 128 + 37, 320, 2 * ps]
+    counts = [16, 1, 1, 1, 5, 32, 1]
+    return _ragged_batch(dtype, d, groups, q_lens, kv_lens, counts, ps=ps, maxp=maxp,
+                         seed=seed), dict(block_q=8, max_q_blocks=32)
+
+
+_RAGGED_BATCHES = {"decode": _ragged_decode_batch, "mixed": _ragged_mixed_batch}
+
+
+def _check_ragged(batch, kw, dtype):
+    q, kp, vp, desc = batch
+    before = ops.RAGGED.launches
+    out = ops.ragged_paged_attention(q, kp, vp, *desc, **kw)
+    assert ops.RAGGED.launches == before + 1
+    q_scaled = (q.float() / np.sqrt(q.shape[-1])).to(dtype)
+    ref = ops.ragged_reference_attention(q_scaled, kp, vp, *desc, **kw)
+    torch.cuda.synchronize()
+    tol = TOLS[dtype]
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["decode", "mixed"])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ragged_kernels_match_plain(cuda, dtype, d, groups, batch):
+    """The bf16 split decode walk + combine (decode) and tile kernel
+    (mixed), and the f32 FMA kernel, against ragged_reference_attention,
+    padding rows and q blocks without work included: GQA groups 1, 4 and 8
+    (64-row tiles of 8, 2 and 1 q blocks)."""
+    inputs, kw = _RAGGED_BATCHES[batch](dtype, d, groups)
+    _check_ragged(inputs, kw, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["decode", "mixed"])
+@pytest.mark.parametrize("ps", [16, 40, 128])
+def test_ragged_bf16_kernels_other_page_sizes(cuda, ps, batch):
+    """Page sizes that gather several pages into one 64-column tile (16),
+    straddle tiles (40) or fill two tiles (128)."""
+    inputs, kw = _RAGGED_BATCHES[batch](torch.bfloat16, 128, 4, ps=ps, maxp=512 // ps)
+    _check_ragged(inputs, kw, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_ragged_bf16_decode_splits_that_reuse_the_ring(cuda, d):
+    """The serve shape of a decode step (8 lanes x 8 kv heads, GQA 4, 16
+    pages of 64): the split plan gives 4 tiles a split, so a split's walk
+    reuses the first of its three ring stages."""
+    q_lens = [1] * 8
+    kv_lens = [80, 199, 318, 438, 557, 677, 796, 1024]
+    inputs = _ragged_batch(torch.bfloat16, d, 4, q_lens, kv_lens, [1] * 8, maxp=16, hkv=8)
+    _check_ragged(inputs, dict(block_q=8, max_q_blocks=1), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["decode", "mixed"])
+def test_ragged_bf16_kernels_are_deterministic_and_scale_q_as_the_dispatcher(cuda, batch):
+    """Two calls are bitwise equal (each output row has one owner; split
+    partials combine in split order), and the kernels' own scaling of q is
+    bitwise the dispatcher's bf16(f32(q) * f32(sm_scale)): unscaled q with
+    the scale equals q scaled beforehand with scale 1."""
+    (q, kp, vp, desc), kw = _RAGGED_BATCHES[batch](torch.bfloat16, 128, 4, seed=3)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    first = _ragged_cuda(q, kp, vp, *desc, sm_scale=scale, **kw)
+    second = _ragged_cuda(q, kp, vp, *desc, sm_scale=scale, **kw)
+    prescaled = _ragged_cuda((q.float() * scale).to(q.dtype), kp, vp, *desc, sm_scale=1.0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, prescaled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 3])
+def test_ragged_bf16_decode_with_an_odd_count_of_partial_rows(cuda, groups):
+    """block_q 1, 3 lanes, 1 kv head and 5 tiles a walk: 3 splits, so the
+    workspace holds an odd number of partial rows (3 x 3 x groups) and
+    its accumulators must still start on 16 bytes for the combine's
+    float4 loads at D 128."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_splits, _ = _split_plan(3, 1, 5, 64, sms)
+    assert (3 * n_splits * groups) % 2 == 1
+    inputs = _ragged_batch(torch.bfloat16, 128, groups, [1, 1, 1], [300, 5 * 64, 1], [1] * 3,
+                           maxp=5, hkv=1, bq=1)
+    _check_ragged(inputs, dict(block_q=1, max_q_blocks=1), torch.bfloat16)
 
 
 # (B, Hq, Hkv, Sq, Skv, D). The bf16 kernel's tiles are 64 rows: S 37 is

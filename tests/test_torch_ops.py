@@ -383,6 +383,45 @@ def test_library_name_follows_included_headers(tmp_path):
     (tmp_path / "inner.cuh").write_text("// inner, edited\n")
     after = {n: _build._lib_path(tmp_path / n).name for n in ("a.cu", "b.cu")}
     assert after["a.cu"] != before["a.cu"] and after["b.cu"] == before["b.cu"]
-    # both flash sources include the shared Hopper header of csrc/
-    for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu"):
+    # the flash and ragged sources include the shared Hopper header of csrc/
+    for name in ("flash_attention_fwd.cu", "flash_attention_bwd.cu", "ragged_paged_attention.cu"):
         assert _build.CSRC / "hopper_tiles.cuh" in _build._source_files(_build.CSRC / name)
+
+
+def test_ragged_split_plan_fills_the_card_from_host_sizes(monkeypatch):
+    """The bf16 decode kernel's split of each lane's kv walk (in 64-position
+    tiles) comes from host-known sizes only: the serve run's decode step (8
+    lanes x 8 kv heads, 16 pages of 64) gets 4 splits of 4 tiles, 256
+    blocks for 132 SMs of two blocks each (8 of 2 when aiming at four);
+    lanes enough to fill the card alone keep one split; a run never falls
+    below 2 tiles, and every tile belongs to a split."""
+    from ray_tpu_torch.ops.ragged_paged_attention import _split_plan
+
+    rpa = sys.modules["ray_tpu_torch.ops.ragged_paged_attention"]  # the package's name is the function's
+
+    assert _split_plan(8, 8, 16, 64, 132) == (4, 4)
+    monkeypatch.setattr(rpa, "_SPLIT_TARGET_WAVES", 4)
+    assert _split_plan(8, 8, 16, 64, 132) == (8, 2)
+    monkeypatch.undo()
+    assert _split_plan(256, 8, 16, 64, 132) == (1, 16)
+    assert _split_plan(1, 1, 3, 16, 132) == (1, 2)
+    assert _split_plan(8, 8, 0, 64, 132) == (1, 2)
+    for lanes, heads, pages, ps in ((8, 8, 16, 64), (3, 2, 100, 40), (1, 8, 512, 128)):
+        n, per = _split_plan(lanes, heads, pages, ps, 132)
+        tiles = -(-pages * ps // 64)
+        assert per >= 2 and (n - 1) * per < tiles <= n * per
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 9, 27, 256])
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_ragged_decode_workspace_aligns_the_accumulators(rows, head_dim):
+    """The decode workspace holds every partial row's (m, l) pair, then
+    their accumulators: these start on 16 bytes (the combine's float4 loads
+    at D 128) for any row count, odd ones included, after all the pairs and
+    before the end."""
+    from ray_tpu_torch.ops.ragged_paged_attention import _workspace_layout
+
+    floats, acc_offset = _workspace_layout(rows, head_dim)
+    assert (acc_offset * 4) % 16 == 0
+    assert 2 * rows <= acc_offset < 2 * rows + 4
+    assert floats == acc_offset + rows * head_dim

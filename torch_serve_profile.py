@@ -8,7 +8,9 @@ weights from seed 0, prompts of 64-900 tokens, 32 new tokens each) under
 torch.profiler and prints: the wall time of the run, the device's busy time
 (the sum of the times of the kernels and copies that ran on the card; host
 ops, whose device time would count their kernels again, are left out) and
-its idle share, and the device time by kernel. The profiler adds host
+its idle share, the ragged kernels' device time and share (the split
+decode walk, its combine and the tile kernel summed, each also listed),
+and the device time by kernel. The profiler adds host
 time per operation, so the idle share read here is an upper bound of the
 unprofiled run's. Needs one CUDA device.
 """
@@ -65,12 +67,18 @@ def main() -> int:
     busy_us = sum(_device_us(e) for e in events)
     print(f"wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} s, "
           f"idle share {1 - busy_us / 1e6 / wall:.4f} (profiled run)")
+    ragged = [e for e in events if "ragged" in e.key]
+    ragged_us = sum(_device_us(e) for e in ragged)
+    print(f"ragged kernels {ragged_us / 1e3:.3f} ms, share {ragged_us / busy_us:.4f}: "
+          + ", ".join(f"{e.key[:60]} {_device_us(e) / 1e3:.3f} ms x{e.count}" for e in ragged))
     rows = sorted(events, key=_device_us, reverse=True)[:15]
     table = [{"name": e.key[:90], "device_ms": _device_us(e) / 1e3, "calls": e.count,
               "share": _device_us(e) / busy_us} for e in rows]
     for row in table:
         print(f"  {row['device_ms']:10.3f} ms  {row['share']:.4f}  x{row['calls']:<6d} {row['name']}")
-    print(json.dumps({"wall_s": wall, "device_busy_s": busy_us / 1e6, "top": table}))
+    print(json.dumps({"wall_s": wall, "device_busy_s": busy_us / 1e6,
+                      "ragged_ms": ragged_us / 1e3, "ragged_share": ragged_us / busy_us,
+                      "top": table}))
     return 0
 
 
