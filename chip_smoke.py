@@ -31,10 +31,21 @@ nonzero and no result line is printed):
              and on the model's transposed views, which it copies; the
              backward's with delta = rowsum(dO * O)).
 4. serve   — LLMServer("llama3-8b") at full width and depth on the card,
-             random bf16 weights from a seeded torch.Generator, 8 greedy
-             requests with prompts of 64-900 tokens, 32 new tokens each;
-             the ragged launches are counted by kind (decode steps, mixed
-             ticks) where they launch, and each kind must occur.
+             random bf16 weights from a seeded torch.Generator, the
+             engine's passes captured as CUDA graphs up front (precompile:
+             capture time, graph count, memory after capture); 8 greedy
+             requests with prompts of 64-900 tokens, 32 new tokens each,
+             unprofiled (wall, TTFT, decode rate). A replay passes through
+             no kernel wrapper: the engine counts each pass's replays times
+             the launches its capture recorded, by kind (decode steps, mixed
+             ticks), each kind must occur and no ragged launch may pass
+             through the wrapper. A profiled repeat of the 8 requests must
+             show torch.profiler's ragged device kernels equal to the
+             engine's count for it (the profiler may drop records of graph
+             kernels, never add any: up to 3 repeats, each printed, the
+             first that equals passes); one request at temperature 1, top-k 50
+             (the filtered decode graph) must stay in the vocabulary and
+             differ from its greedy twin.
 5. check   — the dense forward (flash kernel) over prompt + generated tokens
              of 2 requests: every engine token must score within a stated
              margin of the dense argmax.
@@ -109,6 +120,7 @@ MODEL = "llama3-8b"
 N_REQUESTS = 8
 MAX_TOKENS = 32
 CHECK_MARGIN = 0.25
+PROFILED_REPEATS = 3  # serve: profiled repeats to find one without dropped records
 TRAIN_MODEL = "gpt2-small"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_STEPS = 20
@@ -440,11 +452,14 @@ def _device_kernels(fn) -> list:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
                if getattr(e, "device_type", None) == DeviceType.CUDA and "ragged" in e.name]
-    names = []
-    for e in sorted(kernels, key=lambda e: e.time_range.start):  # mangled or demangled
-        plain = re.search(r"ragged_[a-z_]+<[^>]*>", e.name)
-        names.append(plain.group(0).replace(" ", "") if plain else _kernel_name(e.name))
-    return names
+    return [_ragged_name(e.name) for e in sorted(kernels, key=lambda e: e.time_range.start)]
+
+
+def _ragged_name(name: str) -> str:
+    """`ragged_wgmma<128,true>` from a profiler event's kernel name,
+    demangled or mangled."""
+    plain = re.search(r"ragged_[a-z_]+<[^>]*>", name)
+    return plain.group(0).replace(" ", "") if plain else _kernel_name(name)
 
 
 def _sdpa(q, k, v, causal):
@@ -616,31 +631,13 @@ def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
     }
 
 
-def phase_serve():
-    t0 = time.perf_counter()
-    config = get_config(MODEL).replace(param_dtype=torch.bfloat16)
-    server = LLMServer(
-        config, engine_config=PagedEngineConfig(max_slots=N_REQUESTS, paged=PagedConfig()),
-        seed=SEED, device="cuda",
-    )
-    torch.cuda.synchronize()
-    log("serve", f"{MODEL}: {config.n_layers} layers d_model {config.d_model} "
-        f"heads {config.n_heads}/{config.kv_heads} vocab {config.vocab_size}, bf16 "
-        f"weights from seed {SEED} ({time.perf_counter() - t0:.2f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated)")
-    rng = np.random.default_rng(SEED)
-    # one short request first: cuBLAS handles and allocator warm-up
-    server.generate({"prompt_tokens": [1] * 64, "max_tokens": 2})
-    lengths = np.linspace(64, 900, N_REQUESTS).astype(int)
-    prompts = [rng.integers(0, config.vocab_size, n).tolist() for n in lengths]
-    stats0 = server.engine.stats()
-    for kernel in KERNELS:
-        kernel.launches = 0
-    for kind in LAUNCHES_BY_KIND:
-        LAUNCHES_BY_KIND[kind] = 0
+def _serve_run(engine, prompts):
+    """Submit every greedy request at once and consume each stream on a
+    thread of its own; returns (wall seconds, start time, [(time, token),
+    ...] per request)."""
     stamps = [[] for _ in prompts]
     t_start = time.perf_counter()
-    streams = [server.engine.submit(p, max_tokens=MAX_TOKENS) for p in prompts]
+    streams = [engine.submit(p, max_tokens=MAX_TOKENS) for p in prompts]
 
     def consume(i):
         for token in streams[i]:
@@ -653,26 +650,131 @@ def phase_serve():
         th.join(timeout=600)
         if th.is_alive():
             raise RuntimeError("a request did not finish within 600 s")
-    wall = time.perf_counter() - t_start
+    return time.perf_counter() - t_start, t_start, stamps
+
+
+def _stats_delta(engine, before: dict) -> dict:
+    return {k: v - before.get(k, 0.0) for k, v in engine.stats().items()}
+
+
+def _profiled_ragged_kernels(engine, prompts) -> tuple:
+    """The ragged device kernels of one more run of the same requests, by
+    name, read from torch.profiler, and the engine's own count for that
+    run (replays x captured launches, from `engine.stats()`)."""
+    before = engine.stats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _serve_run(engine, prompts)
+        torch.cuda.synchronize()
+    counted = _stats_delta(engine, before)
+    seen: dict = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA or "ragged" not in e.key:
+            continue
+        name = _ragged_name(e.key)
+        seen[name] = seen.get(name, 0) + e.count
+    return seen, counted
+
+
+def phase_serve():
+    """Llama-3-8B served through the pipelined engine with every pass
+    captured as a CUDA graph up front (precompile). The 8 greedy requests
+    run unprofiled (wall, TTFT, decode rate; the main path's launches,
+    counted by the engine as replays x the launches each capture
+    recorded), then again under torch.profiler, whose ragged device
+    kernels must equal the engine's count for that run; then one request
+    at temperature 1 with top-k 50 (the filtered decode graph) must stay
+    in the vocabulary and differ from its greedy twin."""
+    t0 = time.perf_counter()
+    config = get_config(MODEL).replace(param_dtype=torch.bfloat16)
+    server = LLMServer(
+        config, engine_config=PagedEngineConfig(max_slots=N_REQUESTS, precompile=True,
+                                                paged=PagedConfig()),
+        seed=SEED, device="cuda",
+    )
+    engine = server.engine
+    torch.cuda.synchronize()
+    log("serve", f"{MODEL}: {config.n_layers} layers d_model {config.d_model} "
+        f"heads {config.n_heads}/{config.kv_heads} vocab {config.vocab_size}, bf16 "
+        f"weights from seed {SEED} ({time.perf_counter() - t0:.2f} s)")
+    passes = engine.passes()
+    log("serve", f"precompile: {len(passes)} CUDA graphs captured in {engine.capture_s:.3f} s ("
+        + ", ".join(f"{p.name} {p.capture_s:.3f} s" for p in passes)
+        + f"); after capture {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    log("serve", "launches each capture recorded: "
+        + "; ".join(f"{p.name} {p.captured}" for p in passes))
+    if not all(p.is_captured for p in passes):
+        raise AssertionError("precompile left a pass without its graph")
+    rng = np.random.default_rng(SEED)
+    # one short request first: the eager sampling and the pinned host allocator
+    server.generate({"prompt_tokens": [1] * 64, "max_tokens": 2})
+    lengths = np.linspace(64, 900, N_REQUESTS).astype(int)
+    prompts = [rng.integers(0, config.vocab_size, n).tolist() for n in lengths]
+    stats0, drains0 = engine.stats(), len(engine.drain_log)
+    for kernel in KERNELS:
+        kernel.launches = 0
+    for kind in LAUNCHES_BY_KIND:
+        LAUNCHES_BY_KIND[kind] = 0
+    wall, t_start, stamps = _serve_run(engine, prompts)
+    stats = _stats_delta(engine, stats0)
+    wrappers = {k.name: k.launches for k in KERNELS}
     outs = [[tok for _, tok in st] for st in stamps]
     for out in outs:
         if len(out) != MAX_TOKENS or not all(0 <= t < config.vocab_size for t in out):
             raise AssertionError(f"bad completion: {len(out)} tokens")
+    # the main path's launches: through a wrapper (none: every pass replays
+    # a graph) plus the graphs' replays x captured
+    serve_counts = {name: n + int(stats.get(f"launches.{name}", 0)) for name, n in wrappers.items()}
+    split = {kind: int(stats.get(f"launches.ragged.{kind}", 0)) for kind in LAUNCHES_BY_KIND}
     ttft = [st[0][0] - t_start for st in stamps]
     first_all = min(st[0][0] for st in stamps)
     last_all = max(st[-1][0] for st in stamps)
     decode_tokens = sum(len(st) - 1 for st in stamps)
-    stats = {k: v - stats0[k] for k, v in server.engine.stats().items()}
-    split = dict(LAUNCHES_BY_KIND)  # counted where each call launches
+    runs = {p.name: int(stats[f"passes.{p.name}"]) for p in passes}
     log("serve", f"{N_REQUESTS} requests, prompts {lengths.min()}-{lengths.max()} tokens, "
         f"{MAX_TOKENS} new each: wall {wall:.3f} s, TTFT p50 {statistics.median(ttft):.3f} s "
         f"max {max(ttft):.3f} s, decode {decode_tokens / (last_all - first_all):.1f} tok/s "
         f"(tokens after each request's first, over first-token-to-last-token), "
         f"output {N_REQUESTS * MAX_TOKENS / wall:.1f} tok/s over the wall, mixed ticks "
-        f"{stats['mixed_ticks']:.0f}, decode blocks {stats['decode_blocks']:.0f}, "
-        f"ragged launches {RAGGED.launches} (mixed ticks {split['mixed']}, decode steps "
-        f"{split['decode']})")
-    return server, config, prompts, outs, split
+        f"{stats['mixed_ticks']:.0f}, decode blocks {stats['decode_blocks']:.0f}; graph replays "
+        f"{runs}; ragged launches {serve_counts[RAGGED.name]} (mixed ticks {split['mixed']}, "
+        f"decode steps {split['decode']}; through the wrapper {wrappers[RAGGED.name]})")
+    drains = engine.drain_log[drains0:]
+    log("serve", f"drain thread: {len(drains)} reads of {sum(n for n, _ in drains)} entries, "
+        f"{sum(t for _, t in drains):.3f} s waiting on the card")
+    if wrappers[RAGGED.name]:
+        raise AssertionError("a serve pass launched the ragged kernels outside its graph")
+    # The profiler can miss kernel records of a replayed graph (one repeat
+    # of the H100 runs saw 966 of 1024 decode walks and combines) but never
+    # sees more than ran: up to PROFILED_REPEATS repeats, each printed, and
+    # the first whose counts equal the engine's ends the check.
+    for attempt in range(1, PROFILED_REPEATS + 1):
+        seen, counted = _profiled_ragged_kernels(engine, prompts)
+        want = {
+            "ragged_wgmma<128,true>": int(counted.get("launches.ragged.decode", 0)),
+            "ragged_combine<128>": int(counted.get("launches.ragged.decode", 0)),
+            "ragged_wgmma<128,false>": int(counted.get("launches.ragged.mixed", 0)),
+        }
+        log("serve", f"profiled repeat {attempt}: ragged device kernels from torch.profiler "
+            f"{seen}; the engine's count (replays x captured) {want}")
+        if set(seen) - set(want) or any(seen.get(k, 0) > n for k, n in want.items()):
+            raise AssertionError(f"the profiler saw ragged kernels the engine did not count: {seen}")
+        if {k: seen.get(k, 0) for k in want} == want:
+            break
+    else:
+        raise AssertionError(f"profiled ragged kernels {seen} differ from the engine's count {want} "
+                             f"in {PROFILED_REPEATS} repeats")
+    filtered_before = engine.stats()["passes.decode.filtered"]
+    hot = engine.generate(prompts[0], MAX_TOKENS, 1.0, top_k=50)
+    differs = sum(a != b for a, b in zip(hot, outs[0]))
+    log("serve", f"temperature 1, top-k 50: {len(hot)} tokens, {differs} differ from the greedy "
+        f"twin's; filtered decode replays {engine.stats()['passes.decode.filtered'] - filtered_before:.0f}")
+    if len(hot) != MAX_TOKENS or not all(0 <= t < config.vocab_size for t in hot) or not differs:
+        raise AssertionError("temperature sampling left the vocabulary or repeated the greedy tokens")
+    if engine.stats()["passes.decode.filtered"] == filtered_before:
+        raise AssertionError("the top-k request never replayed the filtered decode graph")
+    return server, config, prompts, outs, split, serve_counts, seen
 
 
 def phase_check(server, config, prompts, outs) -> tuple:
@@ -831,15 +933,17 @@ def main() -> int:
     results = phase_kernels(timer)
     del timer
     torch.cuda.empty_cache()
-    server, config, prompts, outs, ragged_split = phase_serve()
+    server, config, prompts, outs, ragged_split, serve_launches, profiled = phase_serve()
     if min(ragged_split.values()) == 0:
         raise AssertionError(f"the serving path never launched the ragged kernels of one kind: "
                              f"{ragged_split}")
+    before = {k.name: k.launches for k in KERNELS}
     try:
         phase_check(server, config, prompts, outs)
     finally:
         server.shutdown()
-    serve_launches = {k.name: k.launches for k in KERNELS}
+    for k in KERNELS:
+        serve_launches[k.name] += k.launches - before[k.name]
     del server
     gc.collect()
     torch.cuda.empty_cache()
@@ -852,6 +956,7 @@ def main() -> int:
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))
         if k is RAGGED:
             kernels[-1]["serve_launches_by_kind"] = ragged_split
+            kernels[-1]["serve_device_kernels_profiled_repeat"] = profiled
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -271,13 +271,29 @@ def flash_attention_with_lse(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    block_q: Optional[int] = None,
+    block_kv: Optional[int] = None,
+    implementation: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention that also returns the per-row logsumexp of the
     scaled scores, shape (B, Hq, Sq, 1) float32 (natural log). Forward
-    only, as in JAX."""
+    only, as in JAX.
+
+    Takes JAX's keywords. `implementation` None, "pallas" and
+    "pallas_pipelined" run the forward kernel on CUDA tensors and its plain
+    version on CPU tensors; "xla" runs the plain version on either.
+    `block_q` / `block_kv` are hints the port accepts and does not need:
+    the card's kernel tiles are fixed at 64 rows."""
+    del block_q, block_kv  # the kernel's tiles are fixed at 64 rows
     _no_grad_check(q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if implementation == "xla":
+        if causal and q.shape[2] != k.shape[2]:
+            raise NotImplementedError("causal requires Sq == Skv")
+        return _flash_fwd_plain(q, k, v, causal, sm_scale)
+    if implementation not in _KERNEL_IMPLS:
+        raise ValueError(f"unknown attention implementation: {implementation!r}")
     return _flash_fwd(q, k, v, causal, sm_scale)
 
 
@@ -288,6 +304,8 @@ def flash_attention(
     *,
     causal: bool = False,
     sm_scale: Optional[float] = None,
+    block_q: Optional[int] = None,
+    block_kv: Optional[int] = None,
     implementation: Optional[str] = None,
 ) -> torch.Tensor:
     """Blockwise flash attention with a gradient. q (B,Hq,Sq,D);
@@ -296,7 +314,10 @@ def flash_attention(
     implementation takes JAX's values: None, "pallas" and
     "pallas_pipelined" run the flash kernels (forward and both backward
     kernels) on CUDA tensors and their plain versions on CPU tensors;
-    "xla" runs `mha_reference` under torch autograd."""
+    "xla" runs `mha_reference` under torch autograd. `block_q` /
+    `block_kv` are JAX's tile sizes, accepted as hints: the card's kernel
+    tiles are fixed at 64 rows."""
+    del block_q, block_kv  # the kernels' tiles are fixed at 64 rows
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if implementation == "xla":

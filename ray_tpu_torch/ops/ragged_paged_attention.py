@@ -141,12 +141,15 @@ def ragged_reference_attention(
     out_blocks = (acc / safe_l).to(q.dtype)  # (Hq, S, MAXQB, bq, D)
 
     # scatter region blocks back to token-major rows; blocks beyond a region
-    # (qb >= counts) alias its last block and must not write
+    # (qb >= counts) alias its last block and must not write: they go to a
+    # dump block past the end (no boolean indexing, which would make the
+    # host wait on the device and cannot be captured in a CUDA graph)
+    n_blocks = t // block_q
     valid = (qb_idx < counts[:, None]).reshape(-1)
-    flat_blk = blk.reshape(-1)[valid]
-    out = torch.zeros((hq, t // block_q, block_q, d), dtype=q.dtype, device=dev)
-    out[:, flat_blk] = out_blocks.reshape(hq, -1, block_q, d)[:, valid]
-    return out.reshape(hq, t, d)
+    dest = torch.where(valid, blk.reshape(-1), n_blocks)
+    out = torch.zeros((hq, n_blocks + 1, block_q, d), dtype=q.dtype, device=dev)
+    out[:, dest] = out_blocks.reshape(hq, -1, block_q, d)
+    return out[:, :n_blocks].reshape(hq, t, d)
 
 
 # ------------------------------------------------------------------ kernel

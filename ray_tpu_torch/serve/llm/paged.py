@@ -15,10 +15,13 @@ are not ported yet):
 Page 0 is reserved as a scratch page: idle lanes and pad rows write there
 and block-table rows default to it.
 
-The device passes run eagerly, one PyTorch call at a time. Where the JAX
-passes thread the pool through chains of dynamic_update_slice (so XLA can
-alias the donated buffer), these write the pool IN PLACE with indexed
-assignment and return the same dict.
+The device passes are plain PyTorch; the engine runs each as a CUDA graph
+on the card (`graphs.py`) and eagerly on the CPU. Where the JAX passes
+thread the pool through chains of dynamic_update_slice (so XLA can alias
+the donated buffer), these write the pool IN PLACE with indexed
+assignment and return the same dict. `rope_tables` takes the (cos, sin)
+tables an engine computes once (JAX's jit folds them into constants);
+without it a pass computes them itself.
 """
 
 from __future__ import annotations
@@ -173,6 +176,7 @@ def batched_chunk_prefill_step(
     config: TransformerConfig,
     *,
     page_size: int,
+    rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Ingest one prompt chunk for up to B slots in one pass, attending
     through a dense gather of each lane's pages (plain PyTorch, as the JAX
@@ -191,7 +195,7 @@ def batched_chunk_prefill_step(
     if c.pos_emb == "learned":
         x = x + params["wpe"][table_pos].to(dt)
         rope_tables = None
-    else:
+    elif rope_tables is None:
         rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=dev)
     flat_ids = chunk_page_ids.reshape(-1).long()  # (B*cp,) — scratch dups are fine
 
@@ -260,6 +264,7 @@ def ragged_mixed_step(
     *,
     page_size: int,
     block_q: int = 8,
+    rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """ONE pass for a mixed tick: P prefill chunks AND B decode lanes run
     through a single token-major transformer pass whose attention is one
@@ -308,7 +313,7 @@ def ragged_mixed_step(
     if c.pos_emb == "learned":
         x = x + params["wpe"][rope_pos].to(dt)
         rope_tables = None
-    else:
+    elif rope_tables is None:
         rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=dev)
 
     # ---- ragged descriptor (static regions, dynamic lengths) -------------
@@ -404,6 +409,7 @@ def paged_decode_step(
     config: TransformerConfig,
     *,
     page_size: int,
+    rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One continuous-batching decode step over the paged pool; returns
     (logits (B, V), the pool updated in place)."""
@@ -419,7 +425,7 @@ def paged_decode_step(
     if c.pos_emb == "learned":
         x = x + params["wpe"][table_pos].to(dt)[:, None, :]
         rope_tables = None
-    else:
+    elif rope_tables is None:
         rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=dev)
     lengths = (positions + 1).to(torch.int32)
     tables_l = block_tables.long()

@@ -7,9 +7,14 @@ skips elsewhere. Run on the card with
 This file imports no JAX (`--noconftest` skips tests/conftest.py, which
 does), so it runs where only PyTorch is installed.
 
-Tolerances: bf16 atol = rtol = 2e-2 (both sides compute in f32 from the
-same bf16 inputs; a different summation order can move the final bf16
-rounding by one ulp), f32 atol = rtol = 1e-4 (f32 sums in another order).
+Tolerances: bf16 atol = rtol = 2e-2. The bf16 ragged kernels round p to
+bf16 before P.V while `ragged_reference_attention` keeps p in f32: a
+relative error of up to 2^-9 in each weight, which with f32 sums in
+another order moves an output by up to about one bf16 ulp. The flash
+plain versions round p where the kernels do, so there only the order of
+the f32 sums (and exp2) differs, which can move the final bf16 rounding by
+one ulp. f32 atol = rtol = 1e-4 (f32 sums in another order). The engine's
+graphs are held bitwise against the same passes run eagerly on the card.
 The train step on the card against the CPU step, f32 with TF32 off:
 gradients, losses and grad norms at atol = rtol = 1e-4; parameters after
 three steps at atol 1e-3, a tenth of the learning rate, because Adam
@@ -421,3 +426,184 @@ def test_engine_on_card_matches_plain_engine_greedy(cuda):
         finally:
             engine.shutdown()
     assert outs["cuda"] == outs["cpu"]
+
+
+# ------------------------------------------------------------ engine graphs
+
+_GRAPH_MODEL = TransformerConfig(  # head_dim 128, GQA 4/1 as Llama-3's groups
+    vocab_size=512, d_model=512, n_layers=2, n_heads=4, n_kv_heads=1, d_ff=1024,
+    max_seq=256, pos_emb="rope", norm="rmsnorm", act="swiglu", use_bias=False,
+    tie_embeddings=False, dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+)
+_GRAPH_PAGED = PagedConfig(page_size=16, num_pages=64, max_pages_per_slot=8, chunk_pages=2)
+
+
+def _graph_engine(**engine_kw):
+    params = init_params(_GRAPH_MODEL, 0, device="cuda")
+    config = PagedEngineConfig(max_slots=4, decode_block_steps=4, paged=_GRAPH_PAGED,
+                               **engine_kw)
+    engine = PagedLLMEngine(_GRAPH_MODEL, params, config, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for pool in engine.cache.values():  # earlier chunks' KV for the passes to read
+        pool.copy_(torch.randn(pool.shape, generator=gen, device="cuda"))
+    engine._tokens_dev.copy_(torch.randint(1, 512, (4,), generator=gen, device="cuda"))
+    return engine
+
+
+def _mixed_pass_inputs(engine, b, rng):
+    """b prefill lanes (even lanes a fresh chunk, odd lanes one at the
+    second chunk, each shorter than the last) and max_slots decode lanes,
+    the last inactive; every lane on pages of its own."""
+    pc, ms = engine.paged, engine.config.max_slots
+    ps, cp, maxp, ct = pc.page_size, pc.chunk_pages, pc.max_pages_per_slot, pc.chunk_tokens
+    pages = iter(range(1, pc.num_pages))
+    page_rows = np.zeros((b + ms, maxp), np.int32)
+    chunk_ids = np.zeros((b, cp), np.int64)
+    tokens = np.zeros((b, ct), np.int64)
+    offsets, totals = np.zeros((b,), np.int64), np.zeros((b,), np.int64)
+    for lane in range(b):
+        offset, n_real = ct * (lane % 2), ct - 3 * lane
+        own = [next(pages) for _ in range((offset + ct) // ps)]
+        page_rows[lane, :len(own)] = own
+        chunk_ids[lane] = own[offset // ps: offset // ps + cp]
+        tokens[lane, :n_real] = rng.integers(1, 512, n_real)
+        offsets[lane], totals[lane] = offset, offset + n_real
+    dec_positions, dec_active = np.zeros((ms,), np.int64), np.zeros((ms,), np.int64)
+    for i in range(ms - 1):
+        own = [next(pages) for _ in range((5 + 9 * i) // ps + 1)]
+        page_rows[b + i, :len(own)] = own
+        dec_positions[i], dec_active[i] = 5 + 9 * i, 1
+    return dict(page_rows=page_rows, chunk_ids=chunk_ids, tokens=tokens, offsets=offsets,
+                totals=totals, dec_positions=dec_positions, dec_active=dec_active)
+
+
+def _decode_pass_inputs(engine, variant, temp):
+    """max_slots lanes at positions 9, 30, 51, ..., the last not dispatched
+    (its token must stay); `filtered` adds top-k / top-p per lane."""
+    pc, ms = engine.paged, engine.config.max_slots
+    tables = np.zeros((ms, pc.max_pages_per_slot), np.int32)
+    positions = np.zeros((ms,), np.int64)
+    for i in range(ms):
+        positions[i] = 9 + 21 * i
+        n = (positions[i] + engine.config.decode_block_steps - 1) // pc.page_size + 1
+        tables[i, :n] = np.arange(1, n + 1) + 8 * i
+    mask = np.arange(ms) < ms - 1
+    inputs = dict(block_tables=tables, positions=positions, mask=mask,
+                  temps=np.full((ms,), temp, np.float32))
+    if variant == "filtered":
+        inputs.update(top_ks=np.array([0, 5, 1, 50][:ms], np.int64),
+                      top_ps=np.array([0.9, 1.0, 1.0, 0.5][:ms], np.float32))
+    return inputs
+
+
+def _engine_state(engine):
+    return [engine.cache["k"].clone(), engine.cache["v"].clone(), engine._tokens_dev.clone()]
+
+
+def _restore(engine, state):
+    for dst, src in zip((engine.cache["k"], engine.cache["v"], engine._tokens_dev), state):
+        dst.copy_(src)
+
+
+def _as_list(out):
+    return [t.clone() for t in (out if isinstance(out, tuple) else (out,))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mixed.1", "mixed.2", "mixed.4", "decode.plain",
+                                  "decode.filtered"])
+def test_engine_graph_replay_matches_eager_pass(cuda, name):
+    """Each pass replayed from its CUDA graph against the same pass run
+    eagerly on the card, on the same inputs and the same pool: bitwise
+    equal logits (mixed) or tokens (decode, greedy), pool and token vector.
+    The graph is captured first: its warm-up writes the scratch page, which
+    the passes then write alike. Its capture recorded one ragged launch per
+    layer (mixed) or per layer and step (decode)."""
+    engine = _graph_engine()
+    try:
+        kind, _, which = name.partition(".")
+        if kind == "mixed":
+            p = engine._mixed[int(which)]
+            inputs = _mixed_pass_inputs(engine, int(which), np.random.default_rng(0))
+        else:
+            p = engine._decode[which]
+            inputs = _decode_pass_inputs(engine, which, temp=0.0)
+        p.capture()
+        before = _engine_state(engine)
+        eager = _as_list(p.run_eager(**inputs))
+        after_eager = _engine_state(engine)
+        _restore(engine, before)
+        graphed = _as_list(p(**inputs))
+        after_graph = _engine_state(engine)
+        torch.cuda.synchronize()
+        assert p.is_captured and p.runs == 1
+        names = [f"output {i}" for i in range(len(eager))] + ["pool k", "pool v", "tokens"]
+        for label, e, g in zip(names, eager + after_eager, graphed + after_graph):
+            where = (e != g).nonzero()[:4].tolist()
+            assert torch.equal(e, g), f"{label} differs at {where}"
+        assert not torch.equal(after_graph[0], before[0])  # the pass wrote the pool
+        layers = _GRAPH_MODEL.n_layers
+        want = layers if kind == "mixed" else layers * engine.config.decode_block_steps
+        assert p.captured[f"ragged.{kind}"] == want and p.captured["ragged_paged_attention"] == want
+        if kind == "decode":
+            assert torch.equal(after_graph[2][-1], before[2][-1])  # the lane left out keeps its token
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["plain", "filtered"])
+def test_engine_decode_graph_draws_new_numbers_each_replay(cuda, variant):
+    """Two replays of a decode graph at temperature 1 from equal inputs and
+    an equal pool draw different tokens: the sampler's generator is
+    registered with the graph and advances across replays."""
+    engine = _graph_engine()
+    try:
+        p = engine._decode[variant]
+        inputs = _decode_pass_inputs(engine, variant, temp=1.0)
+        state = _engine_state(engine)
+        first = p(**inputs).clone()
+        _restore(engine, state)
+        second = p(**inputs).clone()
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0])  # the input row
+        assert not torch.equal(first[1:, :-1], second[1:, :-1])
+        assert bool(((first >= 0) & (first < _GRAPH_MODEL.vocab_size)).all())
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_inflight_blocks", [1, 8])
+def test_engine_graphs_give_the_eager_passes_greedy_tokens(cuda, monkeypatch, max_inflight_blocks):
+    """The engine with every pass captured up front (precompile) gives the
+    greedy tokens of the same engine whose passes run eagerly on the card;
+    its launch accounting is replays x captured, and no pass ran through a
+    kernel wrapper after the capture."""
+    from ray_tpu_torch.serve.llm.graphs import DevicePass
+
+    prompts = [list(range(1, 40)), [7, 8, 9], list(range(100, 170)), [5] * 20, [11, 12]]
+    engine = _graph_engine(precompile=True, max_inflight_blocks=max_inflight_blocks)
+    try:
+        assert all(p.is_captured for p in engine.passes()) and engine.capture_s > 0
+        wrapper = ops.RAGGED.launches
+        streams = [engine.submit(p, max_tokens=9) for p in prompts]
+        graphed = [s.result(timeout=120) for s in streams]
+        stats = engine.stats()
+        assert ops.RAGGED.launches == wrapper
+    finally:
+        engine.shutdown()
+    mixed = sum(stats[f"passes.mixed.{b}"] for b in (1, 2, 4))
+    decode = stats["passes.decode.plain"] + stats["passes.decode.filtered"]
+    assert stats["launches.ragged.mixed"] == mixed * _GRAPH_MODEL.n_layers
+    assert stats["launches.ragged.decode"] == decode * _GRAPH_MODEL.n_layers * 4
+    monkeypatch.setattr(DevicePass, "__call__", DevicePass.run_eager)
+    engine = _graph_engine(max_inflight_blocks=max_inflight_blocks)
+    try:
+        streams = [engine.submit(p, max_tokens=9) for p in prompts]
+        eager = [s.result(timeout=120) for s in streams]
+        assert not any(p.is_captured for p in engine.passes())
+    finally:
+        engine.shutdown()
+    assert graphed == eager

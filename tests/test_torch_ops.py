@@ -122,6 +122,22 @@ def test_flash_lse_matches_jax_pallas(causal, implementation):
     _close(jlse, lse)
 
 
+@pytest.mark.parametrize("implementation", [None, "pallas", "pallas_pipelined", "xla"])
+def test_flash_entry_points_take_jax_keywords(implementation):
+    """flash_attention and flash_attention_with_lse take JAX's keyword set,
+    block sizes included (hints to the port, whose card tiles are fixed),
+    and give JAX's output for each implementation."""
+    q, k, v = _qkv(4, 1, 4, 2, 80, 32)
+    kw = dict(causal=True, sm_scale=0.2, block_q=64, block_kv=32, implementation=implementation)
+    jx = [jnp.asarray(a) for a in (q, k, v)]
+    tx = [_t(a) for a in (q, k, v)]
+    _close(jflash(*jx, **kw), tops.flash_attention(*tx, **kw))
+    jout, jlse = jflash_lse(*jx, **kw)
+    out, lse = tops.flash_attention_with_lse(*tx, **kw)
+    _close(jout, out)
+    _close(jlse, lse)
+
+
 def test_flash_forward_plain_rounds_p_before_pv():
     """The contract the bf16 forward kernel keeps: scores and the row sum in
     f32, p rounded to bf16 before P.V, f32 accumulation, one rounding of O.

@@ -238,6 +238,37 @@ def test_engine_greedy_tokens_match_jax_engine(llama_tiny_weights, jax_engine_to
     assert stats["pages_free"] == ENGINE_PC["num_pages"] - 1  # every page returned
 
 
+@pytest.mark.parametrize("max_inflight_blocks", [1, 8])
+def test_pipelined_engine_tokens_match_jax_engine(llama_tiny_weights, jax_engine_tokens,
+                                                  monkeypatch, max_inflight_blocks):
+    """The pipelined dispatch at one block in flight and at eight, with a
+    slowed drain (each device read sleeps 20 ms first) so dispatch runs
+    ahead of emission: the JAX engine's greedy tokens, every page back."""
+    from ray_tpu_torch.serve.llm import paged_engine
+
+    read = paged_engine._Fetch.values
+
+    def slow(fetch):
+        time.sleep(0.02)
+        return read(fetch)
+
+    monkeypatch.setattr(paged_engine._Fetch, "values", slow)
+    _, _, tconfig, tparams = llama_tiny_weights
+    engine = PagedLLMEngine(
+        tconfig, tparams,
+        PagedEngineConfig(max_slots=4, max_inflight_blocks=max_inflight_blocks,
+                          paged=tpaged.PagedConfig(**ENGINE_PC)),
+        device="cpu",
+    )
+    try:
+        got = _drive(engine)
+        stats = engine.stats()
+    finally:
+        engine.shutdown()
+    assert got == jax_engine_tokens
+    assert stats["pages_free"] == ENGINE_PC["num_pages"] - 1 and stats["inflight_blocks"] == 0
+
+
 def test_server_generate_matches_jax_engine(llama_tiny_weights, jax_engine_tokens):
     _, _, tconfig, tparams = llama_tiny_weights
     server = LLMServer(

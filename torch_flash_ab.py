@@ -231,7 +231,7 @@ def _ragged_check_main() -> bool:
     for label, fn in (("kernels", kernels), ("plain", _plain_ragged)):
         paged.ragged_paged_attention = fn
         try:
-            server, config, prompts, outs, split = chip_smoke.phase_serve()
+            server, config, prompts, outs, split, _, _ = chip_smoke.phase_serve()
             try:
                 results[label] = chip_smoke.phase_check(server, config, prompts, outs)
             finally:
