@@ -18,14 +18,15 @@ nonzero and no result line is printed):
 3. kernels — each kernel against its plain PyTorch version, in bf16 and
              f32, with times, the card's bound and (flash) the PyTorch
              library yardstick: ragged at the Llama-3-8B shapes of the
-             serving path, a mixed tick's batch and a decode step's (both
-             also bitwise against a second run, and against the kernel on
-             q scaled beforehand; where the largest error sits, and the
-             device kernels one call runs, read from torch.profiler); the
-             flash forward and both flash backward
-             kernels at the Llama shape of the dense check (GQA 32/8,
-             S 931, D 128; the forward causal and not) and at the GPT-2
-             124M shape of the train path (B 8, 12 heads, S 1024, D 64).
+             serving path, a mixed tick's batch, a decode step's and a
+             decode-only verify tick's (each also bitwise against a second
+             run, and against the kernel on q scaled beforehand; where the
+             largest error sits, and the device kernels one call runs,
+             read from torch.profiler); the flash forward and both flash
+             backward kernels at the Llama shape of the dense check (GQA
+             32/8, S 931, D 128; the forward causal and not) and at the
+             GPT-2 124M shape of the train path (B 8, 12 heads, S 1024,
+             D 64), the forward also at the draft model's (S 64).
              Two runs must be bitwise equal; the bare launches are timed
              apart from the wrappers (the forward's on contiguous tensors
              and on the model's transposed views, which it copies; the
@@ -49,6 +50,18 @@ nonzero and no result line is printed):
 5. check   — the dense forward (flash kernel) over prompt + generated tokens
              of 2 requests: every engine token must score within a stated
              margin of the dense argmax.
+   spec    — speculative decoding and the prefix cache on the serve phase's
+             weight tensors (K = 4, verify passes captured as CUDA graphs):
+             a replay drill (drafts: the serve phase's greedy tokens;
+             prefix cache on) that must run verify rounds and accept
+             drafts; 8 prompts sharing a 512-token prefix, of which at
+             least 7 must hit the cache (TTFT against the serve engine);
+             a self-replay on a second engine (drafts: the drill's own
+             tokens); a draft model (a 2-layer cut of the model) that must
+             propose and launch the flash kernel. Each run passes the
+             dense check; the drill's and the self-replay's ragged
+             launches are held against torch.profiler; replay times of the
+             serve and verify graphs and of the accept step are printed.
 6. train   — GPT-2 124M (gpt2-small) at full width and depth, f32 master
              weights from a seeded torch.Generator, bf16 compute:
              the kernel path's gradients against attn_impl="xla" on one
@@ -57,7 +70,8 @@ nonzero and no result line is printed):
              and each flash kernel must launch once per layer per step.
 
 The line before the last lists every kernel with its launches on the main
-paths (phases 4-5 and phase 6, each counted from zero just before it), its
+paths (serve: phases 4-5; spec; train: phase 6; each counted from zero
+just before it, profiled repeats left out), its
 error against the plain version and its times; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -104,7 +118,12 @@ from ray_tpu_torch.ops.ragged_paged_attention import (
     _ragged_cuda,
     ragged_reference_attention,
 )
-from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedEngineConfig
+from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedEngineConfig, PagedLLMEngine
+from ray_tpu_torch.serve.llm.speculative import (
+    DraftModelProposer,
+    ReplayProposer,
+    accept_speculative,
+)
 from ray_tpu_torch.train import (
     create_train_state,
     default_optimizer,
@@ -121,6 +140,9 @@ N_REQUESTS = 8
 MAX_TOKENS = 32
 CHECK_MARGIN = 0.25
 PROFILED_REPEATS = 3  # serve: profiled repeats to find one without dropped records
+SPEC_TOKENS = 4  # drafts per verify round in the spec phase
+PREFIX_TOKENS = 512  # the spec phase's shared prefix: 8 pages of 64
+DRAFT_LAYERS, DRAFT_WINDOW = 2, 64  # the draft model: a 2-layer cut of the target
 TRAIN_MODEL = "gpt2-small"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_STEPS = 20
@@ -141,6 +163,7 @@ GRAD_TOL_LEAF = 0.10  # the same per leaf, for leaves that hold >= 1e-3 of the n
 FLASH_SHAPES = {  # (B, Hq, Hkv, S, D)
     "gpt2": (TRAIN_BATCH, 12, 12, TRAIN_SEQ, 64),
     "llama": (1, 32, 8, 931, 128),
+    "draft": (1, 32, 8, 64, 128),  # the spec phase's draft-model prefill (window 64)
 }
 REPLACES = {
     "ragged_paged_attention": "ray_tpu/ops/ragged_paged_attention.py:60",
@@ -297,6 +320,16 @@ def _ragged_decode_case(dtype, gen):
                          counts=[1] * 8, max_q_blocks=1)
 
 
+def _ragged_verify_case(dtype, gen):
+    """A decode-only verify tick of the spec phase: bucket 1's inactive
+    256-row prefill lane and 8 lanes of q_len 5 (the pending token and 4
+    drafts) at the serve prompts' lengths + 16, max_q_blocks 32: the tile
+    kernel, as `ragged_mixed_step` dispatches a verify pass."""
+    return _ragged_batch(dtype, gen, q_lens=[0] + [5] * 8,
+                         kv_lens=[0, 85, 204, 323, 443, 562, 682, 801, 921],
+                         counts=[256 // 8] + [1] * 8, max_q_blocks=256 // 8)
+
+
 def _ragged_batch(dtype, gen, q_lens, kv_lens, counts, max_q_blocks):
     """Inputs of one ragged call against the full 32-layer Llama-3-8B pool
     (layer 7's page offset folded into the tables), with the bytes it must
@@ -345,23 +378,28 @@ def phase_kernels(timer: _Timer) -> dict:
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
         atol, rtol, why = tol[dtype]
-        # ---- ragged paged attention: a mixed tick's batch, a decode step's
+        # ---- ragged paged attention: a mixed tick's batch, a decode
+        # step's, a decode-only verify tick's
         ragged = {label: _ragged_checks(timer, dtype, gen, label, make, atol, rtol, why)
-                  for label, make in (("mixed", _ragged_case), ("decode", _ragged_decode_case))}
+                  for label, make in (("mixed", _ragged_case), ("decode", _ragged_decode_case),
+                                      ("verify", _ragged_verify_case))}
         if dtype == torch.bfloat16:
             results["ragged_paged_attention"] = dict(
-                ragged["mixed"], **{f"decode_{k}": v for k, v in ragged["decode"].items()})
+                ragged["mixed"], **{f"{label}_{k}": v for label in ("decode", "verify")
+                                    for k, v in ragged[label].items()})
         torch.cuda.empty_cache()
         # ---- flash forward and both backward kernels, at the dense check's
         # shape and at the train path's
         fwd = {(label, causal): _fwd_checks(timer, dtype, gen, label, causal, atol, rtol)
-               for label, causal in (("llama", True), ("llama", False), ("gpt2", True))}
-        for label, shape in FLASH_SHAPES.items():
-            bwd = _bwd_checks(timer, dtype, gen, label, shape, atol, rtol)
+               for label, causal in (("llama", True), ("llama", False), ("gpt2", True),
+                                     ("draft", True))}
+        for label in ("gpt2", "llama"):
+            bwd = _bwd_checks(timer, dtype, gen, label, FLASH_SHAPES[label], atol, rtol)
             if dtype == torch.bfloat16 and label == "gpt2":
                 results.update(bwd)
         if dtype == torch.bfloat16:
-            results["flash_attention_fwd"] = dict(fwd["llama", True], train_shape=fwd["gpt2", True])
+            results["flash_attention_fwd"] = dict(fwd["llama", True], train_shape=fwd["gpt2", True],
+                                                  draft_shape=fwd["draft", True])
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log("kernels", f"done ({time.perf_counter() - t0:.2f} s)")
@@ -634,7 +672,7 @@ def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
 def _serve_run(engine, prompts):
     """Submit every greedy request at once and consume each stream on a
     thread of its own; returns (wall seconds, start time, [(time, token),
-    ...] per request)."""
+    ...] per request, the streams)."""
     stamps = [[] for _ in prompts]
     t_start = time.perf_counter()
     streams = [engine.submit(p, max_tokens=MAX_TOKENS) for p in prompts]
@@ -650,30 +688,75 @@ def _serve_run(engine, prompts):
         th.join(timeout=600)
         if th.is_alive():
             raise RuntimeError("a request did not finish within 600 s")
-    return time.perf_counter() - t_start, t_start, stamps
+    return time.perf_counter() - t_start, t_start, stamps, streams
 
 
 def _stats_delta(engine, before: dict) -> dict:
     return {k: v - before.get(k, 0.0) for k, v in engine.stats().items()}
 
 
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
 def _profiled_ragged_kernels(engine, prompts) -> tuple:
     """The ragged device kernels of one more run of the same requests, by
-    name, read from torch.profiler, and the engine's own count for that
-    run (replays x captured launches, from `engine.stats()`)."""
+    name, read from torch.profiler, the engine's own count for that run
+    (replays x captured launches, from `engine.stats()`), and the run's
+    wall, device busy time (kernels and copies on the card, as
+    torch_serve_profile.py sums them) and sort kernels' time (in a greedy
+    run only the accept step sorts)."""
     before = engine.stats()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         _serve_run(engine, prompts)
         torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counted = _stats_delta(engine, before)
     seen: dict = {}
+    busy_us = sort_us = 0.0
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA or "ragged" not in e.key:
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
             continue
-        name = _ragged_name(e.key)
-        seen[name] = seen.get(name, 0) + e.count
-    return seen, counted
+        busy_us += _device_us(e)
+        if "sort" in e.key.lower():
+            sort_us += _device_us(e)
+        if "ragged" in e.key:
+            name = _ragged_name(e.key)
+            seen[name] = seen.get(name, 0) + e.count
+    return seen, counted, dict(wall_s=wall, busy_s=busy_us / 1e6, sort_s=sort_us / 1e6)
+
+
+def _hold_ragged_against_profiler(phase, engine, prompts) -> dict:
+    """Run the requests again under torch.profiler and hold its ragged
+    device kernels against the engine's count for that run (replays x
+    captured, by kind). The profiler can miss kernel records of a replayed
+    graph (one repeat of the H100 runs saw 966 of 1024 decode walks and
+    combines) but never sees more than ran: up to PROFILED_REPEATS repeats,
+    each printed, and the first whose counts equal the engine's ends the
+    check. Returns the profiler's counts of that repeat."""
+    for attempt in range(1, PROFILED_REPEATS + 1):
+        seen, counted, times = _profiled_ragged_kernels(engine, prompts)
+        want = {
+            "ragged_wgmma<128,true>": int(counted.get("launches.ragged.decode", 0)),
+            "ragged_combine<128>": int(counted.get("launches.ragged.decode", 0)),
+            "ragged_wgmma<128,false>": int(counted.get("launches.ragged.mixed", 0)),
+        }
+        log(phase, f"profiled repeat {attempt}: ragged device kernels from torch.profiler "
+            f"{seen}; the engine's count (replays x captured) {want}; wall "
+            f"{times['wall_s']:.4f} s, device busy {times['busy_s']:.4f} s, idle share "
+            f"{1 - times['busy_s'] / times['wall_s']:.4f}, sort kernels {times['sort_s']:.4f} s, "
+            f"verify / decode passes {counted.get('decode_steps', 0):.0f}")
+        if set(seen) - set(want) or any(seen.get(k, 0) > n for k, n in want.items()):
+            raise AssertionError(f"the profiler saw ragged kernels the engine did not count: {seen}")
+        if {k: seen.get(k, 0) for k in want} == want:
+            return seen
+    raise AssertionError(f"profiled ragged kernels {seen} differ from the engine's count {want} "
+                         f"in {PROFILED_REPEATS} repeats")
 
 
 def phase_serve():
@@ -716,7 +799,7 @@ def phase_serve():
         kernel.launches = 0
     for kind in LAUNCHES_BY_KIND:
         LAUNCHES_BY_KIND[kind] = 0
-    wall, t_start, stamps = _serve_run(engine, prompts)
+    wall, t_start, stamps, _ = _serve_run(engine, prompts)
     stats = _stats_delta(engine, stats0)
     wrappers = {k.name: k.launches for k in KERNELS}
     outs = [[tok for _, tok in st] for st in stamps]
@@ -745,26 +828,7 @@ def phase_serve():
         f"{sum(t for _, t in drains):.3f} s waiting on the card")
     if wrappers[RAGGED.name]:
         raise AssertionError("a serve pass launched the ragged kernels outside its graph")
-    # The profiler can miss kernel records of a replayed graph (one repeat
-    # of the H100 runs saw 966 of 1024 decode walks and combines) but never
-    # sees more than ran: up to PROFILED_REPEATS repeats, each printed, and
-    # the first whose counts equal the engine's ends the check.
-    for attempt in range(1, PROFILED_REPEATS + 1):
-        seen, counted = _profiled_ragged_kernels(engine, prompts)
-        want = {
-            "ragged_wgmma<128,true>": int(counted.get("launches.ragged.decode", 0)),
-            "ragged_combine<128>": int(counted.get("launches.ragged.decode", 0)),
-            "ragged_wgmma<128,false>": int(counted.get("launches.ragged.mixed", 0)),
-        }
-        log("serve", f"profiled repeat {attempt}: ragged device kernels from torch.profiler "
-            f"{seen}; the engine's count (replays x captured) {want}")
-        if set(seen) - set(want) or any(seen.get(k, 0) > n for k, n in want.items()):
-            raise AssertionError(f"the profiler saw ragged kernels the engine did not count: {seen}")
-        if {k: seen.get(k, 0) for k in want} == want:
-            break
-    else:
-        raise AssertionError(f"profiled ragged kernels {seen} differ from the engine's count {want} "
-                             f"in {PROFILED_REPEATS} repeats")
+    seen = _hold_ragged_against_profiler("serve", engine, prompts)
     filtered_before = engine.stats()["passes.decode.filtered"]
     hot = engine.generate(prompts[0], MAX_TOKENS, 1.0, top_k=50)
     differs = sum(a != b for a, b in zip(hot, outs[0]))
@@ -786,15 +850,23 @@ def phase_check(server, config, prompts, outs) -> tuple:
     other orders), so near-ties may flip; the margin is a few bf16 ulps of logits of this size (~0.03-0.06
     at |logit| 4-8), with room for that drift through 32 layers. Returns
     (exact, total, worst gap)."""
+    log("check", f"margin {CHECK_MARGIN}: bf16 logits; paged (split at decode) and dense "
+        f"attention and other product shapes round differently")
+    return _dense_check("check", server.engine.params, config, prompts, outs)
+
+
+def _dense_check(phase, params, config, prompts, outs, picks=None) -> tuple:
+    """phase_check's test on the requests `picks` (default: the first and
+    the last); returns (exact, total, worst gap)."""
     t0 = time.perf_counter()
     before = FLASH_FWD.launches
-    picks = [0, len(prompts) - 1]
+    picks = picks or [0, len(prompts) - 1]
     worst, exact, total = 0.0, 0, 0
     with torch.no_grad():
         for i in picks:
             seq = prompts[i] + outs[i]
             tokens = torch.tensor([seq[:-1]], device="cuda")
-            logits = forward(server.engine.params, tokens, config)[0].float()
+            logits = forward(params, tokens, config)[0].float()
             if not torch.isfinite(logits).all():
                 raise AssertionError("non-finite dense logits")
             rows = logits[len(prompts[i]) - 1:]
@@ -804,16 +876,258 @@ def phase_check(server, config, prompts, outs) -> tuple:
             exact += int((rows.argmax(dim=-1) == chosen).sum())
             total += len(outs[i])
     launched = FLASH_FWD.launches - before
-    log("check", f"margin {CHECK_MARGIN}: bf16 logits; paged (split at decode) and dense "
-        f"attention and other product shapes round differently")
-    log("check", f"{len(picks)} requests, {total} generated positions: engine token == dense "
-        f"argmax at {exact}, worst gap {worst:.4f}, flash launches {launched} "
-        f"({time.perf_counter() - t0:.2f} s)")
+    log(phase, f"dense check (margin {CHECK_MARGIN}), {len(picks)} requests, {total} generated "
+        f"positions: engine token == dense argmax at {exact}, worst gap {worst:.4f}, flash "
+        f"launches {launched} ({time.perf_counter() - t0:.2f} s)")
     if launched == 0:
         raise AssertionError("the dense check never launched the flash kernel")
     if worst > CHECK_MARGIN:
         raise AssertionError(f"engine token scores {worst:.4f} below the dense argmax")
     return exact, total, worst
+
+
+def _prefix_prompts(config) -> list:
+    """N_REQUESTS prompts that share one PREFIX_TOKENS-token prefix (8
+    pages of 64), each with a tail of its own of 64-448 tokens."""
+    rng = np.random.default_rng(SEED + 2)
+    prefix = rng.integers(0, config.vocab_size, PREFIX_TOKENS).tolist()
+    tails = np.linspace(64, 448, N_REQUESTS).astype(int)
+    return [prefix + rng.integers(0, config.vocab_size, n).tolist() for n in tails]
+
+
+def _prefix_run(engine, prompts) -> dict:
+    """The first request alone to completion (so that it registers the
+    prefix where a cache is on), then the others at once; each request's
+    tokens, TTFT and prompt tokens taken from the prefix cache."""
+    first = engine.submit(prompts[0], max_tokens=MAX_TOKENS)
+    out0 = first.result(timeout=600)
+    wall, t_start, stamps, streams = _serve_run(engine, prompts[1:])
+    return dict(outs=[out0] + [[tok for _, tok in st] for st in stamps],
+                ttft=[first.ttft_s] + [st[0][0] - t_start for st in stamps],
+                cached=[first.cached_tokens] + [st.cached_tokens for st in streams], wall=wall)
+
+
+def _replay_ms(p, iters: int = 20) -> float:
+    """Median device time of one replay of pass `p`'s graph over all-zero
+    (inactive) inputs, whose writes land in the scratch page; CUDA events
+    around each replay. The engine must be idle."""
+    for t in p._static.values():
+        t.zero_()
+    p._graph.replay()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        p._graph.replay()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def _accept_ms(config, iters: int = 20) -> float:
+    """Median device time of the accept step alone on one verify round's
+    logits (max_slots x (K+1) rows of the vocabulary, bf16), every lane
+    active with K drafts, greedy; CUDA events."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    w = SPEC_TOKENS + 1
+    logits = torch.randn((N_REQUESTS, w, config.vocab_size), generator=gen, device="cuda",
+                         dtype=config.dtype)
+    tokens = torch.randint(0, config.vocab_size, (N_REQUESTS, w), generator=gen, device="cuda")
+    counts = torch.full((N_REQUESTS,), w, device="cuda")
+    lane = [torch.zeros((N_REQUESTS,), device="cuda"), torch.zeros((N_REQUESTS,), dtype=torch.long,
+                                                                  device="cuda"),
+            torch.ones((N_REQUESTS,), device="cuda")]
+    fn = lambda: accept_speculative(logits, tokens, counts, gen, *lane)  # noqa: E731
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+class _Switch:
+    """A proposer whose drafts come from `inner`, which the script switches
+    between runs (an engine keeps the proposer it was built with)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def propose(self, context, k):
+        return self.inner.propose(context, k)
+
+
+def _spec_engine(label, config, params, proposer, prefix_cache: bool):
+    t0 = time.perf_counter()
+    engine = PagedLLMEngine(config, params, PagedEngineConfig(
+        max_slots=N_REQUESTS, speculative_tokens=SPEC_TOKENS, speculative_proposer=proposer,
+        precompile=True, paged=PagedConfig(prefix_cache=prefix_cache)), device="cuda")
+    passes = engine.passes()
+    log("spec", f"{label} engine: precompile: {len(passes)} CUDA graphs "
+        f"captured in {engine.capture_s:.3f} s ("
+        + ", ".join(f"{p.name} {p.capture_s:.3f} s" for p in passes)
+        + f"); after capture {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; launches each capture "
+        f"recorded: " + "; ".join(f"{p.name} {p.captured}" for p in passes)
+        + f" ({time.perf_counter() - t0:.2f} s)")
+    if not all(p.is_captured for p in passes) or engine._decode:
+        raise AssertionError("the spec engine must capture its verify passes and no decode block")
+    # the eager sampling of a first token and the pinned host allocator
+    engine.generate([1, 2], max_tokens=2)
+    return engine
+
+
+def _spec_report(label, engine, before, wall, t_start, stamps) -> dict:
+    """One spec run's numbers, printed: wall, TTFT, decode rate, the spec
+    counters of the run and verify passes per generated token."""
+    stats = _stats_delta(engine, before)
+    ttft = [st[0][0] - t_start for st in stamps]
+    first_all = min(st[0][0] for st in stamps)
+    last_all = max(st[-1][0] for st in stamps)
+    decode_tokens = sum(len(st) - 1 for st in stamps)
+    proposed, accepted = stats["spec_proposed"], stats["spec_accepted"]
+    rate = accepted / proposed if proposed else 0.0
+    runs = {p.name: int(stats[f"passes.{p.name}"]) for p in engine.passes()}
+    log("spec", f"{label}: {len(stamps)} requests, {MAX_TOKENS} new each: wall {wall:.3f} s, "
+        f"TTFT p50 {statistics.median(ttft):.3f} s max {max(ttft):.3f} s, decode "
+        f"{decode_tokens / (last_all - first_all):.1f} tok/s, output "
+        f"{len(stamps) * MAX_TOKENS / wall:.1f} tok/s over the wall; spec_proposed "
+        f"{proposed:.0f} spec_accepted {accepted:.0f} spec_acceptance_rate {rate:.4f} "
+        f"spec_rollback_pages {stats['spec_rollback_pages']:.0f}; verify rounds "
+        f"(decode_steps) {stats['decode_steps']:.0f} for {stats['decode_tokens']:.0f} decode "
+        f"tokens: {stats['decode_steps'] / max(1.0, stats['decode_tokens']):.4f} verify passes "
+        f"per generated token; mixed ticks {stats['mixed_ticks']:.0f}; graph replays {runs}; "
+        f"ragged launches {int(stats.get('launches.ragged_paged_attention', 0))}")
+    return dict(stats=stats, rate=rate)
+
+
+def phase_spec(server, config, prompts, outs) -> dict:
+    """Speculative decoding and the prefix cache on Llama-3-8B, sharing the
+    serve phase's weight tensors: the replay drill (a ReplayProposer of the
+    serve phase's greedy outputs), a run of 8 prompts sharing a 512-token
+    prefix, a self-replay (a second engine, no prefix cache, replaying the
+    drill's own tokens: the rate where drafts match), and a run drafted by
+    a 2-layer cut of the model on that second engine. Returns each
+    kernel's launches on this path (counted from zero just before it, the
+    profiled repeat left out)."""
+    t0 = time.perf_counter()
+    params = server.engine.params
+    pprompts = _prefix_prompts(config)
+    base = _prefix_run(server.engine, pprompts)
+    log("spec", f"prefix prompts ({PREFIX_TOKENS}-token shared prefix, tails "
+        f"{len(pprompts[0]) - PREFIX_TOKENS}-{len(pprompts[-1]) - PREFIX_TOKENS}) on the serve "
+        f"phase's engine (no cache, no speculation): TTFT first {base['ttft'][0]:.3f} s, the "
+        f"other {N_REQUESTS - 1} p50 {statistics.median(base['ttft'][1:]):.3f} s max "
+        f"{max(base['ttft'][1:]):.3f} s, wall of the {N_REQUESTS - 1} {base['wall']:.3f} s")
+    replay = ReplayProposer({tuple(p): o for p, o in zip(prompts + pprompts, outs + base["outs"])})
+    engine = _spec_engine("replay", config, params, replay, prefix_cache=True)
+    draft_config = config.replace(n_layers=DRAFT_LAYERS)
+    draft_params = {"wte": params["wte"], "lnf_scale": params["lnf_scale"],
+                    "lm_head": params["lm_head"],
+                    "blocks": {k: v[:DRAFT_LAYERS] for k, v in params["blocks"].items()}}
+    draft = DraftModelProposer(draft_config, draft_params, window=DRAFT_WINDOW)
+    switch = _Switch(draft)
+    engine2 = _spec_engine("self-replay / draft-model", config, params, switch, prefix_cache=False)
+    for kernel in KERNELS:
+        kernel.launches = 0
+    for kind in LAUNCHES_BY_KIND:
+        LAUNCHES_BY_KIND[kind] = 0
+    path = {}  # engine launches (replays x captured) on this path, summed
+
+    def add(stats):
+        for key, n in stats.items():
+            if key.startswith("launches."):
+                path[key[len("launches."):]] = path.get(key[len("launches."):], 0) + int(n)
+
+    # ---- replay drill
+    before = engine.stats()
+    wall, t_start, stamps, _ = _serve_run(engine, prompts)
+    drill = _spec_report("replay drill", engine, before, wall, t_start, stamps)
+    add(drill["stats"])
+    spec_outs = [[tok for _, tok in st] for st in stamps]
+    same = sum(a == b for a, b in zip(spec_outs, outs))
+    log("spec", f"replay drill: {same} of {N_REQUESTS} token lists equal the serve phase's")
+    if any(len(o) != MAX_TOKENS for o in spec_outs):
+        raise AssertionError("a spec request returned the wrong number of tokens")
+    if drill["stats"]["decode_steps"] == 0 or drill["rate"] == 0.0:
+        raise AssertionError("the replay drill ran no verify round or accepted no draft")
+    _dense_check("spec", params, config, prompts, spec_outs)
+    profiled = _hold_ragged_against_profiler("spec", engine, prompts)
+    # ---- prefix run
+    before = engine.stats()
+    run = _prefix_run(engine, pprompts)
+    stats = _stats_delta(engine, before)
+    add(stats)
+    hit = sum(c > 0 for c in run["cached"])
+    prompt_tokens = sum(len(p) for p in pprompts)
+    log("spec", f"prefix run (prefix cache on, replay drafts of the serve engine's greedy "
+        f"tokens): prefix_cache_hits {stats['prefix_cache_hits']:.0f} prefix_cache_misses "
+        f"{stats['prefix_cache_misses']:.0f}, cached_tokens per request {run['cached']} "
+        f"({hit} of {N_REQUESTS} hit), prefill tokens {stats['prefill_tokens']:.0f} of "
+        f"{prompt_tokens} ({prompt_tokens - stats['prefill_tokens']:.0f} saved); TTFT first "
+        f"{run['ttft'][0]:.3f} s (serve engine {base['ttft'][0]:.3f}), the other "
+        f"{N_REQUESTS - 1} p50 {statistics.median(run['ttft'][1:]):.3f} s max "
+        f"{max(run['ttft'][1:]):.3f} s (serve engine {statistics.median(base['ttft'][1:]):.3f} / "
+        f"{max(base['ttft'][1:]):.3f}), wall of the {N_REQUESTS - 1} {run['wall']:.3f} s "
+        f"(serve engine {base['wall']:.3f}); spec_proposed {stats['spec_proposed']:.0f} "
+        f"spec_accepted {stats['spec_accepted']:.0f}; copy-on-write copies "
+        f"{stats['prefix_cache_cow']:.0f}; {sum(a == b for a, b in zip(run['outs'], base['outs']))} "
+        f"of {N_REQUESTS} token lists equal the serve engine's")
+    if hit < N_REQUESTS - 1:
+        raise AssertionError(f"only {hit} of {N_REQUESTS} prefix requests hit the cache")
+    _dense_check("spec", params, config, pprompts, run["outs"], picks=[1, N_REQUESTS - 1])
+    # ---- self-replay on the second engine
+    switch.inner = ReplayProposer({tuple(p): o for p, o in zip(prompts, spec_outs)})
+    before = engine2.stats()
+    wall, t_start, stamps, _ = _serve_run(engine2, prompts)
+    report = _spec_report("self-replay (drafts: the replay drill's own tokens; no prefix cache)",
+                          engine2, before, wall, t_start, stamps)
+    add(report["stats"])
+    self_outs = [[tok for _, tok in st] for st in stamps]
+    log("spec", f"self-replay: {sum(a == b for a, b in zip(self_outs, spec_outs))} of "
+        f"{N_REQUESTS} token lists equal the replay drill's")
+    _dense_check("spec", params, config, prompts, self_outs)
+    _hold_ragged_against_profiler("spec self-replay", engine2, prompts)
+    # ---- draft-model run
+    switch.inner = draft
+    flash0 = FLASH_FWD.launches
+    before = engine2.stats()
+    wall, t_start, stamps, _ = _serve_run(engine2, prompts[:2])
+    flash_draft = FLASH_FWD.launches - flash0
+    report = _spec_report(f"draft model ({DRAFT_LAYERS}-layer cut, window {DRAFT_WINDOW})",
+                          engine2, before, wall, t_start, stamps)
+    add(report["stats"])
+    log("spec", f"draft model: flash forward launches on the draft path {flash_draft}")
+    if report["stats"]["spec_proposed"] == 0 or flash_draft == 0:
+        raise AssertionError("the draft model proposed nothing or never launched the flash kernel")
+    _dense_check("spec", params, config, prompts[:2], [[t for _, t in st] for st in stamps])
+    launches = {k.name: k.launches + path.get(k.name, 0) for k in KERNELS}
+    if RAGGED.launches:
+        raise AssertionError("a verify pass launched the ragged kernels outside its graph")
+    # ---- pass and step times on idle engines (scratch-page writes only)
+    times = {
+        "serve decode.plain (16 steps)": _replay_ms(server.engine._decode["plain"]),
+        "serve mixed.1": _replay_ms(server.engine._mixed[1]),
+        "verify.1": _replay_ms(engine._mixed[1]),
+        "verify.8": _replay_ms(engine._mixed[N_REQUESTS]),
+        "accept step alone": _accept_ms(config),
+    }
+    log("spec", "device time of one replay over inactive inputs, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    for e in (engine, engine2):
+        e.shutdown()
+    log("spec", f"launches on the spec path {launches}, ragged by kind "
+        f"{ {k: path.get(f'ragged.{k}', 0) for k in LAUNCHES_BY_KIND} } "
+        f"({time.perf_counter() - t0:.2f} s)")
+    return dict(launches=launches, profiled=profiled)
 
 
 def _leaf_names(tree, prefix=""):
@@ -940,23 +1254,26 @@ def main() -> int:
     before = {k.name: k.launches for k in KERNELS}
     try:
         phase_check(server, config, prompts, outs)
+        for k in KERNELS:
+            serve_launches[k.name] += k.launches - before[k.name]
+        spec = phase_spec(server, config, prompts, outs)
     finally:
         server.shutdown()
-    for k in KERNELS:
-        serve_launches[k.name] += k.launches - before[k.name]
     del server
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train()
     kernels = []
     for k in KERNELS:
-        by_path = {"serve": serve_launches[k.name], "train": train_launches[k.name]}
+        by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
+                   "train": train_launches[k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))
         if k is RAGGED:
             kernels[-1]["serve_launches_by_kind"] = ragged_split
             kernels[-1]["serve_device_kernels_profiled_repeat"] = profiled
+            kernels[-1]["spec_device_kernels_profiled_repeat"] = spec["profiled"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@ from .transformer import (  # noqa: F401
     count_params,
     forward,
     forward_hidden,
+    init_cache,
     init_params,
     lm_head_weights,
+    prefill,
 )

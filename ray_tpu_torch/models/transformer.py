@@ -1,8 +1,9 @@
 """Decoder-only transformer covering the GPT-2 and Llama families.
 
-Port of `ray_tpu/models/transformer.py` (the full-sequence forward, for
-training and the dense check; the dense-cache `decode_step`/`prefill`/
-`init_cache` are not ported yet). Parameters are a plain dict of tensors
+Port of `ray_tpu/models/transformer.py`: the full-sequence forward (for
+training and the dense check), and the dense-cache `init_cache` /
+`prefill` that the draft-model proposer of speculative decoding runs
+(`decode_step` is not ported yet). Parameters are a plain dict of tensors
 in the JAX layout — block weights stacked on a leading layer axis,
 attention weights as (E, H, Dh) / (H, Dh, E) — so a JAX parameter pytree
 converts leaf for leaf (`models.convert.params_from_numpy`). The layer
@@ -18,7 +19,8 @@ same math as one wider product; a performance choice for the MXU) and
 `scan_unroll` (the unroll of `lax.scan` over layers; eager PyTorch runs
 no scan).
 
-Shapes: tokens (B, S) int → logits (B, S, V).
+Shapes: tokens (B, S) int → logits (B, S, V). The dense KV cache is
+(L, B, Hkv, max_seq, Dh), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -283,3 +285,71 @@ def forward(
     """Full-sequence forward: (B, S) → (B, S, V)."""
     x = forward_hidden(params, tokens, config, positions=positions)
     return x @ lm_head_weights(params, config)
+
+
+# --------------------------------------------------------------------- decode
+
+
+def init_cache(
+    config: TransformerConfig,
+    batch: int,
+    max_seq: Optional[int] = None,
+    *,
+    device: Union[str, torch.device] = "cuda",
+) -> Params:
+    """Dense KV cache: k/v of shape (L, B, Hkv, S, Dh) in the compute dtype."""
+    c = config
+    s = max_seq or c.max_seq
+    shape = (c.n_layers, batch, c.kv_heads, s, c.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=c.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=c.dtype, device=dev)}
+
+
+def prefill(
+    params: Params,
+    tokens: torch.Tensor,
+    lengths: torch.Tensor,
+    cache: Params,
+    config: TransformerConfig,
+) -> Tuple[torch.Tensor, Params]:
+    """Prompt ingestion: run the full-sequence path once, write K/V into
+    the first S slots of the cache (in place; the same dict is returned)
+    and return each row's last-valid-token logits. tokens (B, S)
+    right-padded; lengths (B,) true prompt lengths. Attention is
+    `flash_attention(causal=True)`: the flash forward kernel on the card."""
+    c = config
+    dt = c.dtype
+    s = tokens.shape[1]
+    x = embed(params, tokens, c)
+    if c.pos_emb == "learned":
+        x = x + params["wpe"][:s].to(dt)[None]
+        rope_tables = None
+    else:
+        rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=x.device)
+    for i in range(c.n_layers):
+        lp = layer_params(params, i)
+        h = _norm(x, lp["ln1_scale"], lp.get("ln1_bias"), c.norm)
+        q = _heads(h, lp["wq"].to(dt))
+        k = _heads(h, lp["wk"].to(dt))
+        v = _heads(h, lp["wv"].to(dt))
+        if c.use_bias:
+            q = q + lp["bq"].to(dt)[None, :, None, :]
+            k = k + lp["bk"].to(dt)[None, :, None, :]
+            v = v + lp["bv"].to(dt)[None, :, None, :]
+        if rope_tables is not None:
+            cos, sin = rope_tables
+            q = apply_rope(q, cos, sin, None)
+            k = apply_rope(k, cos, sin, None)
+        # the padded tail is masked by `lengths` when the cache is read
+        cache["k"][i, :, :, :s] = k.to(c.dtype)
+        cache["v"][i, :, :, :s] = v.to(c.dtype)
+        attn = flash_attention(q, k, v, causal=True, implementation=c.attn_impl)
+        b = attn.shape[0]
+        out = attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"].to(dt).reshape(-1, c.d_model)
+        if c.use_bias:
+            out = out + lp["bo"].to(dt)
+        x = mlp_sublayer(x + out, lp, c)
+    x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), c.norm)
+    last = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]  # (B, E)
+    return last @ lm_head_weights(params, c), cache

@@ -3,7 +3,8 @@
 Port of the parts of `ray_tpu/serve/llm/engine.py` the paged engine uses:
 the request record, the per-request token stream, stop-sequence matching
 and the engine-death path. The dense slot-grid `LLMEngine` is not ported
-yet; tracing spans, request forensics, deadlines and tenancy are left out.
+yet; tracing spans, request forensics, deadlines and tenancy are left out
+(a request carries its caller's `request_id`, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ class _Request:
     stop_sequences: tuple = ()
     stop_tail: list = dataclasses.field(default_factory=list)
     generated: int = 0  # tokens emitted so far
+    request_id: Optional[str] = None  # the caller's end-to-end id
+    cached_tokens: int = 0  # prompt tokens served by the prefix cache
 
 
 def _normalize_stop_sequences(stop_sequences) -> tuple:
@@ -92,6 +95,17 @@ class ResponseStream:
         if self._request.first_token_at is None:
             return None
         return self._request.first_token_at - self._request.submitted_at
+
+    @property
+    def request_id(self) -> Optional[str]:
+        """The caller's end-to-end request id (None when none was given)."""
+        return self._request.request_id
+
+    @property
+    def cached_tokens(self) -> int:
+        """Prompt tokens this request took from the prefix cache at
+        admission (0 before admission)."""
+        return self._request.cached_tokens
 
 
 def _fail_all_requests(slots, request_queue, exc: BaseException) -> None:

@@ -1,8 +1,9 @@
 """The paged engine's device passes: CUDA graphs on the card, eager on the CPU.
 
 The JAX engine jits one program per pass (each mixed-tick bucket, each
-decode-block sampler) and `PagedEngineConfig.precompile` compiles them
-all before serving. The counterpart here is one CUDA graph per pass
+decode-block sampler; in speculative mode each mixed bucket is a verify
+pass and there are no decode blocks) and `PagedEngineConfig.precompile`
+compiles them all before serving. The counterpart here is one CUDA graph per pass
 (`DevicePass`): the pass's function is captured once over static input
 tensors of fixed shapes, and each call copies the tick's host arrays into
 those inputs and replays the graph. A graph is captured at its first call,

@@ -1,7 +1,6 @@
 """Paged KV cache + chunked prefill: the continuous-batching substrate.
 
-Port of `ray_tpu/serve/llm/paged.py` (the prefix cache and `copy_page`
-are not ported yet):
+Port of `ray_tpu/serve/llm/paged.py`:
 
 - the KV cache is one FLAT pool of pages, (Hkv, L*num_pages, page_size, D)
   — layer i owns page range [i*num_pages, (i+1)*num_pages) — shared by
@@ -10,7 +9,10 @@ are not ported yet):
 - attention reads ONLY the pages a slot uses, through the ragged paged
   attention kernel (`ops.ragged_paged_attention`) on the card and its
   plain version on the CPU;
-- prefill is CHUNKED: prompts are ingested page-aligned chunk by chunk.
+- prefill is CHUNKED: prompts are ingested page-aligned chunk by chunk;
+- a refcounted allocator and a page-level PREFIX CACHE let requests that
+  share a page-aligned prompt prefix reuse its KV pages, and `copy_page`
+  is the device half of copy-on-write.
 
 Page 0 is reserved as a scratch page: idle lanes and pad rows write there
 and block-table rows default to it.
@@ -27,10 +29,13 @@ without it a pass computes them itself.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..._device import resolve_device
@@ -53,6 +58,12 @@ class PagedConfig:
     num_pages: int = 256          # pool size (page 0 reserved as scratch)
     max_pages_per_slot: int = 16  # static block-table width
     chunk_pages: int = 4          # prefill chunk = chunk_pages * page_size
+    # Prefix/KV-cache reuse (PrefixCache): requests sharing a page-aligned
+    # prompt prefix reuse its KV instead of re-prefilling. Off by default:
+    # retired prompts then PIN their pages (the cache holds a ref) until
+    # pool pressure evicts them.
+    prefix_cache: bool = False
+    prefix_cache_pages: int = 0   # max cached pages; 0 = pool pressure only
 
     @property
     def chunk_tokens(self) -> int:
@@ -84,14 +95,18 @@ def init_paged_cache(
 
 
 class PageAllocator:
-    """Host-side free list over the page pool. Page 0 is the scratch page:
-    never handed out, and `free` ignores it. (The JAX allocator counts
-    holders per page for the prefix cache, which is not ported yet; here
-    every page has exactly one holder.)"""
+    """Host-side REFCOUNTED free list over the page pool.
+
+    With the prefix cache a physical page can back several block tables at
+    once (slots sharing a prompt prefix, plus the cache's own pin), so
+    ownership is a count: `alloc` hands out pages at refcount 1, `share`
+    adds a holder, and `free` drops one; a page returns to the free list
+    only when its LAST holder lets go. Page 0 is the scratch page: never
+    handed out, never counted, and `free` / `share` ignore it."""
 
     def __init__(self, num_pages: int):
         self._free = list(range(num_pages - 1, 0, -1))
-        self._owned: Set[int] = set()
+        self._refs: Dict[int, int] = {}
         self._lock = threading.Lock()
 
     def alloc(self, n: int) -> Optional[List[int]]:
@@ -99,22 +114,177 @@ class PageAllocator:
             if len(self._free) < n:
                 return None
             pages = [self._free.pop() for _ in range(n)]
-            self._owned.update(pages)
+            for p in pages:
+                self._refs[p] = 1
             return pages
 
-    def free(self, pages: Sequence[int]) -> None:
-        # a page not currently handed out is ignored, so a buggy caller can
-        # never put the same physical page on the free list twice
+    def share(self, pages: Sequence[int]) -> None:
+        """Add one holder to each page. Sharing a page that is not
+        allocated raises: resurrecting a freed page would corrupt the slot
+        the free list hands it to next."""
         with self._lock:
             for p in pages:
-                if p in self._owned:
-                    self._owned.remove(p)
-                    self._free.append(p)
+                if p <= 0:
+                    continue
+                if p not in self._refs:
+                    raise ValueError(f"share of unallocated page {p}")
+                self._refs[p] += 1
+
+    def free(self, pages: Sequence[int]) -> None:
+        # Drop ONE holder per page. A page with no live holder is ignored,
+        # so a buggy caller can never put the same physical page on the
+        # free list twice (which would hand it to two slots).
+        with self._lock:
+            for p in pages:
+                if p > 0 and p in self._refs:
+                    self._refs[p] -= 1
+                    if self._refs[p] <= 0:
+                        del self._refs[p]
+                        self._free.append(p)
+
+    def refcount(self, page: int) -> int:
+        with self._lock:
+            return self._refs.get(page, 0)
 
     @property
     def available(self) -> int:
         with self._lock:
             return len(self._free)
+
+
+# ---------------------------------------------------------------- prefix cache
+
+
+def _chain_hash(prev: bytes, chunk: Sequence[int]) -> bytes:
+    """Chain hash of page-aligned token chunks. A page's KV is a function
+    of every token up to the page's end (causal attention), so keying page
+    p by H(H(...), tokens of page p) makes a hit sufficient for reuse.
+    blake2b, not python's hash(): a collision would splice one prompt's KV
+    into another request."""
+    h = hashlib.blake2b(prev, digest_size=16)
+    h.update(np.asarray(chunk, dtype=np.int64).tobytes())
+    return h.digest()
+
+
+class PrefixCache:
+    """Refcounted page-level prefix cache over the allocator.
+
+    Maps the chain hash of each page a prompt fully covers to the physical
+    page holding its KV. The cache holds ONE reference per entry (the pin
+    that keeps a finished request's prompt pages warm); every slot that
+    reuses a page takes its own through `allocator.share`. Eviction (LRU,
+    and only of pages whose sole holder is the cache) is driven by pool
+    pressure: the engine calls `evict` when an alloc fails, so cached
+    prefixes never starve admissions."""
+
+    def __init__(self, allocator: PageAllocator, page_size: int,
+                 capacity_pages: int = 0):
+        self.allocator = allocator
+        self.page_size = page_size
+        self.capacity_pages = capacity_pages  # 0 = bounded by pool pressure only
+        self._entries: "OrderedDict[bytes, int]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def lookup(self, prompt: Sequence[int]) -> List[int]:
+        """Longest cached page-aligned prefix of `prompt`, capped so at
+        least one prompt token is left to prefill (its logits seed
+        sampling). Matched pages get one reference taken FOR THE CALLER,
+        who releases them through the refcounted free path."""
+        ps = self.page_size
+        max_reuse = max(0, (len(prompt) - 1) // ps)
+        matched: List[int] = []
+        digest = b""
+        with self._lock:
+            for p in range(max_reuse):
+                digest = _chain_hash(digest, prompt[p * ps:(p + 1) * ps])
+                page = self._entries.get(digest)
+                if page is None:
+                    break
+                matched.append(page)
+                self._entries.move_to_end(digest)
+            self.hits += len(matched)
+            self.misses += max_reuse - len(matched)
+        if matched:
+            self.allocator.share(matched)
+        return matched
+
+    def register(self, prompt: Sequence[int], pages: Sequence[int]) -> int:
+        """Publish every page `prompt` fully covers (KV already written by
+        this slot's prefill). The cache takes its own reference per NEW
+        entry; hashes already present keep their page. Returns the number
+        of pages newly published."""
+        ps = self.page_size
+        full = len(prompt) // ps
+        added = 0
+        with self._lock:
+            digest = b""
+            for p in range(full):
+                digest = _chain_hash(digest, prompt[p * ps:(p + 1) * ps])
+                if digest in self._entries:
+                    self._entries.move_to_end(digest)
+                    continue
+                if (
+                    self.capacity_pages > 0
+                    and len(self._entries) >= self.capacity_pages
+                    and not self._evict_locked(1)
+                ):
+                    break
+                page = pages[p]
+                self.allocator.share([page])
+                self._entries[digest] = page
+                self._entries.move_to_end(digest)
+                added += 1
+        return added
+
+    def evict(self, n: int) -> int:
+        """Release up to n cache-pinned pages toward the pool (LRU first,
+        skipping pages live slots still hold)."""
+        with self._lock:
+            return self._evict_locked(n)
+
+    def _evict_locked(self, n: int) -> int:
+        dropped = 0
+        for digest, page in list(self._entries.items()):
+            if dropped >= n:
+                break
+            if self.allocator.refcount(page) != 1:
+                continue  # held by a live slot: survives the sweep
+            del self._entries[digest]
+            self.allocator.free([page])
+            self.evictions += 1
+            dropped += 1
+        return dropped
+
+    def stats(self) -> Dict[str, float]:
+        with self._lock:
+            hits, misses = self.hits, self.misses
+            return {
+                "hits": float(hits),
+                "misses": float(misses),
+                "evictions": float(self.evictions),
+                "pages": float(len(self._entries)),
+                "hit_rate": hits / max(1, hits + misses),
+            }
+
+    def chain_heads(self, limit: int = 64) -> List[Dict[str, Any]]:
+        """MRU-first view of the cached entries: each row one published
+        page keyed by its chain-hash head, with its live refcount (1 =
+        pinned only by the cache, >1 = shared by slots)."""
+        with self._lock:
+            rows = [
+                {"digest": digest.hex(), "page": page}
+                for digest, page in reversed(self._entries.items())
+            ][:limit]
+        for row in rows:
+            row["refcount"] = self.allocator.refcount(row["page"])
+        return rows
 
 
 # ------------------------------------------------------------------ attention
@@ -398,6 +568,22 @@ def ragged_mixed_step(
     if squeeze_dec:
         dec_logits = dec_logits[:, 0]
     return logits[:p_lanes], dec_logits, cache
+
+
+def copy_page(
+    cache: Dict[str, torch.Tensor], src, dst, *, n_layers: int,
+) -> Dict[str, torch.Tensor]:
+    """Copy one logical page (every layer's stripe) src -> dst in the flat
+    pool, in place: the device half of copy-on-write. Layer i's stripe
+    lives at page + i*num_pages (see init_paged_cache). src / dst are ints
+    or 0-d integer tensors."""
+    k_full, v_full = cache["k"], cache["v"]
+    num_pages = k_full.shape[1] // n_layers
+    stripes = torch.arange(n_layers, device=k_full.device) * num_pages
+    src_idx, dst_idx = stripes + src, stripes + dst
+    k_full[:, dst_idx] = k_full[:, src_idx]
+    v_full[:, dst_idx] = v_full[:, src_idx]
+    return cache
 
 
 def paged_decode_step(

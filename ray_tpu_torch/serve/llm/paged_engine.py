@@ -19,15 +19,25 @@
   and per decode sampler variant, `graphs.py`) and eagerly on the CPU.
 - Backpressure is physical: admission, prefill growth and decode growth
   all wait on the page allocator; finished slots return their pages.
+- Speculative decoding (`speculative_tokens` > 0) replaces the decode
+  blocks with VERIFY ROUNDS: a host proposer drafts up to K tokens per
+  lane, one mixed pass scores the pending token and the drafts as a
+  q_len = 1 + drafts ragged region, the exact accept step runs inside the
+  same graph, and the packed tokens + counts go out as one fetch. A lane
+  has at most one round in flight; pages grown past the accepted frontier
+  roll back when the round drains.
+- The PREFIX CACHE (`PagedConfig.prefix_cache`) hands an admitted request
+  the cached pages of its longest page-aligned prompt prefix, so only the
+  tail is prefilled; a page about to be written while shared is copied
+  first (copy-on-write), and pool pressure evicts cached pages.
 
 Retirement (EOS / budget) is detected at emission, up to a few blocks
 after the fact. Blocks still in flight for a retired slot may write into
 its freed pages; that is safe because every pass runs on one stream, in
 order: a later owner's writes come after them, and attention masks rows
-beyond a slot's length. Speculative decoding, the prefix cache with
-copy-on-write, lane preemption, fair-queue tenancy, deadlines, request
-tracing and tensor parallelism, which the JAX engine has, are not ported
-yet.
+beyond a slot's length. Lane preemption, fair-queue tenancy, deadlines,
+request tracing and tensor parallelism, which the JAX engine has, are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -57,11 +67,13 @@ from .graphs import DevicePass, to_device
 from .paged import (
     PageAllocator,
     PagedConfig,
+    PrefixCache,
+    copy_page,
     init_paged_cache,
     paged_decode_step,
     ragged_mixed_step,
 )
-from .speculative import filtered_scores
+from .speculative import NgramProposer, accept_speculative, categorical, filtered_scores
 
 
 @dataclasses.dataclass
@@ -76,26 +88,25 @@ class PagedEngineConfig:
     # engines; serving wants it on so no request pays a capture. On the
     # CPU the passes run eagerly and there is nothing to capture.
     precompile: bool = False
+    # Speculative decoding: tokens drafted per verify round; 0 disables.
+    # None means 0, the default of the JAX package's
+    # serve_speculative_tokens flag (the port has no config module yet).
+    speculative_tokens: Optional[int] = None
+    speculative_ngram: int = 3  # the default proposer's max n-gram
+    # Optional DraftProposer (speculative.py protocol); None = n-gram
+    # prompt-lookup self-drafting.
+    speculative_proposer: Optional[Any] = None
     paged: PagedConfig = dataclasses.field(default_factory=PagedConfig)
 
 
 # ------------------------------------------------------------------ sampling
 
 
-def _categorical(scores: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    """One draw per row from softmax(scores), by the Gumbel-max
-    construction jax.random.categorical uses (the bits differ: the
-    generator is torch's)."""
-    u = torch.rand(scores.shape, generator=generator, device=scores.device)
-    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
-    return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
-
-
 def _sample_plain(logits, generator, temps):
     """temperature-only / greedy sampling — the common fast path."""
     greedy = torch.argmax(logits, dim=-1)
     scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
-    sampled = _categorical(scaled, generator)
+    sampled = categorical(scaled, generator)
     return torch.where(temps <= 0.0, greedy, sampled)
 
 
@@ -103,7 +114,7 @@ def _sample_filtered(logits, generator, temps, top_ks, top_ps):
     """Per-lane temperature + top-k + top-p (nucleus) sampling."""
     greedy = torch.argmax(logits, dim=-1)
     final = filtered_scores(logits, temps, top_ks, top_ps)
-    sampled = _categorical(final, generator)
+    sampled = categorical(final, generator)
     return torch.where(temps <= 0.0, greedy, sampled)
 
 
@@ -214,6 +225,11 @@ class _PagedSlot:
     # emission-side bookkeeping
     emit_remaining: int = 0
     finished_emit: bool = False
+    # speculative decoding: the host-side context the proposer drafts from
+    # (prompt + every emitted token; seeded by the "first" fetch), and the
+    # one-round-in-flight latch, which keeps the rollback race-free
+    spec_ctx: Optional[List[int]] = None
+    spec_inflight: bool = False
 
     @property
     def free(self) -> bool:
@@ -279,6 +295,18 @@ class PagedLLMEngine:
         self.paged = pc
         self.cache = init_paged_cache(model_config, pc, self.device)
         self.allocator = PageAllocator(pc.num_pages)
+        self.prefix_cache: Optional[PrefixCache] = (
+            PrefixCache(self.allocator, pc.page_size, pc.prefix_cache_pages)
+            if pc.prefix_cache else None
+        )
+        self.spec_tokens = max(0, int(self.config.speculative_tokens or 0))
+        # verify width: the pending token + the drafts (row 0 of a verify
+        # region re-scores the token whose KV write was deferred)
+        self._spec_width = self.spec_tokens + 1
+        self._proposer = None
+        if self.spec_tokens:
+            self._proposer = (self.config.speculative_proposer
+                              or NgramProposer(self.config.speculative_ngram))
         ms = self.config.max_slots
         self.slots = [_PagedSlot() for _ in range(ms)]
         self.block_tables = np.zeros((ms, pc.max_pages_per_slot), dtype=np.int32)
@@ -294,6 +322,8 @@ class PagedLLMEngine:
         # never waits on the card. Entries:
         #   ("first", (slot, request), _Fetch of (1,))
         #   ("block", [(slot, request, fresh), ...], _Fetch of (K+1, B))
+        #   ("spec", [(slot, request, position, count, pre_pages), ...],
+        #    _Fetch of (B, W+1): emitted tokens, then their count)
         self._fetchq: "queue.Queue[Optional[Tuple[str, Any, _Fetch]]]" = queue.Queue()
         self._doneq: "queue.Queue[Tuple[str, Any, Any]]" = queue.Queue()
         self._inflight = 0  # fetch entries not yet emitted
@@ -311,6 +341,18 @@ class PagedLLMEngine:
             "prefill_tokens": 0.0,
             "decode_tokens": 0.0,
             "mixed_ticks": 0.0,
+            # prefix-cache counters; zero when it is off
+            "prefix_cache_hits": 0.0,
+            "prefix_cache_misses": 0.0,
+            "prefix_cache_evictions": 0.0,
+            "prefix_cache_pages": 0.0,
+            "prefix_cache_hit_rate": 0.0,
+            "prefix_cache_cow": 0.0,
+            # speculative-decoding counters; zero when it is off
+            "spec_proposed": 0.0,
+            "spec_accepted": 0.0,
+            "spec_acceptance_rate": 0.0,
+            "spec_rollback_pages": 0.0,
         }
         self._build_passes()
         self.capture_s = 0.0
@@ -332,7 +374,16 @@ class PagedLLMEngine:
         count of prefill lanes up to max_slots, and the K-step decode block
         with the plain and the filtered sampler. Each closes over the
         weights, the pool, the token vector and the RoPE tables, computed
-        once here."""
+        once here.
+
+        In speculative mode each mixed bucket is a VERIFY pass instead: its
+        decode lanes take host tokens (max_slots, K+1), the pending token
+        and the drafts, and the exact accept step runs inside the pass (in
+        the graph, with the engine's generator registered), which returns
+        the packed (max_slots, K+2) tokens + counts in place of the decode
+        logits. There are no decode blocks: the JAX engine never launches
+        them in this mode, and the decode-only verify tick replays bucket 1
+        with its prefill lane inactive."""
         mc, pc = self.model_config, self.paged
         ms, maxp, ps = self.config.max_slots, pc.max_pages_per_slot, pc.page_size
         ct, cp = pc.chunk_tokens, pc.chunk_pages
@@ -341,6 +392,7 @@ class PagedLLMEngine:
         rope = (None if mc.pos_emb == "learned" else
                 rope_frequencies(mc.head_dim, mc.max_seq, mc.rope_theta, device=self.device))
         block_q = mixed_block_q(ct)
+        spec = self.spec_tokens > 0
 
         def mixed(page_rows, chunk_ids, tokens, offsets, totals, dec_positions, dec_active):
             logits, dec_logits, _ = ragged_mixed_step(
@@ -350,14 +402,32 @@ class PagedLLMEngine:
             )
             return logits, dec_logits
 
+        def verify(page_rows, chunk_ids, tokens, offsets, totals, dec_tokens, dec_positions,
+                   dec_active, temps, top_ks, top_ps):
+            logits, dec_logits, _ = ragged_mixed_step(
+                self.params, self.cache, page_rows, chunk_ids, tokens, offsets, totals,
+                dec_tokens, dec_positions, dec_active, mc,
+                page_size=ps, block_q=block_q, rope_tables=rope,
+            )
+            out, n_out = accept_speculative(dec_logits, dec_tokens, dec_active, self._gen,
+                                            temps, top_ks, top_ps)
+            return logits, torch.cat([out, n_out[:, None]], dim=1)
+
         self._mixed: Dict[int, DevicePass] = {}
         b = 1
         while True:
-            self._mixed[b] = DevicePass(f"mixed.{b}", mixed, {
+            inputs = {
                 "page_rows": ((b + ms, maxp), i32), "chunk_ids": ((b, cp), i64),
                 "tokens": ((b, ct), i64), "offsets": ((b,), i64), "totals": ((b,), i64),
                 "dec_positions": ((ms,), i64), "dec_active": ((ms,), i64),
-            }, self.device)
+            }
+            if spec:
+                inputs.update(dec_tokens=((ms, self._spec_width), i64), temps=((ms,), f32),
+                              top_ks=((ms,), i64), top_ps=((ms,), f32))
+                self._mixed[b] = DevicePass(f"verify.{b}", verify, inputs, self.device,
+                                            self._gen)
+            else:
+                self._mixed[b] = DevicePass(f"mixed.{b}", mixed, inputs, self.device)
             if b >= ms:
                 break
             b = min(b * 2, ms)
@@ -374,16 +444,18 @@ class PagedLLMEngine:
                 return toks
             return run
 
-        plain_inputs = {"block_tables": ((ms, maxp), i32), "positions": ((ms,), i64),
-                        "mask": ((ms,), torch.bool), "temps": ((ms,), f32)}
-        self._decode = {
-            "plain": DevicePass("decode.plain", decode_block(_sample_plain), plain_inputs,
-                                self.device, self._gen),
-            "filtered": DevicePass(
-                "decode.filtered", decode_block(_sample_filtered),
-                dict(plain_inputs, top_ks=((ms,), i64), top_ps=((ms,), f32)),
-                self.device, self._gen),
-        }
+        self._decode: Dict[str, DevicePass] = {}
+        if not spec:
+            plain_inputs = {"block_tables": ((ms, maxp), i32), "positions": ((ms,), i64),
+                            "mask": ((ms,), torch.bool), "temps": ((ms,), f32)}
+            self._decode = {
+                "plain": DevicePass("decode.plain", decode_block(_sample_plain), plain_inputs,
+                                    self.device, self._gen),
+                "filtered": DevicePass(
+                    "decode.filtered", decode_block(_sample_filtered),
+                    dict(plain_inputs, top_ks=((ms,), i64), top_ps=((ms,), f32)),
+                    self.device, self._gen),
+            }
 
     def passes(self) -> List[DevicePass]:
         return list(self._mixed.values()) + list(self._decode.values())
@@ -411,6 +483,7 @@ class PagedLLMEngine:
         top_p: float = 1.0,
         stop_token_ids: Optional[List[int]] = None,
         stop_sequences: Optional[List[List[int]]] = None,
+        request_id: Optional[str] = None,
     ) -> ResponseStream:
         limit = self.paged.max_slot_tokens
         if len(prompt_tokens) + max_tokens > limit:
@@ -432,6 +505,7 @@ class PagedLLMEngine:
             top_p=float(top_p),
             stop_token_ids=tuple(stop_token_ids or ()),
             stop_sequences=_normalize_stop_sequences(stop_sequences),
+            request_id=request_id,
         )
         self._queue.put(request)
         # the death path records its cause BEFORE draining the queue, so a
@@ -451,13 +525,18 @@ class PagedLLMEngine:
 
     def stats(self) -> Dict[str, float]:
         """The metrics dict, the live free-page count, the fetch entries in
-        flight, and per pass its runs (`passes.<name>`: graph replays on the
-        card, eager runs on the CPU) and the kernel launches its replays
-        made (`launches.<kernel>`, `launches.ragged.<kind>`: runs x the
-        launches its capture recorded, summed over the passes)."""
+        flight, the prefix cache's live stats (`prefix_cache_*`, read now,
+        not at the last loop tick), and per pass its runs (`passes.<name>`:
+        graph replays on the card, eager runs on the CPU) and the kernel
+        launches its replays made (`launches.<kernel>`,
+        `launches.ragged.<kind>`: runs x the launches its capture recorded,
+        summed over the passes)."""
         out = dict(self.metrics)
         out["pages_free"] = float(self.allocator.available)
         out["inflight_blocks"] = float(self._inflight)
+        if self.prefix_cache is not None:
+            for key, val in self.prefix_cache.stats().items():
+                out[f"prefix_cache_{key}"] = val
         for p in self.passes():
             out[f"passes.{p.name}"] = float(p.runs)
             for kernel, n in p.launches().items():
@@ -508,12 +587,23 @@ class PagedLLMEngine:
 
     # ------------------------------------------------------------- admission
 
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Pool alloc with prefix-cache pressure relief: when the free list
+        comes up short, evict cache-pinned pages (LRU, never pages a live
+        slot shares) to cover the shortfall and retry once, so cached
+        prefixes never starve admissions or growth."""
+        pages = self.allocator.alloc(n)
+        if pages is None and self.prefix_cache is not None:
+            if self.prefix_cache.evict(n - self.allocator.available) > 0:
+                pages = self.allocator.alloc(n)
+        return pages
+
     def _grow(self, idx: int, slot: _PagedSlot, pages_needed: int) -> bool:
         """Grow a slot's page list to `pages_needed`; False (and the slot
         marked stalled) when the pool is short."""
         if pages_needed <= len(slot.pages):
             return True
-        extra = self.allocator.alloc(pages_needed - len(slot.pages))
+        extra = self._alloc_pages(pages_needed - len(slot.pages))
         if extra is None:
             if not slot.stalled:
                 slot.stalled = True
@@ -524,6 +614,7 @@ class PagedLLMEngine:
         return True
 
     def _admit(self) -> None:
+        pc = self.paged
         while True:
             try:
                 self._pending.append(self._queue.get_nowait())
@@ -535,16 +626,26 @@ class PagedLLMEngine:
             if not self._pending:
                 return
             request = self._pending.popleft()
-            pages = self.allocator.alloc(self.paged.chunk_pages)
+            # prefix reuse: the longest cached page-aligned prefix of the
+            # prompt arrives prefilled (lookup takes this slot's refs), and
+            # only the tail is chunk-prefilled
+            hit: List[int] = (self.prefix_cache.lookup(request.prompt)
+                              if self.prefix_cache is not None else [])
+            # hit pages can leave the chunk misaligned: cap the fresh pages
+            # at the block-table width (prefill tops up from there)
+            pages = self._alloc_pages(min(pc.chunk_pages, pc.max_pages_per_slot - len(hit)))
             if pages is None:
+                if hit:
+                    self.allocator.free(hit)
                 # deferred admission keeps its place at the head of the queue
                 self._pending.appendleft(request)
                 self.metrics["page_stalls"] += 1
                 return
+            request.cached_tokens = len(hit) * pc.page_size
             slot.request = request
-            slot.pages = pages
+            slot.pages = list(hit) + pages
             slot.position = 0
-            slot.prefill_offset = 0
+            slot.prefill_offset = len(hit) * pc.page_size
             slot.stalled = False
             slot.dispatch_remaining = 0
             slot.done_dispatching = False
@@ -552,20 +653,52 @@ class PagedLLMEngine:
             slot.awaiting_first = False
             slot.emit_remaining = request.max_tokens
             slot.finished_emit = False
+            slot.spec_ctx = None
+            slot.spec_inflight = False
             self.block_tables[idx, :] = 0
-            self.block_tables[idx, : len(pages)] = pages
+            self.block_tables[idx, : len(slot.pages)] = slot.pages
+
+    def _ensure_private_page(self, idx: int, slot: _PagedSlot, page_index: int) -> bool:
+        """Copy-on-write guard before a write: if the page at `page_index`
+        is shared (a prefix-cache pin or another slot), copy its KV stripes
+        to a fresh page (`copy_page`, an eager pass on the compute stream,
+        so it copies what every earlier pass wrote), swap the block table,
+        and drop this slot's ref on the original. Lookup stops short of
+        the first page a request writes, so the engine never writes a
+        shared page on its own; the guard enforces that. False (and the
+        lane stalled) when no page is free for the copy."""
+        if self.prefix_cache is None:
+            return True
+        page = slot.pages[page_index]
+        if page <= 0 or self.allocator.refcount(page) <= 1:
+            return True
+        fresh = self._alloc_pages(1)
+        if fresh is None:
+            if not slot.stalled:
+                slot.stalled = True
+                self.metrics["page_stalls"] += 1
+            return False
+        copy_page(self.cache, page, fresh[0], n_layers=self.model_config.n_layers)
+        self.allocator.free([page])
+        slot.pages[page_index] = fresh[0]
+        self.block_tables[idx, page_index] = fresh[0]
+        self.metrics["prefix_cache_cow"] += 1
+        return True
 
     # ------------------------------------------------------------ mixed tick
 
     def _mixed_tick(self) -> bool:
         """THE mixed tick: one ragged-paged-attention pass ingests a chunk
         for EVERY prefilling slot AND advances every decodable lane one
-        step (while fewer than max_inflight_blocks blocks are in flight).
-        Prefill lanes pad to the next power of two; final chunks sample
-        their first tokens into the token vector, where they ride the
-        lane's next block. No read-back: the decode lanes' tokens go out
-        as a K=1 "block" fetch. Decode-only ticks return False and the
-        K-step decode block takes over."""
+        step, or in speculative mode one verify round (while fewer than
+        max_inflight_blocks blocks are in flight). Prefill lanes pad to the
+        next power of two; final chunks sample their first tokens into the
+        token vector, where they ride the lane's next block (in speculative
+        mode they go out as a "first" fetch: the proposer drafts on the
+        host). No read-back: the decode lanes' tokens go out as a K=1
+        "block" fetch, a verify round's as a "spec" fetch. Decode-only
+        ticks return False and the K-step decode block (or the decode-only
+        verify tick) takes over."""
         ct = self.paged.chunk_tokens
         cp = self.paged.chunk_pages
         ps = self.paged.page_size
@@ -577,6 +710,10 @@ class PagedLLMEngine:
                 continue
             offset = slot.prefill_offset
             first_page = offset // ps
+            # a prefix hit can leave first_page chunk-misaligned, so the
+            # chunk's page window may brush the block-table cap: grow only
+            # to the cap; window pages past it stay scratch-mapped, and only
+            # pad rows land there
             if not self._grow(idx, slot, min(first_page + cp, maxp)):
                 continue
             slot.stalled = False
@@ -600,37 +737,49 @@ class PagedLLMEngine:
             chunk_ids[lane, : len(window)] = window
             offsets[lane] = offset
             totals[lane] = offset + n_real
-        # decode ride-along: every decodable lane advances one step (gated
-        # like a decode block: its fetch entry occupies an inflight slot)
+        # decode ride-along: every decodable lane advances one step, or one
+        # verify round (gated like a decode block: its fetch entry occupies
+        # an inflight slot)
+        spec = self.spec_tokens > 0
         dec_positions = np.zeros((ms,), dtype=np.int64)
         dec_active = np.zeros((ms,), dtype=np.int64)
+        verify_in = self._verify_arrays() if spec else {}
         dec_lanes: List[Tuple[int, _Request, bool]] = []
+        spec_lanes: List[Tuple[int, _Request, int, int, int]] = []
         if self._inflight < self.config.max_inflight_blocks:
-            cap = self.paged.max_slot_tokens
-            for i, slot in enumerate(self.slots):
-                if not slot.decodable:
-                    continue
-                if slot.position + 1 > cap:
-                    slot.done_dispatching = True
-                    continue
-                if not self._grow(i, slot, slot.position // ps + 1):
-                    continue
-                slot.stalled = False
-                page_rows[b + i] = self.block_tables[i]
-                dec_positions[i] = slot.position
-                dec_active[i] = 1
-                dec_lanes.append((i, slot.request, slot.awaiting_first))
-                slot.awaiting_first = False
-        logits, dec_logits = self._mixed[b](
+            if spec:
+                spec_lanes = self._gather_spec_rounds(page_rows, b, dec_positions, dec_active,
+                                                      **verify_in)
+            else:
+                cap = self.paged.max_slot_tokens
+                for i, slot in enumerate(self.slots):
+                    if not slot.decodable:
+                        continue
+                    if slot.position + 1 > cap:
+                        slot.done_dispatching = True
+                        continue
+                    if not self._grow(i, slot, slot.position // ps + 1):
+                        continue
+                    if not self._ensure_private_page(i, slot, slot.position // ps):
+                        continue
+                    slot.stalled = False
+                    page_rows[b + i] = self.block_tables[i]
+                    dec_positions[i] = slot.position
+                    dec_active[i] = 1
+                    dec_lanes.append((i, slot.request, slot.awaiting_first))
+                    slot.awaiting_first = False
+        logits, dec_out = self._mixed[b](
             page_rows=page_rows, chunk_ids=chunk_ids, tokens=tokens, offsets=offsets,
-            totals=totals, dec_positions=dec_positions, dec_active=dec_active,
+            totals=totals, dec_positions=dec_positions, dec_active=dec_active, **verify_in,
         )
         self.metrics["mixed_ticks"] += 1
+        if spec_lanes:
+            self._finish_spec_dispatch(dec_out, spec_lanes)
         # decode bookkeeping: sample, merge, and ship the pair of token
         # rows exactly like a K=1 decode block
         if dec_lanes:
             sampled = self._sample(
-                dec_logits, *self._lane_params([(i, i) for i, _, _ in dec_lanes], ms))
+                dec_out, *self._lane_params([(i, i) for i, _, _ in dec_lanes], ms))
             packed = _dec_pack(self._tokens_dev, sampled,
                                to_device(dec_active == 1, self.device))
             self._fetch("block", dec_lanes, packed)
@@ -652,6 +801,10 @@ class PagedLLMEngine:
             self.metrics["prefill_chunks"] += 1
             if not slot.prefilling:
                 finished.append((lane, idx))
+                if self.prefix_cache is not None:
+                    # publish every page the prompt fully covers (their KV
+                    # is final: decode writes start past them)
+                    self.prefix_cache.register(slot.request.prompt, slot.pages)
         if finished:
             sampled = self._sample(logits, *self._lane_params(finished, b))
             _scatter_tokens(
@@ -665,10 +818,13 @@ class PagedLLMEngine:
                 request = slot.request
                 slot.dispatch_remaining = request.max_tokens - 1
                 if slot.dispatch_remaining <= 0:
-                    # max_tokens=1: no block will ever carry this lane's
-                    # first token, so it takes a fetch of its own, which
-                    # the lane's retirement waits for like a block
                     slot.done_dispatching = True
+                if self.spec_tokens or slot.dispatch_remaining <= 0:
+                    # a fetch of its own, which the lane's retirement waits
+                    # for like a block: in speculative mode the proposer
+                    # drafts on the host, so the first token's value seeds
+                    # spec_ctx before the first verify round; with
+                    # max_tokens=1 no block will ever carry it
                     slot.blocks_in_flight += 1
                     self._fetch("first", (idx, request), _take(self._tokens_dev, idx))
                 else:
@@ -698,7 +854,12 @@ class PagedLLMEngine:
             if slot.position + useful > cap:
                 slot.done_dispatching = True
                 continue
-            if not self._grow(i, slot, (slot.position + useful - 1) // ps + 1):
+            pages_needed = (slot.position + useful - 1) // ps + 1
+            if not self._grow(i, slot, pages_needed):
+                continue
+            # copy-on-write: every page this block writes must be private
+            if not all(self._ensure_private_page(i, slot, pi)
+                       for pi in range(slot.position // ps, pages_needed)):
                 continue
             slot.stalled = False
             bt[i] = self.block_tables[i]
@@ -728,6 +889,113 @@ class PagedLLMEngine:
                 slot.done_dispatching = True
         self.metrics["decode_blocks"] += 1
         self.metrics["decode_steps"] += K
+        return True
+
+    # ---------------------------------------------------- speculative decode
+
+    def _verify_arrays(self) -> Dict[str, np.ndarray]:
+        """A verify pass's per-lane host inputs, every lane inactive."""
+        ms = self.config.max_slots
+        return dict(dec_tokens=np.zeros((ms, self._spec_width), dtype=np.int64),
+                    temps=np.zeros((ms,), dtype=np.float32),
+                    top_ks=np.zeros((ms,), dtype=np.int64),
+                    top_ps=np.ones((ms,), dtype=np.float32))
+
+    def _gather_spec_rounds(
+        self,
+        page_rows: np.ndarray,
+        base: int,
+        dec_positions: np.ndarray,
+        dec_active: np.ndarray,
+        dec_tokens: np.ndarray,
+        temps: np.ndarray,
+        top_ks: np.ndarray,
+        top_ps: np.ndarray,
+    ) -> List[Tuple[int, _Request, int, int, int]]:
+        """Fill one verify round per ready lane into the pass's decode
+        arrays: row 0 the lane's pending token (its KV write was deferred
+        to this round), rows 1.. the proposer's drafts, dispatched as a
+        q_len = count ragged region at positions position..position+count-1.
+        Pages are grown to cover the whole round up front (copy-on-write
+        guarded); the drain side rolls back what rejection leaves unused. A
+        lane needs spec_ctx (seeded by its "first" fetch) and at most one
+        round in flight. Returns the dispatched (idx, request, position,
+        count, pages before the round) list."""
+        ps = self.paged.page_size
+        cap = self.paged.max_slot_tokens
+        lanes: List[Tuple[int, _Request, int, int, int]] = []
+        for i, slot in enumerate(self.slots):
+            if not slot.decodable or slot.spec_inflight or slot.spec_ctx is None:
+                continue
+            # a round with c inputs emits at most c tokens and writes c KV
+            # rows: cap the width by both budgets
+            width = min(self._spec_width, cap - slot.position, slot.dispatch_remaining)
+            if width <= 0:
+                slot.done_dispatching = True
+                continue
+            drafts: List[int] = []
+            if width > 1 and self._proposer is not None:
+                try:
+                    drafts = list(self._proposer.propose(slot.spec_ctx, width - 1))[: width - 1]
+                except Exception:  # noqa: BLE001 - as in JAX: a broken proposer
+                    drafts = []  # degrades the round to plain decode
+            count = 1 + len(drafts)
+            # rollback floor: only pages this round grows are ever trimmed
+            pre_pages = len(slot.pages)
+            pages_needed = (slot.position + count - 1) // ps + 1
+            if not self._grow(i, slot, pages_needed):
+                continue
+            if not all(self._ensure_private_page(i, slot, pi)
+                       for pi in range(slot.position // ps, pages_needed)):
+                continue
+            slot.stalled = False
+            page_rows[base + i] = self.block_tables[i]
+            dec_tokens[i, 0] = slot.spec_ctx[-1]
+            if drafts:
+                dec_tokens[i, 1:count] = drafts
+            dec_positions[i] = slot.position
+            dec_active[i] = count
+            temps[i] = slot.request.temperature
+            top_ks[i] = slot.request.top_k
+            top_ps[i] = slot.request.top_p
+            slot.spec_inflight = True
+            slot.blocks_in_flight += 1
+            self.metrics["spec_proposed"] += float(len(drafts))
+            lanes.append((i, slot.request, slot.position, count, pre_pages))
+        return lanes
+
+    def _finish_spec_dispatch(self, packed: torch.Tensor,
+                              spec_lanes: List[Tuple[int, _Request, int, int, int]]) -> None:
+        """Ship the verify pass's packed (tokens + counts) output through
+        the fetch pipeline: the logits never cross to the host and the loop
+        never waits on the card."""
+        self._fetch("spec", spec_lanes, packed)
+        self.metrics["decode_blocks"] += 1
+        self.metrics["decode_steps"] += 1  # one pass, however many tokens
+
+    def _dispatch_spec_verify(self) -> bool:
+        """The decode-only verify tick, the speculative steady state: one
+        pass scores every ready lane's round, its one prefill lane
+        inactive (zero totals, scratch-mapped), so it replays bucket 1."""
+        pc = self.paged
+        ms = self.config.max_slots
+        if self._inflight >= self.config.max_inflight_blocks:
+            return False
+        page_rows = np.zeros((1 + ms, pc.max_pages_per_slot), dtype=np.int32)
+        dec_positions = np.zeros((ms,), dtype=np.int64)
+        dec_active = np.zeros((ms,), dtype=np.int64)
+        verify_in = self._verify_arrays()
+        spec_lanes = self._gather_spec_rounds(page_rows, 1, dec_positions, dec_active,
+                                              **verify_in)
+        if not spec_lanes:
+            return False
+        _, packed = self._mixed[1](
+            page_rows=page_rows, chunk_ids=np.zeros((1, pc.chunk_pages), dtype=np.int64),
+            tokens=np.zeros((1, pc.chunk_tokens), dtype=np.int64),
+            offsets=np.zeros((1,), dtype=np.int64), totals=np.zeros((1,), dtype=np.int64),
+            dec_positions=dec_positions, dec_active=dec_active, **verify_in,
+        )
+        self._finish_spec_dispatch(packed, spec_lanes)
         return True
 
     # -------------------------------------------------------------- emission
@@ -785,10 +1053,18 @@ class PagedLLMEngine:
             drained = True
             if kind == "first":
                 idx, request = meta
-                self._emit(idx, request, int(vals[0]), first=True)
-                if self.slots[idx].request is request:
-                    self.slots[idx].blocks_in_flight -= 1
+                token = int(vals[0])
+                slot = self.slots[idx]
+                if self.spec_tokens and slot.request is request and not slot.finished_emit:
+                    # seed the draft context: prompt + first token
+                    slot.spec_ctx = list(request.prompt) + [token]
+                self._emit(idx, request, token, first=True)
+                if slot.request is request:
+                    slot.blocks_in_flight -= 1
                 self._maybe_retire(idx, request)
+                continue
+            if kind == "spec":
+                self._complete_spec_round(meta, vals)
                 continue
             # vals is (K+1, B): row 0 = the block's input tokens, emitted
             # only for lanes whose first token rides this block
@@ -802,6 +1078,53 @@ class PagedLLMEngine:
                 if slot.request is request:
                     slot.blocks_in_flight -= 1
                 self._maybe_retire(idx, request)
+
+    def _complete_spec_round(
+        self, meta: List[Tuple[int, _Request, int, int, int]], vals: np.ndarray
+    ) -> None:
+        """Drain one verify round: emit the accepted drafts + the corrected
+        or bonus token, advance the lane to the accepted frontier, and ROLL
+        BACK pages speculated past it. vals is the packed (max_slots, W+1)
+        array: columns [:W] the emitted tokens in order, column W their
+        count m (1 <= m <= count for live lanes).
+
+        Rollback never touches a shared page: the round wrote positions >=
+        its dispatch position >= len(prompt) + 1, so the kept frontier
+        (new_pos - 1) // ps + 1 exceeds both the prefix-cache hit count
+        (lookup caps at (len(prompt) - 1) // ps pages) and every page
+        register() publishes (len(prompt) // ps); the trimmed pages are
+        fresh allocations of this round, refcount 1. Stale KV in kept pages
+        past the frontier is masked by every later pass's kv_len until the
+        lane's own writes overwrite it."""
+        ps = self.paged.page_size
+        for idx, request, dpos, count, pre_pages in meta:
+            slot = self.slots[idx]
+            m = int(vals[idx, -1])
+            self.metrics["spec_accepted"] += float(max(0, m - 1))
+            if slot.request is not request:
+                continue  # retired mid-flight: its pages are already freed
+            slot.spec_inflight = False
+            slot.blocks_in_flight -= 1
+            new_pos = dpos + m
+            slot.position = new_pos
+            # free only pages THIS round grew past the accepted frontier
+            # (admit-time spares below pre_pages stay mapped)
+            keep = max((new_pos - 1) // ps + 1, pre_pages)
+            if keep < len(slot.pages):
+                trimmed = slot.pages[keep:]
+                slot.pages = slot.pages[:keep]
+                self.allocator.free(trimmed)
+                self.block_tables[idx, keep:] = 0
+                self.metrics["spec_rollback_pages"] += float(len(trimmed))
+            slot.dispatch_remaining -= m
+            if slot.dispatch_remaining <= 0:
+                slot.done_dispatching = True
+            emitted = [int(vals[idx, j]) for j in range(m)]
+            if slot.spec_ctx is not None:
+                slot.spec_ctx.extend(emitted)
+            for tok in emitted:
+                self._emit(idx, request, tok)
+            self._maybe_retire(idx, request)
 
     def _emit(self, idx: int, request: _Request, token: int, first: bool = False) -> None:
         slot = self.slots[idx]
@@ -842,6 +1165,8 @@ class PagedLLMEngine:
         slot.dispatch_remaining = 0
         slot.blocks_in_flight = 0
         slot.finished_emit = False
+        slot.spec_ctx = None
+        slot.spec_inflight = False
         self.block_tables[idx, :] = 0
 
     # ------------------------------------------------------------------ loop
@@ -878,8 +1203,18 @@ class PagedLLMEngine:
             # drain the prefill backlog before launching a decode block, so
             # admissions group into one joint block
             if not progressed and self._inflight < gate:
-                progressed = self._dispatch_decode_block()
-            dispatchable = any(s.decodable or s.prefilling for s in self.slots)
+                progressed = (self._dispatch_spec_verify() if self.spec_tokens
+                              else self._dispatch_decode_block())
+            if self.spec_tokens:
+                # a spec lane is dispatchable only once its "first" fetch
+                # has seeded the draft context and its last round drained;
+                # until then the loop waits on the drain queue, not spins
+                dispatchable = any(
+                    s.prefilling or (s.decodable and not s.spec_inflight
+                                     and s.spec_ctx is not None)
+                    for s in self.slots)
+            else:
+                dispatchable = any(s.decodable or s.prefilling for s in self.slots)
             gated = self._inflight >= gate
             progressed |= self._pump_completed(
                 wait=self._inflight > 0 and (gated or not dispatchable)
@@ -896,6 +1231,14 @@ class PagedLLMEngine:
             self.metrics["pages_in_use"] = float(
                 pc.num_pages - 1 - self.allocator.available
             )
+            if self.prefix_cache is not None:
+                pcs = self.prefix_cache.stats()
+                for key in ("hits", "misses", "evictions", "pages", "hit_rate"):
+                    self.metrics[f"prefix_cache_{key}"] = pcs[key]
+            if self.spec_tokens:
+                prop = self.metrics["spec_proposed"]
+                self.metrics["spec_acceptance_rate"] = (
+                    self.metrics["spec_accepted"] / prop if prop else 0.0)
             if occupied == 0 and not self._inflight:
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()

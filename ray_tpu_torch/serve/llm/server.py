@@ -45,6 +45,10 @@ class LLMServer:
     def _submit(self, payload: Dict[str, Any]):
         prompt = payload["prompt_tokens"]
         kwargs = {}
+        # the end-to-end id rides in the payload, as for the JAX server's
+        # direct callers (the port has no router to thread it ambiently)
+        if payload.get("request_id"):
+            kwargs["request_id"] = str(payload["request_id"])
         for name, cast in (("top_k", int), ("top_p", float),
                            ("stop_token_ids", list),
                            ("stop_sequences", list)):
@@ -68,25 +72,37 @@ class LLMServer:
 
     def generate(self, payload: Dict[str, Any]) -> Dict[str, Any]:
         """{"prompt_tokens": [...], "max_tokens": n, "temperature": t} →
-        {"tokens": [...], "usage": {...}, "ttft_s": s}."""
+        {"tokens": [...], "usage": {...}, "ttft_s": s, "request_id": id}."""
         prompt, stream = self._submit(payload)
         tokens = stream.result()
         return {
             "tokens": tokens,
             "usage": self._usage(prompt, len(tokens)),
             "ttft_s": stream.ttft_s,
+            "request_id": stream.request_id,
         }
 
     def stream_generate(self, payload: Dict[str, Any]):
         """Token-streaming variant: yields one {"token": id} per generated
         token as the engine produces it, then a final {"done": true,
-        "usage": ...}."""
+        "usage": ..., "ttft_s": s, "request_id": id}."""
         prompt, stream = self._submit(payload)
         n = 0
         for token in stream:
             n += 1
             yield {"token": token}
-        yield {"done": True, "usage": self._usage(prompt, n), "ttft_s": stream.ttft_s}
+        yield {"done": True, "usage": self._usage(prompt, n), "ttft_s": stream.ttft_s,
+               "request_id": stream.request_id}
+
+    def metrics(self, _payload: Optional[Dict[str, Any]] = None) -> Dict[str, float]:
+        """A copy of the engine's metrics dict."""
+        return dict(self.engine.metrics)
+
+    def check_health(self) -> None:
+        """Raise when the engine loop has died (an error on the card, a
+        failed read) or was shut down."""
+        if not self.engine._thread.is_alive():
+            raise RuntimeError("engine loop died") from self.engine._death_cause
 
     def shutdown(self) -> None:
         self.engine.shutdown()

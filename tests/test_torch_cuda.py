@@ -607,3 +607,172 @@ def test_engine_graphs_give_the_eager_passes_greedy_tokens(cuda, monkeypatch, ma
     finally:
         engine.shutdown()
     assert graphed == eager
+
+
+# ---------------------------------------------- speculative decoding, prefix
+
+_SPEC = 3
+
+
+def _spec_engine(**engine_kw):
+    """The graph engine's model with speculative decoding (verify rounds of
+    up to 1 + 3 tokens), the pool filled with random KV."""
+    return _graph_engine(speculative_tokens=_SPEC, **engine_kw)
+
+
+def _verify_pass_inputs(engine, b, rng, temp):
+    """A mixed tick's prefill lanes (`_mixed_pass_inputs`) with verify
+    rounds on the decode lanes: lane i at position 5 + 9i with 1 + (3 - i)
+    tokens, on pages of its own covering the whole round; the last lane
+    inactive. temps / top-k / top-p per lane (lane 1 filtered)."""
+    pc, ms = engine.paged, engine.config.max_slots
+    inputs = _mixed_pass_inputs(engine, b, rng)
+    width = _SPEC + 1
+    dec_tokens = rng.integers(1, 512, (ms, width)).astype(np.int64)
+    dec_positions, dec_active = np.zeros((ms,), np.int64), np.zeros((ms,), np.int64)
+    for i in range(ms - 1):
+        count = width - i
+        n = (5 + 9 * i + count - 1) // pc.page_size + 1
+        inputs["page_rows"][b + i] = 0
+        inputs["page_rows"][b + i, :n] = 40 + 4 * i + np.arange(n)
+        dec_positions[i], dec_active[i] = 5 + 9 * i, count
+    inputs.update(dec_tokens=dec_tokens, dec_positions=dec_positions, dec_active=dec_active,
+                  temps=np.full((ms,), temp, np.float32),
+                  top_ks=np.array([0, 5, 0, 0][:ms], np.int64),
+                  top_ps=np.array([1.0, 0.9, 1.0, 1.0][:ms], np.float32))
+    return inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 4])
+def test_engine_verify_graph_replay_matches_eager_pass(cuda, b):
+    """Each verify pass (a mixed tick whose decode lanes score 1 + drafts
+    tokens, with the accept step inside) replayed from its CUDA graph
+    against the same pass run eagerly on the card, greedy: bitwise equal
+    prefill logits, packed tokens + counts, pool (its scratch page aside)
+    and token vector. Its capture recorded one tile-kernel ragged launch
+    per layer and no decode launch."""
+    engine = _spec_engine()
+    try:
+        p = engine._mixed[b]
+        assert p.name == f"verify.{b}" and not engine._decode
+        inputs = _verify_pass_inputs(engine, b, np.random.default_rng(b), temp=0.0)
+        p.capture()
+        before = _engine_state(engine)
+        eager = _as_list(p.run_eager(**inputs))
+        after_eager = _engine_state(engine)
+        _restore(engine, before)
+        graphed = _as_list(p(**inputs))
+        after_graph = _engine_state(engine)
+        torch.cuda.synchronize()
+        # every layer's scratch page left out of the pool: a verify round's
+        # rows past its count, and inactive lanes, all write row 0 of page
+        # 0, in an order neither run defines
+        keep = torch.ones(after_graph[0].shape[1], dtype=torch.bool, device="cuda")
+        keep[torch.arange(_GRAPH_MODEL.n_layers) * engine.paged.num_pages] = False
+        names = ["logits", "packed", "pool k", "pool v", "tokens"]
+        for label, e, g in zip(names, eager + after_eager, graphed + after_graph):
+            if label.startswith("pool"):
+                e, g = e[:, keep], g[:, keep]
+            where = (e != g).nonzero()[:4].tolist()
+            assert torch.equal(e, g), f"{label} differs at {where}"
+        packed = graphed[1].cpu().numpy()
+        counts = inputs["dec_active"]
+        assert ((packed[:, -1] >= 1) == (counts > 0)).all() and (packed[:, -1] <= counts).all()
+        assert p.captured["ragged.mixed"] == _GRAPH_MODEL.n_layers
+        assert "ragged.decode" not in p.captured
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.cuda
+def test_engine_verify_graph_draws_new_numbers_each_replay(cuda):
+    """Two replays of a sampled verify round (temperature 1) from equal
+    inputs and an equal pool draw different tokens: the engine's generator
+    is registered with the verify graph and advances across replays."""
+    engine = _spec_engine()
+    try:
+        p = engine._mixed[1]
+        inputs = _verify_pass_inputs(engine, 1, np.random.default_rng(3), temp=1.0)
+        state = _engine_state(engine)
+        first = p(**inputs)[1].clone()
+        _restore(engine, state)
+        second = p(**inputs)[1].clone()
+        torch.cuda.synchronize()
+        assert not torch.equal(first, second)
+        tokens = first[:, :-1]
+        assert bool(((tokens >= 0) & (tokens < _GRAPH_MODEL.vocab_size)).all())
+    finally:
+        engine.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_copy_page_on_card_matches_cpu(cuda, dtype):
+    """copy_page on the card moves every layer's stripe of one page and
+    nothing else: bitwise the CPU's result."""
+    from ray_tpu_torch.serve.llm.paged import copy_page
+
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    pool = {k: torch.randn((8, 4 * 32, 16, 128), generator=gen).to(dtype) for k in ("k", "v")}
+    card = {k: v.cuda() for k, v in pool.items()}
+    copy_page(pool, 5, 9, n_layers=4)
+    copy_page(card, 5, 9, n_layers=4)
+    torch.cuda.synchronize()
+    for k in pool:
+        assert torch.equal(card[k].cpu(), pool[k])
+        assert torch.equal(pool[k][:, 9 + 32 * 3], pool[k][:, 5 + 32 * 3])
+
+
+@pytest.mark.cuda
+def test_spec_engine_greedy_tokens_equal_at_1_and_8_blocks_in_flight(cuda, monkeypatch):
+    """The spec engine (n-gram drafts) with every verify pass captured up
+    front gives the same greedy tokens at 1 and at 8 blocks in flight, and
+    the tokens of the same engine whose passes run eagerly on the card;
+    its ragged launches are verify replays x layers, all on the tile
+    kernel, none through the wrapper after the capture."""
+    from ray_tpu_torch.serve.llm.graphs import DevicePass
+
+    prompts = [[3, 4, 5] * 9, [7, 8, 9], list(range(100, 170)), [5] * 20, [11, 12] * 4]
+    outs = {}
+    for mode, inflight in (("graphs", 1), ("graphs", 8), ("eager", 8)):
+        if mode == "eager":
+            monkeypatch.setattr(DevicePass, "__call__", DevicePass.run_eager)
+        engine = _spec_engine(precompile=mode == "graphs", max_inflight_blocks=inflight)
+        try:
+            wrapper = ops.RAGGED.launches
+            streams = [engine.submit(p, max_tokens=12) for p in prompts]
+            outs[mode, inflight] = [s.result(timeout=120) for s in streams]
+            stats = engine.stats()
+            if mode == "graphs":
+                assert ops.RAGGED.launches == wrapper
+                verify = sum(stats[f"passes.verify.{b}"] for b in (1, 2, 4))
+                assert stats["launches.ragged.mixed"] == verify * _GRAPH_MODEL.n_layers
+                assert "launches.ragged.decode" not in stats
+                assert stats["spec_proposed"] > 0 and stats["pages_free"] == 63
+        finally:
+            engine.shutdown()
+    assert outs["graphs", 1] == outs["graphs", 8] == outs["eager", 8]
+
+
+@pytest.mark.cuda
+def test_draft_model_proposer_launches_flash_forward_on_card(cuda):
+    """The draft-model proposer's prefill runs the flash forward kernel on
+    the card (B 1, S = window, causal) and drafts what the plain version
+    drafts from the same f32 weights."""
+    config = TransformerConfig(
+        vocab_size=512, d_model=256, n_layers=2, n_heads=2, n_kv_heads=1, d_ff=512,
+        max_seq=256, pos_emb="rope", norm="rmsnorm", act="swiglu", use_bias=False,
+        tie_embeddings=False, dtype=torch.float32,
+    )
+    from ray_tpu_torch.serve.llm.speculative import DraftModelProposer
+
+    params = init_params(config, 0, device="cpu")
+    card = {k: ({kk: vv.cuda() for kk, vv in v.items()} if k == "blocks" else v.cuda())
+            for k, v in params.items()}
+    ctx = list(range(3, 40))
+    before = ops.FLASH_FWD.launches
+    got = DraftModelProposer(config, card, window=64).propose(ctx, 4)
+    assert ops.FLASH_FWD.launches - before == 4 * config.n_layers
+    assert got == DraftModelProposer(config, params, window=64).propose(ctx, 4)

@@ -289,6 +289,75 @@ def test_server_generate_matches_jax_engine(llama_tiny_weights, jax_engine_token
         server.shutdown()
 
 
+# deterministic for requests served one after another: no timing in them
+SERVER_METRIC_KEYS = ("generated_tokens", "decode_tokens", "prefill_tokens", "prefill_chunks",
+                      "page_stalls", "prefix_cache_hits", "prefix_cache_misses",
+                      "prefix_cache_cow", "spec_proposed", "spec_accepted",
+                      "spec_rollback_pages")
+
+
+def test_server_metrics_health_and_request_id_match_jax(llama_tiny_weights):
+    """metrics(), check_health() and the replies' request_id against JAX's
+    LLMServer on the same weights: the same tokens and ids (taken from the
+    payload), the same counts in metrics() for the same requests, and
+    check_health() passing while the loop runs and raising once it has
+    stopped."""
+    from ray_tpu.serve.llm.server import LLMServer as JServer
+
+    jconfig, jparams, tconfig, tparams = llama_tiny_weights
+    servers = [
+        JServer(jconfig, jparams, JEngineConfig(max_slots=2, paged=jpaged.PagedConfig(**ENGINE_PC))),
+        LLMServer(tconfig, tparams, PagedEngineConfig(
+            max_slots=2, paged=tpaged.PagedConfig(**ENGINE_PC)), device="cpu"),
+    ]
+    seen = []
+    try:
+        for server in servers:
+            server.check_health()
+            out = server.generate({"prompt_tokens": MULTI_CHUNK, "max_tokens": 5,
+                                   "request_id": "req-7"})
+            streamed = list(server.stream_generate({"prompt_tokens": STAGGERED[2],
+                                                    "max_tokens": 4, "request_id": 42}))
+            metrics = server.metrics()
+            seen.append((out["tokens"], out["request_id"], [m["token"] for m in streamed[:-1]],
+                         streamed[-1]["request_id"], {k: metrics[k] for k in SERVER_METRIC_KEYS}))
+            server.check_health()
+        anonymous = servers[1].generate({"prompt_tokens": [1, 2, 3], "max_tokens": 2})
+    finally:
+        for server in servers:
+            server.engine.shutdown()
+    assert seen[0] == seen[1]
+    assert seen[1][1] == "req-7" and seen[1][3] == "42" and seen[1][4]["generated_tokens"] == 9
+    assert anonymous["request_id"] is None
+    assert set(servers[1].metrics()) <= set(servers[0].metrics())
+    for server in servers:
+        with pytest.raises(RuntimeError, match="engine loop died"):
+            server.check_health()
+
+
+def test_server_check_health_raises_when_the_loop_dies(llama_tiny_weights, monkeypatch):
+    """A device read that fails kills the engine loop; check_health() then
+    raises, chained to the failure."""
+    from ray_tpu_torch.serve.llm import paged_engine
+
+    def broken(self):
+        raise RuntimeError("device read failed")
+
+    monkeypatch.setattr(paged_engine._Fetch, "values", broken)
+    _, _, tconfig, tparams = llama_tiny_weights
+    server = LLMServer(tconfig, tparams, PagedEngineConfig(
+        max_slots=2, paged=tpaged.PagedConfig(**ENGINE_PC)), device="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="device read failed"):
+            server.generate({"prompt_tokens": [1, 2, 3], "max_tokens": 4})
+        server.engine._thread.join(timeout=30)
+        with pytest.raises(RuntimeError, match="engine loop died") as info:
+            server.check_health()
+        assert "device read failed" in str(info.value.__cause__)
+    finally:
+        server.shutdown()
+
+
 def test_engine_stop_conditions_and_sampling(llama_tiny_weights, jax_engine_tokens):
     """Stop ids, stop sequences and max_tokens=1 end streams at the right
     token; top-1 sampling at temperature > 0 is greedy; plain temperature
