@@ -26,8 +26,8 @@ nonzero and no result line is printed):
              backward kernels at the Llama shape of the dense check (GQA
              32/8, S 931, D 128; the forward causal and not) and at the
              GPT-2 124M shape of the train path (B 8, 12 heads, S 1024,
-             D 64), the forward also at the draft model's (S 64).
-             Two runs must be bitwise equal; the bare launches are timed
+             D 64), the forward also at the draft model's (S 64) and at
+             the dense engine's prefill buckets (S 16, 32, 1024). Two runs must be bitwise equal; the bare launches are timed
              apart from the wrappers (the forward's on contiguous tensors
              and on the model's transposed views, which it copies; the
              backward's with delta = rowsum(dO * O)).
@@ -62,6 +62,28 @@ nonzero and no result line is printed):
              dense check; the drill's and the self-replay's ragged
              launches are held against torch.profiler; replay times of the
              serve and verify graphs and of the accept step are printed.
+   dense   — LLMServer(engine_config=None) on the serve phase's weight
+             tensors builds the dense LLMEngine (8 slots, max_seq 1024, its
+             decode step one CUDA graph): the serve phase's 8 greedy
+             requests (TTFT, decode rate, wall, capture time and memory);
+             flash launches of its eager prefills counted by the engine
+             (prefills x layers) and held against the wrapper's count and
+             torch.profiler's; every request passes the dense check; one
+             decode-graph replay equals eager decode_step bitwise.
+   overload — a PagedLLMEngine (4 slots, a pool the 4 long lanes nearly
+             fill, graphs captured up front) on the same weights: 4
+             priority-0 lanes (512-token prompts, 256 new tokens) decode
+             when 2 priority-1 requests arrive and preempt lanes, which park
+             and resume (preemptions, pages, resumes, stalls, the priority-1
+             TTFT against the same run with preemption off, and the pair
+             again on an engine with 1 block in flight); then a burst
+             of 3 x the queue bound (typed sheds), a tenant over its quota
+             (typed sheds with a finite retry_after_s) and requests with
+             0.2 s deadlines behind long lanes (typed timeouts at the admit
+             pop and mid-decode). Every stream ends with tokens or a typed
+             error, the pool returns to full, every finished stream passes
+             the dense check, and the ragged launches counted by the engine
+             are held against torch.profiler's.
 6. train   — GPT-2 124M (gpt2-small) at full width and depth, f32 master
              weights from a seeded torch.Generator, bf16 compute:
              the kernel path's gradients against attn_impl="xla" on one
@@ -70,8 +92,8 @@ nonzero and no result line is printed):
              and each flash kernel must launch once per layer per step.
 
 The line before the last lists every kernel with its launches on the main
-paths (serve: phases 4-5; spec; train: phase 6; each counted from zero
-just before it, profiled repeats left out), its
+paths (serve: phases 4-5; spec; dense; overload; train: phase 6; each
+counted from zero just before it, profiled repeats left out), its
 error against the plain version and its times; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -118,7 +140,18 @@ from ray_tpu_torch.ops.ragged_paged_attention import (
     _ragged_cuda,
     ragged_reference_attention,
 )
-from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedEngineConfig, PagedLLMEngine
+from ray_tpu_torch.core.config import cfg
+from ray_tpu_torch.core.exceptions import BackPressureError, RequestTimeoutError
+from ray_tpu_torch.models.transformer import decode_step
+from ray_tpu_torch.serve import tenancy
+from ray_tpu_torch.serve.llm import (
+    EngineConfig,
+    LLMEngine,
+    LLMServer,
+    PagedConfig,
+    PagedEngineConfig,
+    PagedLLMEngine,
+)
 from ray_tpu_torch.serve.llm.speculative import (
     DraftModelProposer,
     ReplayProposer,
@@ -139,10 +172,25 @@ MODEL = "llama3-8b"
 N_REQUESTS = 8
 MAX_TOKENS = 32
 CHECK_MARGIN = 0.25
+# The overload phase checks every position of every stream it finished
+# (~5000; phase_check checks 64). Over that many positions the serve path's
+# own bf16 tail passes 0.25: the untouched serve engine's greedy tokens reach
+# 0.3125 below the dense argmax at 1 of 960 positions, and 0.25 with the
+# ragged kernels' plain version, p in f32 (torch_check_tail.py). 0.5 is 16
+# bf16 ulps at |logit| 4-8; a corrupt KV or a wrong resume puts tokens
+# whole units below. Positions over CHECK_MARGIN are counted and printed.
+OVERLOAD_CHECK_MARGIN = 2 * CHECK_MARGIN
 PROFILED_REPEATS = 3  # serve: profiled repeats to find one without dropped records
 SPEC_TOKENS = 4  # drafts per verify round in the spec phase
 PREFIX_TOKENS = 512  # the spec phase's shared prefix: 8 pages of 64
 DRAFT_LAYERS, DRAFT_WINDOW = 2, 64  # the draft model: a 2-layer cut of the target
+DENSE_MAX_SEQ = 1024  # the dense engine's cache per slot: the serve prompts + 32 new fit
+OVERLOAD_SLOTS = 4
+OVERLOAD_LOW_TOKENS, OVERLOAD_HIGH_TOKENS = 256, 32
+# 4 lanes of 512 + 256 tokens hold 12 pages of 64 each at the end: 48 of the
+# 50 allocatable; a resumed lane's chunk-aligned re-prefill needs at most 12
+OVERLOAD_PAGES = 51
+DEADLINE_S = 0.2
 TRAIN_MODEL = "gpt2-small"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_STEPS = 20
@@ -164,6 +212,10 @@ FLASH_SHAPES = {  # (B, Hq, Hkv, S, D)
     "gpt2": (TRAIN_BATCH, 12, 12, TRAIN_SEQ, 64),
     "llama": (1, 32, 8, 931, 128),
     "draft": (1, 32, 8, 64, 128),  # the spec phase's draft-model prefill (window 64)
+    # the dense engine's prefill buckets: 16 and 32 rows are under one tile
+    "bucket16": (1, 32, 8, 16, 128),
+    "bucket32": (1, 32, 8, 32, 128),
+    "bucket1024": (1, 32, 8, 1024, 128),
 }
 REPLACES = {
     "ragged_paged_attention": "ray_tpu/ops/ragged_paged_attention.py:60",
@@ -392,14 +444,17 @@ def phase_kernels(timer: _Timer) -> dict:
         # shape and at the train path's
         fwd = {(label, causal): _fwd_checks(timer, dtype, gen, label, causal, atol, rtol)
                for label, causal in (("llama", True), ("llama", False), ("gpt2", True),
-                                     ("draft", True))}
+                                     ("draft", True), ("bucket16", True), ("bucket32", True),
+                                     ("bucket1024", True))}
         for label in ("gpt2", "llama"):
             bwd = _bwd_checks(timer, dtype, gen, label, FLASH_SHAPES[label], atol, rtol)
             if dtype == torch.bfloat16 and label == "gpt2":
                 results.update(bwd)
         if dtype == torch.bfloat16:
-            results["flash_attention_fwd"] = dict(fwd["llama", True], train_shape=fwd["gpt2", True],
-                                                  draft_shape=fwd["draft", True])
+            results["flash_attention_fwd"] = dict(
+                fwd["llama", True], train_shape=fwd["gpt2", True], draft_shape=fwd["draft", True],
+                **{f"dense_prefill_{label}": fwd[label, True]
+                   for label in ("bucket16", "bucket32", "bucket1024")})
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log("kernels", f"done ({time.perf_counter() - t0:.2f} s)")
@@ -674,21 +729,50 @@ def _serve_run(engine, prompts):
     thread of its own; returns (wall seconds, start time, [(time, token),
     ...] per request, the streams)."""
     stamps = [[] for _ in prompts]
+    errors = [None] * len(prompts)
     t_start = time.perf_counter()
     streams = [engine.submit(p, max_tokens=MAX_TOKENS) for p in prompts]
+    _join(_consume(streams, stamps, errors))
+    if any(errors):
+        raise AssertionError(f"a request failed: {errors}")
+    return time.perf_counter() - t_start, t_start, stamps, streams
 
+
+def _consume(streams, outs, errors, firsts=None):
+    """One thread per stream: its tokens into outs[i] (time, token), a typed
+    error into errors[i]; firsts[i] is set at its first token. Returns the
+    threads, started."""
     def consume(i):
-        for token in streams[i]:
-            stamps[i].append((time.perf_counter(), token))
+        try:
+            for token in streams[i]:
+                outs[i].append((time.perf_counter(), token))
+                if firsts is not None:
+                    firsts[i].set()
+        except (BackPressureError, RequestTimeoutError) as exc:
+            errors[i] = exc
+        finally:
+            if firsts is not None:
+                firsts[i].set()
 
     threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(streams))]
     for th in threads:
         th.start()
+    return threads
+
+
+def _join(threads, timeout=600):
     for th in threads:
-        th.join(timeout=600)
+        th.join(timeout=timeout)
         if th.is_alive():
-            raise RuntimeError("a request did not finish within 600 s")
-    return time.perf_counter() - t_start, t_start, stamps, streams
+            raise RuntimeError(f"a request did not finish within {timeout} s")
+
+
+def _add_launches(path: dict, stats: dict) -> None:
+    """Add an engine's `launches.<kernel>` counts (replays x captured) of
+    one run to the path's totals."""
+    for key, n in stats.items():
+        if key.startswith("launches."):
+            path[key[len("launches."):]] = path.get(key[len("launches."):], 0) + int(n)
 
 
 def _stats_delta(engine, before: dict) -> dict:
@@ -702,7 +786,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profiled_ragged_kernels(engine, prompts) -> tuple:
+def _profiled_ragged_kernels(engine, run) -> tuple:
     """The ragged device kernels of one more run of the same requests, by
     name, read from torch.profiler, the engine's own count for that run
     (replays x captured launches, from `engine.stats()`), and the run's
@@ -713,7 +797,7 @@ def _profiled_ragged_kernels(engine, prompts) -> tuple:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _serve_run(engine, prompts)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counted = _stats_delta(engine, before)
@@ -731,16 +815,18 @@ def _profiled_ragged_kernels(engine, prompts) -> tuple:
     return seen, counted, dict(wall_s=wall, busy_s=busy_us / 1e6, sort_s=sort_us / 1e6)
 
 
-def _hold_ragged_against_profiler(phase, engine, prompts) -> dict:
+def _hold_ragged_against_profiler(phase, engine, prompts, run=None) -> dict:
     """Run the requests again under torch.profiler and hold its ragged
     device kernels against the engine's count for that run (replays x
     captured, by kind). The profiler can miss kernel records of a replayed
     graph (one repeat of the H100 runs saw 966 of 1024 decode walks and
     combines) but never sees more than ran: up to PROFILED_REPEATS repeats,
     each printed, and the first whose counts equal the engine's ends the
-    check. Returns the profiler's counts of that repeat."""
+    check. `run` replaces the run of `prompts` on the engine. Returns the
+    profiler's counts of that repeat."""
+    run = run or (lambda: _serve_run(engine, prompts))
     for attempt in range(1, PROFILED_REPEATS + 1):
-        seen, counted, times = _profiled_ragged_kernels(engine, prompts)
+        seen, counted, times = _profiled_ragged_kernels(engine, run)
         want = {
             "ragged_wgmma<128,true>": int(counted.get("launches.ragged.decode", 0)),
             "ragged_combine<128>": int(counted.get("launches.ragged.decode", 0)),
@@ -855,13 +941,20 @@ def phase_check(server, config, prompts, outs) -> tuple:
     return _dense_check("check", server.engine.params, config, prompts, outs)
 
 
-def _dense_check(phase, params, config, prompts, outs, picks=None) -> tuple:
+def _dense_check(phase, params, config, prompts, outs, picks=None, labels=None,
+                 margin=CHECK_MARGIN) -> tuple:
     """phase_check's test on the requests `picks` (default: the first and
-    the last); returns (exact, total, worst gap)."""
+    the last), every token within `margin` of the dense argmax; `labels`
+    (one per request) groups the worst gaps in the log, each with the row's
+    largest dense logit and the positions whose gap exceeds CHECK_MARGIN.
+    Returns (exact, total, worst gap)."""
     t0 = time.perf_counter()
     before = FLASH_FWD.launches
     picks = picks or [0, len(prompts) - 1]
     worst, exact, total = 0.0, 0, 0
+    # label -> [worst gap, (request, generated position), its row's max logit,
+    #           positions over CHECK_MARGIN]
+    groups: dict = {}
     with torch.no_grad():
         for i in picks:
             seq = prompts[i] + outs[i]
@@ -871,17 +964,29 @@ def _dense_check(phase, params, config, prompts, outs, picks=None) -> tuple:
                 raise AssertionError("non-finite dense logits")
             rows = logits[len(prompts[i]) - 1:]
             chosen = torch.tensor(outs[i], device="cuda")
-            gap = rows.max(dim=-1).values - rows.gather(1, chosen[:, None])[:, 0]
+            top = rows.max(dim=-1).values
+            gap = top - rows.gather(1, chosen[:, None])[:, 0]
+            hit = rows.argmax(dim=-1) == chosen
             worst = max(worst, gap.max().item())
-            exact += int((rows.argmax(dim=-1) == chosen).sum())
+            exact += int(hit.sum())
             total += len(outs[i])
+            if labels is not None:
+                g = groups.setdefault(labels[i], [0.0, None, 0.0, 0])
+                if gap.max().item() > g[0]:
+                    at = int(gap.argmax())
+                    g[0], g[1], g[2] = gap[at].item(), (i, at), top[at].item()
+                g[3] += int((gap > CHECK_MARGIN).sum())
     launched = FLASH_FWD.launches - before
-    log(phase, f"dense check (margin {CHECK_MARGIN}), {len(picks)} requests, {total} generated "
+    log(phase, f"dense check (margin {margin}), {len(picks)} requests, {total} generated "
         f"positions: engine token == dense argmax at {exact}, worst gap {worst:.4f}, flash "
         f"launches {launched} ({time.perf_counter() - t0:.2f} s)")
+    if groups:
+        log(phase, "worst gap by group (gap, (request, generated position), the row's max dense "
+            f"logit, positions over {CHECK_MARGIN}): "
+            + "; ".join(f"{k} {v[0]:.4f} {v[1]} {v[2]:.3f} {v[3]}" for k, v in groups.items()))
     if launched == 0:
         raise AssertionError("the dense check never launched the flash kernel")
-    if worst > CHECK_MARGIN:
+    if worst > margin:
         raise AssertionError(f"engine token scores {worst:.4f} below the dense argmax")
     return exact, total, worst
 
@@ -1042,16 +1147,11 @@ def phase_spec(server, config, prompts, outs) -> dict:
         LAUNCHES_BY_KIND[kind] = 0
     path = {}  # engine launches (replays x captured) on this path, summed
 
-    def add(stats):
-        for key, n in stats.items():
-            if key.startswith("launches."):
-                path[key[len("launches."):]] = path.get(key[len("launches."):], 0) + int(n)
-
     # ---- replay drill
     before = engine.stats()
     wall, t_start, stamps, _ = _serve_run(engine, prompts)
     drill = _spec_report("replay drill", engine, before, wall, t_start, stamps)
-    add(drill["stats"])
+    _add_launches(path, drill["stats"])
     spec_outs = [[tok for _, tok in st] for st in stamps]
     same = sum(a == b for a, b in zip(spec_outs, outs))
     log("spec", f"replay drill: {same} of {N_REQUESTS} token lists equal the serve phase's")
@@ -1065,7 +1165,7 @@ def phase_spec(server, config, prompts, outs) -> dict:
     before = engine.stats()
     run = _prefix_run(engine, pprompts)
     stats = _stats_delta(engine, before)
-    add(stats)
+    _add_launches(path, stats)
     hit = sum(c > 0 for c in run["cached"])
     prompt_tokens = sum(len(p) for p in pprompts)
     log("spec", f"prefix run (prefix cache on, replay drafts of the serve engine's greedy "
@@ -1090,7 +1190,7 @@ def phase_spec(server, config, prompts, outs) -> dict:
     wall, t_start, stamps, _ = _serve_run(engine2, prompts)
     report = _spec_report("self-replay (drafts: the replay drill's own tokens; no prefix cache)",
                           engine2, before, wall, t_start, stamps)
-    add(report["stats"])
+    _add_launches(path, report["stats"])
     self_outs = [[tok for _, tok in st] for st in stamps]
     log("spec", f"self-replay: {sum(a == b for a, b in zip(self_outs, spec_outs))} of "
         f"{N_REQUESTS} token lists equal the replay drill's")
@@ -1104,7 +1204,7 @@ def phase_spec(server, config, prompts, outs) -> dict:
     flash_draft = FLASH_FWD.launches - flash0
     report = _spec_report(f"draft model ({DRAFT_LAYERS}-layer cut, window {DRAFT_WINDOW})",
                           engine2, before, wall, t_start, stamps)
-    add(report["stats"])
+    _add_launches(path, report["stats"])
     log("spec", f"draft model: flash forward launches on the draft path {flash_draft}")
     if report["stats"]["spec_proposed"] == 0 or flash_draft == 0:
         raise AssertionError("the draft model proposed nothing or never launched the flash kernel")
@@ -1128,6 +1228,329 @@ def phase_spec(server, config, prompts, outs) -> dict:
         f"{ {k: path.get(f'ragged.{k}', 0) for k in LAUNCHES_BY_KIND} } "
         f"({time.perf_counter() - t0:.2f} s)")
     return dict(launches=launches, profiled=profiled)
+
+
+def phase_dense(server, config, prompts, serve_outs) -> dict:
+    """LLMServer(engine_config=None) on the serve phase's weight tensors:
+    the dense LLMEngine, its decode step one CUDA graph, its prefill eager
+    (one flash launch per layer at B 1, S = the prompt's bucket). The serve
+    phase's 8 greedy requests, unprofiled; the flash launches counted by
+    the engine (prefills x layers), by the wrapper and by torch.profiler
+    (a profiled repeat); the dense check on every request; one replay of
+    the decode graph against eager decode_step, bitwise. Returns each
+    kernel's launches on this path (the unprofiled run and the check)."""
+    t0 = time.perf_counter()
+    params = server.engine.params
+    dense_server = LLMServer(config, params, EngineConfig(max_slots=N_REQUESTS,
+                                                          max_seq=DENSE_MAX_SEQ), device="cuda")
+    engine = dense_server.engine
+    if type(engine) is not LLMEngine or not engine._decode.is_captured:
+        raise AssertionError(f"engine_config=None built {type(engine).__name__}, or its decode "
+                             "graph was not captured")
+    torch.cuda.synchronize()
+    log("dense", f"LLMServer(engine_config=EngineConfig(...)) built {type(engine).__name__}, "
+        f"the engine engine_config=None builds: {N_REQUESTS} "
+        f"slots, max_seq {engine.max_seq}, cache {engine.cache['k'].numel() * 2 * 2 / 2**30:.2f} "
+        f"GiB; decode graph captured in {engine.capture_s:.3f} s (launches it recorded "
+        f"{engine._decode.captured}); after capture {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    # one short request first: the eager prefill's cuBLAS handles and the pinned allocator
+    dense_server.generate({"prompt_tokens": [1] * 64, "max_tokens": 2})
+    for kernel in KERNELS:
+        kernel.launches = 0
+    stats0 = engine.stats()
+    wall, t_start, stamps, _ = _serve_run(engine, prompts)
+    stats = _stats_delta(engine, stats0)
+    outs = [[tok for _, tok in st] for st in stamps]
+    if any(len(o) != MAX_TOKENS for o in outs):
+        raise AssertionError("a dense request returned the wrong number of tokens")
+    launches = {k.name: k.launches for k in KERNELS}
+    flash = FLASH_FWD.launches
+    counted = int(stats["prefills"]) * config.n_layers
+    ttft = [st[0][0] - t_start for st in stamps]
+    first_all, last_all = min(st[0][0] for st in stamps), max(st[-1][0] for st in stamps)
+    decode_tokens = sum(len(st) - 1 for st in stamps)
+    # the 8 prefills run one after another before the first decode step:
+    # the rate once every lane decodes, from the last first token on
+    last_first = max(st[0][0] for st in stamps)
+    steady = sum(1 for st in stamps for t, _ in st if t > last_first)
+    log("dense", f"{N_REQUESTS} requests, {MAX_TOKENS} new each: wall {wall:.3f} s, TTFT p50 "
+        f"{statistics.median(ttft):.3f} s max {max(ttft):.3f} s, decode "
+        f"{decode_tokens / (last_all - first_all):.1f} tok/s ({steady / (last_all - last_first):.1f} "
+        f"tok/s after the last first token), prefill span {last_first - first_all:.3f} s, output "
+        f"{N_REQUESTS * MAX_TOKENS / wall:.1f} tok/s over the wall; decode graph replays "
+        f"{stats['passes.decode']:.0f} (decode steps {stats['decode_steps']:.0f}); prefills "
+        f"{stats['prefills']:.0f}; flash forward launches counted by the engine (prefills x "
+        f"layers) {counted}, through the wrapper {flash}; {sum(a == b for a, b in zip(outs, serve_outs))} "
+        f"of {N_REQUESTS} token lists equal the paged serve phase's")
+    if flash != counted or flash == 0:
+        raise AssertionError(f"flash launches {flash} differ from prefills x layers {counted}")
+    # a profiled repeat: torch.profiler's flash kernels against the engine's count
+    before = engine.stats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp = time.perf_counter()
+        _serve_run(engine, prompts)
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - tp
+    prof_stats = _stats_delta(engine, before)
+    seen = sum(e.count for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA and "flash_fwd" in e.key)
+    busy = sum(_device_us(e) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e6
+    want = int(prof_stats["prefills"]) * config.n_layers
+    log("dense", f"profiled repeat: flash forward device kernels from torch.profiler {seen}, "
+        f"the engine's count (prefills x layers) {want}; wall {pwall:.4f} s, device busy "
+        f"{busy:.4f} s, idle share {1 - busy / pwall:.4f}")
+    if seen != want:
+        raise AssertionError(f"torch.profiler saw {seen} flash kernels, the engine counted {want}")
+    before_flash = FLASH_FWD.launches
+    _dense_check("dense", params, config, prompts, outs, picks=list(range(N_REQUESTS)))
+    launches[FLASH_FWD.name] += FLASH_FWD.launches - before_flash
+    # one replay of the decode graph against eager decode_step, on the idle
+    # engine: the 8 lanes continue their streams at their own positions
+    tokens = np.array([o[-1] for o in outs], np.int64)
+    positions = np.array([len(p) + MAX_TOKENS - 1 for p in prompts], np.int64)
+    saved = {k: v.clone() for k, v in engine.cache.items()}
+    with torch.no_grad():
+        graphed = engine._decode(tokens=tokens, positions=positions,
+                                 temps=np.zeros(N_REQUESTS, np.float32)).clone()
+        after = {k: v.clone() for k, v in engine.cache.items()}
+        for k, v in saved.items():
+            engine.cache[k].copy_(v)
+        logits, _ = decode_step(params, engine.cache, torch.from_numpy(tokens).cuda(),
+                                torch.from_numpy(positions).cuda(), config)
+        eager = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    same = torch.equal(graphed, eager) and all(torch.equal(after[k], engine.cache[k]) for k in after)
+    step_ms = _replay_ms(engine._decode)
+    log("dense", f"decode graph replay vs eager decode_step: tokens and cache bitwise equal "
+        f"{same}; one replay {step_ms:.4f} ms ({time.perf_counter() - t0:.2f} s)")
+    del saved, after
+    dense_server.shutdown()
+    if not same:
+        raise AssertionError("the dense decode graph differs from eager decode_step")
+    return launches
+
+
+def _overload_prompts(config, rng, n, lo, hi):
+    return [rng.integers(0, config.vocab_size, int(k)).tolist()
+            for k in np.linspace(lo, hi, n).astype(int)]
+
+
+def _overload_run(engine, lows, highs) -> dict:
+    """The 4 priority-0 lanes, then, once each has its first token, the 2
+    priority-1 requests; every stream to its end. Returns the tokens, the
+    priority-1 TTFTs (from their submit) and the engine counters of the
+    run."""
+    before = engine.stats()
+    streams = [engine.submit(p, max_tokens=OVERLOAD_LOW_TOKENS, tenant="bulk", priority=0)
+               for p in lows]
+    outs = [[] for _ in range(len(lows) + len(highs))]
+    errors = [None] * len(outs)
+    firsts = [threading.Event() for _ in lows]
+    threads = _consume(streams, outs, errors, firsts)
+    for ev in firsts:
+        ev.wait(timeout=600)
+    t_high = time.perf_counter()
+    hstreams = [engine.submit(p, max_tokens=OVERLOAD_HIGH_TOKENS, tenant="paid", priority=1)
+                for p in highs]
+    threads += _consume(hstreams, outs[len(lows):], errors[len(lows):])
+    _join(threads)
+    if any(errors):
+        raise AssertionError(f"an overload stream failed: {errors}")
+    stats = _stats_delta(engine, before)
+    # a resumed lane was charged its parked wait at re-admission
+    victims = [i for i, st in enumerate(streams) if st._request.preempt_wait_s > 0]
+    return dict(outs=[[t for _, t in o] for o in outs], stats=stats, victims=victims,
+                high_ttft=[o[0][0] - t_high for o in outs[len(lows):]])
+
+
+def _overload_pair(engine, lows, highs, label, finished, path) -> dict:
+    """The overload run with preemption on, then off, on one engine; each
+    run's numbers printed, its streams added to `finished` (prompt, tokens,
+    group) and its launches to `path`. Returns both runs."""
+    runs = {}
+    for preempt in (True, False):
+        cfg.set(serve_lane_preemption=preempt)
+        try:
+            run = _overload_run(engine, lows, highs)
+        finally:
+            cfg.reset()
+        _add_launches(path, run["stats"])
+        st = run["stats"]
+        runs[preempt] = run
+        group = f"{label}, preemption {'on' if preempt else 'off'}"
+        finished += [(p, o, f"{group}, " + ("priority 1" if i >= len(lows) else
+                                             "resumed" if i in run["victims"] else "priority 0"))
+                     for i, (p, o) in enumerate(zip(lows + highs, run["outs"]))]
+        log("overload", f"{group}: 4 x priority 0 ({len(lows[0])} tokens, "
+            f"{OVERLOAD_LOW_TOKENS} new) then 2 x priority 1 ({len(highs[0])} tokens, "
+            f"{OVERLOAD_HIGH_TOKENS} new): priority-1 TTFT "
+            + ", ".join(f"{t:.3f}" for t in run["high_ttft"]) + " s; lane_preemptions "
+            f"{st['lane_preemptions']:.0f} preempted_pages {st['preempted_pages']:.0f} "
+            f"lane_resumes {st['lane_resumes']:.0f} page_stalls {st['page_stalls']:.0f}; "
+            f"resumed lanes {run['victims']}; ragged launches "
+            f"{int(st.get('launches.ragged_paged_attention', 0))}")
+        if any(len(o) != n for o, n in zip(run["outs"], [OVERLOAD_LOW_TOKENS] * len(lows)
+                                           + [OVERLOAD_HIGH_TOKENS] * len(highs))):
+            raise AssertionError(f"{group}: a stream ended short")
+    on, off = runs[True], runs[False]
+    same = [next((j for j, (a, b) in enumerate(zip(on["outs"][i], off["outs"][i])) if a != b),
+                 OVERLOAD_LOW_TOKENS) for i in on["victims"]]
+    log("overload", f"{label}: each resumed lane's tokens equal the same prompt's unpreempted "
+        f"tokens (preemption off) for the first {same} of {OVERLOAD_LOW_TOKENS}")
+    if off["stats"]["lane_preemptions"] != 0:
+        raise AssertionError("a lane was preempted with serve_lane_preemption=False")
+    if on["stats"]["lane_resumes"] != on["stats"]["lane_preemptions"]:
+        raise AssertionError("fewer lanes resumed than were parked")
+    return runs
+
+
+def phase_overload(server, config) -> dict:
+    """Overload handling of the paged engine on the serve phase's weights:
+    lane preemption (against the same run with preemption off), then the
+    queue-bound burst, a tenant over its quota and 0.2 s deadlines behind
+    long lanes, then the preemption pair on a second engine with 1 block
+    in flight (a marked victim parks once its in-flight blocks drain).
+    Returns each kernel's launches on this path (the unprofiled runs,
+    drills and dense checks)."""
+    t0 = time.perf_counter()
+    params = server.engine.params
+    engine = PagedLLMEngine(config, params, PagedEngineConfig(
+        max_slots=OVERLOAD_SLOTS, precompile=True,
+        paged=PagedConfig(num_pages=OVERLOAD_PAGES)), device="cuda")
+    pc = engine.paged
+    passes = engine.passes()
+    log("overload", f"engine: {OVERLOAD_SLOTS} slots, {pc.num_pages - 1} allocatable pages of "
+        f"{pc.page_size}, queue bound {engine.config.max_queued_requests or 8 * OVERLOAD_SLOTS}; "
+        f"{len(passes)} CUDA graphs captured in {engine.capture_s:.3f} s; after capture "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    engine.generate([1, 2], max_tokens=2)
+    # the same pair on a shallow pipeline: a marked victim drains 1 block
+    # (built here: a capture's warm-up runs through the kernel wrappers)
+    shallow = PagedLLMEngine(config, params, PagedEngineConfig(
+        max_slots=OVERLOAD_SLOTS, max_inflight_blocks=1, precompile=True,
+        paged=PagedConfig(num_pages=OVERLOAD_PAGES)), device="cuda")
+    shallow.generate([1, 2], max_tokens=2)
+    rng = np.random.default_rng(SEED + 3)
+    lows = _overload_prompts(config, rng, OVERLOAD_SLOTS, 512, 512)
+    highs = _overload_prompts(config, rng, 2, 128, 128)
+    for kernel in KERNELS:
+        kernel.launches = 0
+    path: dict = {}  # engine launches (replays x captured) on this path, summed
+
+    finished = []  # (prompt, tokens, group) of every stream that ended with tokens
+    runs = _overload_pair(engine, lows, highs, f"{engine.config.max_inflight_blocks} blocks in "
+                          "flight", finished, path)
+    if runs[True]["stats"]["lane_preemptions"] < 1:
+        raise AssertionError("the overload run preempted no lane")
+    # ---- burst past the queue bound
+    before = engine.stats()
+    burst_prompts = _overload_prompts(config, rng, 3 * 8 * OVERLOAD_SLOTS, 16, 48)
+    accepted, shed = [], 0
+    for p in burst_prompts:
+        try:
+            accepted.append((p, engine.submit(p, max_tokens=4, tenant="burst")))
+        except BackPressureError as exc:
+            shed += 1
+            if exc.retry_after_s is not None:
+                raise AssertionError("a queue-bound shed carried a retry estimate")
+    outs = [[] for _ in accepted]
+    errors = [None] * len(accepted)
+    _join(_consume([s for _, s in accepted], outs, errors))
+    ok = sum(len(o) == 4 for o in outs)
+    finished += [(p, [t for _, t in o], "burst") for (p, _), o in zip(accepted, outs)]
+    st = _stats_delta(engine, before)
+    _add_launches(path, st)
+    log("overload", f"burst of {len(burst_prompts)} submits (queue bound "
+        f"{8 * OVERLOAD_SLOTS}): {len(accepted)} accepted, all ended with 4 tokens: "
+        f"{ok == len(accepted)}; {shed} BackPressureError (shed counter {st['shed']:.0f})")
+    if shed == 0 or ok != len(accepted) or st["shed"] != shed:
+        raise AssertionError("the burst shed nothing, or an accepted request did not end")
+    # ---- a tenant over its quota
+    tenancy.set_tenant("metered", quota_rps=1.0)
+    before = engine.stats()
+    q_ok, retry = [], []
+    for p in burst_prompts[:5]:
+        try:
+            q_ok.append((p, engine.submit(p, max_tokens=4, tenant="metered")))
+        except BackPressureError as exc:
+            retry.append(exc.retry_after_s)
+    outs = [[] for _ in q_ok]
+    errors = [None] * len(q_ok)
+    _join(_consume([s for _, s in q_ok], outs, errors))
+    finished += [(p, [t for _, t in o], "quota") for (p, _), o in zip(q_ok, outs)]
+    _add_launches(path, _stats_delta(engine, before))
+    tenancy.reset()
+    log("overload", f"tenant at quota_rps 1 (burst 2), 5 submits: {len(q_ok)} accepted, "
+        f"{len(retry)} BackPressureError with retry_after_s "
+        + ", ".join(f"{r:.3f}" for r in retry))
+    if not retry or not all(r is not None and 0 < r < 10 for r in retry) or any(errors):
+        raise AssertionError("the quota shed nothing or gave no finite retry_after_s")
+    # ---- deadlines behind long lanes
+    before = engine.stats()
+    longs = [engine.submit(p, max_tokens=OVERLOAD_LOW_TOKENS, tenant="bulk")
+             for p in lows[:OVERLOAD_SLOTS - 1]]
+    deadline = time.time() + DEADLINE_S
+    doomed = [engine.submit(p, max_tokens=OVERLOAD_LOW_TOKENS, tenant="late",
+                            deadline_ts=deadline) for p in [lows[-1]] + highs]
+    streams = longs + doomed
+    outs = [[] for _ in streams]
+    errors = [None] * len(streams)
+    _join(_consume(streams, outs, errors))
+    st = _stats_delta(engine, before)
+    _add_launches(path, st)
+    finished += [(p, [t for _, t in o], "deadline drill, long lane")
+                 for p, o in zip(lows, outs[:len(longs)])]
+    timed = [(len(o), type(e).__name__) for o, e in zip(outs[len(longs):], errors[len(longs):])]
+    log("overload", f"{len(doomed)} requests with {DEADLINE_S} s deadlines behind "
+        f"{len(longs)} long lanes: (tokens before the error, error) {timed}; timeouts counter "
+        f"{st['timeouts']:.0f}; the long lanes ended with "
+        f"{[len(o) for o in outs[:len(longs)]]} tokens")
+    if any(not isinstance(e, RequestTimeoutError) for e in errors[len(longs):]) or any(
+            errors[:len(longs)]) or st["timeouts"] != len(doomed):
+        raise AssertionError("a deadline request did not end with RequestTimeoutError")
+    deadline_wait = time.time() + 30
+    while time.time() < deadline_wait:
+        free = engine.stats()["pages_free"]
+        if free == pc.num_pages - 1:
+            break
+        time.sleep(0.01)
+    log("overload", f"after the drills: pages_free {free:.0f} of {pc.num_pages - 1}")
+    if free != pc.num_pages - 1:
+        raise AssertionError("the page pool did not return to full")
+    # ---- the preemption pair on the shallow pipeline
+    _overload_pair(shallow, lows, highs, "1 block in flight", finished, path)
+    if shallow.stats()["pages_free"] != pc.num_pages - 1:
+        raise AssertionError("the shallow engine's page pool did not return to full")
+    shallow.shutdown()
+    launches = {k.name: k.launches + path.get(k.name, 0) for k in KERNELS}
+    if RAGGED.launches:
+        raise AssertionError("an overload pass launched the ragged kernels outside its graph")
+    # ---- the teacher-forced check on every finished stream (resumed victims included)
+    prompts_f, outs_f = [p for p, _, _ in finished], [o for _, o, _ in finished]
+    before_flash = FLASH_FWD.launches
+    _dense_check("overload", params, config, prompts_f, outs_f, picks=list(range(len(finished))),
+                 labels=[g for _, _, g in finished], margin=OVERLOAD_CHECK_MARGIN)
+    launches[FLASH_FWD.name] += FLASH_FWD.launches - before_flash
+    # ---- ragged launches of a preempting run, held against torch.profiler
+    cfg.set(serve_lane_preemption=True)
+    try:
+        counts = {}
+
+        def profiled():
+            counts.update(_overload_run(engine, lows, highs)["stats"])
+
+        profiled_seen = _hold_ragged_against_profiler("overload", engine, lows, run=profiled)
+    finally:
+        cfg.reset()
+    log("overload", f"profiled preempting run: lane_preemptions {counts['lane_preemptions']:.0f}, "
+        f"lane_resumes {counts['lane_resumes']:.0f}; launches on the overload path "
+        f"{launches}, ragged by kind { {k: path.get(f'ragged.{k}', 0) for k in LAUNCHES_BY_KIND} } "
+        f"({time.perf_counter() - t0:.2f} s)")
+    engine.shutdown()
+    return dict(launches=launches, profiled=profiled_seen)
 
 
 def _leaf_names(tree, prefix=""):
@@ -1257,6 +1680,8 @@ def main() -> int:
         for k in KERNELS:
             serve_launches[k.name] += k.launches - before[k.name]
         spec = phase_spec(server, config, prompts, outs)
+        dense_launches = phase_dense(server, config, prompts, outs)
+        overload = phase_overload(server, config)
     finally:
         server.shutdown()
     del server
@@ -1266,6 +1691,7 @@ def main() -> int:
     kernels = []
     for k in KERNELS:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
+                   "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
                    "train": train_launches[k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
@@ -1274,6 +1700,7 @@ def main() -> int:
             kernels[-1]["serve_launches_by_kind"] = ragged_split
             kernels[-1]["serve_device_kernels_profiled_repeat"] = profiled
             kernels[-1]["spec_device_kernels_profiled_repeat"] = spec["profiled"]
+            kernels[-1]["overload_device_kernels_profiled_repeat"] = overload["profiled"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,7 @@ from .convert import params_from_numpy  # noqa: F401
 from .transformer import (  # noqa: F401
     TransformerConfig,
     count_params,
+    decode_step,
     forward,
     forward_hidden,
     init_cache,

@@ -2,8 +2,8 @@
 
 Port of `ray_tpu/models/transformer.py`: the full-sequence forward (for
 training and the dense check), and the dense-cache `init_cache` /
-`prefill` that the draft-model proposer of speculative decoding runs
-(`decode_step` is not ported yet). Parameters are a plain dict of tensors
+`prefill` / `decode_step` that the dense `LLMEngine` and the draft-model
+proposer of speculative decoding run. Parameters are a plain dict of tensors
 in the JAX layout — block weights stacked on a leading layer axis,
 attention weights as (E, H, Dh) / (H, Dh, E) — so a JAX parameter pytree
 converts leaf for leaf (`models.convert.params_from_numpy`). The layer
@@ -353,3 +353,87 @@ def prefill(
     x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), c.norm)
     last = x[torch.arange(x.shape[0], device=x.device), lengths.long() - 1]  # (B, E)
     return last @ lm_head_weights(params, c), cache
+
+
+def _decode_attention(q, k_cache, v_cache, lengths):
+    """Single-step attention against the cache. q (B, Hq, 1, Dh); cache
+    (B, Hkv, S, Dh); lengths (B,) = #valid cache slots per example.
+
+    GQA runs through a grouped view: the G = Hq / Hkv query heads of a kv
+    head are the rows of one (G, Dh) x (Dh, S) product, so the cache is
+    read once, never repeated per query head. Scores are f32 (on the card
+    the bf16 product writes f32 out), masked to -1e30 past each example's
+    length, softmaxed in f32 and cast to the cache's dtype for P.V."""
+    b, hq, _, dh = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b * hkv, g, dh)
+    kt = k_cache.reshape(b * hkv, s, dh).transpose(1, 2)
+    if qg.dtype == torch.float32:
+        scores = torch.bmm(qg, kt)
+    else:
+        scores = torch.bmm(qg, kt, out_dtype=torch.float32)
+    scores = scores.view(b, hkv, g, s) / math.sqrt(dh)
+    mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]  # (B, S)
+    scores = torch.where(mask[:, None, None, :], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.bmm(probs.view(b * hkv, g, s), v_cache.reshape(b * hkv, s, dh))
+    return out.view(b, hq, 1, dh)
+
+
+def decode_step(
+    params: Params,
+    cache: Params,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    config: TransformerConfig,
+    *,
+    rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Params]:
+    """One autoregressive step for continuous batching.
+
+    tokens (B,) int; positions (B,) int — per-example write slot (also the
+    rope position). Returns (logits (B, V), the cache updated in place).
+    Examples at different sequence positions coexist in one batch: each
+    writes its own cache row at its own position. `rope_tables` (cos, sin)
+    may be computed once by the caller (a captured graph closes over
+    them)."""
+    c = config
+    dt = c.dtype
+    b = tokens.shape[0]
+    dev = tokens.device
+    positions = positions.long()
+    x = embed(params, tokens, c)[:, None, :]  # (B, 1, E)
+    if c.pos_emb == "learned":
+        x = x + params["wpe"][positions].to(dt)[:, None, :]
+        rope_tables = None
+    elif rope_tables is None:
+        rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=dev)
+    lengths = positions + 1
+    lanes = torch.arange(b, device=dev)
+    for i in range(c.n_layers):
+        lp = layer_params(params, i)
+        h = _norm(x, lp["ln1_scale"], lp.get("ln1_bias"), c.norm)
+        q = _heads(h, lp["wq"].to(dt))  # (B, H, 1, Dh)
+        k = _heads(h, lp["wk"].to(dt))
+        v = _heads(h, lp["wv"].to(dt))
+        if c.use_bias:
+            q = q + lp["bq"].to(dt)[None, :, None, :]
+            k = k + lp["bk"].to(dt)[None, :, None, :]
+            v = v + lp["bv"].to(dt)[None, :, None, :]
+        if rope_tables is not None:
+            cos, sin = rope_tables
+            pos2d = positions[:, None]
+            q = apply_rope(q, cos, sin, pos2d)
+            k = apply_rope(k, cos, sin, pos2d)
+        # each example's new row at its own position, in place
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        k_cache[lanes, :, positions] = k[:, :, 0].to(c.dtype)
+        v_cache[lanes, :, positions] = v[:, :, 0].to(c.dtype)
+        attn = _decode_attention(q, k_cache, v_cache, lengths)
+        out = attn.to(dt).reshape(b, 1, -1) @ lp["wo"].to(dt).reshape(-1, c.d_model)
+        if c.use_bias:
+            out = out + lp["bo"].to(dt)
+        x = mlp_sublayer(x + out, lp, c)
+    x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), c.norm)
+    return (x @ lm_head_weights(params, c))[:, 0], cache

@@ -30,19 +30,30 @@
   the cached pages of its longest page-aligned prompt prefix, so only the
   tail is prefilled; a page about to be written while shared is copied
   first (copy-on-write), and pool pressure evicts cached pages.
+- OVERLOAD: submits pass the shared admission gate (the admit-queue
+  bound, tenant token-bucket quotas, expired deadlines: typed
+  `BackPressureError` / `RequestTimeoutError`) and wait in a weighted-fair
+  queue (`serve/tenancy.FairQueue`: strict priority tiers, SCFQ within a
+  tier). A higher-priority head that finds every slot busy, or the pool
+  short of its pages, PREEMPTS a lower-priority decode lane: the lane is
+  trimmed to its emitted frontier, its pages freed (shared prefix pages
+  only lose a reference), and the request parked at the front of its fair
+  lane with its generated tokens folded into its prompt; it resumes by
+  re-prefilling them. A lane with blocks, a first-token fetch or a verify
+  round in flight is only marked: dispatch stops feeding it and it parks
+  once they drain. Deadlines evict lanes mid-decode
+  (`cfg.serve_lane_preemption` gates preemption).
 
 Retirement (EOS / budget) is detected at emission, up to a few blocks
 after the fact. Blocks still in flight for a retired slot may write into
 its freed pages; that is safe because every pass runs on one stream, in
 order: a later owner's writes come after them, and attention masks rows
-beyond a slot's length. Lane preemption, fair-queue tenancy, deadlines,
-request tracing and tensor parallelism, which the JAX engine has, are not
-ported yet.
+beyond a slot's length. Request tracing, forensics marks and tensor
+parallelism, which the JAX engine has, are not ported yet.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import itertools
 import queue
@@ -54,14 +65,23 @@ import numpy as np
 import torch
 
 from ..._device import resolve_device
+from ...core.config import cfg
 from ...models.transformer import TransformerConfig
 from ...ops import rope_frequencies
+from ..tenancy import FairQueue
 from .engine import (
     ResponseStream,
-    _Request,
+    _charge_wait,
+    _check_admission,
+    _check_params_device,
     _fail_all_requests,
     _hit_stop_sequence,
     _normalize_stop_sequences,
+    _observe_tenant_ttft,
+    _reject_if_dead,
+    _Request,
+    _sample_plain,
+    _timeout_request,
 )
 from .graphs import DevicePass, to_device
 from .paged import (
@@ -82,6 +102,10 @@ class PagedEngineConfig:
     eos_id: int = -1
     decode_block_steps: int = 16  # K: fused decode+sample steps per dispatch
     max_inflight_blocks: int = 8  # device blocks outstanding before gating
+    # admission bound on the submit queue: overflow raises a typed
+    # BackPressureError instead of queueing unboundedly. 0 = auto
+    # (8 x max_slots); negative disables the bound.
+    max_queued_requests: int = 0
     # Capture every pass's CUDA graph (each mixed-tick bucket 1, 2, 4, ...,
     # max_slots lanes and both decode variants) at construction, as the
     # JAX engine compiles its programs. Off by default: tests build many
@@ -100,14 +124,6 @@ class PagedEngineConfig:
 
 
 # ------------------------------------------------------------------ sampling
-
-
-def _sample_plain(logits, generator, temps):
-    """temperature-only / greedy sampling — the common fast path."""
-    greedy = torch.argmax(logits, dim=-1)
-    scaled = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
-    sampled = categorical(scaled, generator)
-    return torch.where(temps <= 0.0, greedy, sampled)
 
 
 def _sample_filtered(logits, generator, temps, top_ks, top_ps):
@@ -230,6 +246,9 @@ class _PagedSlot:
     # one-round-in-flight latch, which keeps the rollback race-free
     spec_ctx: Optional[List[int]] = None
     spec_inflight: bool = False
+    # lane preemption: a marked lane stops dispatching and is parked
+    # (trimmed to its emitted frontier) once its in-flight work drains
+    preempt_pending: bool = False
 
     @property
     def free(self) -> bool:
@@ -248,19 +267,9 @@ class _PagedSlot:
             self.request is not None
             and not self.prefilling
             and not self.done_dispatching
+            and not self.preempt_pending
             and self.dispatch_remaining > 0
         )
-
-
-def _check_params_device(params: Any, device: torch.device) -> None:
-    leaves = list(params["blocks"].values()) + [
-        v for k, v in params.items() if k != "blocks"
-    ]
-    for leaf in leaves:
-        if leaf.device.type != device.type:
-            raise ValueError(
-                f"params live on {leaf.device} but the engine runs on {device}"
-            )
 
 
 class PagedLLMEngine:
@@ -313,7 +322,10 @@ class PagedLLMEngine:
         # each slot's pending input token (its last sampled token)
         self._tokens_dev = torch.zeros((ms,), dtype=torch.int64, device=self.device)
         self._queue: "queue.Queue[_Request]" = queue.Queue()
-        self._pending: "collections.deque[_Request]" = collections.deque()
+        # weighted-fair admit queue: raw submits drain into per-(priority,
+        # tenant) SCFQ lanes; deferred admissions (page stalls) and parked
+        # lanes re-enter at the front of their lane without a fresh charge
+        self._fair = FairQueue()
         self._rid = itertools.count()
         self._stop = threading.Event()
         self._wake = threading.Event()
@@ -338,6 +350,8 @@ class PagedLLMEngine:
             "ongoing": 0.0,
             "page_stalls": 0.0,
             "pages_in_use": 0.0,
+            "shed": 0.0,
+            "timeouts": 0.0,
             "prefill_tokens": 0.0,
             "decode_tokens": 0.0,
             "mixed_ticks": 0.0,
@@ -353,6 +367,10 @@ class PagedLLMEngine:
             "spec_accepted": 0.0,
             "spec_acceptance_rate": 0.0,
             "spec_rollback_pages": 0.0,
+            # lane-preemption counters
+            "lane_preemptions": 0.0,
+            "lane_resumes": 0.0,
+            "preempted_pages": 0.0,
         }
         self._build_passes()
         self.capture_s = 0.0
@@ -483,6 +501,9 @@ class PagedLLMEngine:
         top_p: float = 1.0,
         stop_token_ids: Optional[List[int]] = None,
         stop_sequences: Optional[List[List[int]]] = None,
+        deadline_ts: Optional[float] = None,
+        tenant: Optional[str] = None,
+        priority: Optional[int] = None,
         request_id: Optional[str] = None,
     ) -> ResponseStream:
         limit = self.paged.max_slot_tokens
@@ -495,6 +516,8 @@ class PagedLLMEngine:
             raise ValueError("empty prompt")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        tenant = tenant or "default"
+        _check_admission(self, deadline_ts, tenant)
         request = _Request(
             rid=next(self._rid),
             prompt=[int(t) for t in prompt_tokens],
@@ -505,15 +528,14 @@ class PagedLLMEngine:
             top_p=float(top_p),
             stop_token_ids=tuple(stop_token_ids or ()),
             stop_sequences=_normalize_stop_sequences(stop_sequences),
+            deadline_ts=deadline_ts,
+            tenant=tenant,
+            priority=int(priority or 0),
             request_id=request_id,
         )
+        request.enqueued_at = time.perf_counter()
         self._queue.put(request)
-        # the death path records its cause BEFORE draining the queue, so a
-        # submit that lands after the final drain fails here instead of
-        # waiting on a loop that will never run
-        if self._death_cause is not None:
-            _fail_all_requests([], self._queue, self._death_cause)
-            raise RuntimeError("LLM engine is dead") from self._death_cause
+        _reject_if_dead(self)
         self._wake.set()
         return ResponseStream(request)
 
@@ -541,6 +563,54 @@ class PagedLLMEngine:
             out[f"passes.{p.name}"] = float(p.runs)
             for kernel, n in p.launches().items():
                 out[f"launches.{kernel}"] = out.get(f"launches.{kernel}", 0.0) + n
+        return out
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Live engine introspection: the lane table, page-pool occupancy,
+        prefix-cache chain heads and per-tenant fair-queue depths. Read in
+        place, point-in-time, lock-free — the loop thread mutates between
+        field reads, and a read must never stall the engine (a lane row may
+        be a tick stale)."""
+        lanes: List[Dict[str, Any]] = []
+        for idx, slot in enumerate(self.slots):
+            request = slot.request
+            lane: Dict[str, Any] = {"lane": idx, "free": request is None}
+            if request is not None:
+                lane.update(
+                    rid=request.rid,
+                    request_id=request.request_id,
+                    tenant=request.tenant,
+                    priority=request.priority,
+                    prefilling=slot.prefilling,
+                    stalled=slot.stalled,
+                    preempt_pending=slot.preempt_pending,
+                    position=slot.position,
+                    prefill_offset=slot.prefill_offset,
+                    pages=len(slot.pages),
+                    blocks_in_flight=slot.blocks_in_flight,
+                    dispatch_remaining=slot.dispatch_remaining,
+                    emit_remaining=slot.emit_remaining,
+                    generated=request.generated,
+                    spec_inflight=slot.spec_inflight,
+                )
+            lanes.append(lane)
+        pc = self.paged
+        out: Dict[str, Any] = {
+            "kind": "paged",
+            "lanes": lanes,
+            "pages": {
+                "total": pc.num_pages - 1,  # page 0 is scratch
+                "free": self.allocator.available,
+                "in_use": pc.num_pages - 1 - self.allocator.available,
+            },
+            "queue_depth": self._queue.qsize(),
+            "fair_depths": self._fair.depths(),
+            "inflight_blocks": self._inflight,
+            "spec_tokens": self.spec_tokens,
+        }
+        if self.prefix_cache is not None:
+            out["prefix_cache"] = dict(self.prefix_cache.stats(),
+                                       chains=self.prefix_cache.chain_heads())
         return out
 
     def shutdown(self, timeout: float = 60.0) -> None:
@@ -613,19 +683,177 @@ class PagedLLMEngine:
         self.block_tables[idx, : len(slot.pages)] = slot.pages
         return True
 
-    def _admit(self) -> None:
-        pc = self.paged
+    def _drain_submits(self) -> None:
+        """Move raw submits into the weighted-fair admit queue: one
+        per-(priority, tenant) SCFQ lane each, so admission order is
+        virtual-time fair rather than FIFO."""
         while True:
             try:
-                self._pending.append(self._queue.get_nowait())
+                request = self._queue.get_nowait()
             except queue.Empty:
+                return
+            self._fair.push(request, request.tenant, request.priority)
+
+    def _next_admissible(self) -> Optional[_Request]:
+        """Next admissible request in weighted-fair order, failing anything
+        whose deadline expired while it queued — an expired request never
+        takes a slot ahead of a live one."""
+        while True:
+            candidate = self._fair.pop()
+            if candidate is None:
+                return None
+            if candidate.deadline_ts is not None and time.time() >= candidate.deadline_ts:
+                self.metrics["timeouts"] += 1
+                _timeout_request(candidate)
+                candidate.out.put(None)
+                continue
+            return candidate
+
+    # ------------------------------------------------------------ preemption
+
+    def _preemption_enabled(self) -> bool:
+        return bool(cfg.serve_lane_preemption)
+
+    def _pick_victim(self, min_priority: int) -> Optional[int]:
+        """Lowest-priority, largest-page-holding lane strictly below
+        `min_priority` that can be preempted: not mid-prefill, not already
+        finishing, not already marked. Work in flight does NOT disqualify:
+        marking stops further dispatch, and the park happens once it drains
+        (`_sweep_pending_preemptions`)."""
+        best = None
+        for idx, slot in enumerate(self.slots):
+            request = slot.request
+            if (
+                request is None
+                or request.priority >= min_priority
+                or slot.prefilling
+                or slot.preempt_pending
+                or slot.done_dispatching
+                or slot.finished_emit
+            ):
+                continue
+            rank = (request.priority, -len(slot.pages))
+            if best is None or rank < best[0]:
+                best = (rank, idx)
+        return best[1] if best is not None else None
+
+    def _request_preempt(self, idx: int) -> bool:
+        """Preempt lane `idx`: park it now when it is quiescent (nothing in
+        flight — no block, no "first" fetch, no verify round — so its
+        emitted tokens equal its drained dispatch positions and re-prefilling
+        prompt + emitted reproduces its KV), else mark it so dispatch stops
+        feeding it and the drain sweep parks it. True when the park happened
+        now (pages already released)."""
+        slot = self.slots[idx]
+        if slot.blocks_in_flight == 0 and not slot.spec_inflight:
+            self._park_lane(idx)
+            return True
+        slot.preempt_pending = True
+        return False
+
+    def _sweep_pending_preemptions(self) -> None:
+        """Park every marked lane whose in-flight work has drained. A lane
+        that finished (or dispatched its last block) while marked just
+        unmarks — it retires on its own."""
+        for idx, slot in enumerate(self.slots):
+            if not slot.preempt_pending:
+                continue
+            if slot.request is None or slot.finished_emit or slot.done_dispatching:
+                slot.preempt_pending = False
+                continue
+            if slot.blocks_in_flight == 0 and not slot.spec_inflight:
+                self._park_lane(idx)
+
+    def _park_lane(self, idx: int) -> int:
+        """Preempt a decode lane: trim it to its emitted frontier and park
+        the request at the front of its fair lane with the generated tokens
+        folded into its prompt. Returns the pages released.
+
+        Freeing `slot.pages` only drops THIS slot's refs: prefix-shared
+        pages merely lose one holder and are never written. The host block
+        table row goes back to the scratch page; the next pass copies it in.
+        On re-admission the lane re-prefills prompt + generated (through the
+        prefix cache where it is on), and its first token then comes from
+        that final chunk's sample, never from the stale entry the token
+        vector still holds for the slot; the consumer keeps every token
+        already emitted and sees no seam."""
+        slot = self.slots[idx]
+        request = slot.request
+        freed = len(slot.pages)
+        request.prompt = list(request.prompt) + list(request.gen_tokens)
+        request.max_tokens = slot.emit_remaining
+        request.gen_tokens = []
+        request.parked = True
+        self.allocator.free(slot.pages)
+        slot.pages = []
+        slot.request = None
+        slot.position = 0
+        slot.prefill_offset = 0
+        slot.stalled = False
+        slot.dispatch_remaining = 0
+        slot.done_dispatching = False
+        slot.blocks_in_flight = 0
+        slot.awaiting_first = False
+        slot.emit_remaining = 0
+        slot.finished_emit = False
+        slot.spec_ctx = None
+        slot.spec_inflight = False
+        slot.preempt_pending = False
+        self.block_tables[idx, :] = 0
+        self._fair.requeue(request, request.tenant, request.priority)
+        # the park's wait charges into the preempt_wait TTFT bucket
+        request.enqueued_at = time.perf_counter()
+        self.metrics["lane_preemptions"] += 1
+        self.metrics["preempted_pages"] += float(freed)
+        return freed
+
+    def _reclaim_pages(self, incoming: _Request, need: int) -> bool:
+        """Page-pressure preemption: preempt strictly lower-priority lanes
+        until the pages they hold (counting lanes already marked) cover
+        `need`. Quiescent victims release at once; pipelined ones on the
+        drain sweep a tick later, while the caller's requeue keeps the
+        incoming request's place. True when enough pages are free now."""
+        expected = self.allocator.available + sum(
+            len(s.pages) for s in self.slots if s.preempt_pending)
+        while expected < need:
+            victim = self._pick_victim(incoming.priority)
+            if victim is None:
                 break
+            expected += len(self.slots[victim].pages)
+            self._request_preempt(victim)
+        return self.allocator.available >= need
+
+    def _preempt_for_head(self) -> None:
+        """A high-priority head must not wedge behind low-priority long
+        decodes: when every slot is busy and the fair head outranks an
+        eligible lane, preempt one victim, so the head seats as soon as the
+        victim's pipeline drains (this tick when quiescent). One pending
+        park at a time — never cascade victims for one head."""
+        if not len(self._fair) or any(s.free for s in self.slots):
+            return
+        if any(s.preempt_pending for s in self.slots):
+            return
+        head = self._fair.peek()
+        if head is None:
+            return
+        victim = self._pick_victim(head.priority)
+        if victim is not None:
+            self._request_preempt(victim)
+
+    def _admit(self) -> None:
+        pc = self.paged
+        self._drain_submits()
+        if self._preemption_enabled():
+            self._sweep_pending_preemptions()
+            self._preempt_for_head()
         for idx, slot in enumerate(self.slots):
             if not slot.free:
                 continue
-            if not self._pending:
+            if not len(self._fair):
                 return
-            request = self._pending.popleft()
+            request = self._next_admissible()
+            if request is None:
+                return
             # prefix reuse: the longest cached page-aligned prefix of the
             # prompt arrives prefilled (lookup takes this slot's refs), and
             # only the tail is chunk-prefilled
@@ -633,15 +861,26 @@ class PagedLLMEngine:
                               if self.prefix_cache is not None else [])
             # hit pages can leave the chunk misaligned: cap the fresh pages
             # at the block-table width (prefill tops up from there)
-            pages = self._alloc_pages(min(pc.chunk_pages, pc.max_pages_per_slot - len(hit)))
+            fresh_n = min(pc.chunk_pages, pc.max_pages_per_slot - len(hit))
+            pages = self._alloc_pages(fresh_n)
+            if pages is None and self._preemption_enabled():
+                if self._reclaim_pages(request, fresh_n):
+                    pages = self._alloc_pages(fresh_n)
             if pages is None:
                 if hit:
                     self.allocator.free(hit)
-                # deferred admission keeps its place at the head of the queue
-                self._pending.appendleft(request)
+                # deferred admission keeps its place: front of its lane, no
+                # fresh virtual-time charge
+                self._fair.requeue(request, request.tenant, request.priority)
                 self.metrics["page_stalls"] += 1
+                request.stall_marked = True
                 return
+            request.stall_marked = False
+            _charge_wait(request)
             request.cached_tokens = len(hit) * pc.page_size
+            if request.parked:
+                request.parked = False
+                self.metrics["lane_resumes"] += 1
             slot.request = request
             slot.pages = list(hit) + pages
             slot.position = 0
@@ -655,6 +894,7 @@ class PagedLLMEngine:
             slot.finished_emit = False
             slot.spec_ctx = None
             slot.spec_inflight = False
+            slot.preempt_pending = False
             self.block_tables[idx, :] = 0
             self.block_tables[idx, : len(slot.pages)] = slot.pages
 
@@ -1132,8 +1372,11 @@ class PagedLLMEngine:
             return  # stale block for an already-retired stream
         if first and request.first_token_at is None:
             request.first_token_at = time.perf_counter()
+            _observe_tenant_ttft(request)
         request.generated += 1
         request.out.put(token)
+        # the resume ledger: a preempted lane folds these into its prompt
+        request.gen_tokens.append(int(token))
         slot.emit_remaining -= 1
         self.metrics["generated_tokens"] += 1
         if not first:  # first tokens are the prefill's output
@@ -1167,9 +1410,30 @@ class PagedLLMEngine:
         slot.finished_emit = False
         slot.spec_ctx = None
         slot.spec_inflight = False
+        slot.preempt_pending = False
         self.block_tables[idx, :] = 0
 
     # ------------------------------------------------------------------ loop
+
+    def _deadline_sweep(self) -> None:
+        """Evict slots whose request outlived its deadline: the stream
+        fails with a typed RequestTimeoutError and the slot's pages return
+        to the pool once nothing of it is in flight (late blocks for the
+        evicted lane are benign, as for EOS retirement: module header)."""
+        now = time.time()
+        for idx, slot in enumerate(self.slots):
+            request = slot.request
+            if (
+                request is None
+                or slot.finished_emit
+                or request.deadline_ts is None
+                or now < request.deadline_ts
+            ):
+                continue
+            self.metrics["timeouts"] += 1
+            _timeout_request(request)
+            slot.finished_emit = True
+            self._maybe_retire(idx, request)
 
     def _all_stalled_deadlock(self) -> Optional[int]:
         """Every occupied slot waits on an empty pool and nothing is in
@@ -1188,9 +1452,10 @@ class PagedLLMEngine:
             self._loop_inner()
         except BaseException as exc:  # noqa: BLE001 - engine death boundary
             self._death_cause = exc
-            for request in self._pending:
+            # queued fair-lane requests (deferred admissions and parked
+            # lanes included) fail like freshly queued ones
+            for request in self._fair.drain():
                 self._queue.put(request)
-            self._pending.clear()
             _fail_all_requests(self.slots, self._queue, exc)
             raise
 
@@ -1199,6 +1464,7 @@ class PagedLLMEngine:
         gate = self.config.max_inflight_blocks
         while not self._stop.is_set():
             self._admit()
+            self._deadline_sweep()
             progressed = self._mixed_tick()
             # drain the prefill backlog before launching a decode block, so
             # admissions group into one joint block
@@ -1226,7 +1492,7 @@ class PagedLLMEngine:
                     self._maybe_retire(i, slot.request)
             occupied = sum(1 for s in self.slots if not s.free)
             self.metrics["ongoing"] = float(
-                occupied + self._queue.qsize() + len(self._pending)
+                occupied + self._queue.qsize() + len(self._fair)
             )
             self.metrics["pages_in_use"] = float(
                 pc.num_pages - 1 - self.allocator.available

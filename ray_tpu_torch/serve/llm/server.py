@@ -1,9 +1,12 @@
-"""LLM server: the serve-facing wrapper around the paged engine.
+"""LLM server: the serve-facing wrapper around an engine.
 
-Port of `LLMServer` from `ray_tpu/serve/llm/server.py`, paged engine
-only. Token-id interface: the payload carries `prompt_tokens`, and text
+Port of `LLMServer` from `ray_tpu/serve/llm/server.py`. `engine_config`
+selects the engine, as in the JAX package: a `PagedEngineConfig` builds
+the paged engine (paged KV pool, chunked prefill, the pipelined passes);
+None or an `EngineConfig` builds the dense slot-grid `LLMEngine`.
+Token-id interface: the payload carries `prompt_tokens`, and text
 encode/decode is the caller's concern. The runtime deployment
-(`build_llm_app`) and the dense engine are not ported yet.
+(`build_llm_app`) and tensor parallelism are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,40 +18,56 @@ import torch
 from ..._device import resolve_device
 from ...models import get_config, init_params
 from ...models.transformer import TransformerConfig
+from ..context import (
+    get_request_deadline,
+    get_request_id,
+    get_request_priority,
+    get_request_tenant,
+)
+from .engine import EngineConfig, LLMEngine
 from .paged_engine import PagedEngineConfig, PagedLLMEngine
 
 
 class LLMServer:
-    """Hosts one paged engine (one model replica) on one device."""
+    """Hosts one engine (one model replica) on one device."""
 
     def __init__(
         self,
         model: Union[str, TransformerConfig] = "gpt2-tiny",
         params: Any = None,
-        engine_config: Optional[PagedEngineConfig] = None,
+        engine_config: Optional[Union[EngineConfig, PagedEngineConfig]] = None,
         seed: int = 0,
         *,
         device: Union[str, torch.device] = "cuda",
     ):
-        if engine_config is not None and not isinstance(engine_config, PagedEngineConfig):
-            raise TypeError(
-                "ray_tpu_torch serves through the paged engine only: pass a "
-                f"PagedEngineConfig, got {type(engine_config).__name__}"
-            )
         dev = resolve_device(device)
         config = get_config(model) if isinstance(model, str) else model
         if params is None:
             params = init_params(config, seed, device=dev)
         self.model_config = config
-        self.engine = PagedLLMEngine(config, params, engine_config, device=dev)
+        if isinstance(engine_config, PagedEngineConfig):
+            self.engine = PagedLLMEngine(config, params, engine_config, device=dev)
+        else:
+            self.engine = LLMEngine(config, params, engine_config, device=dev)
 
     def _submit(self, payload: Dict[str, Any]):
+        """One place parses the payload for both entry points. The ambient
+        request context (`serve/context.py`: deadline, id, tenant,
+        priority) comes first; the payload's fields are the fallback for
+        direct callers."""
         prompt = payload["prompt_tokens"]
-        kwargs = {}
-        # the end-to-end id rides in the payload, as for the JAX server's
-        # direct callers (the port has no router to thread it ambiently)
-        if payload.get("request_id"):
-            kwargs["request_id"] = str(payload["request_id"])
+        kwargs: Dict[str, Any] = {"deadline_ts": get_request_deadline()}
+        request_id = get_request_id() or payload.get("request_id")
+        if request_id:
+            kwargs["request_id"] = str(request_id)
+        tenant = get_request_tenant() or payload.get("tenant")
+        if tenant:
+            kwargs["tenant"] = str(tenant)
+        priority = get_request_priority()
+        if priority is None and "priority" in payload:
+            priority = int(payload["priority"])
+        if priority is not None:
+            kwargs["priority"] = int(priority)
         for name, cast in (("top_k", int), ("top_p", float),
                            ("stop_token_ids", list),
                            ("stop_sequences", list)):

@@ -314,6 +314,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.train, ray_tpu_torch.ops.losses\n"
+        "import ray_tpu_torch.core.config, ray_tpu_torch.core.exceptions\n"
+        "import ray_tpu_torch.serve.tenancy, ray_tpu_torch.serve.context\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -328,8 +330,10 @@ def test_port_imports_neither_jax_nor_ray_tpu():
 def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
-    from ray_tpu_torch.models import get_config, init_params
-    from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedLLMEngine
+    from ray_tpu_torch.models import get_config, init_cache, init_params
+    from ray_tpu_torch.serve.llm import (
+        EngineConfig, LLMEngine, LLMServer, PagedConfig, PagedEngineConfig, PagedLLMEngine,
+    )
     from ray_tpu_torch.serve.llm.paged import init_paged_cache
 
     config = get_config("llama-tiny")
@@ -338,10 +342,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_paged_cache(config, PagedConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        LLMServer("llama-tiny")
+        init_cache(config, 2, 16)
+    for engine_config in (None, EngineConfig(), PagedEngineConfig()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LLMServer("llama-tiny", engine_config=engine_config)
     cpu_params = init_params(config, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedLLMEngine(config, cpu_params)
+    # the dense engine's default device, and the cache it would build there
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLMEngine(config, cpu_params, EngineConfig(max_slots=2, max_seq=16))
     from ray_tpu_torch.train import (
         create_train_state, default_optimizer, make_eval_step, make_train_step,
     )
