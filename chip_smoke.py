@@ -90,10 +90,30 @@ nonzero and no result line is printed):
              smaller batch, then TRAIN_STEPS steps of make_train_step on one
              fixed 8 x 1025 batch; the loss must fall by the stated margin
              and each flash kernel must launch once per layer per step.
+7. trainer — LMTrainer on gpt2-small at full width and depth (the train
+             phase's optimizer: lr 1e-3, warmup 2, 20 steps) fed by
+             lm_batch_iterator (pinned copies on a side stream, a prefetch
+             window of 2) over a token stream made with numpy from the
+             seed: the same 8 x 1025 window every step, as the train
+             phase's fixed batch, so its loss margin holds. 20 steps,
+             reports every 5, the step log sampling every 5th step,
+             asynchronous checkpoints every 10 into a temporary directory.
+             Per report: tokens/s, step_time_s, mfu, step_flops,
+             step_bytes, roofline_hbm; each sampled step's buckets; the
+             device time between consecutive steps' ends (CUDA events, no
+             synchronisation); a checkpoint drill (snapshot, write and
+             verified restore: seconds and bytes). Checks: the loss below
+             LOSS_MARGIN x the first, 12 launches of each flash kernel a
+             step, every sampled step's buckets summing to its wall_s,
+             0 < mfu < 1 in every report, a second trainer's
+             maybe_restore() at 20 with params and moments equal bitwise,
+             and a trainer restored at step 10 reproducing steps 11-15's
+             losses (bitwise).
 
 The line before the last lists every kernel with its launches on the main
-paths (serve: phases 4-5; spec; dense; overload; train: phase 6; each
-counted from zero just before it, profiled repeats left out), its
+paths (serve: phases 4-5; spec; dense; overload; train: phase 6;
+trainer: phase 7's 20-step run; each counted from zero just before it,
+profiled repeats left out), its
 error against the plain version and its times; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -102,10 +122,13 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -157,12 +180,18 @@ from ray_tpu_torch.serve.llm.speculative import (
     ReplayProposer,
     accept_speculative,
 )
+from ray_tpu_torch.data import lm_batch_iterator
 from ray_tpu_torch.train import (
+    CheckpointConfig,
+    CheckpointManager,
+    LMTrainer,
     create_train_state,
     default_optimizer,
     global_norm,
     loss_and_grads,
     make_train_step,
+    steplog,
+    tree_leaves,
 )
 
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
@@ -204,6 +233,10 @@ TRAIN_LR = 1e-3
 # asks for 0.7x in 30). 0.85 asks for most of the way to that floor.
 LOSS_MARGIN = 0.85
 GRAD_CHECK_BATCH, GRAD_CHECK_SEQ = 2, 512
+TRAINER_CKPT_EVERY = 10
+TRAINER_REPORT_EVERY = 5
+TRAINER_SAMPLE_EVERY = 5
+TRAINER_RESUME_FROM, TRAINER_RESUME_STEPS = 10, 5  # a restored trainer redoes steps 11-15
 # kernel path vs attn_impl="xla" gradients in bf16 compute (see _grad_check)
 GRAD_TOL_NORM = 0.01  # relative difference of the global norms
 GRAD_TOL_DIFF = 0.05  # ||g_kernel - g_xla|| / ||g_xla|| over all leaves
@@ -1660,6 +1693,227 @@ def phase_train() -> dict:
     return launches
 
 
+class _TokenStream:
+    """A token stream made with numpy from a seed, as blocks for
+    lm_batch_iterator: the same TRAIN_BATCH x (TRAIN_SEQ + 1) window of
+    uniform draws, flattened, once per step (the train phase's regime of
+    one fixed batch, which LOSS_MARGIN is set for)."""
+
+    def __init__(self, vocab: int, seed: int, steps: int):
+        rng = np.random.default_rng(seed)
+        self.window = rng.integers(0, vocab, TRAIN_BATCH * (TRAIN_SEQ + 1), dtype=np.int32)
+        self.steps = steps
+
+    def iter_blocks(self):
+        for _ in range(self.steps):
+            yield {"tokens": self.window}
+
+
+def _lm_trainer(config, ckpt_dir: str, ckpt_every: int) -> LMTrainer:
+    """LMTrainer on the card with the train phase's optimizer (lr 1e-3,
+    warmup 2, cosine over TRAIN_STEPS) and asynchronous checkpoints."""
+    return LMTrainer(
+        config, optimizer=default_optimizer(TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS),
+        learning_rate=TRAIN_LR, total_steps=TRAIN_STEPS, seed=SEED, device="cuda",
+        checkpoint_config=CheckpointConfig(checkpoint_dir=ckpt_dir, checkpoint_every=ckpt_every,
+                                           async_save=True))
+
+
+def _record_steps(trainer: LMTrainer):
+    """Keep each step's loss tensor and a CUDA event recorded after the
+    step, through the trainer's step_fn: nothing is read back, so the
+    queue keeps running ahead. Returns (losses, ends)."""
+    losses, ends = [], []
+    step = trainer.step_fn
+
+    def recording(state, batch):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        ends.append(end)
+        return state, metrics
+
+    trainer.step_fn = recording
+    return losses, ends
+
+
+def _step_flops_closed_form(config) -> float:
+    """FLOPs of the step's products: each matrix product three times (the
+    forward, dX and dW), and attention's 2 + 5 products of 2 * D per causal
+    pair (the flash kernels' function)."""
+    b, s, e, f, v, h, d, n = (TRAIN_BATCH, TRAIN_SEQ, config.d_model, config.d_ff, config.vocab_size,
+                              config.n_heads, config.head_dim, config.n_layers)
+    products = 2.0 * b * s * (4 * e * e + 2 * e * f) * n + 2.0 * b * s * e * v
+    return 3 * products + 14.0 * b * h * d * s * (s + 1) / 2 * n
+
+
+def _checkpoint_drill(state, directory: str) -> dict:
+    """Seconds and bytes of two saves of the trained state (the first one
+    allocates the pinned buffer, the second reuses it): the snapshot the
+    caller waits for, then the write on the thread (file, sha256 manifest,
+    COMMIT); then a verified restore onto the card."""
+    mgr = CheckpointManager(directory, async_save=True)
+    out = {}
+    for label, step in (("first", state.step), ("second", state.step + 1)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mgr.save(step, state)
+        out[f"{label}_snapshot_s"] = time.perf_counter() - t
+        mgr.wait_until_finished()
+        out[f"{label}_write_s"] = time.perf_counter() - t - out[f"{label}_snapshot_s"]
+    out["bytes"] = os.path.getsize(os.path.join(directory, str(state.step), "state.bin"))
+    t = time.perf_counter()
+    back = mgr.restore(state, device=state.params["wte"].device)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(back.params), tree_leaves(state.params)))
+    mgr.close()
+    if not same:
+        raise AssertionError("checkpoint drill: restored params differ from the saved ones")
+    return out
+
+
+def phase_trainer() -> dict:
+    """LMTrainer on GPT-2 124M through lm_batch_iterator, with checkpoints,
+    the step log and step MFU; returns each kernel's launches over the
+    20-step run (counted from zero just before it)."""
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    cfg.set(step_log_sample_every=TRAINER_SAMPLE_EVERY)
+    try:
+        return _trainer_run(get_config(TRAIN_MODEL), ckpt_dir)
+    finally:
+        cfg.reset("step_log_sample_every")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _trainer_run(config, ckpt_dir: str) -> dict:
+    t0 = time.perf_counter()
+    run = "chip_smoke"
+    trainer = _lm_trainer(config, ckpt_dir, TRAINER_CKPT_EVERY)
+    # the cost count, ahead of the run so that no report window carries it
+    probe = {"tokens": torch.zeros((TRAIN_BATCH, TRAIN_SEQ + 1), dtype=torch.int32,
+                                   device=trainer.device)}
+    t = time.perf_counter()
+    cost = trainer.step_cost(probe)
+    cost_s = time.perf_counter() - t
+    closed = _step_flops_closed_form(config)
+    log("trainer", f"{TRAIN_MODEL}: {trainer.num_params} params, device {trainer.device}; step cost "
+        f"counted on meta tensors in {cost_s:.3f} s: {cost.flops:.6e} FLOPs ({cost.flops / closed:.6f} "
+        f"of the products' closed form {closed:.6e}), {cost.bytes_accessed:.6e} bytes, peaks "
+        f"{cost.peak_flops:.3e} FLOP/s {cost.peak_hbm_bps:.3e} B/s ({cost.device_kind}: "
+        f"{'nominal fallback' if cost.estimated_peaks else 'published'} peaks); largest: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in cost.top_buckets(8)))
+    losses, ends = _record_steps(trainer)
+    reports = []
+    stream = _TokenStream(config.vocab_size, SEED + 2, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    for kernel in KERNELS:
+        kernel.launches = 0
+    t = time.perf_counter()
+    trainer.train(lm_batch_iterator(stream, TRAIN_SEQ, TRAIN_BATCH, device="cuda"),
+                  num_steps=TRAIN_STEPS, report_every=TRAINER_REPORT_EVERY,
+                  report_fn=reports.append, run_name=run)
+    run_s = time.perf_counter() - t
+    launches = {k.name: k.launches for k in KERNELS}
+    loss = [x.item() for x in losses]
+    # device time between consecutive steps' ends (step n = ends[n-1] - ends[n-2]);
+    # a step right after a host synchronisation (a sampled step, a report's
+    # read-back, a checkpoint's snapshot) starts on an empty queue
+    gaps = {n: ends[n - 2].elapsed_time(ends[n - 1]) for n in range(2, TRAIN_STEPS + 1)}
+    synced = set()
+    for r in reports:
+        synced.add(r["step"])
+        synced.update(rec["step"] for rec in r.get("_steplog", []))
+    synced.update(range(TRAINER_CKPT_EVERY, TRAIN_STEPS + 1, TRAINER_CKPT_EVERY))
+    queued = [gaps[n] for n in gaps if n - 1 not in synced]
+    step_ms = statistics.median(queued)
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    log("trainer", f"{TRAIN_STEPS} steps in {run_s:.3f} s (first step's set-up included), "
+        f"{ntok * TRAIN_STEPS / run_s:.1f} tokens/s over the run; device time a step, steps whose "
+        f"predecessor ended on a queue (no sync): median {step_ms:.3f} ms (min {min(queued):.3f}, "
+        f"max {max(queued):.3f}, {len(queued)} steps) = {ntok / step_ms * 1e3:.1f} tokens/s; every "
+        f"step: " + " ".join(f"{n}:{gaps[n]:.2f}" for n in sorted(gaps)))
+    log("trainer", "loss " + " ".join(f"{x:.4f}" for x in loss))
+    sampled = []
+    for r in reports:
+        log("trainer", f"report at step {r['step']}: tokens_per_sec {r['tokens_per_sec']:.1f} "
+            f"step_time_s {r.get('step_time_s', float('nan')):.6f} mfu {r.get('mfu', float('nan')):.6f} "
+            f"step_flops {r.get('step_flops', float('nan')):.6e} step_bytes "
+            f"{r.get('step_bytes', float('nan')):.6e} roofline_hbm {r.get('roofline_hbm', float('nan')):.6f} "
+            f"({r.get('roofline_bound')}) input_wait_s {r['input_wait_s']} ckpt_save_s {r['ckpt_save_s']} "
+            f"dp_sync_s {r['dp_sync_s']} ({r.get('dp_sync_mode')}, {r.get('dp_sync_bytes')} bytes) "
+            f"loss {r['loss']:.4f}")
+        for rec in r.get("_steplog", []):
+            sampled.append(rec)
+            log("trainer", f"  sampled step {rec['step']}: wall_s {rec['wall_s']:.6f} = "
+                + " + ".join(f"{k} {v:.6f}" for k, v in rec["buckets"].items())
+                + f" (sum {sum(rec['buckets'].values()):.6f})")
+    log("trainer", "\n" + steplog.render_waterfall(steplog.log().steps(run=run)))
+    per_step = {n: c / TRAIN_STEPS for n, c in launches.items()}
+    log("trainer", f"launches per step {per_step} (each flash kernel must show {config.n_layers})")
+    drill = _checkpoint_drill(trainer.state, os.path.join(ckpt_dir, "drill"))
+    log("trainer", f"checkpoint drill: {drill['bytes']} bytes of state.bin; first save: snapshot "
+        f"{drill['first_snapshot_s']:.3f} s (pinned buffer allocated) + write "
+        f"{drill['first_write_s']:.3f} s; second save: snapshot {drill['second_snapshot_s']:.3f} s "
+        f"+ write {drill['second_write_s']:.3f} s; verified restore {drill['restore_s']:.3f} s")
+    # checks
+    if not all(np.isfinite(loss)):
+        raise AssertionError("trainer: non-finite training loss")
+    if not loss[-1] < LOSS_MARGIN * loss[0]:
+        raise AssertionError(f"trainer: loss {loss[0]:.4f} -> {loss[-1]:.4f}: not below "
+                             f"{LOSS_MARGIN} x the first")
+    for kernel in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+        if launches[kernel.name] != config.n_layers * TRAIN_STEPS:
+            raise AssertionError(f"trainer: {kernel.name}: {launches[kernel.name]} launches in "
+                                 f"{TRAIN_STEPS} steps, want {config.n_layers} per step")
+    want_sampled = len(range(0, TRAIN_STEPS, TRAINER_SAMPLE_EVERY))
+    if len(sampled) != want_sampled:
+        raise AssertionError(f"trainer: {len(sampled)} sampled steps reported, want {want_sampled}")
+    for rec in sampled:
+        total = sum(rec["buckets"].values())
+        if abs(total - rec["wall_s"]) > 1e-9 * rec["wall_s"]:
+            raise AssertionError(f"trainer: sampled step {rec['step']}: buckets sum to {total!r}, "
+                                 f"wall_s {rec['wall_s']!r}")
+    for r in reports:
+        if not 0.0 < r.get("mfu", float("nan")) < 1.0:
+            raise AssertionError(f"trainer: report at step {r['step']}: mfu {r.get('mfu')} not in (0, 1)")
+    second = _lm_trainer(config, ckpt_dir, TRAINER_CKPT_EVERY)
+    t = time.perf_counter()
+    restored = second.maybe_restore()
+    restore_s = time.perf_counter() - t
+    trees = [(second.state.params, trainer.state.params),
+             (second.state.opt_state.mu, trainer.state.opt_state.mu),
+             (second.state.opt_state.nu, trainer.state.opt_state.nu)]
+    bitwise = all(torch.equal(a, b) for x, y in trees for a, b in zip(tree_leaves(x), tree_leaves(y)))
+    count_ok = second.state.opt_state.count == trainer.state.opt_state.count == TRAIN_STEPS
+    log("trainer", f"second trainer: maybe_restore() = {restored} in {restore_s:.3f} s; params and "
+        f"moments bitwise equal: {bitwise}; count {second.state.opt_state.count}")
+    del second
+    if restored != TRAIN_STEPS or not bitwise or not count_ok:
+        raise AssertionError("trainer: the second trainer did not restore step 20 bitwise")
+    resumed = _lm_trainer(config, ckpt_dir, 0)
+    if resumed.restore(TRAINER_RESUME_FROM) != TRAINER_RESUME_FROM:
+        raise AssertionError(f"trainer: restore({TRAINER_RESUME_FROM}) returned another step")
+    again, _ = _record_steps(resumed)
+    resumed.train(lm_batch_iterator(_TokenStream(config.vocab_size, SEED + 2, TRAINER_RESUME_STEPS),
+                                    TRAIN_SEQ, TRAIN_BATCH, device="cuda"),
+                  num_steps=TRAINER_RESUME_STEPS, report_every=TRAINER_REPORT_EVERY,
+                  run_name=run + "-resume")
+    redo = [x.item() for x in again]
+    first = loss[TRAINER_RESUME_FROM:TRAINER_RESUME_FROM + TRAINER_RESUME_STEPS]
+    gap = max(abs(a - b) for a, b in zip(redo, first))
+    log("trainer", f"restored at step {TRAINER_RESUME_FROM}, steps {TRAINER_RESUME_FROM + 1}-"
+        f"{TRAINER_RESUME_FROM + TRAINER_RESUME_STEPS}: loss " + " ".join(f"{x!r}" for x in redo)
+        + f"; first run " + " ".join(f"{x!r}" for x in first) + f"; bitwise {redo == first}, "
+        f"largest gap {gap!r} ({time.perf_counter() - t0:.2f} s)")
+    del resumed
+    if redo != first:
+        raise AssertionError("trainer: the resumed run's losses differ from the first run's "
+                             "(no kernel of the port uses atomics: the steps should repeat bitwise)")
+    return dict(launches=launches, step_ms=step_ms)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1688,11 +1942,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train()
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = phase_trainer()
     kernels = []
     for k in KERNELS:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
-                   "train": train_launches[k.name]}
+                   "train": train_launches[k.name], "trainer": trainer["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))

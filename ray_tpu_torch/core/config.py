@@ -77,6 +77,54 @@ define_flag("serve_slo_ttft_p99_s", 0.0,
             "Serve SLO monitor: p99 TTFT above this burns "
             "raytpu_serve_slo_burn_total{slo=ttft_p99} (0 = disabled).")
 
+# training: data-parallel sync knobs, JAX's names and defaults. On one
+# device nothing syncs: LMTrainer raises for a mode other than these
+# defaults, and the quantizer block and the bandwidth estimate are read
+# once the mesh spans devices (ROADMAP A7)
+define_flag("dp_allreduce_dtype", "f32",
+            "Wire dtype of the data-parallel gradient sync: 'f32' (exact) "
+            "or 'int8' (block-quantized all-reduce with error feedback).")
+define_flag("dp_shard_update", False,
+            "Shard the weight update + optimizer state across the dp axis "
+            "(reduce-scatter grads, shard-local Adam, all-gather params).")
+define_flag("dp_quant_block", 512,
+            "Block size of the int8 gradient quantizer (one f32 scale per "
+            "block of this many elements).")
+
+# training forensics (train/steplog.py)
+define_flag("train_step_log", True,
+            "Record per-rank typed step phase marks on sampled training "
+            "steps (train/steplog.py) (False = mark() is a no-op).")
+define_flag("step_log_sample_every", 32,
+            "Sample every Nth training step for the step-phase "
+            "decomposition; only sampled steps synchronise the device, "
+            "every other step keeps the queue running ahead (0 = never "
+            "sample).")
+define_flag("train_step_log_marks", 4096,
+            "Per-process ring capacity for step phase marks; the "
+            "oldest mark is evicted first.")
+define_flag("train_step_log_steps", 1024,
+            "Per-process cap on step SUMMARIES the recorder indexes "
+            "(oldest sampled step evicted first).")
+define_flag("steplog_dp_bandwidth_gbs", 100.0,
+            "Assumed interconnect bandwidth (GB/s) used to ESTIMATE "
+            "the dp_sync share of device step time on sampled steps "
+            "(0 s on one replica, where nothing syncs).")
+
+# event log segments (util/events.py)
+define_flag("events_segment_bytes", 1 << 20,
+            "Rotate a node's current event segment file once it exceeds "
+            "this many bytes (atomic rename into a numbered segment).")
+define_flag("events_segments_keep", 8,
+            "Rotated event segments retained per node before the oldest "
+            "is pruned.")
+
+# cost accounting (util/profiling.py)
+define_flag("profile_cost_accounting", True,
+            "Compute MFU/roofline figures for train reports from the "
+            "step's counted FLOPs and bytes (util/profiling.step_cost: "
+            "one run of the step on meta tensors, cached).")
+
 
 class RayTpuConfig:
     """Resolved flag values: defaults < env (RAY_TPU_<NAME>) < set() overrides."""

@@ -1,8 +1,9 @@
-"""Typed errors of the serving plane.
+"""Typed errors of the serving plane and the profiling cost layer.
 
-Port of the part of `ray_tpu/core/exceptions.py` that the engines raise:
-the base class, the deadline error and the admission-control shed. A copy,
-not an import: the port imports nothing of `ray_tpu`.
+Port of the part of `ray_tpu/core/exceptions.py` that the port raises:
+the base class, the deadline error, the admission-control shed and the
+profiling error. A copy, not an import: the port imports nothing of
+`ray_tpu`.
 """
 
 from __future__ import annotations
@@ -12,6 +13,12 @@ from typing import Optional
 
 class RayTpuError(Exception):
     """Base class for all framework errors."""
+
+
+class ProfilingError(RayTpuError):
+    """A profiling operation failed in a way the caller can act on: the
+    cost layer could not count a step, or was given a step time that is
+    not positive."""
 
 
 class RequestTimeoutError(RayTpuError, TimeoutError):

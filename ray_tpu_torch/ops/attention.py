@@ -14,7 +14,10 @@ from lse, as `jax.custom_vjp` does around the Pallas calls.
 
 Dispatch is by device: a CUDA tensor launches the kernel (or raises on a
 shape or dtype it does not take); a CPU tensor takes the plain version.
-There is no other fallback.
+There is no other fallback. Both directions are custom ops
+(`ray_tpu_torch::flash_attention_fwd` / `_bwd`) with a fake for meta
+tensors and a flop formula each, so the cost layer's count
+(`util/profiling.step_cost`) sees them as it sees any aten op.
 
 Layout convention: q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with
 Hq % Hkv == 0 (grouped-query attention: q head h reads kv head
@@ -32,6 +35,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import Kernel
 
@@ -235,12 +239,67 @@ def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     return out, lse
 
 
-def _flash_fwd(q, k, v, causal: bool, sm_scale: float):
-    if causal and q.shape[2] != k.shape[2]:
-        raise NotImplementedError("causal flash kernel requires Sq == Skv")
+def _pairs(b: int, hq: int, sq: int, skv: int, causal: bool) -> float:
+    """(q row, key) pairs the kernels compute, over every head."""
+    return b * hq * (sq * (sq + 1) / 2 if causal else sq * skv)
+
+
+# The kernels are registered as custom ops so that a TorchDispatchMode (the
+# cost layer's count, `util/profiling.step_cost`) sees each one as an op:
+# on meta tensors the fake runs, which allocates the outputs and launches
+# nothing, and the flop formulas below give the kernels' FLOPs. The bytes
+# are the op's inputs and outputs, as for every other op.
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_attention_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                  sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the forward kernel on CUDA tensors, its plain version on
+    CPU tensors."""
     if q.is_cuda:
         return _flash_fwd_cuda(q, k, v, causal, sm_scale)
     return _flash_fwd_plain(q, k, v, causal, sm_scale)
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, sm_scale):
+    b, hq, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, hq, sq, 1), dtype=torch.float32)
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                  lse: torch.Tensor, do: torch.Tensor, causal: bool,
+                  sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): both backward kernels on CUDA tensors, their plain
+    version on CPU tensors."""
+    bwd = _flash_bwd_cuda if q.is_cuda else _flash_bwd_plain
+    return bwd(q, k, v, out, lse, do, causal, sm_scale)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, out, lse, do, causal, sm_scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.ray_tpu_torch.flash_attention_fwd, get_raw=True)
+def _flash_fwd_flops(q, k, v, causal, sm_scale, out_val=None) -> float:
+    """Two products of 2 * D FLOPs per (q row, key) pair."""
+    b, hq, sq, d = q.shape
+    return 4.0 * d * _pairs(b, hq, sq, k.shape[2], causal)
+
+
+@register_flop_formula(torch.ops.ray_tpu_torch.flash_attention_bwd, get_raw=True)
+def _flash_bwd_flops(q, k, v, out, lse, do, causal, sm_scale, out_val=None) -> float:
+    """Five products of 2 * D FLOPs per pair (S, dP, dV, dK, dQ)."""
+    b, hq, sq, d = q.shape
+    return 10.0 * d * _pairs(b, hq, sq, k.shape[2], causal)
+
+
+def _flash_fwd(q, k, v, causal: bool, sm_scale: float):
+    if causal and q.shape[2] != k.shape[2]:
+        raise NotImplementedError("causal flash kernel requires Sq == Skv")
+    return _flash_fwd_op(q.contiguous(), k.contiguous(), v.contiguous(), causal, sm_scale)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -258,9 +317,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        bwd = _flash_bwd_cuda if q.is_cuda else _flash_bwd_plain
-        dq, dk, dv = bwd(q, k, v, out, lse, do, ctx.causal, ctx.sm_scale)
+        # the saved q, k, v are the caller's views, and dO a view of the
+        # transposed attention output: their copies are made here, where
+        # the cost count sees them, not inside the op
+        q, k, v, out, lse, do = (t.contiguous() for t in (*ctx.saved_tensors, do))
+        dq, dk, dv = _flash_bwd_op(q, k, v, out, lse, do, ctx.causal, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 

@@ -39,6 +39,7 @@ import torch
 from torch.profiler import record_function
 
 from .._device import resolve_device
+from ..models.convert import params_from_numpy
 from ..models.transformer import (
     TransformerConfig,
     forward,
@@ -215,6 +216,43 @@ def create_train_state(
         params = init_params(config, seed, device=dev)
     params = _tree_map(lambda t: t.detach().to(dev).clone().requires_grad_(True), params)
     return TrainState(step=0, params=params, opt_state=optimizer.init(params))
+
+
+def _adam_state(opt_state: Any) -> Any:
+    """The node of an optax state tree that carries Adam's moments (its
+    ScaleByAdamState: `count`, `mu`, `nu`), found by walking tuples."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for child in opt_state:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_numpy(
+    state: Any,
+    config: TransformerConfig,
+    device: Union[str, torch.device] = "cuda",
+) -> TrainState:
+    """The port's TrainState from a JAX `TrainState` whose leaves are numpy
+    arrays (`jax.tree.map(np.asarray, state)`, or any object with `step`,
+    `params` and an optax `opt_state`): f32 params with requires_grad,
+    the AdamW moments and count (optax's ScaleByAdamState, found in the
+    chain's state) and the step, on `device`. A run continues from it as
+    the JAX run would from `state`: the schedule reads the same count."""
+    dev = resolve_device(device)
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("opt_state holds no Adam moments (no node with mu and nu)")
+
+    def tree(values):
+        return params_from_numpy(values, config, device=dev, dtype=torch.float32)
+
+    params = _tree_map(lambda t: t.requires_grad_(True), tree(state.params))
+    opt_state = AdamWState(count=int(adam.count), mu=tree(adam.mu), nu=tree(adam.nu))
+    return TrainState(step=int(state.step), params=params, opt_state=opt_state)
 
 
 # ---------------------------------------------------------------- the steps

@@ -925,3 +925,84 @@ def test_park_and_resume_on_card_with_graphs_and_8_blocks_in_flight(cuda, monkey
                 assert gap.max().item() <= 1e-3
     finally:
         engine.shutdown()
+
+
+# ------------------------------------------------------- training entry point
+
+
+class _TokenBlocks:
+    def __init__(self, seed, n=6, size=300):
+        self.seed, self.n, self.size = seed, n, size
+
+    def iter_blocks(self):
+        rng = np.random.default_rng(self.seed)
+        for _ in range(self.n):
+            yield {"tokens": rng.integers(0, 256, self.size).astype(np.int32)}
+
+
+@pytest.mark.cuda
+def test_lm_batch_iterator_on_card_matches_the_cpu_batches(cuda):
+    """The side-stream prefetch window hands over the same batches as the
+    CPU feed, each with its copies' event; the consumer may read them at
+    once (its stream waits on the event), and a slow consumer that
+    allocates between batches still reads every batch intact."""
+    from ray_tpu_torch.data import lm_batch_iterator
+
+    ref = [b["tokens"].clone() for b in lm_batch_iterator(_TokenBlocks(0), 16, 4, device="cpu")]
+    got = []
+    for batch in lm_batch_iterator(_TokenBlocks(0), 16, 4, device="cuda"):
+        assert batch["tokens"].is_cuda and batch.ready is not None
+        scratch = torch.empty(1 << 20, device="cuda").fill_(7.0)  # reuse pressure on the allocator
+        got.append((batch["tokens"] + 0).cpu())
+        del scratch
+    assert len(got) == len(ref) > 2
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_async_checkpoint_snapshots_card_state_before_returning(cuda, tmp_path):
+    """save() of a state on the card copies it to pinned host memory and
+    waits for the copies: an in-place update enqueued right after the call
+    does not reach the file, and restore() puts the saved values back on
+    the card bitwise, as leaf tensors that require grad."""
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.train import CheckpointManager
+
+    config = get_config("gpt2-tiny")
+    opt = default_optimizer(1e-3, total_steps=4)
+    state = create_train_state(config, opt, 0, device="cuda")
+    saved = [t.detach().clone() for t in tree_leaves(state.params)]
+    mgr = CheckpointManager(tmp_path, async_save=True)
+    assert mgr.save(0, state)
+    with torch.no_grad():
+        torch._foreach_add_(tree_leaves(state.params), 1.0)
+    mgr.wait_until_finished()
+    back = mgr.restore(state, device="cuda")
+    for a, b in zip(saved, tree_leaves(back.params)):
+        assert b.is_cuda and b.is_leaf and b.requires_grad and torch.equal(a, b)
+    mgr.close()
+
+
+@pytest.mark.cuda
+def test_step_cost_of_a_card_trainer_launches_nothing(cuda):
+    """The cost count of an LMTrainer on the card runs on meta tensors: no
+    kernel launches, the live state untouched, the card's published peaks;
+    two reported steps then launch each flash kernel once per layer."""
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.train import LMTrainer
+
+    config = get_config("gpt2-tiny").replace(d_model=128, n_heads=2)  # head_dim 64: the kernels' size
+    trainer = LMTrainer(config, learning_rate=1e-3, total_steps=4, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 65)))
+    before = {k.name: k.launches for k in ops.KERNELS}
+    wte = trainer.state.params["wte"].clone()
+    cost = trainer.step_cost({"tokens": tokens})
+    assert {k.name: k.launches for k in ops.KERNELS} == before
+    assert torch.equal(wte, trainer.state.params["wte"])
+    assert cost.flops > 0 and cost.device_kind == torch.cuda.get_device_name(0)
+    reports = []
+    trainer.train([{"tokens": tokens}] * 2, num_steps=2, report_every=1, report_fn=reports.append)
+    assert [r["step"] for r in reports] == [1, 2] and all(0 < r["mfu"] < 1 for r in reports)
+    assert ops.FLASH_FWD.launches - before["flash_attention_fwd"] == 2 * config.n_layers
+    assert ops.FLASH_BWD_DQ.launches - before["flash_attention_bwd_dq"] == 2 * config.n_layers

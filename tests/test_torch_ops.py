@@ -10,6 +10,7 @@ f32 rounding when the two libraries sum in different orders.
 
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -316,6 +317,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.serve.llm, ray_tpu_torch.train, ray_tpu_torch.ops.losses\n"
         "import ray_tpu_torch.core.config, ray_tpu_torch.core.exceptions\n"
         "import ray_tpu_torch.serve.tenancy, ray_tpu_torch.serve.context\n"
+        "import ray_tpu_torch.util.logs, ray_tpu_torch.util.events, ray_tpu_torch.util.metrics\n"
+        "import ray_tpu_torch.util.profiling, ray_tpu_torch.util.tree, ray_tpu_torch.parallel.mesh\n"
+        "import ray_tpu_torch.parallel.collectives, ray_tpu_torch.train.config\n"
+        "import ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.steplog\n"
+        "import ray_tpu_torch.train.trainer, ray_tpu_torch.data.dataset, ray_tpu_torch.data.lm\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -366,6 +372,28 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_eval_step(config)
     assert create_train_state(config, opt, params=cpu_params, device="cpu").step == 0
+    # the trainer, a checkpoint restore and the LM batch feed place on the card too
+    from ray_tpu_torch.data import lm_batch_iterator
+    from ray_tpu_torch.train import CheckpointManager, LMTrainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMTrainer(get_config("gpt2-tiny"))
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        state = create_train_state(config, opt, params=cpu_params, device="cpu")
+        mgr.save(0, state)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mgr.restore(state)
+        assert mgr.restore(state, device="cpu").step == 0
+
+    class Blocks:
+        def iter_blocks(self):
+            yield {"tokens": np.arange(40)}
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_batch_iterator(Blocks(), 8, 2)
+    batch = next(lm_batch_iterator(Blocks(), 8, 2, device="cpu"))
+    assert batch["tokens"].device.type == "cpu" and batch.ready is None
 
 
 def test_parse_sass_counts_opcodes_per_function():
