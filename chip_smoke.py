@@ -84,6 +84,27 @@ nonzero and no result line is printed):
              error, the pool returns to full, every finished stream passes
              the dense check, and the ragged launches counted by the engine
              are held against torch.profiler's.
+   deploy  — the serving entry point as users call it, on the same weight
+             tensors: ray_tpu_torch.init() must show GPU 1.0; a 1 GiB CUDA
+             tensor put into the object store is a DEVICE object, got back
+             without a copy (the same data_ptr) and freed when its ref
+             drops; serve.run(build_llm_app(..., paged=True, max_slots=8))
+             (deployment A: the paged engine in a replica actor that holds
+             the caller's weights, graphs captured at first use by a
+             warm-up request, the rest on the idle engine) serves the 8
+             requests as 8 streams through the handle (TTFT, decode rate,
+             wall and a profiled repeat's idle share beside the serve
+             phase's direct numbers; ragged launches held against
+             torch.profiler; the dense check at 0.5, positions over 0.25
+             printed); the OpenAI frontend over it
+             (/v1/models, a token-array completion plain and SSE, a
+             malformed body's error schema); then the default dense app
+             with 2 replicas on one card (deployment B, each replica's
+             decode graph captured in its own actor thread) serves 16
+             streams: both replicas serve, flash launches = prefills x
+             layers, the dense check; serve.shutdown() and
+             ray_tpu_torch.shutdown() join every thread the phase started
+             and free the replicas' caches.
 6. train   — GPT-2 124M (gpt2-small) at full width and depth, f32 master
              weights from a seeded torch.Generator, bf16 compute:
              the kernel path's gradients against attn_impl="xla" on one
@@ -111,7 +132,7 @@ nonzero and no result line is printed):
              losses (bitwise).
 
 The line before the last lists every kernel with its launches on the main
-paths (serve: phases 4-5; spec; dense; overload; train: phase 6;
+paths (serve: phases 4-5; spec; dense; overload; deploy; train: phase 6;
 trainer: phase 7's 20-step run; each counted from zero just before it,
 profiled repeats left out), its
 error against the plain version and its times; the last line is
@@ -121,6 +142,7 @@ error against the plain version and its times; the last line is
 from __future__ import annotations
 
 import gc
+import http.client
 import json
 import os
 import re
@@ -163,7 +185,10 @@ from ray_tpu_torch.ops.ragged_paged_attention import (
     _ragged_cuda,
     ragged_reference_attention,
 )
+import ray_tpu_torch
+from ray_tpu_torch import serve
 from ray_tpu_torch.core.config import cfg
+from ray_tpu_torch.core.runtime import get_runtime
 from ray_tpu_torch.core.exceptions import BackPressureError, RequestTimeoutError
 from ray_tpu_torch.models.transformer import decode_step
 from ray_tpu_torch.serve import tenancy
@@ -171,6 +196,8 @@ from ray_tpu_torch.serve.llm import (
     EngineConfig,
     LLMEngine,
     LLMServer,
+    OpenAIFrontend,
+    build_llm_app,
     PagedConfig,
     PagedEngineConfig,
     PagedLLMEngine,
@@ -209,6 +236,12 @@ CHECK_MARGIN = 0.25
 # bf16 ulps at |logit| 4-8; a corrupt KV or a wrong resume puts tokens
 # whole units below. Positions over CHECK_MARGIN are counted and printed.
 OVERLOAD_CHECK_MARGIN = 2 * CHECK_MARGIN
+# The deploy phase's requests arrive through the handle's threads, so the
+# engine's batches (and with them the bf16 rounding of each position) vary
+# from run to run: one H100 run of three put a checked position of
+# deployment A at 0.28125, inside the serve path's own tail above. It holds
+# its positions to OVERLOAD_CHECK_MARGIN and prints those over CHECK_MARGIN.
+DEPLOY_CHECK_MARGIN = OVERLOAD_CHECK_MARGIN
 PROFILED_REPEATS = 3  # serve: profiled repeats to find one without dropped records
 SPEC_TOKENS = 4  # drafts per verify round in the spec phase
 PREFIX_TOKENS = 512  # the spec phase's shared prefix: 8 pages of 64
@@ -220,6 +253,9 @@ OVERLOAD_LOW_TOKENS, OVERLOAD_HIGH_TOKENS = 256, 32
 # 50 allocatable; a resumed lane's chunk-aligned re-prefill needs at most 12
 OVERLOAD_PAGES = 51
 DEADLINE_S = 0.2
+DEPLOY_PUT_BYTES = 1 << 30  # the CUDA tensor the deploy phase puts into the store
+DEPLOY_HTTP_TOKENS = 16
+DEPLOY_B_REQUESTS = 16  # deployment B: 2 dense replicas x 8 slots
 TRAIN_MODEL = "gpt2-small"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_STEPS = 20
@@ -848,7 +884,7 @@ def _profiled_ragged_kernels(engine, run) -> tuple:
     return seen, counted, dict(wall_s=wall, busy_s=busy_us / 1e6, sort_s=sort_us / 1e6)
 
 
-def _hold_ragged_against_profiler(phase, engine, prompts, run=None) -> dict:
+def _hold_ragged_against_profiler(phase, engine, prompts, run=None, times_out=None) -> dict:
     """Run the requests again under torch.profiler and hold its ragged
     device kernels against the engine's count for that run (replays x
     captured, by kind). The profiler can miss kernel records of a replayed
@@ -856,7 +892,8 @@ def _hold_ragged_against_profiler(phase, engine, prompts, run=None) -> dict:
     combines) but never sees more than ran: up to PROFILED_REPEATS repeats,
     each printed, and the first whose counts equal the engine's ends the
     check. `run` replaces the run of `prompts` on the engine. Returns the
-    profiler's counts of that repeat."""
+    profiler's counts of that repeat; `times_out`, when given, receives its
+    wall, device busy time and idle share."""
     run = run or (lambda: _serve_run(engine, prompts))
     for attempt in range(1, PROFILED_REPEATS + 1):
         seen, counted, times = _profiled_ragged_kernels(engine, run)
@@ -873,6 +910,8 @@ def _hold_ragged_against_profiler(phase, engine, prompts, run=None) -> dict:
         if set(seen) - set(want) or any(seen.get(k, 0) > n for k, n in want.items()):
             raise AssertionError(f"the profiler saw ragged kernels the engine did not count: {seen}")
         if {k: seen.get(k, 0) for k in want} == want:
+            if times_out is not None:
+                times_out.update(times, idle_share=1 - times["busy_s"] / times["wall_s"])
             return seen
     raise AssertionError(f"profiled ragged kernels {seen} differ from the engine's count {want} "
                          f"in {PROFILED_REPEATS} repeats")
@@ -947,7 +986,12 @@ def phase_serve():
         f"{sum(t for _, t in drains):.3f} s waiting on the card")
     if wrappers[RAGGED.name]:
         raise AssertionError("a serve pass launched the ragged kernels outside its graph")
-    seen = _hold_ragged_against_profiler("serve", engine, prompts)
+    direct = dict(wall_s=wall, ttft_p50_s=statistics.median(ttft), ttft_max_s=max(ttft),
+                  decode_tok_s=decode_tokens / (last_all - first_all),
+                  output_tok_s=N_REQUESTS * MAX_TOKENS / wall)
+    profiled_times: dict = {}
+    seen = _hold_ragged_against_profiler("serve", engine, prompts, times_out=profiled_times)
+    direct["idle_share"] = profiled_times["idle_share"]
     filtered_before = engine.stats()["passes.decode.filtered"]
     hot = engine.generate(prompts[0], MAX_TOKENS, 1.0, top_k=50)
     differs = sum(a != b for a, b in zip(hot, outs[0]))
@@ -957,7 +1001,7 @@ def phase_serve():
         raise AssertionError("temperature sampling left the vocabulary or repeated the greedy tokens")
     if engine.stats()["passes.decode.filtered"] == filtered_before:
         raise AssertionError("the top-k request never replayed the filtered decode graph")
-    return server, config, prompts, outs, split, serve_counts, seen
+    return server, config, prompts, outs, split, serve_counts, seen, direct
 
 
 def phase_check(server, config, prompts, outs) -> tuple:
@@ -1585,6 +1629,375 @@ def phase_overload(server, config) -> dict:
     engine.shutdown()
     return dict(launches=launches, profiled=profiled_seen)
 
+def _handle_run(handle, prompts, max_tokens=MAX_TOKENS):
+    """Every greedy request at once through the handle's streaming path
+    (`stream_generate`, one stream per request, each consumed on a thread
+    of its own): (wall seconds, start time, [(time, token), ...] per
+    request, each stream's final item)."""
+    stamps = [[] for _ in prompts]
+    finals = [None] * len(prompts)
+    errors = [None] * len(prompts)
+    caller = handle.options(stream=True)
+    t_start = time.perf_counter()
+    streams = [caller.stream_generate.remote({"prompt_tokens": p, "max_tokens": max_tokens,
+                                              "temperature": 0.0}) for p in prompts]
+
+    def consume(i):
+        try:
+            for ref in streams[i]:
+                item = ray_tpu_torch.get(ref, timeout=600)
+                if "token" in item:
+                    stamps[i].append((time.perf_counter(), item["token"]))
+                else:
+                    finals[i] = item
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors[i] = exc
+
+    threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    _join(threads)
+    if any(errors):
+        raise AssertionError(f"a request through the handle failed: {errors}")
+    return time.perf_counter() - t_start, t_start, stamps, finals
+
+
+def _rates(wall, t_start, stamps, n_tokens) -> dict:
+    """TTFT p50 / max, decode tok/s (tokens after each request's first,
+    over first-token-to-last-token), output tok/s over the wall."""
+    ttft = [st[0][0] - t_start for st in stamps]
+    first_all, last_all = min(st[0][0] for st in stamps), max(st[-1][0] for st in stamps)
+    decode_tokens = sum(len(st) - 1 for st in stamps)
+    return dict(wall_s=wall, ttft_p50_s=statistics.median(ttft), ttft_max_s=max(ttft),
+                decode_tok_s=decode_tokens / (last_all - first_all),
+                output_tok_s=n_tokens / wall)
+
+
+def _replica_engines(handle):
+    """The engine of each replica of a deployment, read inside its actor."""
+    return [ray_tpu_torch.get(r.__ray_apply__.remote(lambda wrapper: wrapper._instance.engine),
+                              timeout=600) for r in handle._set.replicas()]
+
+
+def _wait_routable(name: str, n: int, timeout: float = 120.0) -> float:
+    """Seconds until the controller has seen `n` replicas of deployment
+    `name` answer a health probe: once one has, it routes only to those
+    that have (JAX's readiness rule), so a burst sent earlier lands on the
+    first replica alone."""
+    from ray_tpu_torch.serve import api as serve_api
+
+    t0 = time.perf_counter()
+    state = serve_api._controller._states[name]
+    while len(state.ready_at) < n or len(state.replica_set.replicas()) < n:
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{name}: fewer than {n} replicas became routable")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _gib(n: float) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def _http(port, method, path, body=None, raw=None):
+    """(status, headers, body bytes, seconds to the first SSE data line
+    or None) of one request to the frontend."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    data = raw if raw is not None else (json.dumps(body).encode() if body is not None else None)
+    t0 = time.perf_counter()
+    conn.request(method, path, body=data, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    first = None
+    if resp.getheader("Content-Type", "").startswith("text/event-stream"):
+        lines = []
+        for line in resp:
+            if first is None and line.startswith(b"data: "):
+                first = time.perf_counter() - t0
+            lines.append(line)
+        payload = b"".join(lines)
+    else:
+        payload = resp.read()
+    conn.close()
+    return resp.status, dict(resp.getheaders()), payload, first
+
+
+def _deploy_http(port, prompt) -> None:
+    """The OpenAI frontend over deployment A: /v1/models; /v1/completions
+    with a token-array prompt, plain and SSE (the byte tokenizer drops
+    Llama's ids >= 256 from the text, so usage and finish_reason are
+    checked, not text); a malformed body answered with JAX's error schema."""
+    req = {"model": MODEL, "prompt": prompt, "max_tokens": DEPLOY_HTTP_TOKENS, "temperature": 0.0}
+    code, _, body, _ = _http(port, "GET", "/v1/models")
+    models = json.loads(body)
+    if code != 200 or [m["id"] for m in models["data"]] != [MODEL]:
+        raise AssertionError(f"/v1/models answered {code}: {models}")
+    t0 = time.perf_counter()
+    code, _, body, _ = _http(port, "POST", "/v1/completions", req)
+    plain_s = time.perf_counter() - t0
+    out = json.loads(body)
+    usage, choice = out["usage"], out["choices"][0]
+    if (code != 200 or usage["prompt_tokens"] != len(prompt)
+            or usage["completion_tokens"] != DEPLOY_HTTP_TOKENS
+            or choice["finish_reason"] != "length" or out["object"] != "text_completion"):
+        raise AssertionError(f"/v1/completions answered {code}: {out}")
+    t0 = time.perf_counter()
+    code, headers, body, first = _http(port, "POST", "/v1/completions", {**req, "stream": True})
+    sse_s = time.perf_counter() - t0
+    frames = [line[len(b"data: "):].decode().strip() for line in body.splitlines()
+              if line.startswith(b"data: ")]
+    chunks = [json.loads(f) for f in frames[:-1]]
+    if (code != 200 or frames[-1] != "[DONE]" or not chunks
+            or chunks[-1]["usage"]["completion_tokens"] != DEPLOY_HTTP_TOKENS
+            or chunks[-1]["choices"][0]["finish_reason"] != "length"):
+        raise AssertionError(f"SSE /v1/completions answered {code}: {frames[-3:]}")
+    code, _, body, _ = _http(port, "POST", "/v1/completions", raw=b"{not json")
+    err = json.loads(body).get("error", {})
+    if code != 400 or err.get("type") != "invalid_request_error" or not {
+            "message", "type", "param", "code"} <= set(err):
+        raise AssertionError(f"a malformed body was answered {code}: {err}")
+    log("deploy", f"HTTP: /v1/models {[m['id'] for m in models['data']]}; /v1/completions "
+        f"(token-array prompt of {len(prompt)}, {DEPLOY_HTTP_TOKENS} new) {plain_s:.3f} s, usage "
+        f"{usage}, finish_reason {choice['finish_reason']}; SSE {len(chunks)} chunks + [DONE] in "
+        f"{sse_s:.3f} s, first data line {first:.3f} s after the POST (ids >= 256 have no "
+        f"text: the first chunk may be the final one); malformed body: {code} "
+        f"{err.get('type')}")
+
+
+class _Ticker:
+    """A deployment whose generator method yields small dicts, as
+    `LLMServer.stream_generate` does, with no engine behind it."""
+
+    def tick(self, n):
+        for i in range(n):
+            yield {"token": i}
+
+
+def _stream_cost(rt, n=2000, streams=8) -> None:
+    """Host cost of one streamed item through the handle's streaming path
+    (actor generator → store item → failover feeder → consumer `get`), on
+    this machine's host: one stream alone, then `streams` at once."""
+    handle = serve.run(serve.deployment(_Ticker, name="ticker",
+                                        max_ongoing_requests=2 * streams).bind())
+    caller = handle.options(stream=True)
+    for width in (1, streams):
+        counts = [0] * width
+
+        def consume(i):
+            for ref in caller.tick.remote(n):
+                rt.get(ref, timeout=600)
+                counts[i] += 1
+
+        threads = [threading.Thread(target=consume, args=(i,)) for i in range(width)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        _join(threads)
+        wall = time.perf_counter() - t0
+        if counts != [n] * width:
+            raise AssertionError(f"a ticker stream lost items: {counts}")
+        log("deploy", f"streaming path alone ({width} stream(s) of {n} items, no engine): "
+            f"{wall / (n * width) * 1e6:.1f} us of wall per item, {n * width / wall:.0f} items/s")
+    serve.delete("ticker")
+
+
+def phase_deploy(server, config, prompts, serve_outs, direct) -> dict:
+    """The serving entry point as users call it, on the serve phase's
+    weight tensors: `ray_tpu_torch.init()` (the card as `GPU`), a CUDA
+    tensor through the object store, `serve.run(build_llm_app(...,
+    paged=True))` (deployment A: the paged engine in a replica actor, its
+    graphs captured at first use) driven by 8 streams through the handle
+    and by the OpenAI frontend, then the default dense app with 2 replicas
+    (deployment B), then serve and the runtime shut down with their threads
+    joined and the replicas' KV memory freed. Returns each kernel's
+    launches on this path (the unprofiled runs, HTTP and the dense
+    checks) and the profiled repeat's ragged device kernels."""
+    t_phase = time.perf_counter()
+    params = server.engine.params
+    threads_before = {t.ident for t in threading.enumerate()}
+    launches = {k.name: 0 for k in KERNELS}
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        resources = ray_tpu_torch.cluster_resources()
+        log("deploy", f"init: cluster_resources GPU {resources.get('GPU')}, CPU {resources['CPU']}")
+        if resources.get("GPU") != 1.0:
+            raise AssertionError(f"the runtime does not show the card as GPU 1.0: {resources}")
+        # ---- a CUDA tensor through the object store
+        store = get_runtime().object_store
+        big = torch.ones(DEPLOY_PUT_BYTES // 2, dtype=torch.bfloat16, device="cuda")
+        torch.cuda.synchronize()
+        dev0, alloc0 = store.usage()["device_bytes"], torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        ref = ray_tpu_torch.put(big)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = ray_tpu_torch.get(ref)
+        get_s = time.perf_counter() - t0
+        tier, dev1 = store.entry(ref.object_id).tier.value, store.usage()["device_bytes"]
+        same = got is big and got.data_ptr() == big.data_ptr()
+        if tier != "device" or dev1 - dev0 != big.nbytes or not same:
+            raise AssertionError(f"the store copied or mis-tiered a CUDA tensor: tier {tier}, "
+                                 f"device_bytes +{dev1 - dev0}, same tensor {same}")
+        if torch.cuda.memory_allocated() != alloc0:
+            raise AssertionError("put/get of a CUDA tensor allocated on the card")
+        oid = ref.object_id
+        del ref, got
+        freed_entry = store.entry(oid) is None and store.usage()["device_bytes"] == dev0
+        del big
+        freed_mem = alloc0 - torch.cuda.memory_allocated()
+        log("deploy", f"store: put of a {_gib(DEPLOY_PUT_BYTES)} bf16 CUDA tensor {put_s * 1e6:.1f} "
+            f"us, get {get_s * 1e6:.1f} us; tier {tier}, device_bytes +{dev1 - dev0}, the same "
+            f"tensor back (data_ptr equal), no allocation on the card; ref dropped: entry gone "
+            f"{freed_entry}, {_gib(freed_mem)} freed with the tensor")
+        if not freed_entry or freed_mem != DEPLOY_PUT_BYTES:
+            raise AssertionError("the store kept the CUDA tensor after its ref dropped")
+        _stream_cost(ray_tpu_torch)
+        # ---- deployment A: the paged app
+        t0 = time.perf_counter()
+        handle = serve.run(build_llm_app(config, params=params, paged=True, max_slots=N_REQUESTS))
+        ray_tpu_torch.get(handle.metrics.remote(), timeout=600)
+        deploy_a_s = time.perf_counter() - t0
+        (engine,) = _replica_engines(handle)
+        if type(engine) is not PagedLLMEngine or engine.params is not params:
+            raise AssertionError(f"deployment A built {type(engine).__name__} on weights of its own")
+        alloc_a = torch.cuda.memory_allocated()
+        log("deploy", f"A: serve.run(build_llm_app({MODEL}, params=..., paged=True, max_slots="
+            f"{N_REQUESTS})) answered in {deploy_a_s:.3f} s; the replica's engine holds the "
+            f"caller's weight tensors; allocated +{_gib(alloc_a - base)} over the serve phase's "
+            f"{_gib(base)} (its KV pool {_gib(sum(v.nbytes for v in engine.cache.values()))})")
+        # warm-up: one request pays the lazy captures of the passes it runs
+        wall, t_start, stamps, _ = _handle_run(handle, prompts[:1])
+        lazy = {p.name: round(p.capture_s, 3) for p in engine.passes() if p.is_captured}
+        stream = torch.cuda.Stream()
+        t0 = time.perf_counter()
+        rest = [p for p in engine.passes() if not p.is_captured]
+        for p in rest:
+            p.capture(stream)
+        torch.cuda.synchronize()
+        log("deploy", f"A warm-up request: TTFT {stamps[0][0][0] - t_start:.3f} s, wall "
+            f"{wall:.3f} s; graphs captured at first use in the engine's loop thread (s) {lazy}; "
+            f"the other {len(rest)} captured on the idle engine in {time.perf_counter() - t0:.3f} "
+            f"s, so the runs below replay graphs only, as the serve phase's do")
+        for k in KERNELS:
+            k.launches = 0
+        stats0 = engine.stats()
+        wall, t_start, stamps, finals = _handle_run(handle, prompts)
+        stats = _stats_delta(engine, stats0)
+        outs = [[tok for _, tok in st] for st in stamps]
+        if (any(len(o) != MAX_TOKENS for o in outs)
+                or any(f["usage"]["completion_tokens"] != MAX_TOKENS for f in finals)):
+            raise AssertionError("a stream through the handle returned the wrong number of tokens")
+        a = _rates(wall, t_start, stamps, N_REQUESTS * MAX_TOKENS)
+        path: dict = {}
+        _add_launches(path, stats)
+        for k in KERNELS:
+            launches[k.name] += k.launches + path.get(k.name, 0)
+        log("deploy", f"A: {N_REQUESTS} streams through the handle, {MAX_TOKENS} new each: wall "
+            f"{a['wall_s']:.3f} s, TTFT p50 {a['ttft_p50_s']:.3f} s max {a['ttft_max_s']:.3f} s, "
+            f"decode {a['decode_tok_s']:.1f} tok/s, output {a['output_tok_s']:.1f} tok/s over the "
+            f"wall; ragged launches {path.get(RAGGED.name, 0)} (replays x captured: mixed "
+            f"{path.get('ragged.mixed', 0)}, decode {path.get('ragged.decode', 0)}; through the "
+            f"wrapper {RAGGED.launches}); {sum(o == w for o, w in zip(outs, serve_outs))} of "
+            f"{N_REQUESTS} token lists equal the serve phase's")
+        times: dict = {}
+        profiled = _hold_ragged_against_profiler(
+            "deploy", engine, prompts, run=lambda: _handle_run(handle, prompts), times_out=times)
+        a["idle_share"] = times["idle_share"]
+        log("deploy", "A through the handle vs the serve phase's direct LLMServer, same call "
+            "(wall s, TTFT p50 s, TTFT max s, decode tok/s, output tok/s, idle share of the "
+            "profiled repeat): " + "; ".join(
+                f"{k} {a[k]:.4f} vs {direct[k]:.4f}"
+                for k in ("wall_s", "ttft_p50_s", "ttft_max_s", "decode_tok_s", "output_tok_s",
+                          "idle_share")))
+        before_flash = FLASH_FWD.launches
+        _dense_check("deploy", params, config, prompts, outs,
+                     labels=[f"A{i}" for i in range(len(prompts))], margin=DEPLOY_CHECK_MARGIN)
+        launches[FLASH_FWD.name] += FLASH_FWD.launches - before_flash
+        # ---- HTTP over deployment A
+        frontend = OpenAIFrontend({MODEL: "llm"})
+        before = {k.name: k.launches for k in KERNELS}
+        stats0 = engine.stats()
+        try:
+            _deploy_http(frontend.port, prompts[0][:64])
+        finally:
+            frontend.stop()
+        path = {}
+        _add_launches(path, _stats_delta(engine, stats0))
+        for k in KERNELS:
+            launches[k.name] += k.launches - before[k.name] + path.get(k.name, 0)
+        del engine
+        serve.delete("llm")
+        # ---- deployment B: the default dense app, 2 replicas on one card
+        t0 = time.perf_counter()
+        handle_b = serve.run(build_llm_app(config, params=params, num_replicas=2,
+                                           max_slots=N_REQUESTS, name="llm-dense"))
+        engines = _replica_engines(handle_b)
+        deploy_b_s = time.perf_counter() - t0
+        routable_s = deploy_b_s + _wait_routable("llm-dense", 2)
+        if (len(engines) != 2 or any(type(e) is not LLMEngine or e.params is not params
+                                     or not e._decode.is_captured for e in engines)):
+            raise AssertionError("deployment B did not build 2 dense engines on the shared "
+                                 "weights with their decode graphs")
+        alloc_b = torch.cuda.memory_allocated()
+        kv_b = sum(v.nbytes for e in engines for v in e.cache.values())
+        log("deploy", f"B: serve.run(build_llm_app({MODEL}, params=..., num_replicas=2, "
+            f"max_slots={N_REQUESTS}, name='llm-dense')): 2 dense replicas built at once (each "
+            f"captured its decode graph in its own actor thread, one capture at a time) in "
+            f"{deploy_b_s:.3f} s, both routable (health probes answered) at {routable_s:.3f} s; caches "
+            f"{_gib(kv_b)} ({engines[0].max_seq} positions per slot); allocated "
+            f"{_gib(alloc_b)} (+{_gib(alloc_b - base)} over the serve phase's)")
+        rng = np.random.default_rng(SEED + 5)
+        lengths = np.linspace(64, 900, DEPLOY_B_REQUESTS).astype(int)
+        prompts_b = [rng.integers(0, config.vocab_size, n).tolist() for n in lengths]
+        for k in KERNELS:
+            k.launches = 0
+        stats0 = [e.stats() for e in engines]
+        wall, t_start, stamps, _ = _handle_run(handle_b, prompts_b)
+        split = [int(_stats_delta(e, s0)["prefills"]) for e, s0 in zip(engines, stats0)]
+        outs_b = [[tok for _, tok in st] for st in stamps]
+        if any(len(o) != MAX_TOKENS for o in outs_b):
+            raise AssertionError("a dense stream returned the wrong number of tokens")
+        b = _rates(wall, t_start, stamps, DEPLOY_B_REQUESTS * MAX_TOKENS)
+        flash = FLASH_FWD.launches
+        log("deploy", f"B: {DEPLOY_B_REQUESTS} streams, prompts {lengths.min()}-{lengths.max()}, "
+            f"{MAX_TOKENS} new each: requests per replica {split}; wall {b['wall_s']:.3f} s, TTFT "
+            f"p50 {b['ttft_p50_s']:.3f} s max {b['ttft_max_s']:.3f} s, aggregate decode "
+            f"{b['decode_tok_s']:.1f} tok/s, output {b['output_tok_s']:.1f} tok/s over the wall; "
+            f"flash forward launches {flash} (prefills x layers {sum(split) * config.n_layers})")
+        if min(split) == 0 or sum(split) != DEPLOY_B_REQUESTS:
+            raise AssertionError(f"a dense replica served none of the requests: {split}")
+        if flash != sum(split) * config.n_layers:
+            raise AssertionError(f"flash launches {flash} differ from prefills x layers")
+        for k in KERNELS:
+            launches[k.name] += k.launches
+        before_flash = FLASH_FWD.launches
+        _dense_check("deploy", params, config, prompts_b, outs_b,
+                     labels=[f"B{i}" for i in range(len(prompts_b))], margin=DEPLOY_CHECK_MARGIN)
+        launches[FLASH_FWD.name] += FLASH_FWD.launches - before_flash
+        del engines, handle, handle_b
+        gc.collect()
+        alloc_before = torch.cuda.memory_allocated()
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    gc.collect()
+    alloc_after = torch.cuda.memory_allocated()
+    left = [t.name for t in threading.enumerate() if t.ident not in threads_before and t.is_alive()]
+    log("deploy", f"serve.shutdown() and ray_tpu_torch.shutdown(): allocated {_gib(alloc_before)} "
+        f"before, {_gib(alloc_after)} after ({_gib(alloc_before - alloc_after)} freed; deployment "
+        f"B's caches {_gib(kv_b)}; {_gib(base)} before the phase); threads the phase started "
+        f"still alive: {left}; launches on the deploy path {launches} "
+        f"({time.perf_counter() - t_phase:.2f} s)")
+    if left:
+        raise AssertionError(f"threads of the deploy phase outlived the shutdown: {left}")
+    if alloc_before - alloc_after < kv_b:
+        raise AssertionError("the replicas' KV memory was not freed at shutdown")
+    if not launches[RAGGED.name] or not launches[FLASH_FWD.name]:
+        raise AssertionError(f"the deploy path never launched a kernel it runs: {launches}")
+    return dict(launches=launches, profiled=profiled)
+
 
 def _leaf_names(tree, prefix=""):
     """Names of the leaves in `tree_leaves` order."""
@@ -1924,7 +2337,7 @@ def main() -> int:
     results = phase_kernels(timer)
     del timer
     torch.cuda.empty_cache()
-    server, config, prompts, outs, ragged_split, serve_launches, profiled = phase_serve()
+    server, config, prompts, outs, ragged_split, serve_launches, profiled, direct = phase_serve()
     if min(ragged_split.values()) == 0:
         raise AssertionError(f"the serving path never launched the ragged kernels of one kind: "
                              f"{ragged_split}")
@@ -1936,6 +2349,7 @@ def main() -> int:
         spec = phase_spec(server, config, prompts, outs)
         dense_launches = phase_dense(server, config, prompts, outs)
         overload = phase_overload(server, config)
+        deploy = phase_deploy(server, config, prompts, outs, direct)
     finally:
         server.shutdown()
     del server
@@ -1949,6 +2363,7 @@ def main() -> int:
     for k in KERNELS:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
+                   "deploy": deploy["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
@@ -1958,6 +2373,7 @@ def main() -> int:
             kernels[-1]["serve_device_kernels_profiled_repeat"] = profiled
             kernels[-1]["spec_device_kernels_profiled_repeat"] = spec["profiled"]
             kernels[-1]["overload_device_kernels_profiled_repeat"] = overload["profiled"]
+            kernels[-1]["deploy_device_kernels_profiled_repeat"] = deploy["profiled"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,320 @@
+"""Public API: init/shutdown, @remote, get/put/wait, actors, placement groups.
+
+Port of `ray_tpu/api.py`. `num_gpus=` takes the place of `num_tpus=` in
+`init`, `remote` and `.options`: it asks for the `GPU` resource, which
+`init` detects from the CUDA devices of the process
+(`core/resources.detect_gpu_resources`). A task or actor asking for a GPU
+on a node without one is infeasible and fails with OutOfResourcesError; it
+never runs on the CPU instead.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+from .core import runtime as _rt
+from .core.resources import ResourceDict
+from .core.runtime import ActorHandle, ObjectRef
+from .core.scheduler import PlacementGroup
+
+
+# ------------------------------------------------------------------- lifecycle
+
+
+def init(
+    num_cpus: Optional[int] = None,
+    num_gpus: Optional[int] = None,
+    resources: Optional[ResourceDict] = None,
+    num_nodes: int = 1,
+    object_store_capacity: Optional[int] = None,
+    spill_dir: Optional[str] = None,
+    detect_accelerators: bool = True,
+    ignore_reinit_error: bool = True,
+    labels: Optional[Dict[str, str]] = None,
+    head: bool = False,
+    address: Optional[str] = None,
+    _system_config: Optional[Dict[str, Any]] = None,
+) -> _rt.Runtime:
+    """Start the in-process runtime.
+
+    `num_nodes > 1` creates multiple logical nodes in one process — the
+    multi-node-without-a-cluster trick the reference uses for testing.
+    With `detect_accelerators` (the default) and no `num_gpus`, each node
+    advertises the process's CUDA devices as `GPU`.
+
+    `head=True` / `address=...` (a multi-process cluster) raise
+    NotImplementedError: clusters are not ported yet.
+
+    `_system_config` overrides central config flags for this process
+    (`ray_tpu_torch.core.config.cfg`).
+    """
+    if _system_config and _rt.is_initialized():
+        # Components capture flags at construction; silently accepting an
+        # override that can no longer take effect would be a lie (the
+        # reference likewise rejects _system_config on reconnect).
+        raise RuntimeError(
+            "_system_config cannot be applied: the runtime is already "
+            "initialized. Call shutdown() first."
+        )
+    if _system_config:
+        from .core.config import cfg
+
+        cfg.set(**_system_config)
+    if _rt.is_initialized():
+        if not ignore_reinit_error:
+            raise RuntimeError("ray_tpu_torch.init() called twice")
+        return _rt.get_runtime()
+    return _rt.init_runtime(
+        num_cpus=num_cpus,
+        num_gpus=num_gpus,
+        resources=resources,
+        num_nodes=num_nodes,
+        object_store_capacity=object_store_capacity,
+        spill_dir=spill_dir,
+        detect_accelerators=detect_accelerators,
+        labels=labels,
+        head=head,
+        address=address,
+    )
+
+
+def shutdown() -> None:
+    _rt.shutdown_runtime()
+
+
+def is_initialized() -> bool:
+    return _rt.is_initialized()
+
+
+def _runtime() -> _rt.Runtime:
+    return _rt.get_or_init_runtime()
+
+
+# --------------------------------------------------------------------- objects
+
+
+def put(value: Any) -> ObjectRef:
+    return _runtime().put(value)
+
+
+def get(refs: Union[ObjectRef, Sequence[ObjectRef]], *, timeout: Optional[float] = None) -> Any:
+    return _runtime().get(refs, timeout=timeout)
+
+
+def wait(
+    refs: Sequence[ObjectRef],
+    *,
+    num_returns: int = 1,
+    timeout: Optional[float] = None,
+) -> Tuple[List[ObjectRef], List[ObjectRef]]:
+    return _runtime().wait(refs, num_returns=num_returns, timeout=timeout)
+
+
+def cancel(ref: ObjectRef) -> bool:
+    return _runtime().cancel(ref)
+
+
+# ----------------------------------------------------------------------- tasks
+
+
+_DEFAULT_TASK_OPTIONS: Dict[str, Any] = dict(
+    num_cpus=None,
+    num_gpus=None,
+    resources=None,
+    num_returns=1,
+    max_retries=0,
+    retry_exceptions=False,
+    scheduling_strategy="DEFAULT",
+    name=None,
+    runtime_env=None,
+    executor="thread",  # "process" (pooled OS workers) is not ported yet
+)
+
+_DEFAULT_ACTOR_OPTIONS: Dict[str, Any] = dict(
+    num_cpus=None,
+    num_gpus=None,
+    resources=None,
+    max_restarts=0,
+    max_concurrency=1,
+    name=None,
+    namespace="default",
+    lifetime=None,
+    scheduling_strategy="DEFAULT",
+    executor="thread",  # "process" (a worker process per actor) is not ported yet
+    runtime_env=None,  # process actors only: not ported yet
+)
+
+
+def _build_resources(options: Dict[str, Any], default_cpu: float) -> ResourceDict:
+    res: ResourceDict = dict(options.get("resources") or {})
+    num_cpus = options.get("num_cpus")
+    num_gpus = options.get("num_gpus")
+    res["CPU"] = float(num_cpus) if num_cpus is not None else default_cpu
+    if num_gpus is not None:
+        res["GPU"] = float(num_gpus)
+    return res
+
+
+class RemoteFunction:
+    """Handle produced by @remote on a function."""
+
+    def __init__(self, func, options: Dict[str, Any]):
+        self._func = func
+        self._options = options
+        functools.update_wrapper(self, func)
+
+    def options(self, **overrides) -> "RemoteFunction":
+        merged = dict(self._options)
+        unknown = set(overrides) - set(_DEFAULT_TASK_OPTIONS)
+        if unknown:
+            raise TypeError(f"Unknown task options: {sorted(unknown)}")
+        merged.update(overrides)
+        return RemoteFunction(self._func, merged)
+
+    def remote(self, *args, **kwargs):
+        opts = self._options
+        return _runtime().submit_task(
+            self._func,
+            args,
+            kwargs,
+            name=opts.get("name") or self._func.__name__,
+            num_returns=opts["num_returns"],
+            resources=_build_resources(opts, default_cpu=1.0),
+            max_retries=opts["max_retries"],
+            retry_exceptions=opts["retry_exceptions"],
+            scheduling_strategy=opts["scheduling_strategy"],
+            runtime_env=opts.get("runtime_env"),
+            executor=opts.get("executor", "thread"),
+        )
+
+    def __call__(self, *args, **kwargs):
+        raise TypeError(
+            f"Remote function {self._func.__name__} cannot be called directly; "
+            f"use .remote()"
+        )
+
+
+class ActorClass:
+    """Handle produced by @remote on a class."""
+
+    def __init__(self, cls: type, options: Dict[str, Any]):
+        self._cls = cls
+        self._options = options
+
+    def options(self, **overrides) -> "ActorClass":
+        merged = dict(self._options)
+        unknown = set(overrides) - set(_DEFAULT_ACTOR_OPTIONS)
+        if unknown:
+            raise TypeError(f"Unknown actor options: {sorted(unknown)}")
+        merged.update(overrides)
+        return ActorClass(self._cls, merged)
+
+    def remote(self, *args, **kwargs) -> ActorHandle:
+        opts = self._options
+        return _runtime().create_actor(
+            self._cls,
+            args,
+            kwargs,
+            resources=_build_resources(opts, default_cpu=1.0),
+            max_restarts=opts["max_restarts"],
+            max_concurrency=opts["max_concurrency"],
+            name=opts.get("name"),
+            namespace=opts.get("namespace", "default"),
+            scheduling_strategy=opts["scheduling_strategy"],
+            lifetime=opts.get("lifetime"),
+            executor=opts.get("executor", "thread"),
+            runtime_env=opts.get("runtime_env"),
+        )
+
+    def __call__(self, *args, **kwargs):
+        raise TypeError(
+            f"Actor class {self._cls.__name__} cannot be instantiated directly; "
+            f"use .remote()"
+        )
+
+
+def remote(*args, **kwargs):
+    """`@remote` / `@remote(num_cpus=..., num_gpus=..., resources=...)`.
+
+    Works on functions (→ RemoteFunction) and classes (→ ActorClass).
+    """
+
+    def decorate(target):
+        if isinstance(target, type):
+            opts = dict(_DEFAULT_ACTOR_OPTIONS)
+            unknown = set(kwargs) - set(opts)
+            if unknown:
+                raise TypeError(f"Unknown actor options: {sorted(unknown)}")
+            opts.update(kwargs)
+            return ActorClass(target, opts)
+        opts = dict(_DEFAULT_TASK_OPTIONS)
+        unknown = set(kwargs) - set(opts)
+        if unknown:
+            raise TypeError(f"Unknown task options: {sorted(unknown)}")
+        opts.update(kwargs)
+        return RemoteFunction(target, opts)
+
+    if len(args) == 1 and not kwargs and (callable(args[0]) or isinstance(args[0], type)):
+        return decorate(args[0])
+    if args:
+        raise TypeError("@remote takes keyword options only")
+    return decorate
+
+
+# ---------------------------------------------------------------------- actors
+
+
+def kill(handle: ActorHandle, *, no_restart: bool = True) -> None:
+    _runtime().kill_actor(handle, no_restart=no_restart)
+
+
+def get_actor(name: str, namespace: str = "default") -> ActorHandle:
+    return _runtime().get_actor(name, namespace)
+
+
+def list_actors() -> List[Dict[str, Any]]:
+    return _runtime().list_actors()
+
+
+# ------------------------------------------------------------ placement groups
+
+
+def placement_group(
+    bundles: Sequence[ResourceDict], strategy: str = "PACK", name: str = "",
+    max_reschedules: Optional[int] = None,
+) -> PlacementGroup:
+    """Reserve a gang of bundles, all or nothing (PACK, SPREAD,
+    STRICT_PACK, STRICT_SPREAD). `max_reschedules` (rescheduling after a
+    bundle host dies) raises NotImplementedError: it comes with clusters."""
+    return _runtime().create_placement_group(
+        bundles, strategy, name, max_reschedules=max_reschedules
+    )
+
+
+def remove_placement_group(pg: PlacementGroup) -> None:
+    _runtime().remove_placement_group(pg)
+
+
+# ----------------------------------------------------------------- cluster info
+
+
+def cluster_resources() -> ResourceDict:
+    return _runtime().cluster_resources()
+
+
+def available_resources() -> ResourceDict:
+    return _runtime().available_resources()
+
+
+def nodes() -> List[Dict[str, Any]]:
+    return [
+        {
+            "node_id": n.node_id.hex(),
+            "alive": n.alive,
+            "is_head": n.is_head,
+            "resources": n.resources.total,
+            "labels": dict(n.labels),
+        }
+        for n in _runtime().scheduler.nodes()
+    ]

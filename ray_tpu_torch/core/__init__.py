@@ -1,2 +1,3 @@
-"""ray_tpu_torch.core — the port's copies of the runtime's host-only pieces
-that serving reads: the flag registry and the typed errors."""
+"""ray_tpu_torch.core — the runtime: ids, the object store, the scheduler,
+actors, streaming generators, the control store, the flag registry and
+the typed errors (ports of `ray_tpu.core`)."""

@@ -56,6 +56,49 @@ def define_flag(name: str, default: Any, doc: str, type_: Optional[type] = None)
     _REGISTRY[name] = Flag(name, default, type_ or type(default), doc)
 
 
+# object store (core/object_store.py)
+define_flag("object_store_capacity_bytes", 8 << 30,
+            "Host-tier byte budget before LRU spill/eviction kicks in.")
+define_flag("inline_max_bytes", 100 * 1024,
+            "Objects at or under this size stay in the inline tier.")
+define_flag("spill_dir", "",
+            "Directory for spilled objects ('' = evict to LOST + lineage).")
+
+# serve resilience (serve/router.py)
+define_flag("serve_default_timeout_s", 0.0,
+            "Default end-to-end deadline for serve requests in seconds "
+            "(0 = no deadline); per-handle options(timeout_s=...) wins.")
+define_flag("serve_retry_max_attempts", 3,
+            "Total router attempts per serve request (1 = no failover); "
+            "retried only on replica-death/transport-class errors.")
+define_flag("serve_retry_backoff_s", 0.05,
+            "Base jittered backoff between router failover attempts "
+            "(doubles per attempt, capped at 2s).")
+define_flag("serve_reaper_max_tracked", 4096,
+            "Cap on request refs the serve reaper tracks; overflow "
+            "releases + drops the oldest entry and bumps a warning metric.")
+define_flag("serve_tenant_header", "x-tenant",
+            "HTTP header carrying the tenant id on the OpenAI frontend "
+            "and the serve proxy ('x-priority' rides alongside).")
+
+# tracing (util/tracing.py)
+define_flag("trace_sample_ratio", 1.0,
+            "Fraction of new traces recorded by util/tracing (0 disables; "
+            "the root's decision propagates to every descendant span).")
+define_flag("trace_buffer_spans", 50_000,
+            "Per-process ring-buffer capacity for completed trace spans.")
+
+# request forensics (serve/reqlog.py)
+define_flag("serve_request_log", True,
+            "Record per-request typed phase marks (serve/reqlog.py) "
+            "(False = recorder off; request ids still thread through).")
+define_flag("serve_request_log_marks", 4096,
+            "Per-process ring capacity for request phase marks; the "
+            "oldest mark is evicted first.")
+define_flag("serve_request_log_requests", 1024,
+            "Per-process cap on request SUMMARIES the recorder indexes "
+            "(oldest request evicted first).")
+
 # multi-tenant serve (weighted-fair admission / quotas / preemption)
 define_flag("serve_tenant_default_weight", 1.0,
             "Weighted-fair share for tenants without an explicit weight "

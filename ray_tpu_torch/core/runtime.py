@@ -1,0 +1,580 @@
+"""The per-process runtime: object refs, task submission, actor management.
+
+Port of `ray_tpu/core/runtime.py` for one process: it owns the object
+store, the scheduler over the process's logical nodes, the control store
+and the actor registry, and implements put/get/wait/submit_task/
+create_actor on top of them. Every task submit and actor call opens a
+tracing span (`util/tracing`) that the execution spans on the worker or
+actor thread parent into.
+
+What the JAX runtime also does and the port does not yet — each raises
+NotImplementedError naming its ROADMAP item where a caller can ask for
+it: cluster mode (`init(head=True)` / `init(address=...)`: the GCS served
+over RPC, remote node agents, object transfer), process executors
+(`executor="process"`, worker pools, runtime_env), the health manager and
+the memory monitor, GCS snapshots and the WAL, chaos injection, jobs,
+`profile_capture` and `preempt_node`.
+"""
+
+from __future__ import annotations
+
+import atexit
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+from .actors import ActorMethodCall, ActorRuntime, ActorState
+from .exceptions import RuntimeNotInitializedError
+from .gcs import GlobalControlStore
+from .ids import ActorID, JobID, NodeID, ObjectID, TaskID
+from .object_store import ObjectStore
+from .resources import ResourceDict, default_node_resources
+from .scheduler import ClusterScheduler, Node, PlacementGroup, TaskSpec
+from .streaming import ObjectRefGenerator
+
+_CLUSTER_TODO = "ROADMAP A6 (cluster mode: core/cluster.py, rpc, gcs_service, object_transfer)"
+_PROCESS_TODO = "ROADMAP A6 (process executors and worker_pool)"
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to ray_tpu_torch yet: {item}")
+
+
+class ObjectRef:
+    """A future handle to an object in the store.
+
+    Handles are counted: construction increfs, __del__ decrefs, and when
+    the last handle dies the store releases the value (auto-GC). A GC'd
+    object with recorded lineage is reconstructed on a later get()."""
+
+    __slots__ = ("object_id", "_runtime", "__weakref__")
+
+    def __init__(self, object_id: ObjectID, runtime: "Runtime"):
+        self.object_id = object_id
+        self._runtime = runtime
+        runtime.object_store.incref(object_id)
+
+    def __del__(self):
+        try:
+            self._runtime.object_store.decref(self.object_id)
+        except Exception:
+            pass  # interpreter teardown: modules may already be gone
+
+    def hex(self) -> str:
+        return self.object_id.hex()
+
+    def is_ready(self) -> bool:
+        return self._runtime.object_store.is_ready(self.object_id)
+
+    def task_id(self) -> TaskID:
+        return self.object_id.task_id()
+
+    def __hash__(self):
+        return hash(self.object_id)
+
+    def __eq__(self, other):
+        return isinstance(other, ObjectRef) and other.object_id == self.object_id
+
+    def __repr__(self):
+        return f"ObjectRef({self.object_id.hex()})"
+
+    def __reduce__(self):
+        return (_rebind_object_ref, (self.object_id.hex(),))
+
+
+def _rebind_object_ref(hex_id: str) -> "ObjectRef":
+    rt = get_runtime()
+    return ObjectRef(ObjectID(hex_id), rt)
+
+
+class Runtime:
+    """A single in-process 'cluster': nodes, scheduler, store, control plane."""
+
+    def __init__(
+        self,
+        num_cpus: Optional[int] = None,
+        num_gpus: Optional[int] = None,
+        resources: Optional[ResourceDict] = None,
+        num_nodes: int = 1,
+        object_store_capacity: Optional[int] = None,
+        spill_dir: Optional[str] = None,
+        detect_accelerators: bool = True,
+        labels: "Optional[Dict[str, str]]" = None,
+        head: bool = False,
+        address: Optional[str] = None,
+    ):
+        from .config import cfg
+
+        if head and address:
+            raise ValueError("pass either head=True or address=..., not both")
+        if head or address:
+            raise _not_ported("a multi-process cluster (head=True / address=...)",
+                              _CLUSTER_TODO)
+        if object_store_capacity is None:
+            object_store_capacity = cfg.object_store_capacity_bytes
+        if spill_dir is None:
+            spill_dir = cfg.spill_dir or None
+        self.job_id = JobID.next()
+        self.gcs = GlobalControlStore()
+        self.object_store = ObjectStore(object_store_capacity, spill_dir=spill_dir)
+        self.scheduler = ClusterScheduler(self.object_store, self._on_task_done)
+        # lineage: a get() of a LOST object re-executes its creating task
+        self.object_store.set_resubmit(self.scheduler.submit)
+        self._actors: Dict[ActorID, ActorRuntime] = {}
+        self._lock = threading.Lock()
+        # completion log appended by scheduler worker threads; its own
+        # lock so readers never contend with the actor table
+        self._task_events_lock = threading.Lock()
+        self._task_events: List[Dict[str, Any]] = []  # guarded-by: _task_events_lock
+        node_res = default_node_resources(
+            num_cpus=num_cpus, num_gpus=num_gpus, resources=resources,
+            detect_accelerators=detect_accelerators,
+        )
+        for i in range(num_nodes):
+            self.scheduler.add_node(
+                Node(NodeID.from_random(), dict(node_res), is_head=(i == 0),
+                     labels=dict(labels or {}))
+            )
+        # log capture: the tail of this process's logging stream, with
+        # the head node's id on every record
+        from ..util import logs as _logs
+
+        _logs.install()
+        _logs.set_node_id(self.scheduler.head_node().node_id.hex())
+
+    # ------------------------------------------------------------------ store
+
+    def put(self, value: Any) -> ObjectRef:
+        oid = ObjectID.for_put(self.job_id)
+        self.object_store.put(oid, value)
+        return ObjectRef(oid, self)
+
+    def get(
+        self,
+        refs: Union[ObjectRef, Sequence[ObjectRef]],
+        timeout: Optional[float] = None,
+    ) -> Any:
+        if isinstance(refs, ObjectRef):
+            return self.object_store.get(refs.object_id, timeout)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        out = []
+        for ref in refs:
+            remaining = None if deadline is None else max(0.0, deadline - time.monotonic())
+            out.append(self.object_store.get(ref.object_id, remaining))
+        return out
+
+    def wait(
+        self,
+        refs: Sequence[ObjectRef],
+        num_returns: int = 1,
+        timeout: Optional[float] = None,
+    ) -> Tuple[List[ObjectRef], List[ObjectRef]]:
+        if num_returns > len(refs):
+            raise ValueError("num_returns exceeds number of refs")
+        if num_returns == 0:
+            # nothing to wait for: the per-ref ready callbacks below are
+            # the only thing that sets the event, so an empty wait would
+            # otherwise block forever
+            return [], list(refs)
+        done_event = threading.Event()
+        ready_count = [0]
+        lock = threading.Lock()
+
+        def _cb(_entry):
+            with lock:
+                ready_count[0] += 1
+                if ready_count[0] >= num_returns:
+                    done_event.set()
+
+        for ref in refs:
+            self.object_store.add_ready_callback(ref.object_id, _cb)
+        done_event.wait(timeout)
+        for ref in refs:
+            self.object_store.remove_ready_callback(ref.object_id, _cb)
+        ready_all: List[ObjectRef] = []
+        not_ready: List[ObjectRef] = []
+        for r in refs:
+            (ready_all if self.object_store.is_ready(r.object_id) else not_ready).append(r)
+        # at most num_returns refs in the ready list; surplus ready refs
+        # stay in the second list, order preserved
+        ready = ready_all[:num_returns]
+        second_ids = {r.object_id for r in ready_all[num_returns:]}
+        second_ids.update(r.object_id for r in not_ready)
+        return ready, [r for r in refs if r.object_id in second_ids]
+
+    # ------------------------------------------------------------------ tasks
+
+    def submit_task(
+        self,
+        func,
+        args: Tuple[Any, ...],
+        kwargs: Dict[str, Any],
+        name: str = "",
+        num_returns: Union[int, str] = 1,
+        resources: Optional[ResourceDict] = None,
+        max_retries: int = 0,
+        retry_exceptions: Any = False,
+        scheduling_strategy: Any = "DEFAULT",
+        runtime_env: Any = None,
+        executor: str = "thread",
+    ) -> Union[ObjectRef, List[ObjectRef], "ObjectRefGenerator"]:
+        if executor != "thread":
+            raise _not_ported(f"executor={executor!r}", _PROCESS_TODO)
+        if runtime_env:
+            raise _not_ported("runtime_env", _PROCESS_TODO)
+        streaming = num_returns == "streaming"
+        task_id = TaskID.of(self.job_id)
+        n_static = 0 if streaming else num_returns
+        return_ids = [ObjectID.for_task_return(task_id, i) for i in range(n_static)]
+        spec = TaskSpec(
+            task_id=task_id,
+            name=name or getattr(func, "__name__", "task"),
+            func=func,
+            args=args,
+            kwargs=kwargs,
+            num_returns=n_static,
+            resources=dict(resources or {"CPU": 1.0}),
+            max_retries=max_retries,
+            retry_exceptions=retry_exceptions,
+            scheduling_strategy=scheduling_strategy,
+            return_ids=return_ids,
+            streaming=streaming,
+        )
+        if streaming:
+            import weakref
+
+            gen = ObjectRefGenerator(task_id, self)
+            spec.stream = weakref.ref(gen)
+        # Tracing root (or child, when submitted from inside a traced
+        # region — another task, a serve request): every downstream
+        # queue/execute/result span shares this trace_id.
+        from ..util import tracing
+
+        submit_span = tracing.tracer().start_span(
+            "task.submit",
+            attrs={"task": spec.name, "task_id": task_id.hex()},
+        )
+        spec.trace_ctx = submit_span.context
+        for oid in return_ids:
+            self.object_store.create(oid, owner_task=spec)
+        self.scheduler.submit(spec)
+        submit_span.end()
+        if streaming:
+            return gen
+        refs = [ObjectRef(oid, self) for oid in return_ids]
+        return refs[0] if num_returns == 1 else refs
+
+    def cancel(self, ref: ObjectRef) -> bool:
+        return self.scheduler.cancel(ref.object_id.task_id())
+
+    def _on_task_done(self, spec: TaskSpec, error: Optional[BaseException]) -> None:
+        event = {
+            "task_id": spec.task_id.hex(),
+            "name": spec.name,
+            "ok": error is None,
+            "attempt": spec.attempt,
+            "ts": time.time(),
+            "start_ts": spec.start_ts,
+            "end_ts": spec.end_ts or time.time(),
+            "node": spec.node_hex,
+        }
+        with self._task_events_lock:
+            self._task_events.append(event)
+            if len(self._task_events) > 100_000:
+                del self._task_events[:50_000]
+
+    # ----------------------------------------------------------------- actors
+
+    def create_actor(
+        self,
+        cls: type,
+        args: Tuple[Any, ...],
+        kwargs: Dict[str, Any],
+        resources: Optional[ResourceDict] = None,
+        max_restarts: int = 0,
+        max_concurrency: int = 1,
+        name: Optional[str] = None,
+        namespace: str = "default",
+        scheduling_strategy: Any = "DEFAULT",
+        lifetime: Optional[str] = None,
+        executor: str = "thread",
+        runtime_env: Any = None,
+    ) -> "ActorHandle":
+        if executor != "thread":
+            raise _not_ported(f"executor={executor!r}", _PROCESS_TODO)
+        if runtime_env:
+            raise _not_ported("runtime_env", _PROCESS_TODO)
+        actor_id = ActorID.of(self.job_id)
+        handle = ActorHandle(actor_id, self)
+        # Reserve the name BEFORE spawning the actor so a duplicate name
+        # raises without leaking a live, resource-holding actor.
+        if name:
+            self.gcs.register_named_actor(name, handle, namespace=namespace)
+
+        def _on_death(rt: ActorRuntime) -> None:
+            # Release the name when the actor dies on its own (init failure,
+            # unschedulable, restarts exhausted) — not just on explicit kill.
+            if rt.registered_name:
+                self.gcs.unregister_named_actor(rt.registered_name, rt.registered_namespace)
+
+        try:
+            runtime = ActorRuntime(
+                actor_id=actor_id,
+                cls=cls,
+                init_args=args,
+                init_kwargs=kwargs,
+                resources=dict(resources or {"CPU": 1.0}),
+                scheduler=self.scheduler,
+                object_store=self.object_store,
+                scheduling_strategy=scheduling_strategy,
+                max_restarts=max_restarts,
+                max_concurrency=max_concurrency,
+                name=name or cls.__name__,
+                on_death=_on_death,
+                registered_name=name,
+                registered_namespace=namespace,
+            )
+        except BaseException:
+            if name:
+                self.gcs.unregister_named_actor(name, namespace=namespace)
+            raise
+        with self._lock:
+            self._actors[actor_id] = runtime
+        return handle
+
+    def actor_runtime(self, actor_id: ActorID) -> ActorRuntime:
+        with self._lock:
+            return self._actors[actor_id]
+
+    def actor_state(self, actor_id: ActorID) -> ActorState:
+        with self._lock:
+            rt = self._actors.get(actor_id)
+        if rt is None:
+            raise KeyError(actor_id)
+        return rt.state
+
+    def submit_actor_task(
+        self,
+        actor_id: ActorID,
+        method_name: str,
+        args: Tuple[Any, ...],
+        kwargs: Dict[str, Any],
+        num_returns: Union[int, str] = 1,
+    ) -> Union[ObjectRef, List[ObjectRef], "ObjectRefGenerator"]:
+        from ..util import tracing
+
+        task_id = TaskID.of(self.job_id)
+        streaming = num_returns == "streaming"
+        n_static = 0 if streaming else num_returns
+        return_ids = [ObjectID.for_task_return(task_id, i) for i in range(n_static)]
+        for oid in return_ids:
+            self.object_store.create(oid)
+        rt = self.actor_runtime(actor_id)
+        call_span = tracing.tracer().start_span(
+            "actor.call",
+            attrs={"actor": rt.name, "method": method_name,
+                   "task_id": task_id.hex()},
+        )
+        call = ActorMethodCall(
+            task_id=task_id,
+            method_name=method_name,
+            args=self._materialize_args(args),
+            kwargs=self._materialize_kwargs(kwargs),
+            return_ids=return_ids,
+            num_returns=n_static,
+            streaming=streaming,
+            stream=ObjectRefGenerator(task_id, self) if streaming else None,
+            trace_ctx=call_span.context,
+        )
+        rt.submit(call)
+        call_span.end()
+        if streaming:
+            return call.stream
+        refs = [ObjectRef(oid, self) for oid in return_ids]
+        return refs[0] if num_returns == 1 else refs
+
+    def _materialize_args(self, args):
+        # Actor calls resolve ObjectRef args lazily inside the actor thread to
+        # preserve submission ordering; we wrap them so the executor resolves.
+        return tuple(_LazyRef(a, self) if isinstance(a, ObjectRef) else a for a in args)
+
+    def _materialize_kwargs(self, kwargs):
+        return {
+            k: _LazyRef(v, self) if isinstance(v, ObjectRef) else v
+            for k, v in kwargs.items()
+        }
+
+    def kill_actor(self, handle: "ActorHandle", no_restart: bool = True) -> None:
+        rt = self.actor_runtime(handle._actor_id)
+        rt.kill(no_restart=no_restart)
+        if no_restart and getattr(rt, "registered_name", None):
+            self.gcs.unregister_named_actor(rt.registered_name, rt.registered_namespace)
+
+    def get_actor(self, name: str, namespace: str = "default") -> "ActorHandle":
+        handle = self.gcs.get_named_actor(name, namespace)
+        if handle is not None:
+            return handle
+        raise ValueError(f"No actor named {name!r} in namespace {namespace!r}")
+
+    def list_actors(self) -> List[Dict[str, Any]]:
+        with self._lock:
+            return [
+                {
+                    "actor_id": aid.hex(),
+                    "name": rt.name,
+                    "state": rt.state.value,
+                    "restarts": rt.num_restarts,
+                }
+                for aid, rt in self._actors.items()
+            ]
+
+    # ------------------------------------------------------------- placement
+
+    def create_placement_group(self, bundles, strategy="PACK", name="",
+                               max_reschedules=None) -> PlacementGroup:
+        if max_reschedules is not None:
+            raise _not_ported("placement-group rescheduling (max_reschedules)",
+                              _CLUSTER_TODO)
+        return self.scheduler.create_placement_group(bundles, strategy, name)
+
+    def remove_placement_group(self, pg: PlacementGroup) -> None:
+        self.scheduler.remove_placement_group(pg)
+
+    # ---------------------------------------------------------------- cluster
+
+    def cluster_resources(self) -> ResourceDict:
+        return self.scheduler.cluster_resources()
+
+    def available_resources(self) -> ResourceDict:
+        return self.scheduler.available_resources()
+
+    def node_of_task(self, task_id_hex: str) -> Optional[str]:
+        """node_hex that executed a task (latest attempt wins), or None."""
+        with self._task_events_lock:
+            events = list(self._task_events)
+        for ev in reversed(events):
+            if ev["task_id"] == task_id_hex:
+                return ev["node"] or None
+        return None
+
+    def profile_capture(self, nodes=None, duration_s=None, device=True, host=True):
+        raise _not_ported("profile_capture", "ROADMAP A6 (profile_capture)")
+
+    def preempt_node(self, node: Node, warning_s: Optional[float] = None,
+                     reason: str = "preempted") -> None:
+        raise _not_ported("preempt_node", "ROADMAP A6 (chaos and node preemption)")
+
+    def shutdown(self) -> None:
+        """Kill every actor and join its thread, then stop the scheduler
+        and join its dispatch and task threads."""
+        with self._lock:
+            actors = list(self._actors.values())
+        for rt in actors:
+            rt.kill(no_restart=True, reason="runtime shutdown")
+        deadline = time.monotonic() + 30.0
+        for rt in actors:
+            rt.join(timeout=max(0.0, deadline - time.monotonic()))
+        self.scheduler.shutdown()
+
+
+class _LazyRef:
+    """Marker for an ObjectRef arg of an actor call, resolved at execution.
+    Holds the originating ObjectRef so the arg cannot be GC'd between
+    submission and execution."""
+
+    __slots__ = ("object_id", "_runtime", "_pin")
+    __ray_tpu_lazy__ = True
+
+    def __init__(self, ref: "ObjectRef", runtime: Runtime):
+        self.object_id = ref.object_id
+        self._runtime = runtime
+        self._pin = ref
+
+    def resolve(self):
+        return self._runtime.object_store.get(self.object_id)
+
+
+class ActorHandle:
+    """Client-side handle; `handle.method.remote(...)` submits a mailbox call."""
+
+    def __init__(self, actor_id: ActorID, runtime: Runtime):
+        self._actor_id = actor_id
+        self._runtime = runtime
+
+    def __getattr__(self, item: str) -> "ActorMethod":
+        if item.startswith("_"):
+            raise AttributeError(item)
+        return ActorMethod(self, item)
+
+    @property
+    def __ray_ready__(self) -> "ActorMethod":
+        return ActorMethod(self, "__ray_ready__")
+
+    @property
+    def __ray_apply__(self) -> "ActorMethod":
+        """Run fn(instance, *args) inside the actor."""
+        return ActorMethod(self, "__ray_apply__")
+
+    def state(self) -> ActorState:
+        return self._runtime.actor_state(self._actor_id)
+
+    def __repr__(self):
+        return f"ActorHandle({self._actor_id.hex()[:12]})"
+
+
+class ActorMethod:
+    def __init__(self, handle: ActorHandle, name: str, num_returns: int = 1):
+        self._handle = handle
+        self._name = name
+        self._num_returns = num_returns
+
+    def options(self, num_returns: int = 1) -> "ActorMethod":
+        return ActorMethod(self._handle, self._name, num_returns)
+
+    def remote(self, *args, **kwargs):
+        return self._handle._runtime.submit_actor_task(
+            self._handle._actor_id, self._name, args, kwargs, self._num_returns
+        )
+
+
+# --------------------------------------------------------------------- globals
+
+_global_runtime: Optional[Runtime] = None
+_global_lock = threading.Lock()
+
+
+def init_runtime(**kwargs) -> Runtime:
+    global _global_runtime
+    with _global_lock:
+        if _global_runtime is None:
+            _global_runtime = Runtime(**kwargs)
+        return _global_runtime
+
+
+def get_runtime() -> Runtime:
+    if _global_runtime is None:
+        raise RuntimeNotInitializedError(
+            "ray_tpu_torch.init() has not been called (and auto-init is disabled here)"
+        )
+    return _global_runtime
+
+
+def get_or_init_runtime() -> Runtime:
+    if _global_runtime is None:
+        return init_runtime()
+    return _global_runtime
+
+
+def is_initialized() -> bool:
+    return _global_runtime is not None
+
+
+def shutdown_runtime() -> None:
+    global _global_runtime
+    with _global_lock:
+        if _global_runtime is not None:
+            _global_runtime.shutdown()
+            _global_runtime = None
+
+
+atexit.register(shutdown_runtime)

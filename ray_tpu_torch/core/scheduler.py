@@ -1,0 +1,822 @@
+"""Task specs, logical nodes, placement groups and the scheduler.
+
+Port of `ray_tpu/core/scheduler.py` for the nodes of one process
+(`init(num_nodes=N)` makes N logical nodes, each with its own resource
+pool — the reference's multi-node-without-a-cluster trick for tests).
+Tasks run on pooled threads: a task occupying resources gets a dedicated
+thread, reused across tasks, so a blocking `get` inside a task cannot
+deadlock the pool; concurrency is gated by resources, not thread count.
+
+Policy: hybrid (pack onto busy-but-below-threshold nodes, else spread to
+the emptiest), "SPREAD", node affinity (hard or soft), node labels (hard
+filter, soft preference) and placement groups (PACK / SPREAD /
+STRICT_PACK / STRICT_SPREAD, reserved all-or-nothing). Retries re-submit
+a failed task up to `max_retries` when `retry_exceptions` allows.
+
+The JAX package also dispatches to remote node agents over RPC (with a
+two-phase bundle reservation there), reschedules a placement group whose
+bundle host died, drains preempted nodes, runs tasks in worker processes
+and queues infeasible demand for an autoscaler; those come with clusters,
+process executors and the capacity plane.
+"""
+
+from __future__ import annotations
+
+import enum
+import itertools
+import logging
+import queue
+import threading
+import time
+import traceback
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from .exceptions import (
+    OutOfResourcesError,
+    PlacementGroupUnschedulableError,
+    TaskCancelledError,
+    TaskError,
+)
+from .ids import NodeID, ObjectID, PlacementGroupID, TaskID
+from .resources import ResourceDict, ResourceSet
+
+logger = logging.getLogger("ray_tpu_torch")
+
+
+# --------------------------------------------------------------------------- spec
+
+
+class SchedulingStrategy:
+    """Base marker. String forms: "DEFAULT" (hybrid pack/spread), "SPREAD"."""
+
+
+@dataclass
+class NodeAffinitySchedulingStrategy(SchedulingStrategy):
+    """Pin to a node."""
+
+    node_id: NodeID
+    soft: bool = False
+
+
+@dataclass
+class PlacementGroupSchedulingStrategy(SchedulingStrategy):
+    """Schedule into a reserved bundle."""
+
+    placement_group: "PlacementGroup"
+    placement_group_bundle_index: int = -1
+
+
+@dataclass
+class NodeLabelSchedulingStrategy(SchedulingStrategy):
+    """Constrain placement by node labels.
+
+    hard: every {key: [allowed values]} must match for a node to be
+    eligible (a missing key never matches). soft: among eligible nodes,
+    prefer those matching these too; fall back to any eligible node."""
+
+    hard: Optional[Dict[str, List[str]]] = None
+    soft: Optional[Dict[str, List[str]]] = None
+
+    @staticmethod
+    def _matches(labels: Dict[str, str], wants: Optional[Dict[str, List[str]]]) -> bool:
+        for key, allowed in (wants or {}).items():
+            if labels.get(key) not in allowed:
+                return False
+        return True
+
+
+@dataclass
+class TaskSpec:
+    task_id: TaskID
+    name: str
+    func: Callable[..., Any]
+    args: Tuple[Any, ...]
+    kwargs: Dict[str, Any]
+    num_returns: int = 1
+    resources: ResourceDict = field(default_factory=dict)
+    max_retries: int = 0
+    retry_exceptions: bool = False
+    scheduling_strategy: Any = "DEFAULT"
+    return_ids: List[ObjectID] = field(default_factory=list)
+    # streaming generator task (num_returns="streaming"): yielded values
+    # seal into dynamic return ids and flow through `stream`
+    streaming: bool = False
+    # weakref.ref to the consumer's ObjectRefGenerator: the spec must NOT
+    # keep it alive, or consumer abandonment could never be detected
+    # (the backpressured producer would block forever)
+    stream: Any = None
+    # internal
+    attempt: int = 0
+    cancelled: bool = False
+    submitted_at: float = field(default_factory=time.monotonic)
+    # observability (filled by the task runner)
+    start_ts: float = 0.0
+    end_ts: float = 0.0
+    node_hex: str = ""
+    # tracing (util/tracing): the submit span's context; the queue and
+    # execute spans parent into it, and (re)submission stamps
+    # submit_wall_ts so queue time is measurable per attempt
+    trace_ctx: Any = None
+    submit_wall_ts: float = field(default_factory=time.time)
+
+    def live_stream(self):
+        """The consumer's ObjectRefGenerator, or None once the consumer
+        dropped it (stream is a weakref — abandonment detection)."""
+        return self.stream() if self.stream is not None else None
+
+
+# --------------------------------------------------------------------------- node
+
+
+class Node:
+    """A logical host with its own resource pool."""
+
+    def __init__(self, node_id: NodeID, resources: ResourceDict, is_head: bool = False,
+                 labels: Optional[Dict[str, str]] = None):
+        self.node_id = node_id
+        self.resources = ResourceSet(resources)
+        self.is_head = is_head
+        self.alive = True
+        self.labels = labels or {}
+        self.running_tasks: Dict[TaskID, TaskSpec] = {}
+        self._lock = threading.Lock()
+
+    def placeable(self) -> bool:
+        """Eligible to receive NEW tasks/actors/bundles."""
+        return self.alive
+
+    def utilization(self) -> float:
+        total = self.resources.total
+        avail = self.resources.available()
+        fracs = [
+            1.0 - avail.get(k, 0.0) / v for k, v in total.items() if v > 0
+        ]
+        return max(fracs) if fracs else 0.0
+
+    def __repr__(self):
+        return f"Node({self.node_id.hex()[:8]}, head={self.is_head})"
+
+
+# ------------------------------------------------------------------ placement grp
+
+
+class PlacementStrategy(enum.Enum):
+    PACK = "PACK"
+    SPREAD = "SPREAD"
+    STRICT_PACK = "STRICT_PACK"
+    STRICT_SPREAD = "STRICT_SPREAD"
+
+
+@dataclass
+class Bundle:
+    index: int
+    resources: ResourceDict
+    node: Optional[Node] = None
+    reserved: ResourceSet = None  # type: ignore[assignment]
+
+
+class PlacementGroup:
+    """A gang reservation of resource bundles across nodes, reserved
+    atomically under the scheduler lock (all-or-nothing,
+    strategy-constrained spread). States: RESERVED, then REMOVED."""
+
+    def __init__(self, pg_id: PlacementGroupID, bundles: List[Bundle],
+                 strategy: PlacementStrategy, name: str = ""):
+        self.id = pg_id
+        self.bundles = bundles
+        self.strategy = strategy
+        self.name = name
+        self.created = threading.Event()
+        self.removed = False
+        self.state = "PENDING"  # RESERVED | REMOVED
+
+    def ready(self, timeout: Optional[float] = None) -> bool:
+        return self.created.wait(timeout)
+
+
+# ---------------------------------------------------------------------- scheduler
+
+
+class _ReusableThreadPool:
+    """Grow-on-demand worker threads with an idle free-list.
+
+    A task always gets a dedicated thread (so a blocking get() inside a
+    task can never deadlock a fixed-size pool — concurrency is still gated
+    by RESOURCES, not thread count), but finished threads park on a
+    free-list and are reused instead of paying thread churn per task, and
+    idle threads exit after `idle_timeout_s` or at `shutdown`."""
+
+    def __init__(self, idle_timeout_s: float = 30.0, max_idle: int = 32,
+                 name: str = "ray_tpu_torch-worker"):
+        self._idle: List["queue.Queue"] = []  # guarded-by: _lock
+        self._threads: List[threading.Thread] = []  # guarded-by: _lock
+        self._lock = threading.Lock()
+        self._idle_timeout = idle_timeout_s
+        self._max_idle = max_idle
+        self._name = name
+        self._spawned = 0  # observability: how many threads ever created
+
+    def submit(self, fn: Callable[[], None]) -> None:
+        with self._lock:
+            q = self._idle.pop() if self._idle else None
+            if q is None:
+                q = queue.Queue()
+                self._spawned += 1
+                th = threading.Thread(
+                    target=self._worker, args=(q,), daemon=True,
+                    name=f"{self._name}-{self._spawned}",
+                )
+                self._threads = [t for t in self._threads if t.is_alive()] + [th]
+                th.start()
+        q.put(fn)
+
+    def _worker(self, q: "queue.Queue") -> None:
+        while True:
+            try:
+                fn = q.get(timeout=self._idle_timeout)
+            except queue.Empty:
+                # Idle reap — but a submitter may have popped our queue
+                # between the timeout and this check. If our queue is no
+                # longer on the free-list, a task is (about to be) in it:
+                # keep serving. Otherwise deregister and exit.
+                with self._lock:
+                    if q in self._idle:
+                        self._idle.remove(q)
+                        return
+                continue
+            if fn is None:
+                return  # shutdown
+            try:
+                fn()
+            except BaseException:  # noqa: BLE001 - worker must survive
+                logger.exception("task thread crashed outside the task boundary")
+            fn = None  # a parked thread must not pin the task's closure
+            with self._lock:
+                if len(self._idle) >= self._max_idle:
+                    return  # enough warm threads parked already
+                self._idle.append(q)
+
+    def shutdown(self, timeout: float = 5.0) -> None:
+        """Stop the parked threads and join every thread, waiting up to
+        `timeout` seconds for tasks still running."""
+        with self._lock:
+            idle, self._idle = self._idle, []
+            threads = list(self._threads)
+        for q in idle:
+            q.put(None)
+        deadline = time.monotonic() + timeout
+        for th in threads:
+            th.join(timeout=max(0.0, deadline - time.monotonic()))
+
+
+class ClusterScheduler:
+    """Resource-aware dispatcher over logical nodes.
+
+    Policy: prefer packing onto already-utilized feasible nodes until a
+    utilization threshold, then spread to the least-utilized feasible
+    node. "SPREAD" always picks the least-utilized feasible node.
+    """
+
+    HYBRID_THRESHOLD = 0.5
+
+    def __init__(self, object_store, on_task_done: Callable[[TaskSpec, Optional[BaseException]], None]):
+        self._store = object_store
+        self._nodes: Dict[NodeID, Node] = {}  # guarded-by: _lock
+        self._pending: deque[TaskSpec] = deque()  # guarded-by: _lock
+        self._blocked: Dict[TaskID, Tuple[TaskSpec, set]] = {}  # guarded-by: _lock
+        self._lock = threading.Lock()
+        self._wake = threading.Event()
+        self._shutdown = False
+        self._on_task_done = on_task_done
+        self._placement_groups: Dict[PlacementGroupID, PlacementGroup] = {}  # guarded-by: _lock
+        self._dispatch_thread = threading.Thread(
+            target=self._dispatch_loop, name="ray_tpu_torch-scheduler", daemon=True
+        )
+        self._dispatch_thread.start()
+        self.stats = {"dispatched": 0, "retries": 0}
+        # task execution threads: dedicated per running task (blocking
+        # get() can never deadlock) but REUSED across tasks
+        self._task_threads = _ReusableThreadPool()
+
+    # -------------------------------------------------------------- membership
+
+    def add_node(self, node: Node) -> None:
+        with self._lock:
+            self._nodes[node.node_id] = node
+        self._wake.set()
+
+    def remove_node(self, node_id: NodeID) -> Optional[Node]:
+        with self._lock:
+            node = self._nodes.pop(node_id, None)
+            if node is not None:
+                node.alive = False
+        self._wake.set()
+        return node
+
+    def nodes(self) -> List[Node]:
+        with self._lock:
+            return list(self._nodes.values())
+
+    def head_node(self) -> Node:
+        with self._lock:
+            for n in self._nodes.values():
+                if n.is_head:
+                    return n
+            return next(iter(self._nodes.values()))
+
+    def cluster_resources(self) -> ResourceDict:
+        out: ResourceDict = {}
+        for n in self.nodes():
+            for k, v in n.resources.total.items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    def available_resources(self) -> ResourceDict:
+        out: ResourceDict = {}
+        for n in self.nodes():
+            for k, v in n.resources.available().items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+
+    # -------------------------------------------------------------- submission
+
+    def submit(self, spec: TaskSpec) -> None:
+        """Queue a task; it dispatches once its ObjectID args are ready."""
+        spec.submit_wall_ts = time.time()  # queue span measures THIS attempt
+        deps = _collect_dependencies(spec.args, spec.kwargs)
+        unresolved = {d for d in deps if not self._store.is_ready(d)}
+        if unresolved:
+            with self._lock:
+                self._blocked[spec.task_id] = (spec, unresolved)
+            for dep in list(unresolved):
+                self._store.add_ready_callback(dep, self._make_dep_callback(spec.task_id, dep))
+        else:
+            with self._lock:
+                self._pending.append(spec)
+            self._wake.set()
+
+    def _make_dep_callback(self, task_id: TaskID, dep: ObjectID):
+        def _cb(_entry):
+            with self._lock:
+                item = self._blocked.get(task_id)
+                if item is None:
+                    return
+                spec, unresolved = item
+                unresolved.discard(dep)
+                if not unresolved:
+                    del self._blocked[task_id]
+                    self._pending.append(spec)
+                    self._wake.set()
+        return _cb
+
+    def cancel(self, task_id: TaskID) -> bool:
+        """Cancel a queued task. Running tasks cannot be preempted
+        (threads): mark-and-check instead."""
+        to_fail = None
+        with self._lock:
+            item = self._blocked.pop(task_id, None)
+            if item is not None:
+                item[0].cancelled = True
+                to_fail = item[0]
+            else:
+                for spec in self._pending:
+                    if spec.task_id == task_id:
+                        spec.cancelled = True
+                        return True
+        if to_fail is not None:
+            # Outside the lock: seal_error runs dependency callbacks inline,
+            # which re-enter the scheduler.
+            self._fail_returns(to_fail, TaskCancelledError(f"task {task_id} cancelled"))
+            return True
+        return False
+
+    # ---------------------------------------------------------- placement grps
+
+    def create_placement_group(
+        self, bundles: Sequence[ResourceDict], strategy: str = "PACK", name: str = "",
+    ) -> PlacementGroup:
+        """Reserve a gang of bundles, all or nothing, under the scheduler
+        lock."""
+        strat = PlacementStrategy(strategy)
+        pg = PlacementGroup(
+            PlacementGroupID.from_random(),
+            [Bundle(i, dict(r)) for i, r in enumerate(bundles)],
+            strat,
+            name,
+        )
+        acquired: List[Tuple[Node, ResourceDict]] = []
+        with self._lock:
+            placement = self._plan_placement_locked(pg)
+            if placement is None:
+                raise PlacementGroupUnschedulableError(
+                    f"Cannot fit bundles {list(bundles)} with strategy "
+                    f"{strategy} on nodes "
+                    f"{[n.resources.total for n in self._nodes.values()]}"
+                )
+            for bundle, node in zip(pg.bundles, placement):
+                if not node.resources.try_acquire(bundle.resources):
+                    # the plan counted every bundle against availability
+                    # under this lock, so this only happens if a task
+                    # thread acquired concurrently: roll back
+                    for prev_node, prev_res in acquired:
+                        prev_node.resources.release(prev_res)
+                    raise PlacementGroupUnschedulableError(
+                        f"Cannot fit bundles {list(bundles)}: concurrent "
+                        f"reservation lost"
+                    )
+                acquired.append((node, bundle.resources))
+                bundle.node = node
+                bundle.reserved = ResourceSet(bundle.resources)
+            self._placement_groups[pg.id] = pg
+        pg.state = "RESERVED"
+        pg.created.set()
+        self._wake.set()
+        return pg
+
+    def _plan_placement_locked(self, pg: PlacementGroup) -> Optional[List[Node]]:  # holds-lock: _lock
+        nodes = [n for n in self._nodes.values() if n.placeable()]
+        if not nodes:
+            return None
+        strat = pg.strategy
+
+        def fits(node: Node, req: ResourceDict, committed: Dict[NodeID, ResourceDict]) -> bool:
+            avail = node.resources.available()
+            extra = committed.get(node.node_id, {})
+            return all(avail.get(k, 0.0) - extra.get(k, 0.0) >= v - 1e-9 for k, v in req.items())
+
+        def commit(committed, node, req):
+            slot = committed.setdefault(node.node_id, {})
+            for k, v in req.items():
+                slot[k] = slot.get(k, 0.0) + v
+
+        committed: Dict[NodeID, ResourceDict] = {}
+        placement: List[Node] = []
+        if strat in (PlacementStrategy.PACK, PlacementStrategy.STRICT_PACK):
+            order = sorted(nodes, key=lambda n: -n.utilization())
+            for bundle in pg.bundles:
+                chosen = None
+                candidates = placement[:1] if (strat == PlacementStrategy.STRICT_PACK and placement) else order
+                for node in candidates:
+                    if fits(node, bundle.resources, committed):
+                        chosen = node
+                        break
+                if chosen is None and strat == PlacementStrategy.PACK:
+                    for node in order:
+                        if fits(node, bundle.resources, committed):
+                            chosen = node
+                            break
+                if chosen is None:
+                    return None
+                commit(committed, chosen, bundle.resources)
+                placement.append(chosen)
+        else:  # SPREAD / STRICT_SPREAD
+            used: set = set()
+            for bundle in pg.bundles:
+                candidates = sorted(nodes, key=lambda n: (n.node_id in used, n.utilization()))
+                chosen = None
+                for node in candidates:
+                    if strat == PlacementStrategy.STRICT_SPREAD and node.node_id in used:
+                        continue
+                    if fits(node, bundle.resources, committed):
+                        chosen = node
+                        break
+                if chosen is None:
+                    return None
+                used.add(chosen.node_id)
+                commit(committed, chosen, bundle.resources)
+                placement.append(chosen)
+        return placement
+
+    def remove_placement_group(self, pg: PlacementGroup) -> None:
+        with self._lock:
+            self._placement_groups.pop(pg.id, None)
+            pg.removed = True
+            for bundle in pg.bundles:
+                if bundle.node is not None and bundle.node.alive:
+                    bundle.node.resources.release(bundle.resources)
+        pg.state = "REMOVED"
+        self._wake.set()
+
+    # ----------------------------------------------------------- dispatch loop
+
+    def _dispatch_loop(self) -> None:
+        while not self._shutdown:
+            self._wake.wait(timeout=0.05)
+            self._wake.clear()
+            self._drain_pending()
+
+    def _drain_pending(self) -> None:
+        deferred: List[TaskSpec] = []
+        while True:
+            with self._lock:
+                if not self._pending:
+                    break
+                spec = self._pending.popleft()
+            if spec.cancelled:
+                self._fail_returns(spec, TaskCancelledError(f"task {spec.task_id} cancelled"))
+                continue
+            try:
+                placed = self._try_dispatch(spec)
+            except BaseException as exc:  # noqa: BLE001 - the dispatch loop must survive
+                logger.exception("dispatch of %s failed", spec.name)
+                self._fail_returns(spec, TaskError(spec.name, exc))
+                continue
+            if not placed:
+                deferred.append(spec)
+        if deferred:
+            with self._lock:
+                self._pending.extendleft(reversed(deferred))
+
+    def _try_dispatch(self, spec: TaskSpec) -> bool:
+        target: Optional[Node] = None
+        pool: Optional[ResourceSet] = None
+
+        strategy = spec.scheduling_strategy
+        if isinstance(strategy, PlacementGroupSchedulingStrategy):
+            pg = strategy.placement_group
+            idx = strategy.placement_group_bundle_index
+            bundles = pg.bundles if idx < 0 else [pg.bundles[idx]]
+            for bundle in bundles:
+                if bundle.reserved is not None and bundle.reserved.try_acquire(spec.resources):
+                    target, pool = bundle.node, bundle.reserved
+                    break
+            if target is None:
+                return False  # stays queued until a bundle frees up
+        elif isinstance(strategy, NodeAffinitySchedulingStrategy):
+            with self._lock:
+                node = self._nodes.get(strategy.node_id)
+            if node is None or not node.alive:
+                if not strategy.soft:
+                    self._fail_returns(
+                        spec, OutOfResourcesError(f"node {strategy.node_id} not available")
+                    )
+                    return True
+            elif not strategy.soft and not node.resources.can_ever_fit(spec.resources):
+                self._fail_returns(
+                    spec,
+                    OutOfResourcesError(
+                        f"Task {spec.name} pinned to a node that can never satisfy "
+                        f"{spec.resources} (node total: {node.resources.total})"
+                    ),
+                )
+                return True
+            elif node.resources.try_acquire(spec.resources):
+                target, pool = node, node.resources
+            if target is None and not strategy.soft:
+                return False
+            if target is None:
+                target = self._pick_node(spec)
+                if target is None:
+                    return False
+                if not target.resources.try_acquire(spec.resources):
+                    return False
+                pool = target.resources
+        else:
+            node = self._pick_node(spec)
+            if node is None:
+                # fail fast iff the SAME eligibility _pick_node applies
+                # (alive + hard labels) can never satisfy
+                candidates = self._eligible_nodes(spec)
+                if (
+                    isinstance(strategy, NodeLabelSchedulingStrategy)
+                    and not candidates
+                    and self.nodes()
+                ):
+                    self._fail_returns(
+                        spec,
+                        OutOfResourcesError(
+                            f"Task {spec.name}: no eligible node matches hard "
+                            f"labels {strategy.hard}"
+                        ),
+                    )
+                    return True
+                feasible = any(
+                    n.resources.can_ever_fit(spec.resources) for n in candidates
+                )
+                if not feasible and self.nodes():
+                    self._fail_returns(
+                        spec,
+                        OutOfResourcesError(
+                            f"Task {spec.name} requires {spec.resources} which no node "
+                            f"can ever satisfy (cluster: {self.cluster_resources()})"
+                        ),
+                    )
+                    return True
+                return False
+            if not node.resources.try_acquire(spec.resources):
+                return False
+            target, pool = node, node.resources
+
+        self.stats["dispatched"] += 1
+        with target._lock:
+            target.running_tasks[spec.task_id] = spec
+        self._task_threads.submit(
+            lambda s=spec, t=target, p=pool: self._run_task(s, t, p)
+        )
+        return True
+
+    # Hybrid policy randomizes among this many top candidates so a burst
+    # of submitters doesn't herd onto one node.
+    HYBRID_TOP_K = 2
+
+    def _eligible_nodes(self, spec: TaskSpec) -> List[Node]:
+        """Every placement filter EXCEPT current availability: alive and
+        hard label match — the one definition both _pick_node and the
+        fail-fast infeasibility check must agree on. Soft labels are a
+        PREFERENCE applied over currently-feasible nodes in _pick_node,
+        never a filter here."""
+        nodes = [n for n in self.nodes() if n.placeable()]
+        strategy = spec.scheduling_strategy
+        if isinstance(strategy, NodeLabelSchedulingStrategy):
+            nodes = [
+                n for n in nodes
+                if NodeLabelSchedulingStrategy._matches(n.labels, strategy.hard)
+            ]
+        return nodes
+
+    def _pick_node(self, spec: TaskSpec) -> Optional[Node]:
+        import random
+
+        nodes = self._eligible_nodes(spec)
+        strategy = spec.scheduling_strategy
+        feasible = [
+            n for n in nodes
+            if all(n.resources.available().get(k, 0.0) >= v - 1e-9 for k, v in spec.resources.items())
+        ]
+        if not feasible:
+            return None
+        if isinstance(strategy, NodeLabelSchedulingStrategy) and strategy.soft:
+            preferred = [
+                n for n in feasible
+                if NodeLabelSchedulingStrategy._matches(n.labels, strategy.soft)
+            ]
+            feasible = preferred or feasible
+        if strategy == "SPREAD":
+            return min(feasible, key=lambda n: n.utilization())
+        # Hybrid: pack onto busy-but-below-threshold nodes first, else
+        # spread to the emptiest — randomized among the top-k candidates.
+        below = [n for n in feasible if n.utilization() < self.HYBRID_THRESHOLD]
+        if below:
+            ranked = sorted(below, key=lambda n: -n.utilization())
+        else:
+            ranked = sorted(feasible, key=lambda n: n.utilization())
+        return random.choice(ranked[: self.HYBRID_TOP_K])
+
+    # ------------------------------------------------------------- task runner
+
+    def _run_task(self, spec: TaskSpec, node: Node, pool: ResourceSet) -> None:
+        from ..util import logs as _logs
+        from ..util import tracing
+
+        error: Optional[BaseException] = None
+        error_tb = ""
+        spec.start_ts = time.time()
+        spec.node_hex = node.node_id.hex()
+        # debuggability: the (reused) thread carries the task it runs
+        threading.current_thread().name = (
+            f"ray_tpu_torch-worker-{spec.name}-{spec.task_id.hex()[:6]}"
+        )
+        lane = f"node:{spec.node_hex[:8]}"
+        span_attrs = {"task": spec.name, "task_id": spec.task_id.hex(),
+                      "attempt": spec.attempt}
+        # the wait between (re)submission and this thread picking the
+        # task up IS the scheduling/queue latency
+        tracing.tracer().record_span(
+            "task.queue", spec.submit_wall_ts, spec.start_ts,
+            parent=spec.trace_ctx, lane=lane, attrs=span_attrs,
+        )
+        exec_span = tracing.tracer().start_span(
+            "task.execute", parent=spec.trace_ctx, lane=lane, attrs=span_attrs,
+        )
+        try:
+            # current-span context active for the task body: nested
+            # submits/gets parent into this execution span; log records
+            # emitted inside it carry the task attribution
+            with tracing.use_context(exec_span.context), \
+                    _logs.attribution(f"task:{spec.task_id.hex()[:8]}"):
+                args = _resolve(spec.args, self._store)
+                kwargs = _resolve(spec.kwargs, self._store)
+                result = spec.func(*args, **kwargs)
+                with tracing.span("task.result", **span_attrs):
+                    self._seal_returns(spec, result)
+            exec_span.end()
+        except BaseException as exc:  # noqa: BLE001 - boundary: remote error capture
+            error = exc
+            error_tb = traceback.format_exc()
+            exec_span.end(status="ERROR", error=repr(exc))
+        finally:
+            pool.release(spec.resources)
+            with node._lock:
+                node.running_tasks.pop(spec.task_id, None)
+
+        self._complete(spec, error, error_tb)
+
+    def _complete(self, spec: TaskSpec, error: Optional[BaseException],
+                  error_tb: str = "") -> None:
+        """Completion tail: retry bookkeeping, return sealing on failure,
+        task-done event."""
+        if error is not None:
+            retriable = spec.attempt < spec.max_retries and (
+                spec.retry_exceptions is True
+                or (isinstance(spec.retry_exceptions, (list, tuple))
+                    and isinstance(error, tuple(spec.retry_exceptions)))
+            )
+            if retriable and not spec.cancelled:
+                spec.attempt += 1
+                self.stats["retries"] += 1
+                logger.warning("retrying task %s (attempt %d): %s", spec.name, spec.attempt, error)
+                self.submit(spec)
+                return
+            self._fail_returns(spec, TaskError(spec.name, error, error_tb))
+        spec.end_ts = time.time()
+        self._on_task_done(spec, error)
+        self._wake.set()
+
+    def _seal_returns(self, spec: TaskSpec, result: Any) -> None:
+        if spec.streaming:
+            self._seal_streaming(spec, result)
+            return
+        if spec.num_returns == 1:
+            self._store.seal(spec.return_ids[0], result)
+        else:
+            values = list(result) if result is not None else []
+            if len(values) != spec.num_returns:
+                raise ValueError(
+                    f"Task {spec.name} declared num_returns={spec.num_returns} "
+                    f"but returned {len(values)} values"
+                )
+            for oid, value in zip(spec.return_ids, values):
+                self._store.seal(oid, value)
+
+    def _seal_streaming(self, spec: TaskSpec, result: Any) -> None:
+        """Drain a generator task: each yield seals into its own dynamic
+        return id (task_id ⊕ index) and is handed to the consumer stream
+        immediately. Yield indices are deterministic, so a retry or a
+        lineage reconstruction re-seals the same ids; indices the stream
+        already delivered are not re-appended."""
+        if not hasattr(result, "__iter__"):
+            raise TypeError(
+                f"streaming task {spec.name} must return an iterable/generator, "
+                f"got {type(result).__name__}"
+            )
+        stream = spec.live_stream()
+        already = stream._appended if stream is not None else 0
+        for idx, item in enumerate(result):
+            oid = ObjectID.for_task_return(spec.task_id, idx)
+            self._store.create(oid, owner_task=spec)
+            self._store.seal(oid, item)
+            if oid not in spec.return_ids:
+                spec.return_ids.append(oid)  # lineage: reconstruct flips these
+            if stream is not None and idx >= already:
+                stream._append_oid(oid)
+        if stream is not None:
+            stream._finish()
+
+    def _fail_returns(self, spec: TaskSpec, error: BaseException) -> None:
+        if spec.streaming:
+            # Never clobber successfully yielded values; only slots a
+            # reconstruction flipped back to PENDING must error out (or a
+            # getter would hang forever). The consumer sees the error from
+            # the stream itself, after the last good item.
+            for oid in spec.return_ids:
+                entry = self._store.entry(oid)
+                if entry is not None and not entry.event.is_set():
+                    self._store.seal_error(oid, error)
+            stream = spec.live_stream()
+            if stream is not None:
+                stream._finish(error)
+            return
+        for oid in spec.return_ids:
+            self._store.seal_error(oid, error)
+
+    def shutdown(self) -> None:
+        self._shutdown = True
+        self._wake.set()
+        self._dispatch_thread.join(timeout=2.0)
+        self._task_threads.shutdown()
+
+
+# ----------------------------------------------------------------------- helpers
+
+
+def _collect_dependencies(args, kwargs) -> List[ObjectID]:
+    from .runtime import ObjectRef  # cycle-free at call time
+
+    deps = []
+    for value in itertools.chain(args, kwargs.values()):
+        if isinstance(value, ObjectRef):
+            deps.append(value.object_id)
+    return deps
+
+
+def _resolve(container, store):
+    from .runtime import ObjectRef
+
+    if isinstance(container, tuple):
+        return tuple(store.get(v.object_id) if isinstance(v, ObjectRef) else v for v in container)
+    return {
+        k: (store.get(v.object_id) if isinstance(v, ObjectRef) else v)
+        for k, v in container.items()
+    }

@@ -349,7 +349,6 @@ class LLMEngine:
             # one graph, captured before any request: its warm-up run writes
             # row 0 of every (still empty) cache lane
             self._decode.capture()
-            torch.cuda.synchronize(self.device)
             self.capture_s = self._decode.capture_s
         self.metrics: Dict[str, float] = {
             "generated_tokens": 0.0,

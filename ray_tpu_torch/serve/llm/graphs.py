@@ -22,6 +22,14 @@ as jit compiles at its first call, or up front by `capture`.
   same pass overwrites: a caller consumes them (sampling, the fetch copy)
   on the same stream before that replay.
 - Each graph has its own private memory pool.
+- One capture at a time in the process (`_CAPTURE_LOCK`): entering
+  `torch.cuda.graph` synchronises the whole device and empties the
+  allocator's cache, which invalidates a capture running on another
+  thread — two replicas of one deployment, or two engines, capturing at
+  first use at once. A capture ends by synchronising its own stream, never
+  the device, for the same reason. Replays and eager work on other
+  threads go on during a capture (`capture_error_mode="thread_local"`);
+  what they must not do meanwhile is synchronise the device.
 - A capture or replay that fails raises; there is no eager retry on the
   card. On the CPU, each call runs the function eagerly on the host arrays.
 
@@ -33,6 +41,7 @@ kind that the capture made; `launches()` gives runs x captured.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -43,6 +52,8 @@ from ...ops import KERNELS
 from ...ops.ragged_paged_attention import LAUNCHES_BY_KIND
 
 InputSpec = Dict[str, Tuple[Tuple[int, ...], torch.dtype]]
+
+_CAPTURE_LOCK = threading.Lock()
 
 
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -105,23 +116,27 @@ class DevicePass:
         """Capture the pass over all-zero static inputs (callers make zeros
         inactive: every write lands in the scratch page). One eager run on
         the capture stream first builds the kernels and creates the cuBLAS
-        handles and workspaces, which capture cannot allocate."""
+        handles and workspaces, which capture cannot allocate. Holds the
+        process's capture lock throughout and returns once the capture
+        stream is idle. `capture_s` includes the wait for the lock."""
         t0 = time.perf_counter()
         stream = stream or torch.cuda.Stream(self.device)
-        self._static = {name: torch.zeros(shape, dtype=dtype, device=self.device)
-                        for name, (shape, dtype) in self.inputs.items()}
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            self.fn(**self._static)
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
-        before = launch_counts()
-        # thread_local: the drain thread may wait on an event meanwhile
-        with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
-            self._out = self.fn(**self._static)
-        after = launch_counts()
+        with _CAPTURE_LOCK:
+            self._static = {name: torch.zeros(shape, dtype=dtype, device=self.device)
+                            for name, (shape, dtype) in self.inputs.items()}
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(stream):
+                self.fn(**self._static)
+            torch.cuda.current_stream(self.device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            before = launch_counts()
+            # thread_local: the drain thread may wait on an event meanwhile
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                self._out = self.fn(**self._static)
+            after = launch_counts()
+            stream.synchronize()
         self.captured = {k: after[k] - before[k] for k in after if after[k] != before[k]}
         self._graph = graph
         self.capture_s = time.perf_counter() - t0

@@ -481,12 +481,13 @@ class PagedLLMEngine:
     def _precompile(self) -> None:
         """Capture every pass before the engine threads start, over
         all-inactive inputs whose writes land only in the scratch page, so
-        no request ever pays a capture. All captures share one stream."""
+        no request ever pays a capture. All captures share one stream; each
+        returns with it idle (no device-wide synchronisation, which would
+        break another thread's capture)."""
         t0 = time.perf_counter()
         stream = torch.cuda.Stream(self.device)
         for p in self.passes():
             p.capture(stream)
-        torch.cuda.synchronize(self.device)
         self.capture_s = time.perf_counter() - t0
 
     # ------------------------------------------------------------------- API

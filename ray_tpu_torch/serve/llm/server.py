@@ -1,12 +1,14 @@
-"""LLM server: the serve-facing wrapper around an engine.
+"""LLM deployment: the serve-facing wrapper around an engine, and the app
+builder.
 
-Port of `LLMServer` from `ray_tpu/serve/llm/server.py`. `engine_config`
-selects the engine, as in the JAX package: a `PagedEngineConfig` builds
-the paged engine (paged KV pool, chunked prefill, the pipelined passes);
-None or an `EngineConfig` builds the dense slot-grid `LLMEngine`.
-Token-id interface: the payload carries `prompt_tokens`, and text
-encode/decode is the caller's concern. The runtime deployment
-(`build_llm_app`) and tensor parallelism are not ported yet.
+Port of `ray_tpu/serve/llm/server.py`. `engine_config` selects the
+engine, as in the JAX package: a `PagedEngineConfig` builds the paged
+engine (paged KV pool, chunked prefill, the pipelined passes); None or an
+`EngineConfig` builds the dense slot-grid `LLMEngine`. Token-id
+interface: the payload carries `prompt_tokens`, and text encode/decode is
+the caller's concern. `build_llm_app` binds LLMServer into a serve
+deployment (`serve.run(build_llm_app(...))`). Tensor parallelism
+(`tensor_parallel > 1`) is not ported yet (ROADMAP A2.5).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from ..._device import resolve_device
 from ...models import get_config, init_params
 from ...models.transformer import TransformerConfig
+from ..deployment import Application, deployment
 from ..context import (
     get_request_deadline,
     get_request_id,
@@ -29,7 +32,9 @@ from .paged_engine import PagedEngineConfig, PagedLLMEngine
 
 
 class LLMServer:
-    """Hosts one engine (one model replica) on one device."""
+    """Hosts one engine (one model replica) on one device. `params` is
+    held by reference: replicas built from one weight tree share its
+    tensors."""
 
     def __init__(
         self,
@@ -37,9 +42,12 @@ class LLMServer:
         params: Any = None,
         engine_config: Optional[Union[EngineConfig, PagedEngineConfig]] = None,
         seed: int = 0,
+        tensor_parallel: int = 1,
         *,
         device: Union[str, torch.device] = "cuda",
     ):
+        if tensor_parallel > 1:
+            raise NotImplementedError(_TP_TODO)
         dev = resolve_device(device)
         config = get_config(model) if isinstance(model, str) else model
         if params is None:
@@ -125,3 +133,54 @@ class LLMServer:
 
     def shutdown(self) -> None:
         self.engine.shutdown()
+
+    def __ray_shutdown__(self) -> None:
+        """The replica actor holding this server stopped: stop the engine
+        and drop it, so its caches and graphs are freed even while a
+        reference to the server outlives the replica."""
+        self.engine.shutdown()
+        del self.engine
+
+    def __del__(self):
+        # a server dropped without shutdown() stops its engine's threads,
+        # so the engine's caches and graphs can go with it
+        try:
+            self.engine.shutdown()
+        except Exception:
+            pass
+
+
+_TP_TODO = ("tensor_parallel > 1 is not ported to ray_tpu_torch yet: "
+            "ROADMAP A2.5 (TP serving)")
+
+
+def build_llm_app(
+    model: Union[str, TransformerConfig] = "gpt2-tiny",
+    *,
+    name: str = "llm",
+    num_replicas: int = 1,
+    max_slots: int = 8,
+    params: Any = None,
+    paged: bool = False,
+    tensor_parallel: int = 1,
+    device: Union[str, torch.device] = "cuda",
+) -> Application:
+    """OpenAI-compatible app builder: LLMServer as a deployment of
+    `num_replicas` replicas, each with `2 x max_slots` concurrent calls.
+    paged=True builds the paged engine (`PagedEngineConfig(max_slots)`),
+    the default the dense `LLMEngine` (`EngineConfig(max_slots)`), as in
+    the JAX package. `params` (a weight tree on `device`) is shared by
+    reference between the replicas; None makes each replica draw its own
+    from seed 0. Replicas run on `device`: the CUDA device by default,
+    which must exist (this raises without one unless device="cpu")."""
+    resolve_device(device)
+    if tensor_parallel > 1:
+        raise NotImplementedError(_TP_TODO)
+    dep = deployment(
+        LLMServer, name=name, num_replicas=num_replicas, max_ongoing_requests=max_slots * 2
+    )
+    engine_config = (
+        PagedEngineConfig(max_slots=max_slots) if paged
+        else EngineConfig(max_slots=max_slots)
+    )
+    return dep.bind(model, params, engine_config, 0, tensor_parallel, device=device)

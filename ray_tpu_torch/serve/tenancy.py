@@ -15,11 +15,14 @@ Port of `ray_tpu/serve/tenancy.py`, host-only Python copied into the port
 - **TTFT windows** — engines report each request's time to first token
   and its decomposition here; a monitor drains the windows.
 
+- **HTTP surfacing** — `resolve_http_tenant` reads the tenant from the
+  ``cfg.serve_tenant_header`` header or a registered API key, and the
+  priority from ``x-priority``, for the serve proxy and the OpenAI
+  frontend.
+
 The JAX package also feeds Prometheus-style counters and a rate-limited
-event per shed, and resolves a tenant from HTTP headers; the port has no
-metrics registry, event log or HTTP frontend yet, so `count_shed` and
-`count_request` keep plain per-tenant counts (`shed_counts`,
-`request_counts`).
+event per shed; here `count_shed` and `count_request` keep plain
+per-tenant counts (`shed_counts`, `request_counts`).
 
 The registry is module-level, as in the JAX package: engines in one
 process share it.
@@ -89,6 +92,7 @@ _ttft_breakdown: Dict[str, List[Dict[str, float]]] = {}  # guarded-by: _lock
 _queue_wait_window: Dict[str, List[float]] = {}  # guarded-by: _lock
 _shed: Dict[str, int] = {}  # guarded-by: _lock
 _requests: Dict[str, int] = {}  # guarded-by: _lock
+_api_keys: Dict[str, str] = {}  # guarded-by: _lock
 
 
 def set_tenant(
@@ -99,10 +103,13 @@ def set_tenant(
     quota_rps: Optional[float] = None,
     quota_burst: Optional[float] = None,
     ttft_slo_s: Optional[float] = None,
+    api_key: Optional[str] = None,
 ) -> TenantSpec:
     """Declare (or update) a tenant. Unspecified fields keep their
     previous value; a tenant never has to be declared to send traffic —
-    undeclared tenants get the config defaults."""
+    undeclared tenants get the config defaults. `api_key` registers an
+    ``Authorization: Bearer <key>`` token that resolves to this tenant
+    on the HTTP frontends."""
     with _lock:
         spec_obj = _specs.get(name) or TenantSpec(name=name)
         if weight is not None:
@@ -115,6 +122,8 @@ def set_tenant(
             spec_obj.quota_burst = float(quota_burst)
         if ttft_slo_s is not None:
             spec_obj.ttft_slo_s = float(ttft_slo_s)
+        if api_key is not None:
+            _api_keys[api_key] = name
         _specs[name] = spec_obj
         # quota changed: rebuild the bucket lazily on next check
         _buckets.pop(name, None)
@@ -131,7 +140,7 @@ def reset() -> None:
     isolation)."""
     with _lock:
         for table in (_specs, _buckets, _ttft_window, _ttft_breakdown,
-                      _queue_wait_window, _shed, _requests):
+                      _queue_wait_window, _shed, _requests, _api_keys):
             table.clear()
 
 
@@ -261,6 +270,35 @@ def drain_queue_wait_window() -> Dict[str, List[float]]:
         out = _queue_wait_window.copy()
         _queue_wait_window.clear()
     return out
+
+
+# ---------------------------------------------------------------------------
+# HTTP surfacing
+
+
+def resolve_http_tenant(headers: Any) -> Tuple[Optional[str], Optional[int]]:
+    """Resolve (tenant, priority) from HTTP request headers: the tenant
+    header (cfg.serve_tenant_header, default 'x-tenant') wins, else an
+    'Authorization: Bearer <key>' token registered via
+    set_tenant(api_key=...). Priority comes from 'x-priority' or the
+    tenant's declared spec."""
+    tenant = headers.get(cfg.serve_tenant_header) if headers is not None else None
+    if not tenant:
+        auth = headers.get("Authorization") if headers is not None else None
+        if auth and auth.lower().startswith("bearer "):
+            key = auth[7:].strip()
+            with _lock:
+                tenant = _api_keys.get(key)
+    priority: Optional[int] = None
+    raw = headers.get("x-priority") if headers is not None else None
+    if raw is not None:
+        try:
+            priority = int(raw)
+        except (TypeError, ValueError):
+            priority = None
+    if tenant and priority is None:
+        priority = priority_of(tenant)
+    return tenant or None, priority
 
 
 # ---------------------------------------------------------------------------

@@ -1006,3 +1006,97 @@ def test_step_cost_of_a_card_trainer_launches_nothing(cuda):
     assert [r["step"] for r in reports] == [1, 2] and all(0 < r["mfu"] < 1 for r in reports)
     assert ops.FLASH_FWD.launches - before["flash_attention_fwd"] == 2 * config.n_layers
     assert ops.FLASH_BWD_DQ.launches - before["flash_attention_bwd_dq"] == 2 * config.n_layers
+
+
+# ------------------------------------------------- runtime and serve on the card
+
+
+@pytest.mark.cuda
+def test_object_store_keeps_cuda_tensors_on_the_card(cuda):
+    """A CUDA tensor put into the store is a DEVICE object counted in
+    device_bytes; get returns the same tensor (no copy); the entry goes
+    when its last ref drops, and the memory when the last user reference
+    does; a num_gpus task reads a DEVICE argument."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    rt.init(num_cpus=2)
+    try:
+        assert rt.cluster_resources()["GPU"] == float(torch.cuda.device_count())
+        store = get_runtime().object_store
+        x = torch.arange(1 << 22, device=cuda, dtype=torch.float32)
+        before = store.usage()["device_bytes"]
+        ref = rt.put(x)
+        assert store.entry(ref.object_id).tier.value == "device"
+        assert store.usage()["device_bytes"] == before + x.nbytes
+        got = rt.get(ref)
+        assert got is x and got.data_ptr() == x.data_ptr()
+        oid = ref.object_id
+        del ref, got
+        assert store.entry(oid) is None and store.usage()["device_bytes"] == before
+        held = torch.cuda.memory_allocated()
+        del x
+        assert torch.cuda.memory_allocated() == held - (1 << 22) * 4
+
+        # a task asking for the card reads a DEVICE argument in place (its
+        # spec stays as the result's lineage, pinning the argument)
+        @rt.remote(num_gpus=1)
+        def total(t):
+            return t.is_cuda, float(t.sum())
+
+        y = torch.ones(1 << 10, device=cuda)
+        assert rt.get(total.remote(rt.put(y)), timeout=60) == (True, float(1 << 10))
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.cuda
+def test_two_paged_replicas_capture_at_once_and_match_one_engine(cuda):
+    """Two paged replicas of one deployment share the weight tensors and
+    capture their CUDA graphs at first use, both at once on one card (the
+    captures take turns: entering one synchronises the device, which would
+    invalidate the other's); their greedy tokens equal one engine's on the
+    same weights (f32), and shutdown frees their page pools."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import build_llm_app
+
+    config = _GRAPH_MODEL.replace(dtype=torch.float32, param_dtype=torch.float32)
+    params = init_params(config, 0, device="cuda")
+    prompts = [list(range(1, 40)), [7, 8, 9], list(range(100, 170)), [5] * 20]
+    engine = PagedLLMEngine(config, params, PagedEngineConfig(max_slots=4), device="cuda")
+    try:
+        streams = [engine.submit(p, max_tokens=8) for p in prompts]
+        want = [s.result(timeout=300) for s in streams]
+    finally:
+        engine.shutdown()
+    del engine
+    rt.init(num_cpus=4)
+    try:
+        h = serve.run(build_llm_app(config, params=params, paged=True, max_slots=4,
+                                    num_replicas=2))
+        replicas = h._set.replicas()
+        assert len(replicas) == 2
+        engines = [rt.get(r.__ray_apply__.remote(lambda w: w._instance.engine), timeout=300)
+                   for r in replicas]
+        assert engines[0].params is params and engines[1].params is params
+        assert not any(p.is_captured for e in engines for p in e.passes())
+        # both replicas' first requests at once: each captures on its own thread
+        refs = [r.call.remote("generate", {"prompt_tokens": p, "max_tokens": 8,
+                                           "temperature": 0.0})
+                for p in prompts for r in replicas]
+        outs = [o["tokens"] for o in rt.get(refs, timeout=300)]
+        assert outs == [w for w in want for _ in replicas]
+        assert all(any(p.is_captured for p in e.passes()) for e in engines)
+        pools = sum(v.nbytes for e in engines for v in e.cache.values())
+        del engines
+        serving = torch.cuda.memory_allocated()
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    import gc
+
+    gc.collect()
+    # the replicas' page pools go with their engines at shutdown (what
+    # stays: cuBLAS workspaces of the capture streams and threads)
+    assert serving - torch.cuda.memory_allocated() >= pools

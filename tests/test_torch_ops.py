@@ -322,6 +322,12 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.parallel.collectives, ray_tpu_torch.train.config\n"
         "import ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.steplog\n"
         "import ray_tpu_torch.train.trainer, ray_tpu_torch.data.dataset, ray_tpu_torch.data.lm\n"
+        "import ray_tpu_torch.api, ray_tpu_torch.core.ids, ray_tpu_torch.core.resources\n"
+        "import ray_tpu_torch.core.object_store, ray_tpu_torch.core.gcs, ray_tpu_torch.core.scheduler\n"
+        "import ray_tpu_torch.core.actors, ray_tpu_torch.core.streaming, ray_tpu_torch.core.runtime\n"
+        "import ray_tpu_torch.util.tracing, ray_tpu_torch.serve.deployment, ray_tpu_torch.serve.multiplex\n"
+        "import ray_tpu_torch.serve.reqlog, ray_tpu_torch.serve.router, ray_tpu_torch.serve.controller\n"
+        "import ray_tpu_torch.serve.api, ray_tpu_torch.serve.llm.openai, ray_tpu_torch.serve.llm.server\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -394,6 +400,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         lm_batch_iterator(Blocks(), 8, 2)
     batch = next(lm_batch_iterator(Blocks(), 8, 2, device="cpu"))
     assert batch["tokens"].device.type == "cpu" and batch.ready is None
+    # the serve deployment path: app builders check the device before any
+    # replica is built, and the runtime advertises no GPU
+    from ray_tpu_torch.serve.llm import build_llm_app, build_openai_app, serve_openai
+
+    for paged in (False, True):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_llm_app("llama-tiny", paged=paged)
+        assert build_llm_app("llama-tiny", paged=paged, device="cpu").deployment.name == "llm"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_openai_app(model="llama-tiny")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_openai(model="llama-tiny")
+    apps, routes = build_openai_app(model="llama-tiny", device="cpu")
+    assert routes == {"llama-tiny": "openai-llama-tiny"} and len(apps) == 1
 
 
 def test_parse_sass_counts_opcodes_per_function():

@@ -186,7 +186,7 @@ def test_lane_preemption_flag_env_override_matches_jax(monkeypatch, raw, want):
 
 def test_config_rejects_unknown_and_mistyped_flags():
     with pytest.raises(AttributeError, match="no such flag"):
-        tconfig.cfg.serve_tenant_header  # a JAX flag this slice does not read
+        tconfig.cfg.gcs_wal  # a JAX flag the port does not read (the GCS WAL is not ported)
     with pytest.raises(ValueError, match="unknown config flag"):
         tconfig.cfg.set(nope=1)
     with pytest.raises(ValueError, match="expects float"):
