@@ -105,6 +105,31 @@ nonzero and no result line is printed):
              layers, the dense check; serve.shutdown() and
              ray_tpu_torch.shutdown() join every thread the phase started
              and free the replicas' caches.
+   observe — Serve's observability plane on the serve phase's engine and
+             weights: the 8 requests with the request log and tracing on,
+             then off, alternated 3 + 3 (wall, TTFT p50, decode rate, a
+             profiled repeat's idle share; the median wall ratio on / off
+             held to OBSERVE_WALL_BOUND); each request's
+             state.request_timeline() in order (submitted, admitted,
+             prefill chunks, decode blocks at dispatch, first_token and
+             finished at emission) with times that never go back, all in
+             list_requests(), one waterfall printed, engine_snapshot() busy
+             while they run and the pool free after; the engine gauges in
+             /metrics, decode_flops against the decode block's closed form
+             (1%), decode_mfu in (0, 1.05] beside the MFU of the block's
+             measured replay, tick_seconds beside the replay and dispatch
+             times; the user path (ray_tpu_torch.init(num_gpus=1),
+             serve.run(build_llm_app(params=..., paged=True)), the 8
+             requests streamed through the handle under state.profile():
+             device "ok", the capture's ragged device kernels (> 0, at most
+             the engine's count for the window) on the wall clock inside
+             the capture window +- 50 ms, trace_dump's device tracks, the
+             router-started SLO monitor burning at a 1 ms TTFT objective
+             and not at 60 s, a postmortem bundle that loads back with the
+             requests' engine.request spans, the profile, the burn events
+             and the metrics text; goodput.serve_slo_report()); and
+             paged.chunk_prefill_step at Llama width bitwise against
+             batched_chunk_prefill_step at B 1.
 6. train   — GPT-2 124M (gpt2-small) at full width and depth, f32 master
              weights from a seeded torch.Generator, bf16 compute:
              the kernel path's gradients against attn_impl="xla" on one
@@ -132,7 +157,7 @@ nonzero and no result line is printed):
              losses (bitwise).
 
 The line before the last lists every kernel with its launches on the main
-paths (serve: phases 4-5; spec; dense; overload; deploy; train: phase 6;
+paths (serve: phases 4-5; spec; dense; overload; deploy; observe; train: phase 6;
 trainer: phase 7's 20-step run; each counted from zero just before it,
 profiled repeats left out), its
 error against the plain version and its times; the last line is
@@ -144,6 +169,7 @@ from __future__ import annotations
 import gc
 import http.client
 import json
+import math
 import os
 import re
 import shutil
@@ -1999,6 +2025,414 @@ def phase_deploy(server, config, prompts, serve_outs, direct) -> dict:
     return dict(launches=launches, profiled=profiled)
 
 
+# --------------------------------------------------------------- observe
+
+OBSERVE_RUNS = 3  # marks on / off runs each, alternated on, off, off, on, on, off
+OBSERVE_WALL_BOUND = 1.05  # median wall with marks over without
+OBSERVE_TIGHT_SLO_S = 0.001  # the TTFT objective every request violates
+OBSERVE_LOOSE_SLO_S = 60.0  # the one no request violates
+OBSERVE_CHECK_PERIOD_S = 0.2  # the SLO monitor's check period in the phase
+OBSERVE_CAPTURE_S = 1.5  # the profile capture around the streamed requests
+OBSERVE_ALIGN_S = 0.05  # device events lie in the capture window +- this
+
+
+def _marks_on(on: bool) -> None:
+    """The request log and tracing both on (the defaults) or both off."""
+    cfg.set(serve_request_log=on, trace_sample_ratio=1.0 if on else 0.0)
+
+
+def _timeline_order_ok(phases) -> bool:
+    """submitted, admitted, prefill chunks, then the decode blocks (made at
+    dispatch: the first carries the first token in its row 0, so its mark
+    precedes first_token, made at emission), first_token once, finished
+    last."""
+    return re.fullmatch(
+        r"S A( P)+ (D )*F( D)* E",
+        " ".join({"engine.submitted": "S", "engine.admitted": "A", "engine.prefill_chunk": "P",
+                  "engine.decode_block": "D", "engine.first_token": "F",
+                  "engine.finished": "E"}.get(p, "?") for p in phases)) is not None \
+        and "engine.decode_block" in phases
+
+
+def _decode_closed_form(config, engine) -> float:
+    """FLOPs of one K-step plain decode block at its fixed shapes: the
+    products' 2 x weights x rows per step, plus K5's formula per layer
+    (4 x Hq x T x kv span x D: the decode call's T = max_slots x 8 region
+    rows, each against its table's pages x page size)."""
+    e, f, hd = config.d_model, config.d_ff, config.head_dim
+    weights = config.n_layers * (2 * e * config.n_heads * hd + 2 * e * config.kv_heads * hd
+                                 + 3 * e * f) + e * config.vocab_size
+    rows = engine.config.max_slots
+    pc = engine.paged
+    ragged = 4.0 * config.n_heads * rows * 8 * pc.max_pages_per_slot * pc.page_size * hd
+    return engine.config.decode_block_steps * (2.0 * weights * rows + config.n_layers * ragged)
+
+
+def _dispatch_ms(p, iters: int = 20) -> float:
+    """Median host time of enqueuing one replay of pass `p`'s graph (no
+    synchronisation inside the timed region): the dispatch side of a loop
+    iteration. The engine must be idle."""
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        p._graph.replay()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _burns(slo: str) -> float:
+    from ray_tpu_torch.util.metrics import registry
+
+    metric = registry().get("raytpu_serve_slo_burn_total")
+    return sum(v for tags, v in (metric.collect() if metric else []) if tags.get("slo") == slo)
+
+
+def _idle_share_of_repeat(run) -> dict:
+    """One more run under torch.profiler (CUDA activity): its wall and the
+    device busy time, the sum of the card's kernel and copy durations as
+    `_profiled_ragged_kernels` sums them, read from the raw Kineto events
+    (the parse into FunctionEvents that key_averages() needs takes seconds
+    for a run's ~80 000 graph kernels)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e9
+    return dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall)
+
+
+def _observe_marks_cost(engine, prompts, path) -> None:
+    """The serve phase's 8 requests on the serve engine with the request
+    log and tracing on, then off, alternated: per run wall, TTFT p50,
+    decode tok/s and a profiled repeat's idle share; the median wall ratio
+    of on over off is held to OBSERVE_WALL_BOUND."""
+    walls = {True: [], False: []}
+    for on in (True, False, False, True, True, False):
+        _marks_on(on)
+        # a full collection between runs, so no run pays for the garbage of
+        # the last repeat's ~80 000 profiler records
+        gc.collect()
+        stats0 = engine.stats()
+        wall, t_start, stamps, _ = _serve_run(engine, prompts)
+        _add_launches(path, _stats_delta(engine, stats0))
+        r = _rates(wall, t_start, stamps, N_REQUESTS * MAX_TOKENS)
+        gc.collect()
+        times = _idle_share_of_repeat(lambda: _serve_run(engine, prompts))
+        walls[on].append(wall)
+        log("observe", f"marks {'on ' if on else 'off'}: wall {wall:.4f} s, TTFT p50 "
+            f"{r['ttft_p50_s']:.4f} s, decode {r['decode_tok_s']:.1f} tok/s; profiled repeat: "
+            f"wall {times['wall_s']:.4f} s, busy {times['busy_s']:.4f} s, idle share "
+            f"{times['idle_share']:.4f}")
+    _marks_on(True)
+    ratio = statistics.median(walls[True]) / statistics.median(walls[False])
+    log("observe", f"median wall with marks {statistics.median(walls[True]):.4f} s, without "
+        f"{statistics.median(walls[False]):.4f} s: ratio {ratio:.4f} (bound "
+        f"{OBSERVE_WALL_BOUND}); spread on {min(walls[True]):.4f}-{max(walls[True]):.4f}, "
+        f"off {min(walls[False]):.4f}-{max(walls[False]):.4f}")
+    if ratio > OBSERVE_WALL_BOUND:
+        raise AssertionError(f"the marks cost {ratio:.4f} of the wall, over {OBSERVE_WALL_BOUND}")
+
+
+def _observe_timelines(engine, prompts, config, path) -> None:
+    """8 requests with marks on, engine_snapshot() polled while they run:
+    every request's timeline in order with times that never go back, all 8
+    in list_requests(), one waterfall printed, busy lanes and pages while
+    they run and the pool free after."""
+    from ray_tpu_torch.serve import reqlog
+    from ray_tpu_torch.util import state
+
+    label = engine.metrics_label
+    box = {}
+    stats0 = engine.stats()
+    runner = threading.Thread(target=lambda: box.update(run=_serve_run(engine, prompts)))
+    runner.start()
+    busy = None
+    while runner.is_alive() and busy is None:
+        snap = state.engine_snapshot()[label]
+        lanes = [lane for lane in snap["lanes"] if not lane["free"]]
+        if lanes and snap["pages"]["in_use"] > 0:
+            busy = (len(lanes), snap["pages"]["in_use"], snap["inflight_blocks"])
+        time.sleep(0.002)
+    _join([runner])
+    _add_launches(path, _stats_delta(engine, stats0))
+    idle = state.engine_snapshot()[label]
+    _, _, stamps, streams = box["run"]
+    if any(len(st) != MAX_TOKENS for st in stamps):
+        raise AssertionError("a request of the timeline run returned the wrong number of tokens")
+    ids = [s.request_id for s in streams]
+    summaries = {s["request_id"]: s for s in state.list_requests(limit=0)}
+    for rid in ids:
+        timeline = state.request_timeline(rid)
+        phases = [m["phase"] for m in timeline]
+        monos = [m["mono"] for m in timeline]
+        if not _timeline_order_ok(phases) or monos != sorted(monos):
+            raise AssertionError(f"request {rid}'s timeline is out of order: {phases}")
+        if summaries.get(rid, {}).get("terminal") != "engine.finished":
+            raise AssertionError(f"list_requests() lacks request {rid}")
+    chunks = [sum(m["phase"] == "engine.prefill_chunk" for m in state.request_timeline(r))
+              for r in ids]
+    log("observe", f"timelines: {len(ids)} requests in order (submitted, admitted, prefill "
+        f"chunks {chunks}, decode blocks at dispatch, first_token and finished at emission), "
+        f"all in list_requests(); engine_snapshot() while running: busy lanes, pages in use, "
+        f"blocks in flight {busy}; after: pages free {idle['pages']['free']} of "
+        f"{idle['pages']['total']}, busy lanes {sum(not lane['free'] for lane in idle['lanes'])}")
+    if busy is None or idle["pages"]["free"] != idle["pages"]["total"] or any(
+            not lane["free"] for lane in idle["lanes"]):
+        raise AssertionError(f"engine_snapshot() never showed the run, or the pool is not free: "
+                             f"{busy}, {idle['pages']}")
+    print(reqlog.render_waterfall(state.request_timeline(ids[-1])), flush=True)
+
+
+def _observe_gauges(engine, config) -> dict:
+    """The engine's gauges in /metrics; decode_flops against the closed
+    form; decode_mfu beside the MFU of the decode block's measured replay
+    time, and tick_seconds beside the replay and dispatch times."""
+    from ray_tpu_torch.util.metrics import registry
+
+    label = engine.metrics_label
+    text = registry().prometheus_text()
+    missing = [g for g in ("raytpu_engine_batch_fill", "raytpu_engine_tick_seconds",
+                           "raytpu_engine_decode_mfu", "raytpu_engine_token_mix")
+               if f'{g}{{engine="{label}"' not in text]
+    if missing:
+        raise AssertionError(f"/metrics lacks {missing} for engine {label}")
+    m = engine.metrics
+    closed = _decode_closed_form(config, engine)
+    block = engine._decode["plain"]
+    replay_ms = _replay_ms(block, iters=5)
+    dispatch_ms = _dispatch_ms(block, iters=5)
+    replay_mfu = m["decode_flops"] / (replay_ms / 1e3 * PEAK_FLOPS[torch.bfloat16])
+    tick_ms = m["tick_seconds"] * 1e3
+    to_replay, to_dispatch = tick_ms / replay_ms, tick_ms / dispatch_ms
+    follows = ("the block's replay (device) time" if abs(math.log(to_replay))
+               < abs(math.log(to_dispatch)) else "the dispatch (host) time")
+    log("observe", f"gauges of {label}: batch_fill {m['batch_fill']:.3f}, tick_seconds "
+        f"{m['tick_seconds']:.6f}, decode_mfu {m['decode_mfu']:.6f}, decode_flops "
+        f"{m['decode_flops']:.6e} (closed form {closed:.6e}, ratio "
+        f"{m['decode_flops'] / closed:.6f}); one decode block replay {replay_ms:.3f} ms -> MFU "
+        f"{replay_mfu:.6f}; dispatch (host enqueue of the replay) {dispatch_ms:.4f} ms; "
+        f"tick_seconds {tick_ms:.3f} ms is {to_replay:.3f} x the replay and "
+        f"{to_dispatch:.3f} x the dispatch: nearer {follows}")
+    if abs(m["decode_flops"] / closed - 1) > 0.01:
+        raise AssertionError("decode_flops is not the decode block's closed form within 1%")
+    if not 0 < m["decode_mfu"] <= 1.05:
+        raise AssertionError(f"decode_mfu {m['decode_mfu']} outside (0, 1.05]")
+    return dict(replay_ms=replay_ms, dispatch_ms=dispatch_ms, tick_ms=tick_ms)
+
+
+def _observe_user_path(config, params, prompts, path) -> dict:
+    """init + serve.run(build_llm_app(...)) with a 1 ms TTFT objective: the
+    8 requests streamed through the handle under state.profile(); the
+    capture's device kernels, their wall-clock placement, trace_dump's
+    merge, the router-started monitor's burn, a repeat at a 60 s objective
+    without burn, a postmortem bundle and the serve SLO report."""
+    from ray_tpu_torch.util import goodput, postmortem, profiling, state
+
+    cfg.set(serve_slo_ttft_p99_s=OBSERVE_TIGHT_SLO_S,
+            serve_slo_check_period_s=OBSERVE_CHECK_PERIOD_S)
+    ray_tpu_torch.init(num_gpus=1)
+    try:
+        t0 = time.perf_counter()
+        handle = serve.run(build_llm_app(config, params=params, paged=True, max_slots=N_REQUESTS))
+        (engine,) = _replica_engines(handle)
+        _handle_run(handle, prompts[:1])  # warm-up: the lazy captures of its passes
+        stream = torch.cuda.Stream()
+        for p in engine.passes():
+            if not p.is_captured:
+                p.capture(stream)
+        torch.cuda.synchronize()
+        log("observe", f"user path: deployed, warmed up and captured in "
+            f"{time.perf_counter() - t0:.2f} s")
+        from ray_tpu_torch.util.watchdog import serve_slo_monitor
+
+        monitor = serve_slo_monitor()
+        if monitor._thread is None:
+            raise AssertionError("the router did not start the serve SLO monitor")
+        # the capture on this thread (where the earlier phases ran the
+        # profiler), the streams on another, started once it runs
+        box = {}
+
+        def streams():
+            time.sleep(0.3)
+            box["run"] = _handle_run(handle, prompts)
+
+        stats0 = engine.stats()
+        runner = threading.Thread(target=streams)
+        runner.start()
+        t0 = time.perf_counter()
+        record = state.profile(duration_s=OBSERVE_CAPTURE_S)
+        capture_s = time.perf_counter() - t0
+        _join([runner])
+        wall, t_start, stamps, finals = box["run"]
+        stats = _stats_delta(engine, stats0)
+        _add_launches(path, stats)
+        counted = {"decode": int(stats.get("launches.ragged.decode", 0)),
+                   "mixed": int(stats.get("launches.ragged.mixed", 0))}
+        (node_hex, meta), = [(nh, m) for nh, m in record["nodes"].items()
+                             if not m.get("artifacts_at")]
+        if meta["device"] != "ok":
+            raise AssertionError(f"the capture's device trace did not run: {meta['device']}")
+        artifacts = {name.split("/", 1)[1]: data for name, data in
+                     get_runtime().profiles.artifacts_for(record["profile_id"]).items()}
+        events = profiling.load_device_trace_events(artifacts, started_at=meta["started_at"],
+                                                    max_events=10**7)
+        kernels: dict = {}
+        for e in events:
+            if e["cat"] == "device" and "ragged" in e["name"]:
+                kernels[_ragged_name(e["name"])] = kernels.get(_ragged_name(e["name"]), 0) + 1
+        lo = meta["started_at"] - OBSERVE_ALIGN_S
+        hi = meta["started_at"] + meta["duration_s"] + OBSERVE_ALIGN_S
+        device = [e for e in events if e["cat"] == "device"]
+        if not device:
+            raise AssertionError("the capture holds no device events")
+        outside = [e for e in device if not lo <= e["ts"] / 1e6 <= hi]
+        main = sum(n for k, n in kernels.items() if "combine" not in k)
+        log("observe", f"user path: 8 streams in {wall:.3f} s under state.profile("
+            f"duration_s={OBSERVE_CAPTURE_S}), which returned in {capture_s:.2f} s -> profile "
+            f"{record['profile_id']}, device "
+            f"{meta['device']}, {meta['bytes']} bytes; ragged device kernels {kernels} against "
+            f"the engine's {counted} in the window; {len(device)} device events, "
+            f"{len(outside)} outside the window +- {OBSERVE_ALIGN_S} s (first "
+            f"{(min(e['ts'] for e in device) / 1e6 - meta['started_at']):.4f} s, last "
+            f"{(max(e['ts'] for e in device) / 1e6 - meta['started_at']):.4f} s after its start)")
+        if not 0 < main <= sum(counted.values()) or outside:
+            raise AssertionError(f"the capture's ragged kernels {kernels} or their placement "
+                                 f"disagree with the engine's {counted}")
+        merged = json.loads(state.trace_dump(profile_id=record["profile_id"]))["traceEvents"]
+        merged_device = sum(str(e.get("pid", "")).startswith("device:") for e in merged)
+        if not merged_device:
+            raise AssertionError("trace_dump merged no device tracks")
+        # the router-started monitor burns on the 1 ms objective
+        deadline = time.monotonic() + 10
+        while _burns("ttft_p99") == 0:
+            if time.monotonic() > deadline:
+                raise AssertionError("the serve SLO monitor never burned at a 1 ms objective")
+            time.sleep(0.05)
+        burn_events = state.events(kind="watchdog.slo_burn")
+        dominant = [e["extra"].get("dominant_bucket") for e in burn_events
+                    if e["extra"].get("dominant_bucket")]
+        log("observe", f"trace_dump: {len(merged)} events, {merged_device} on device tracks; "
+            f"burn ttft_p99 {_burns('ttft_p99'):.0f}, ttft_p99:default "
+            f"{_burns('ttft_p99:default'):.0f}; dominant TTFT bucket of the burns {dominant[-3:]}")
+        # the same streams at a 60 s objective: no new burn
+        cfg.set(serve_slo_ttft_p99_s=OBSERVE_LOOSE_SLO_S)
+        time.sleep(3 * OBSERVE_CHECK_PERIOD_S)
+        before = (_burns("ttft_p99"), _burns("ttft_p99:default"))
+        stats0 = engine.stats()
+        _handle_run(handle, prompts)
+        _add_launches(path, _stats_delta(engine, stats0))
+        time.sleep(3 * OBSERVE_CHECK_PERIOD_S)
+        after = (_burns("ttft_p99"), _burns("ttft_p99:default"))
+        log("observe", f"at a {OBSERVE_LOOSE_SLO_S:.0f} s objective: burns {before} before the "
+            f"8 streams, {after} after")
+        if after != before:
+            raise AssertionError("the monitor burned at a 60 s objective")
+        ids = [f["request_id"] for f in finals]
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "postmortem.tgz")
+            manifest = state.postmortem(out, note="observe phase")
+            bundle = postmortem.load_bundle(out)
+        request_spans = {s["attrs"].get("request_id") for s in bundle["spans.jsonl"]
+                         if s["name"] == "engine.request"}
+        profiles = [p["profile_id"] for p in bundle["profiles.json"]]
+        kinds = {e.get("kind") for e in bundle["events.jsonl"]}
+        log("observe", f"postmortem: counts {manifest['counts']}, errors {manifest['errors']}; "
+            f"the 8 requests' engine.request spans {sum(r in request_spans for r in ids)}, "
+            f"profile {record['profile_id'] in profiles}, burn events "
+            f"{'watchdog.slo_burn' in kinds}, decode_mfu in the metrics text "
+            f"{'raytpu_engine_decode_mfu' in bundle['metrics_cluster.prom']}")
+        if (not all(r in request_spans for r in ids) or record["profile_id"] not in profiles
+                or "watchdog.slo_burn" not in kinds
+                or "raytpu_engine_decode_mfu" not in bundle["metrics_cluster.prom"]
+                or manifest["errors"]):
+            raise AssertionError("the postmortem bundle misses a plane")
+        log("observe", f"goodput.serve_slo_report(): {goodput.serve_slo_report()}")
+        del engine, handle
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+        from ray_tpu_torch.util.watchdog import serve_slo_monitor
+
+        serve_slo_monitor().stop()
+        cfg.reset("serve_slo_ttft_p99_s")
+        cfg.reset("serve_slo_check_period_s")
+    return dict(kernels=kernels, counted=counted)
+
+
+def _observe_chunk_prefill(config, params) -> None:
+    """paged.chunk_prefill_step at Llama width, bitwise against
+    batched_chunk_prefill_step at B 1 on the same inputs."""
+    from ray_tpu_torch.serve.llm import paged as tpaged
+
+    pc = PagedConfig(num_pages=9, max_pages_per_slot=8)
+    rng = np.random.default_rng(SEED + 7)
+    n = pc.chunk_tokens - 21
+    tokens = torch.zeros((1, pc.chunk_tokens), dtype=torch.int64, device="cuda")
+    tokens[0, :n] = torch.from_numpy(rng.integers(0, config.vocab_size, n))
+    row = torch.tensor([1, 2, 3, 4, 0, 0, 0, 0], dtype=torch.int32, device="cuda")
+    chunk_ids = row[:pc.chunk_pages].long()
+    outs = []
+    with torch.no_grad():
+        for batched in (False, True):
+            cache = tpaged.init_paged_cache(config, pc, "cuda")
+            if batched:
+                logits, cache = tpaged.batched_chunk_prefill_step(
+                    params, cache, row[None], chunk_ids[None], tokens,
+                    torch.tensor([0], device="cuda"), torch.tensor([n], device="cuda"), config,
+                    page_size=pc.page_size)
+            else:
+                logits, cache = tpaged.chunk_prefill_step(
+                    params, cache, row, chunk_ids, tokens, torch.tensor(0, device="cuda"),
+                    torch.tensor(n, device="cuda"), config, page_size=pc.page_size)
+            outs.append((logits, cache))
+    (a, ca), (b, cb) = outs
+    same = torch.equal(a, b) and all(torch.equal(ca[k], cb[k]) for k in ca)
+    log("observe", f"chunk_prefill_step at {MODEL} width ({n} tokens of a {pc.chunk_tokens}-token "
+        f"chunk): logits {tuple(a.shape)} finite {bool(torch.isfinite(a).all())}, bitwise equal to "
+        f"batched_chunk_prefill_step at B 1 (logits and pool): {same}")
+    if not same or not torch.isfinite(a).all():
+        raise AssertionError("chunk_prefill_step differs from batched_chunk_prefill_step at B 1")
+
+
+def phase_observe(server, config, prompts) -> dict:
+    """Serve's observability plane on the card, on the serve phase's
+    engine and weights: the marks' cost (on / off), the request timelines
+    and engine_snapshot(), the engine gauges with decode_mfu, the user path
+    (init, serve.run, streams through the handle under state.profile(), the
+    SLO monitor's burn at a tight objective and none at a loose one, a
+    postmortem bundle, the serve SLO report) and chunk_prefill_step.
+    Returns each kernel's launches on this path (every run but the
+    profiled repeats) and the capture's ragged device kernels."""
+    t_phase = time.perf_counter()
+    engine = server.engine
+    path: dict = {}
+    for k in KERNELS:
+        k.launches = 0
+    steps = {}
+    t0 = time.perf_counter()
+    _observe_marks_cost(engine, prompts, path)
+    steps["marks on / off"], t0 = time.perf_counter() - t0, time.perf_counter()
+    _observe_timelines(engine, prompts, config, path)
+    steps["timelines"], t0 = time.perf_counter() - t0, time.perf_counter()
+    gauges = _observe_gauges(engine, config)
+    steps["gauges"], t0 = time.perf_counter() - t0, time.perf_counter()
+    user = _observe_user_path(config, engine.params, prompts, path)
+    steps["user path"], t0 = time.perf_counter() - t0, time.perf_counter()
+    _observe_chunk_prefill(config, engine.params)
+    steps["chunk prefill"] = time.perf_counter() - t0
+    launches = {k.name: k.launches + path.get(k.name, 0) for k in KERNELS}
+    log("observe", f"launches on the observe path {launches}; seconds by step "
+        + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+        + f" ({time.perf_counter() - t_phase:.2f} s)")
+    if not launches[RAGGED.name]:
+        raise AssertionError("the observe path never launched the ragged kernels")
+    return dict(launches=launches, profiled=user["kernels"], gauges=gauges)
+
+
 def _leaf_names(tree, prefix=""):
     """Names of the leaves in `tree_leaves` order."""
     names = []
@@ -2331,6 +2765,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     card = phase_env()
     phase_build()
     timer = _Timer()
@@ -2350,6 +2785,7 @@ def main() -> int:
         dense_launches = phase_dense(server, config, prompts, outs)
         overload = phase_overload(server, config)
         deploy = phase_deploy(server, config, prompts, outs, direct)
+        observe = phase_observe(server, config, prompts)
     finally:
         server.shutdown()
     del server
@@ -2363,7 +2799,7 @@ def main() -> int:
     for k in KERNELS:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
-                   "deploy": deploy["launches"][k.name],
+                   "deploy": deploy["launches"][k.name], "observe": observe["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
@@ -2374,6 +2810,8 @@ def main() -> int:
             kernels[-1]["spec_device_kernels_profiled_repeat"] = spec["profiled"]
             kernels[-1]["overload_device_kernels_profiled_repeat"] = overload["profiled"]
             kernels[-1]["deploy_device_kernels_profiled_repeat"] = deploy["profiled"]
+            kernels[-1]["observe_device_kernels_profiled_capture"] = observe["profiled"]
+    log("total", f"{time.perf_counter() - t_run:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

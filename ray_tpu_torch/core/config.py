@@ -119,6 +119,36 @@ define_flag("serve_lane_preemption", True,
 define_flag("serve_slo_ttft_p99_s", 0.0,
             "Serve SLO monitor: p99 TTFT above this burns "
             "raytpu_serve_slo_burn_total{slo=ttft_p99} (0 = disabled).")
+define_flag("serve_slo_queue_p99_s", 0.0,
+            "Serve SLO monitor: p99 engine queue wait above this burns "
+            "raytpu_serve_slo_burn_total{slo=queue_p99} (0 = disabled).")
+define_flag("serve_slo_check_period_s", 5.0,
+            "Interval between serve SLO monitor evaluations of the "
+            "span-derived latency histograms.")
+define_flag("autoscale_burn_windows", 1,
+            "New SLO-violating windows (ServeSLOMonitor attainment "
+            "ledger) since the last autoscale pass that trigger a "
+            "one-replica scale-up for slo_driven deployments "
+            "(0 disables the SLO term).")
+define_flag("autoscale_pressure_floor", 0.25,
+            "Minimum demand signal (router ongoing-per-replica over "
+            "target, or max engine batch_fill) required before an SLO "
+            "burn may scale up: a burn with an idle router is a "
+            "cold-start artifact, not missing capacity.")
+
+# training stall watchdog (util/watchdog.py StallWatchdog)
+define_flag("train_stall_window_s", 30.0,
+            "Training stall watchdog: no worker report for this long "
+            "flips raytpu_train_stalled and emits a WARNING (0 = off).")
+define_flag("train_stall_factor", 6.0,
+            "Training stall watchdog: a worker whose report gap exceeds "
+            "factor x its EWMA step time is flagged as the straggler.")
+define_flag("train_stall_ewma_alpha", 0.25,
+            "EWMA smoothing for per-worker step-time tracking in the "
+            "stall watchdog (higher = faster adaptation).")
+define_flag("train_stall_min_s", 1.0,
+            "Floor on the EWMA-regression stall threshold so fast steps "
+            "with scheduler jitter do not flap the stalled gauge.")
 
 # training: data-parallel sync knobs, JAX's names and defaults. On one
 # device nothing syncs: LMTrainer raises for a mode other than these
@@ -162,11 +192,27 @@ define_flag("events_segments_keep", 8,
             "Rotated event segments retained per node before the oldest "
             "is pruned.")
 
-# cost accounting (util/profiling.py)
+# profiling plane (util/profiling.py: captures and cost accounting)
+define_flag("profile_default_duration_s", 2.0,
+            "Default capture window for state.profile() device+host "
+            "captures.")
+define_flag("profile_max_artifact_bytes", 32 << 20,
+            "Per-capture cap on artifact bytes collected (largest trace "
+            "files dropped first).")
+define_flag("profile_host_sample_s", 0.005,
+            "Sampling interval of the host-side stack profiler that "
+            "rides along with device captures.")
+define_flag("profile_store_capacity", 8,
+            "Captures retained in the runtime's profile store before the "
+            "oldest (meta + artifacts) is dropped.")
+define_flag("profile_merge_max_events", 20_000,
+            "Device-trace events merged into one Perfetto export by "
+            "trace_dump(profile_id=...); longest durations win.")
 define_flag("profile_cost_accounting", True,
-            "Compute MFU/roofline figures for train reports from the "
-            "step's counted FLOPs and bytes (util/profiling.step_cost: "
-            "one run of the step on meta tensors, cached).")
+            "Compute MFU/roofline figures for train reports and engine "
+            "ticks from the step's counted FLOPs and bytes "
+            "(util/profiling.step_cost: one run of the step on meta "
+            "tensors, cached).")
 
 
 class RayTpuConfig:

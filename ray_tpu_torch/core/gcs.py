@@ -17,6 +17,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
+# KV namespace for registered profile captures: profile_id -> capture
+# record (meta only; artifact bytes stay in the runtime's ProfileStore)
+PROFILE_NS = "_profiles"
+
 
 class KVStore:
     """Namespaced key-value store (reference: gcs_kv_manager.h)."""

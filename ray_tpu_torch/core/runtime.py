@@ -10,10 +10,12 @@ actor thread parent into.
 What the JAX runtime also does and the port does not yet — each raises
 NotImplementedError naming its ROADMAP item where a caller can ask for
 it: cluster mode (`init(head=True)` / `init(address=...)`: the GCS served
-over RPC, remote node agents, object transfer), process executors
+over RPC, remote node agents, object transfer; `profile_capture` then
+fans out to node agents, here one local capture covers every selected
+logical node, as JAX's in-process runtime does), process executors
 (`executor="process"`, worker pools, runtime_env), the health manager and
-the memory monitor, GCS snapshots and the WAL, chaos injection, jobs,
-`profile_capture` and `preempt_node`.
+the memory monitor, GCS snapshots and the WAL, chaos injection, jobs and
+`preempt_node`.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from .scheduler import ClusterScheduler, Node, PlacementGroup, TaskSpec
 from .streaming import ObjectRefGenerator
 
 _CLUSTER_TODO = "ROADMAP A6 (cluster mode: core/cluster.py, rpc, gcs_service, object_transfer)"
-_PROCESS_TODO = "ROADMAP A6 (process executors and worker_pool)"
+_PROCESS_TODO = "ROADMAP A5 (process executors and worker_pool)"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -141,6 +143,13 @@ class Runtime:
 
         _logs.install()
         _logs.set_node_id(self.scheduler.head_node().node_id.hex())
+        # runtime gauges (scrape-time sampling) and the registry of
+        # profile captures (filled by profile_capture below)
+        from ..util import profiling as _profiling
+        from ..util.metrics import register_runtime_gauges
+
+        register_runtime_gauges()
+        self.profiles = _profiling.ProfileStore()
 
     # ------------------------------------------------------------------ store
 
@@ -448,6 +457,10 @@ class Runtime:
     def available_resources(self) -> ResourceDict:
         return self.scheduler.available_resources()
 
+    def task_events(self) -> List[Dict[str, Any]]:
+        with self._task_events_lock:
+            return list(self._task_events)
+
     def node_of_task(self, task_id_hex: str) -> Optional[str]:
         """node_hex that executed a task (latest attempt wins), or None."""
         with self._task_events_lock:
@@ -457,8 +470,66 @@ class Runtime:
                 return ev["node"] or None
         return None
 
-    def profile_capture(self, nodes=None, duration_s=None, device=True, host=True):
-        raise _not_ported("profile_capture", "ROADMAP A6 (profile_capture)")
+    # -------------------------------------------------------------- profiling
+
+    def profile_capture(
+        self,
+        nodes: Optional[Sequence[str]] = None,
+        duration_s: Optional[float] = None,
+        device: bool = True,
+        host: bool = True,
+    ) -> Dict[str, Any]:
+        """A time-boxed device trace + host sampling profile over the
+        selected logical nodes (hex prefixes; None = every alive node),
+        registered in the profile store and the control store's
+        `_profiles` table so `state.list_profiles()` and `trace_dump`
+        reach it. The logical nodes share this process, so one local
+        capture covers every selected node (the non-head entries
+        reference the head's artifacts), as in JAX's in-process branch;
+        the fan-out to node agents comes with clusters (ROADMAP A6)."""
+        import os as _os
+
+        from ..util import profiling as _profiling
+        from .config import cfg
+        from .gcs import PROFILE_NS
+
+        if duration_s is None:
+            duration_s = cfg.profile_default_duration_s
+        profile_id = _os.urandom(6).hex()
+
+        def selected(node_hex: str) -> bool:
+            return not nodes or any(node_hex.startswith(p) for p in nodes)
+
+        started_at = time.time()
+        head_hex = self.scheduler.head_node().node_id.hex()
+        chosen = [n.node_id.hex() for n in self.scheduler.nodes()
+                  if n.alive and selected(n.node_id.hex())]
+        if not chosen:
+            raise ValueError(f"no alive node matches the capture selector {nodes!r}")
+        local = _profiling.capture_local_profile(
+            duration_s, device=device, host=host, profile_id=profile_id)
+        artifact_hex = head_hex if head_hex in chosen else chosen[0]
+        blobs: Dict[Tuple[str, str], bytes] = {
+            (artifact_hex, name): data for name, data in local["artifacts"].items()}
+        node_metas: Dict[str, Dict[str, Any]] = {}
+        for node_hex in chosen:
+            meta = dict(local["meta"])
+            if node_hex != artifact_hex:
+                meta["artifacts_at"] = artifact_hex
+                meta["artifact_names"] = []
+            node_metas[node_hex] = meta
+        record = {
+            "profile_id": profile_id,
+            "started_at": started_at,
+            "duration_s": duration_s,
+            "device": device,
+            "host": host,
+            "nodes": node_metas,
+            "total_bytes": sum(len(b) for b in blobs.values()),
+        }
+        self.profiles.add(record, blobs)
+        self.gcs.kv.put(profile_id, record, namespace=PROFILE_NS)
+        return record
 
     def preempt_node(self, node: Node, warning_s: Optional[float] = None,
                      reason: str = "preempted") -> None:
@@ -567,6 +638,13 @@ def get_or_init_runtime() -> Runtime:
 
 def is_initialized() -> bool:
     return _global_runtime is not None
+
+
+def head_outage_s() -> float:
+    """Seconds the control store's head has been unreachable from this
+    process: always 0.0 in one process, where the store is in memory
+    (JAX's answer without a cluster)."""
+    return 0.0
 
 
 def shutdown_runtime() -> None:

@@ -20,8 +20,12 @@ Layout (as in the JAX module):
   kv_lens[s] - q_lens[s] + r; causal masking and the kv-length bound both
   derive from that.
 
-Dispatch is by device: a CUDA tensor launches the kernel (or raises on a
-shape or dtype it does not take); a CPU tensor takes the plain version.
+Dispatch is by device, inside the custom op `ray_tpu_torch::ragged_paged_attention`:
+a CUDA tensor launches the kernel (or raises on a shape or dtype it does
+not take); a CPU tensor takes the plain version; a meta tensor takes the
+op's fake, which launches nothing, so the cost layer
+(`util/profiling.step_cost`) can count a pass on meta tensors, and the
+op's flop formula gives the kernel's FLOPs.
 The CUDA kernels scale q themselves as they load it, to exactly the
 dispatcher's `bf16(f32(q) * f32(sm_scale))`, so the serve loop spends no
 elementwise launches on it; the plain version takes q already scaled.
@@ -38,6 +42,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import Kernel
 
@@ -253,6 +258,45 @@ def _ragged_cuda(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
 # ----------------------------------------------------------------- dispatch
 
 
+@torch.library.custom_op("ray_tpu_torch::ragged_paged_attention", mutates_args=())
+def _ragged_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+               starts: torch.Tensor, counts: torch.Tensor, q_lens: torch.Tensor,
+               kv_lens: torch.Tensor, tables: torch.Tensor, block_q: int, max_q_blocks: int,
+               sm_scale: float) -> torch.Tensor:
+    """(Hq, T, D): the CUDA kernels on CUDA tensors, the plain version on
+    CPU tensors."""
+    if q.is_cuda:
+        # the kernels scale q as they load it, to the same bf16(f32(q) * f32(scale))
+        return _ragged_cuda(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
+                            block_q=block_q, max_q_blocks=max_q_blocks, sm_scale=sm_scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"ragged paged attention runs on CUDA or CPU tensors, not {q.device}")
+    # q is scaled and rounded to its own dtype BEFORE the kernel, as on the TPU
+    q = (q.float() * sm_scale).to(q.dtype)
+    return ragged_reference_attention(q, k_pages, v_pages, starts, counts, q_lens, kv_lens,
+                                      tables, block_q=block_q, max_q_blocks=max_q_blocks)
+
+
+@_ragged_op.register_fake
+def _(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables, block_q, max_q_blocks,
+      sm_scale):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.ray_tpu_torch.ragged_paged_attention, get_raw=True)
+def _ragged_flops(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables, block_q,
+                  max_q_blocks, sm_scale, out_val=None) -> float:
+    """The two products (q.K^T and P.V, 2 * D FLOPs each per q row and kv
+    position) over every region's q rows and kv length, at the call's
+    fixed shapes: the regions' rows sum to T, and each region's kv length
+    is bounded by its table row's pages x page size. The shapes are all a
+    count on meta tensors can read, so this is the most the call's shapes
+    allow, not what its data needs."""
+    hq, t, d = q.shape
+    kv_span = tables.shape[1] * k_pages.shape[2]
+    return 4.0 * hq * t * kv_span * d
+
+
 def ragged_paged_attention(
     q: torch.Tensor,           # (Hq, T, D) token-major, per-seq block regions
     k_pages: torch.Tensor,     # (Hkv, P, ps, D)
@@ -284,11 +328,5 @@ def ragged_paged_attention(
     if max_q_blocks is None:
         # T is exactly the sum of the regions, so T // block_q bounds any one
         max_q_blocks = t // block_q
-    if q.is_cuda:
-        # the kernels scale q as they load it, to the same bf16(f32(q) * f32(scale))
-        return _ragged_cuda(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
-                            block_q=block_q, max_q_blocks=max_q_blocks, sm_scale=sm_scale)
-    # q is scaled and rounded to its own dtype BEFORE the kernel, as on the TPU
-    q = (q.float() * sm_scale).to(q.dtype)
-    return ragged_reference_attention(q, k_pages, v_pages, starts, counts, q_lens, kv_lens,
-                                      tables, block_q=block_q, max_q_blocks=max_q_blocks)
+    return _ragged_op(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
+                      int(block_q), int(max_q_blocks), float(sm_scale))

@@ -14,10 +14,16 @@ and a call fails with the ActorDiedError that carries the constructor's
 error. The port's `status()` also names the last replica death of each
 deployment (`last_replica_death`).
 
-Not ported yet: the cluster autoscaler's demand source (`core/capacity`),
-the SLO-burn term of autoscaling (`AutoscalingConfig(slo_driven=True)`
-raises NotImplementedError) and the freeze of reconciliation under a GCS
-head outage, which comes with clusters.
+Autoscaling has the JAX package's two terms: ongoing requests over
+`target_ongoing_requests`, and for `AutoscalingConfig(slo_driven=True)`
+new burn windows in the `ServeSLOMonitor` ledger, which bump the target
+one replica past the live count when a demand signal (ongoing per replica
+over target, or the engines' `batch_fill`) clears
+`autoscale_pressure_floor`.
+
+Not ported yet: the cluster autoscaler's demand source (`core/capacity`)
+and the freeze of reconciliation under a GCS head outage, which come with
+clusters (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -188,12 +194,6 @@ class ServeController:
         # replaced by its DeploymentHandle, so deployments call
         # deployments through the router (per-hop load balancing).
         dep = app.deployment
-        auto = dep.config.autoscaling
-        if auto is not None and auto.slo_driven:
-            raise NotImplementedError(
-                "AutoscalingConfig(slo_driven=True) is not ported to "
-                "ray_tpu_torch yet: ROADMAP A6 (the serve SLO watchdog)"
-            )
         with self._lock:
             existing = self._states.get(dep.name)
         if _is_child and existing is not None and existing.source_app is app:
@@ -479,33 +479,82 @@ class ServeController:
             hard_dead = True
         return still_starting and not hard_dead
 
+    def _slo_burn_delta(self, state: _DeploymentState) -> int:
+        """New SLO-violating windows in the ServeSLOMonitor attainment
+        ledger since this deployment's last autoscale pass. The ledger is
+        cumulative, so each state keeps a high-water mark; the monitor is
+        process-global (SLOs are measured at the router, not per
+        deployment), so every slo_driven deployment reacts to a burn."""
+        from ..util.watchdog import serve_slo_monitor
+
+        report = serve_slo_monitor().attainment_report()
+        violated = sum(int(led.get("violated", 0)) for led in report.values())
+        prev = getattr(state, "_slo_violated_seen", 0)
+        state._slo_violated_seen = violated
+        return max(0, violated - prev)
+
+    @staticmethod
+    def _engine_pressure() -> float:
+        """Max batch_fill across registered engines (the
+        raytpu_engine_batch_fill callback gauge): how full the decode
+        batches actually are, the second demand signal next to the
+        router's ongoing count."""
+        from ..util.metrics import registry
+
+        gauge = registry().get("raytpu_engine_batch_fill")
+        if gauge is None:
+            return 0.0
+        return max((v for _t, v in gauge.collect()), default=0.0)
+
     def _autoscale(self, state: _DeploymentState) -> None:
-        """Replica-target policy: ongoing requests over
-        target_ongoing_requests, clamped to [min_replicas, max_replicas].
-        Targets only move here; _reconcile_one realizes them, so
-        scale-down always rides the graceful drain path."""
+        """Replica-target policy. Base term: ongoing requests over
+        target_ongoing_requests. SLO term (slo_driven): new burn windows
+        from the ServeSLOMonitor bump the target one replica past the live
+        count — latency is burning while the ongoing count still looks
+        fine (queued work waiting on slow TTFT counts as few ongoing
+        requests). Targets only move here; _reconcile_one realizes them,
+        so scale-down always rides the graceful drain path."""
         auto = state.deployment.config.autoscaling
         if auto is None:
             return
         import math
 
+        from ..core.config import cfg
         from ..util.events import emit
 
         ongoing = state.replica_set.total_ongoing()
         desired = ongoing / auto.target_ongoing_requests
         target = max(auto.min_replicas, min(auto.max_replicas, math.ceil(desired)))
+        reason = "ongoing"
+        burn = 0
+        if auto.slo_driven and cfg.autoscale_burn_windows > 0:
+            burn = self._slo_burn_delta(state)
+            if burn >= cfg.autoscale_burn_windows:
+                live = max(len(state.replicas), state.target_replicas)
+                pressure = max(desired / max(1, live), self._engine_pressure())
+                if pressure >= cfg.autoscale_pressure_floor:
+                    bumped = min(auto.max_replicas, live + 1)
+                    if bumped > target:
+                        target = bumped
+                        reason = "slo_burn"
         if target > state.target_replicas:
             prev = state.target_replicas
             state.target_replicas = target
             state.last_scale_down = time.time()
             emit("INFO", "serve",
                  f"autoscaler: {state.deployment.name} target "
-                 f"{prev} -> {target} (ongoing {ongoing})",
+                 f"{prev} -> {target} ({reason}"
+                 f"{f', {burn} burn window(s)' if burn else ''}, "
+                 f"ongoing {ongoing})",
                  kind="serve.autoscale", deployment=state.deployment.name,
-                 direction="up", reason="ongoing", burn_windows=0,
+                 direction="up", reason=reason, burn_windows=burn,
                  ongoing=ongoing, target_replicas=target)
         elif target < state.target_replicas:
-            # dampen scale-down
+            # dampen scale-down; a fresh burn window also resets the timer
+            # so a burning deployment never sheds capacity
+            if burn > 0:
+                state.last_scale_down = time.time()
+                return
             if time.time() - state.last_scale_down > auto.scale_down_delay_s:
                 prev = state.target_replicas
                 state.target_replicas = target

@@ -3,8 +3,7 @@
 A copy of `ray_tpu/serve/deployment.py`: the deployment decorator, its
 config (replicas, ongoing and queued bounds, drain, health probes,
 autoscaling) and the binding of constructor arguments into an
-Application. `AutoscalingConfig(slo_driven=True)` needs the SLO monitor,
-which is not ported yet: the controller raises NotImplementedError for it.
+Application.
 """
 
 from __future__ import annotations
@@ -18,8 +17,16 @@ class AutoscalingConfig:
     """Scale on ongoing requests: target = ceil(ongoing /
     target_ongoing_requests), clamped to [min_replicas, max_replicas];
     scale-down is damped by scale_down_delay_s and rides the graceful
-    drain path. slo_driven (the JAX package's SLO-burn term) is not
-    ported yet."""
+    drain path.
+
+    With slo_driven=True the controller additionally reads the
+    ServeSLOMonitor attainment ledger each pass: new SLO-violating
+    windows (TTFT/queue p99 over objective) bump the target by one
+    replica — beyond what the ongoing-count heuristic asks for — as long
+    as there is real demand pressure (cfg.autoscale_pressure_floor), and
+    scale-down stays damped through scale_down_delay_s and the graceful
+    drain path. Thresholds live on cfg (autoscale_burn_windows,
+    autoscale_pressure_floor)."""
 
     min_replicas: int = 1
     max_replicas: int = 4

@@ -16,11 +16,20 @@ engine is not pipelined (the paged engine is).
 
 Both engines share the admission gate (`_check_admission`: the admit-queue
 bound, tenant token-bucket quotas, already-expired deadlines), the TTFT
-decomposition (`_charge_wait`, `_ttft_buckets`, `_observe_tenant_ttft`)
-and the deadline path (`_timeout_request`). Tracing spans, request
-forensics marks and the Prometheus-style gauges and histograms of the JAX
-package are not ported; per-tenant TTFT windows and counts live in
-`serve/tenancy.py`.
+decomposition (`_charge_wait`, `_ttft_buckets`, `_observe_tenant_ttft`:
+the tenancy windows and the `raytpu_serve_ttft_*_seconds` histograms),
+the deadline path (`_timeout_request`) and the observability plumbing of
+the JAX package: the `engine.request` span opened at submit and closed at
+retire (the tracer derives the TTFT / TPOT / queue histograms from it),
+the request-forensics marks (`serve/reqlog.py`: submitted, admitted,
+first_token, finished, shed, timeout; the paged engine adds its own), and
+the engine registry whose engine-labelled callback gauges read each
+engine's `metrics` dict at scrape time (`raytpu_engine_batch_fill`,
+`_tick_seconds`, `_decode_mfu`, `_token_mix`, the prefix-cache and spec
+gauges). `decode_mfu` prices the engine's decode program, counted once on
+meta tensors (`util/profiling.step_cost`), over the EWMA wall time of a
+loop iteration that made progress (`_observe_tick`). Marks and gauges
+carry host values only: nothing here reads the device.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import itertools
 import queue
 import threading
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -39,7 +49,11 @@ from ..._device import resolve_device
 from ...core.exceptions import BackPressureError, RequestTimeoutError
 from ...models.transformer import TransformerConfig, decode_step, init_cache, prefill
 from ...ops import rope_frequencies
-from .. import tenancy
+from ...core.config import cfg
+from ...core.exceptions import ProfilingError
+from ...util import profiling, tracing
+from ...util.metrics import get_or_create_gauge, get_or_create_histogram
+from .. import reqlog, tenancy
 from .graphs import DevicePass, to_device
 from .speculative import categorical
 
@@ -85,7 +99,10 @@ class _Request:
     # emitted tokens equals any of these
     stop_sequences: tuple = ()
     stop_tail: list = dataclasses.field(default_factory=list)
-    generated: int = 0  # tokens emitted so far
+    # observability: tokens emitted so far, and the engine.request span
+    # opened at submit — TTFT/TPOT/queue-time derive from it at retire
+    generated: int = 0
+    span: Any = None
     # end-to-end deadline (epoch seconds): expired requests fail fast at
     # admit and are evicted mid-generation
     deadline_ts: Optional[float] = None
@@ -100,7 +117,7 @@ class _Request:
     # True while parked by lane preemption (waiting in the fair queue with
     # its generated prefix folded into the prompt)
     parked: bool = False
-    request_id: Optional[str] = None  # the caller's end-to-end id
+    request_id: Optional[str] = None  # the end-to-end public id (reqlog)
     # TTFT decomposition: queue_wait / preempt_wait are charged at each
     # (re-)admission from enqueued_at, so at first token prefill_compute =
     # TTFT - queue_wait - preempt_wait by construction
@@ -109,8 +126,158 @@ class _Request:
     preempt_wait_s: float = 0.0
     cached_tokens: int = 0  # prompt tokens served by the prefix cache
     # latch: the paged admit loop retries a page-stalled admission every
-    # tick; one stall episode counts once per request
+    # tick — mark engine.page_stall once per stall episode, not per retry
     stall_marked: bool = False
+
+
+def _start_request_span(request: _Request, engine_kind: str) -> None:
+    """Open the request's engine.request span at submit time (caller
+    thread: it nests under an active serve.route/actor.execute span).
+    Shared by the dense and paged engines."""
+    attrs = {"rid": request.rid, "engine": engine_kind,
+             "prompt_tokens": len(request.prompt),
+             "max_tokens": request.max_tokens}
+    if request.request_id is not None:
+        # joins the trace to the request-forensics timeline (reqlog)
+        attrs["request_id"] = request.request_id
+    request.span = tracing.tracer().start_span(
+        "engine.request", lane=f"engine:{engine_kind}", attrs=attrs)
+
+
+def _finish_request_span(request: _Request, status: str = "OK") -> None:
+    """Close the request span at retire: TTFT/TPOT/token counts become
+    span attributes, and the tracer derives raytpu_serve_ttft_seconds /
+    raytpu_serve_tpot_seconds from them."""
+    span = request.span
+    if span is None:
+        return
+    attrs: Dict[str, Any] = {"generated_tokens": request.generated}
+    if request.first_token_at is not None:
+        attrs["ttft_s"] = request.first_token_at - request.submitted_at
+        if request.generated > 1:
+            attrs["tpot_s"] = ((time.perf_counter() - request.first_token_at)
+                               / (request.generated - 1))
+    span.end(status=status, **attrs)
+
+
+# ------------------------------------------- batch-occupancy accounting
+#
+# Both engines keep per-tick occupancy numbers in their `metrics` dict;
+# this registry exposes them as engine-labeled callback gauges so the SLO
+# monitor and the autoscaler read batch headroom straight off /metrics.
+# Weak values: a shut-down engine's series disappears instead of freezing
+# at its last value.
+
+_ENGINES: "weakref.WeakValueDictionary[str, Any]" = weakref.WeakValueDictionary()
+_engine_seq = itertools.count()
+_TICK_EWMA = 0.2  # per-tick smoothing for tick_seconds/decode_mfu
+
+
+def _register_engine_metrics(engine: Any, kind: str) -> str:
+    label = f"{kind}-{next(_engine_seq)}"
+    _ENGINES[label] = engine
+    _ensure_engine_gauges()
+    return label
+
+
+def _engine_metric_sampler(key: str):
+    def sample():
+        return [({"engine": label}, float(e.metrics.get(key, 0.0)))
+                for label, e in list(_ENGINES.items())]
+
+    return sample
+
+
+# (name suffix, metrics key, help) of the engine-labeled callback gauges
+_ENGINE_GAUGES = (
+    ("batch_fill", "batch_fill",
+     "Fraction of the engine's decode slots occupied at the last tick "
+     "(batch headroom for the SLO monitor / autoscaler)."),
+    ("tick_seconds", "tick_seconds",
+     "EWMA wall time of one engine tick (decode round / paged loop "
+     "iteration that made progress)."),
+    ("decode_mfu", "decode_mfu",
+     "Model-FLOPs utilization of the decode program, from its counted "
+     "FLOPs (step_cost on meta tensors) over the EWMA tick time."),
+    ("prefix_cache_hits", "prefix_cache_hits",
+     "Cumulative prefix-cache page hits (pages of prompt KV reused "
+     "instead of re-prefilled)."),
+    ("prefix_cache_misses", "prefix_cache_misses",
+     "Cumulative prefix-cache page misses (page-aligned prompt pages "
+     "that had to prefill)."),
+    ("prefix_cache_evictions", "prefix_cache_evictions",
+     "Cumulative cache-pinned pages evicted back to the pool under "
+     "allocation pressure."),
+    ("prefix_cache_pages", "prefix_cache_pages",
+     "Pages currently pinned by the prefix cache (each holds one "
+     "prompt page's KV warm for reuse)."),
+    ("prefix_cache_hit_rate", "prefix_cache_hit_rate",
+     "Lifetime fraction of page-aligned prompt pages served from the "
+     "prefix cache."),
+    ("spec_proposed", "spec_proposed",
+     "Cumulative draft tokens proposed for speculative verify rounds "
+     "(zero when speculation is off)."),
+    ("spec_accepted", "spec_accepted",
+     "Cumulative draft tokens accepted by the exact verify step "
+     "(each one is a decode launch the lane did not pay)."),
+    ("spec_acceptance_rate", "spec_acceptance_rate",
+     "Lifetime fraction of proposed draft tokens accepted — the knob "
+     "that decides whether speculation is paying for its verify rows."),
+    ("spec_rollback_pages", "spec_rollback_pages",
+     "Cumulative KV pages freed by post-rejection rollback (pages "
+     "allocated for speculated positions past the accepted frontier)."),
+)
+
+
+def _ensure_engine_gauges() -> None:
+    # no module-level one-shot latch: get_or_create_gauge is idempotent
+    # against the LIVE registry, which tests reset with registry().clear()
+    for suffix, key, doc in _ENGINE_GAUGES:
+        get_or_create_gauge(f"raytpu_engine_{suffix}", doc, tag_keys=("engine",),
+                            fn=_engine_metric_sampler(key))
+
+    def token_mix():
+        out = []
+        for label, e in list(_ENGINES.items()):
+            out.append(({"engine": label, "phase": "prefill"},
+                        float(e.metrics.get("prefill_tokens", 0.0))))
+            out.append(({"engine": label, "phase": "decode"},
+                        float(e.metrics.get("decode_tokens", 0.0))))
+        return out
+
+    get_or_create_gauge(
+        "raytpu_engine_token_mix",
+        "Cumulative tokens processed per phase (prefill-ingested vs "
+        "decode-generated): the batch composition serving capacity "
+        "planning prices against.",
+        tag_keys=("engine", "phase"), fn=token_mix,
+    )
+
+
+def _tick_cost(fn: Any, *args: Any) -> Any:
+    """The counted cost of an engine's decode program at the live
+    argument shapes (`profiling.step_cost`: one run on meta tensors, no
+    device work), cached by the caller. None when accounting is off
+    (profile_cost_accounting) or the count fails: a count on meta tensors
+    never touches the card, and accounting never fails a tick."""
+    if not cfg.profile_cost_accounting:
+        return None
+    try:
+        return profiling.step_cost(fn, *args)
+    except ProfilingError:
+        return None
+
+
+def _observe_tick(engine: Any, tick_s: float) -> None:
+    """Fold one tick's wall time into the EWMA and refresh the decode
+    MFU against the cached tick cost."""
+    prev = engine.metrics.get("tick_seconds", 0.0)
+    ewma = tick_s if prev <= 0 else (1 - _TICK_EWMA) * prev + _TICK_EWMA * tick_s
+    engine.metrics["tick_seconds"] = ewma
+    cost = engine._tick_cost
+    if cost and ewma > 0:  # False = accounting unavailable
+        engine.metrics["decode_mfu"] = profiling.roofline(cost, ewma)["mfu"]
+        engine.metrics["decode_flops"] = cost.total_flops
 
 
 # ------------------------------------------------- admission and deadlines
@@ -125,28 +292,36 @@ def _queue_bound(config) -> int:
     return bound
 
 
-def _check_admission(engine, deadline_ts, tenant: str = "default") -> None:
+def _check_admission(engine, deadline_ts, tenant: str = "default",
+                     request_id: Optional[str] = None) -> None:
     """Shared submit-time gate for both engines: bound the queue (typed
     BackPressureError on overflow), charge the tenant's token bucket
     (typed shed carrying the bucket's refill time as retry_after_s), and
     fail already-expired deadlines fast instead of queueing work nobody
-    will wait for."""
+    will wait for. Every exit records a TERMINAL phase mark so a shed
+    request never appears forever-pending in the forensics plane."""
     bound = _queue_bound(engine.config)
     backlog = engine._queue.qsize() + len(getattr(engine, "_fair", ()))
     if bound >= 0 and backlog >= bound:
         engine.metrics["shed"] += 1
         tenancy.count_shed(tenant)
+        reqlog.mark(request_id, "engine.shed", tenant=tenant,
+                    reason="queue_full", backlog=backlog)
         raise BackPressureError(f"engine admit queue is full ({bound} waiting requests)")
     retry_after_s = tenancy.quota_check(tenant)
     if retry_after_s is not None:
         engine.metrics["shed"] += 1
         tenancy.count_shed(tenant, retry_after_s)
+        reqlog.mark(request_id, "engine.shed", tenant=tenant,
+                    reason="quota", retry_after_s=retry_after_s)
         raise BackPressureError(
             f"tenant {tenant!r} is over its token-bucket quota",
             retry_after_s=retry_after_s,
         )
     if deadline_ts is not None and time.time() >= deadline_ts:
         engine.metrics["timeouts"] += 1
+        reqlog.mark(request_id, "engine.timeout", tenant=tenant,
+                    reason="expired_before_submit")
         raise RequestTimeoutError("request deadline expired before submit")
     tenancy.count_request(tenant)
 
@@ -192,19 +367,45 @@ def _ttft_buckets(request: _Request) -> Dict[str, float]:
 
 def _observe_tenant_ttft(request: _Request) -> Dict[str, float]:
     """First-token hook shared by both engines: report the request's TTFT
-    and its decomposition into the tenancy windows, and return the
-    buckets. Only ever called for requests that produced a token."""
+    into the tenancy window ServeSLOMonitor drains for per-tenant
+    attainment, push the decomposition into the per-tenant breakdown
+    window + histograms, and return the buckets (the engines attach them
+    to the engine.first_token mark). Only ever called for requests that
+    produced a token."""
     if request.first_token_at is None:
         return {}
     buckets = _ttft_buckets(request)
     tenancy.observe_ttft(request.tenant, buckets["ttft_s"])
     tenancy.observe_ttft_breakdown(request.tenant, buckets)
+    tags = {"tenant": request.tenant}
+    bounds = (0.005, 0.025, 0.1, 0.5, 2.5, 10.0)
+    get_or_create_histogram(
+        "raytpu_serve_ttft_queue_wait_seconds",
+        "Per-tenant TTFT bucket: time waiting in admit/fair queues.",
+        boundaries=bounds, tag_keys=("tenant",),
+    ).observe(buckets["queue_wait_s"], tags=tags)
+    get_or_create_histogram(
+        "raytpu_serve_ttft_preempt_wait_seconds",
+        "Per-tenant TTFT bucket: time parked by lane preemption.",
+        boundaries=bounds, tag_keys=("tenant",),
+    ).observe(buckets["preempt_wait_s"], tags=tags)
+    get_or_create_histogram(
+        "raytpu_serve_ttft_prefill_compute_seconds",
+        "Per-tenant TTFT bucket: prompt-ingest compute (TTFT minus the "
+        "wait buckets).",
+        boundaries=bounds, tag_keys=("tenant",),
+    ).observe(buckets["prefill_compute_s"], tags=tags)
     return buckets
 
 
 def _timeout_request(request: _Request) -> None:
     """Fail a request on deadline expiry: the stream raises a typed
-    RequestTimeoutError."""
+    RequestTimeoutError, the request span closes as TIMEOUT, and the
+    forensics timeline records its terminal phase."""
+    _finish_request_span(request, status="TIMEOUT")
+    request.span = None  # _finish must not double-close the span
+    reqlog.mark(request.request_id, "engine.timeout", tenant=request.tenant,
+                generated=request.generated)
     request.out.put(RequestTimeoutError(
         f"request {request.rid} cancelled: deadline exceeded after "
         f"{request.generated} generated token(s)"
@@ -272,7 +473,7 @@ class ResponseStream:
 
     @property
     def request_id(self) -> Optional[str]:
-        """The caller's end-to-end request id (None when none was given)."""
+        """The end-to-end public request id (forensics/timeline key)."""
         return self._request.request_id
 
     @property
@@ -334,10 +535,19 @@ class LLMEngine:
         rope = (None if mc.pos_emb == "learned" else
                 rope_frequencies(mc.head_dim, mc.max_seq, mc.rope_theta, device=self.device))
 
+        def decode_program(params, cache, rope_tables, tokens, positions, temps, generator):
+            logits, _ = decode_step(params, cache, tokens, positions, mc,
+                                    rope_tables=rope_tables)
+            return _sample_plain(logits, generator, temps)
+
         def decode(tokens, positions, temps):
-            logits, _ = decode_step(self.params, self.cache, tokens, positions, mc,
-                                    rope_tables=rope)
-            return _sample_plain(logits, self._gen, temps)
+            return decode_program(self.params, self.cache, rope, tokens, positions, temps,
+                                  self._gen)
+
+        # the decode program over explicit arguments, for its cost count on
+        # meta copies of them (a CPU generator draws on meta tensors)
+        self._rope = rope
+        self._decode_program = lambda *args: decode_program(*args, torch.Generator())
 
         i64 = torch.int64
         self._decode = DevicePass(
@@ -357,10 +567,14 @@ class LLMEngine:
             "ongoing": 0.0,
             "shed": 0.0,
             "timeouts": 0.0,
+            # batch-occupancy accounting (engine-labeled gauges above)
             "batch_fill": 0.0,
+            "tick_seconds": 0.0,
             "prefill_tokens": 0.0,
             "decode_tokens": 0.0,
         }
+        self._tick_cost = None  # decode program cost, set on the first round
+        self.metrics_label = _register_engine_metrics(self, "dense")
         self._thread = threading.Thread(target=self._loop, daemon=True, name="llm-engine")
         self._thread.start()
 
@@ -392,7 +606,9 @@ class LLMEngine:
                 "engine samples temperature-only); use PagedEngineConfig"
             )
         tenant = tenant or "default"
-        _check_admission(self, deadline_ts, tenant)
+        if request_id is None and reqlog.enabled():
+            request_id = reqlog.new_request_id()
+        _check_admission(self, deadline_ts, tenant, request_id=request_id)
         request = _Request(
             rid=next(self._rid),
             prompt=[int(t) for t in prompt_tokens],
@@ -406,6 +622,9 @@ class LLMEngine:
             priority=int(priority or 0),
             request_id=request_id,
         )
+        _start_request_span(request, "dense")
+        reqlog.mark(request_id, "engine.submitted", tenant=tenant,
+                    prompt_tokens=len(request.prompt), max_tokens=max_tokens)
         request.enqueued_at = time.perf_counter()
         self._queue.put(request)
         _reject_if_dead(self)
@@ -486,7 +705,19 @@ class LLMEngine:
         """Prefill at the prompt's bucket (B 1: one flash launch per layer),
         K/V written straight into the slot's cache lane, then the first
         token sampled and read back."""
-        _charge_wait(request)
+        wait = _charge_wait(request)
+        reqlog.mark(request.request_id, "engine.admitted",
+                    tenant=request.tenant, lane=slot_idx, wait_s=wait)
+        if request.span is not None:
+            # admit time: everything between submit and this slot freeing
+            # up was queue wait
+            request.span.set_attribute("queue_s", time.perf_counter() - request.submitted_at)
+        prefill_span = tracing.tracer().start_span(
+            "engine.prefill",
+            parent=request.span.context if request.span is not None else None,
+            lane=f"engine:slot{slot_idx}",
+            attrs={"rid": request.rid, "prompt_tokens": len(request.prompt)},
+        )
         n = len(request.prompt)
         bucket = self._bucket(n)
         padded = np.zeros((1, bucket), dtype=np.int64)
@@ -499,7 +730,9 @@ class LLMEngine:
             temps = to_device(np.array([request.temperature], dtype=np.float32), self.device)
             first = int(_sample_plain(last_logits, self._gen, temps)[0])
         request.first_token_at = time.perf_counter()
-        _observe_tenant_ttft(request)
+        buckets = _observe_tenant_ttft(request)
+        reqlog.mark(request.request_id, "engine.first_token", tenant=request.tenant, **buckets)
+        prefill_span.end(bucket=bucket)
         self.metrics["prefill_tokens"] += float(n)
         request.generated += 1
         request.out.put(first)
@@ -519,6 +752,12 @@ class LLMEngine:
 
     def _finish(self, slot: _Slot) -> None:
         if slot.request is not None:
+            if slot.request.span is not None:
+                # span=None means the timeout path already sealed this
+                # request with its own terminal mark
+                reqlog.mark(slot.request.request_id, "engine.finished",
+                            tenant=slot.request.tenant, generated=slot.request.generated)
+            _finish_request_span(slot.request)
             slot.request.out.put(None)
         slot.request = None
         slot.remaining = 0
@@ -538,7 +777,9 @@ class LLMEngine:
 
     def _decode_round(self) -> None:
         """One decode step over every slot (the graph on the card), its
-        sampled tokens read back on this thread."""
+        sampled tokens read back on this thread; the round's wall time
+        feeds tick_seconds and decode_mfu."""
+        t0 = time.perf_counter()
         n = len(self.slots)
         tokens = np.zeros(n, dtype=np.int64)
         positions = np.zeros(n, dtype=np.int64)
@@ -550,10 +791,15 @@ class LLMEngine:
                 positions[i] = slot.position
                 temps[i] = slot.request.temperature
                 active.append(i)
+        if self._tick_cost is None:
+            self._tick_cost = _tick_cost(
+                self._decode_program, self.params, self.cache, self._rope, torch.from_numpy(tokens),
+                torch.from_numpy(positions), torch.from_numpy(temps)) or False
         with torch.no_grad():
             sampled = self._decode(tokens=tokens, positions=positions, temps=temps).tolist()
         self.metrics["decode_steps"] += 1
         self.metrics["decode_tokens"] += float(len(active))
+        _observe_tick(self, time.perf_counter() - t0)
         for i in active:
             slot = self.slots[i]
             token = int(sampled[i])
@@ -597,6 +843,7 @@ def _fail_all_requests(slots, request_queue, exc: BaseException) -> None:
     """Engine-death path: surface `exc` on every active and queued stream."""
     for slot in slots:
         if slot.request is not None:
+            _finish_request_span(slot.request, status="ERROR")
             slot.request.out.put(exc)
             slot.request = None
     while True:
@@ -604,6 +851,7 @@ def _fail_all_requests(slots, request_queue, exc: BaseException) -> None:
             request = request_queue.get_nowait()
         except queue.Empty:
             return
+        _finish_request_span(request, status="ERROR")
         request.out.put(exc)
 
 

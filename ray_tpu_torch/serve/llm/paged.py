@@ -419,6 +419,30 @@ def batched_chunk_prefill_step(
     return x_last @ lm_head_weights(params, c), cache
 
 
+def chunk_prefill_step(
+    params: Params,
+    cache: Dict[str, torch.Tensor],
+    page_row: torch.Tensor,        # (maxP,) this slot's block table
+    chunk_page_ids: torch.Tensor,  # (chunk_pages,) pages this chunk fills
+    tokens: torch.Tensor,          # (1, C) the chunk, right-padded
+    offset: torch.Tensor,          # () tokens already ingested (page-aligned)
+    total_len: torch.Tensor,       # () offset + real tokens in this chunk
+    config: TransformerConfig,
+    *,
+    page_size: int,
+    rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-slot chunk prefill: the B=1 case of
+    batched_chunk_prefill_step (kept as the documented one-slot API).
+    Returns the last real token's logits (1, V) and the pool, updated in
+    place."""
+    return batched_chunk_prefill_step(
+        params, cache, page_row[None], chunk_page_ids[None], tokens,
+        offset.reshape(1), total_len.reshape(1), config,
+        page_size=page_size, rope_tables=rope_tables,
+    )
+
+
 def ragged_mixed_step(
     params: Params,
     cache: Dict[str, torch.Tensor],

@@ -48,8 +48,20 @@ Retirement (EOS / budget) is detected at emission, up to a few blocks
 after the fact. Blocks still in flight for a retired slot may write into
 its freed pages; that is safe because every pass runs on one stream, in
 order: a later owner's writes come after them, and attention masks rows
-beyond a slot's length. Request tracing, forensics marks and tensor
-parallelism, which the JAX engine has, are not ported yet.
+beyond a slot's length.
+
+OBSERVABILITY, as in the JAX engine: the `engine.request` span (submit to
+retire) and the `engine.prefill` span (admission to the last chunk);
+request-forensics marks (`serve/reqlog.py`) made where JAX makes them —
+submitted, admitted / resumed, page_stall, cow, preempted at the host
+decision; prefill_chunk and decode_block at DISPATCH (a pass in flight);
+spec_round, first_token and finished at EMISSION, when the drain hands the
+loop the values; `serve.lane_preempted` / `serve.lane_resumed` events; and
+the engine gauges (`batch_fill`, `tick_seconds`: the EWMA wall time of a
+loop iteration that made progress; `decode_mfu`: the plain K-step decode
+block's counted FLOPs over it). A mark carries host values only and is
+never made inside a graph capture. Tensor parallelism is not ported yet
+(ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -68,6 +80,9 @@ from ..._device import resolve_device
 from ...core.config import cfg
 from ...models.transformer import TransformerConfig
 from ...ops import rope_frequencies
+from ...util import tracing
+from ...util.events import emit
+from .. import reqlog
 from ..tenancy import FairQueue
 from .engine import (
     ResponseStream,
@@ -75,12 +90,17 @@ from .engine import (
     _check_admission,
     _check_params_device,
     _fail_all_requests,
+    _finish_request_span,
     _hit_stop_sequence,
     _normalize_stop_sequences,
     _observe_tenant_ttft,
+    _observe_tick,
+    _register_engine_metrics,
     _reject_if_dead,
     _Request,
     _sample_plain,
+    _start_request_span,
+    _tick_cost,
     _timeout_request,
 )
 from .graphs import DevicePass, to_device
@@ -249,6 +269,9 @@ class _PagedSlot:
     # lane preemption: a marked lane stops dispatching and is parked
     # (trimmed to its emitted frontier) once its in-flight work drains
     preempt_pending: bool = False
+    # observability: admit wall time, so the per-request engine.prefill
+    # span covers chunked ingest end to end (chunks batch across lanes)
+    prefill_t0: float = 0.0
 
     @property
     def free(self) -> bool:
@@ -352,6 +375,9 @@ class PagedLLMEngine:
             "pages_in_use": 0.0,
             "shed": 0.0,
             "timeouts": 0.0,
+            # batch-occupancy accounting (engine.py gauge registry)
+            "batch_fill": 0.0,
+            "tick_seconds": 0.0,
             "prefill_tokens": 0.0,
             "decode_tokens": 0.0,
             "mixed_ticks": 0.0,
@@ -372,6 +398,8 @@ class PagedLLMEngine:
             "lane_resumes": 0.0,
             "preempted_pages": 0.0,
         }
+        self._tick_cost = None  # decode-block cost, set at the first plain dispatch
+        self.metrics_label = _register_engine_metrics(self, "paged")
         self._build_passes()
         self.capture_s = 0.0
         if self.config.precompile and self.device.type == "cuda":
@@ -450,17 +478,33 @@ class PagedLLMEngine:
                 break
             b = min(b * 2, ms)
 
+        def block_program(sampler, params, cache, rope_tables, block_tables, tokens, positions,
+                          mask, generator, temps, *filters):
+            toks, _ = run_decode_block(
+                params, cache, block_tables, tokens, positions, mc,
+                page_size=ps, steps=K, rope_tables=rope_tables,
+                sample=lambda logits: sampler(logits, generator, temps, *filters),
+            )
+            _merge_tokens(tokens, toks[-1], mask)
+            return toks
+
         def decode_block(sampler):
             def run(block_tables, positions, mask, temps, top_ks=None, top_ps=None):
                 filters = () if top_ks is None else (top_ks, top_ps)
-                toks, _ = run_decode_block(
-                    self.params, self.cache, block_tables, self._tokens_dev, positions, mc,
-                    page_size=ps, steps=K, rope_tables=rope,
-                    sample=lambda logits: sampler(logits, self._gen, temps, *filters),
-                )
-                _merge_tokens(self._tokens_dev, toks[-1], mask)
-                return toks
+                return block_program(sampler, self.params, self.cache, rope, block_tables,
+                                     self._tokens_dev, positions, mask, self._gen, temps,
+                                     *filters)
             return run
+
+        def plain_block(params, cache, rope_tables, block_tables, tokens, positions, mask,
+                        temps):
+            # the plain decode block over explicit arguments, for its cost
+            # count on meta copies of them (a CPU generator draws on meta)
+            return block_program(_sample_plain, params, cache, rope_tables, block_tables,
+                                 tokens, positions, mask, torch.Generator(), temps)
+
+        self._rope = rope
+        self._decode_program = plain_block
 
         self._decode: Dict[str, DevicePass] = {}
         if not spec:
@@ -518,7 +562,9 @@ class PagedLLMEngine:
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         tenant = tenant or "default"
-        _check_admission(self, deadline_ts, tenant)
+        if request_id is None and reqlog.enabled():
+            request_id = reqlog.new_request_id()
+        _check_admission(self, deadline_ts, tenant, request_id=request_id)
         request = _Request(
             rid=next(self._rid),
             prompt=[int(t) for t in prompt_tokens],
@@ -534,6 +580,9 @@ class PagedLLMEngine:
             priority=int(priority or 0),
             request_id=request_id,
         )
+        _start_request_span(request, "paged")
+        reqlog.mark(request_id, "engine.submitted", tenant=tenant,
+                    prompt_tokens=len(request.prompt), max_tokens=max_tokens)
         request.enqueued_at = time.perf_counter()
         self._queue.put(request)
         _reject_if_dead(self)
@@ -669,14 +718,20 @@ class PagedLLMEngine:
                 pages = self.allocator.alloc(n)
         return pages
 
-    def _grow(self, idx: int, slot: _PagedSlot, pages_needed: int) -> bool:
+    def _grow(self, idx: int, slot: _PagedSlot, pages_needed: int,
+              reason: Optional[str] = None) -> bool:
         """Grow a slot's page list to `pages_needed`; False (and the slot
-        marked stalled) when the pool is short."""
+        marked stalled) when the pool is short. A stall episode with a
+        `reason` records one engine.page_stall mark (the JAX engine marks
+        prefill, decode-block and verify growth, not the ride-along)."""
         if pages_needed <= len(slot.pages):
             return True
         extra = self._alloc_pages(pages_needed - len(slot.pages))
         if extra is None:
             if not slot.stalled:
+                if reason is not None:
+                    reqlog.mark(slot.request.request_id, "engine.page_stall",
+                                tenant=slot.request.tenant, reason=reason)
                 slot.stalled = True
                 self.metrics["page_stalls"] += 1
             return False
@@ -781,7 +836,8 @@ class PagedLLMEngine:
         slot = self.slots[idx]
         request = slot.request
         freed = len(slot.pages)
-        request.prompt = list(request.prompt) + list(request.gen_tokens)
+        generated = list(request.gen_tokens)
+        request.prompt = list(request.prompt) + generated
         request.max_tokens = slot.emit_remaining
         request.gen_tokens = []
         request.parked = True
@@ -804,8 +860,15 @@ class PagedLLMEngine:
         self._fair.requeue(request, request.tenant, request.priority)
         # the park's wait charges into the preempt_wait TTFT bucket
         request.enqueued_at = time.perf_counter()
+        reqlog.mark(request.request_id, "engine.preempted", tenant=request.tenant,
+                    lane=idx, pages=freed, generated=len(generated))
         self.metrics["lane_preemptions"] += 1
         self.metrics["preempted_pages"] += float(freed)
+        emit("INFO", "serve",
+             f"preempted decode lane slot={idx} rid={request.rid} "
+             f"tenant={request.tenant} pages={freed}",
+             kind="serve.lane_preempted", rid=request.rid, tenant=request.tenant,
+             pages=freed)
         return freed
 
     def _reclaim_pages(self, incoming: _Request, need: int) -> bool:
@@ -874,18 +937,33 @@ class PagedLLMEngine:
                 # fresh virtual-time charge
                 self._fair.requeue(request, request.tenant, request.priority)
                 self.metrics["page_stalls"] += 1
-                request.stall_marked = True
+                if not request.stall_marked:
+                    request.stall_marked = True
+                    reqlog.mark(request.request_id, "engine.page_stall",
+                                tenant=request.tenant, reason="admit", need_pages=fresh_n)
                 return
             request.stall_marked = False
-            _charge_wait(request)
+            wait = _charge_wait(request)
             request.cached_tokens = len(hit) * pc.page_size
             if request.parked:
                 request.parked = False
                 self.metrics["lane_resumes"] += 1
+                emit("INFO", "serve",
+                     f"resuming preempted lane rid={request.rid} tenant={request.tenant}",
+                     kind="serve.lane_resumed", rid=request.rid, tenant=request.tenant)
+                reqlog.mark(request.request_id, "engine.resumed", tenant=request.tenant,
+                            lane=idx, wait_s=wait, hit_pages=len(hit))
+            else:
+                reqlog.mark(request.request_id, "engine.admitted", tenant=request.tenant,
+                            lane=idx, wait_s=wait, hit_pages=len(hit),
+                            cached_tokens=request.cached_tokens)
             slot.request = request
             slot.pages = list(hit) + pages
             slot.position = 0
             slot.prefill_offset = len(hit) * pc.page_size
+            slot.prefill_t0 = time.time()
+            if request.span is not None:
+                request.span.set_attribute("queue_s", time.perf_counter() - request.submitted_at)
             slot.stalled = False
             slot.dispatch_remaining = 0
             slot.done_dispatching = False
@@ -918,12 +996,16 @@ class PagedLLMEngine:
             if not slot.stalled:
                 slot.stalled = True
                 self.metrics["page_stalls"] += 1
+                reqlog.mark(slot.request.request_id, "engine.page_stall",
+                            tenant=slot.request.tenant, reason="cow")
             return False
         copy_page(self.cache, page, fresh[0], n_layers=self.model_config.n_layers)
         self.allocator.free([page])
         slot.pages[page_index] = fresh[0]
         self.block_tables[idx, page_index] = fresh[0]
         self.metrics["prefix_cache_cow"] += 1
+        reqlog.mark(slot.request.request_id, "engine.cow", tenant=slot.request.tenant,
+                    page=page, fresh_page=fresh[0])
         return True
 
     # ------------------------------------------------------------ mixed tick
@@ -955,7 +1037,7 @@ class PagedLLMEngine:
             # chunk's page window may brush the block-table cap: grow only
             # to the cap; window pages past it stay scratch-mapped, and only
             # pad rows land there
-            if not self._grow(idx, slot, min(first_page + cp, maxp)):
+            if not self._grow(idx, slot, min(first_page + cp, maxp), reason="prefill_growth"):
                 continue
             slot.stalled = False
             work.append((idx, offset, first_page))
@@ -972,6 +1054,8 @@ class PagedLLMEngine:
             prompt = slot.request.prompt
             n_real = min(ct, len(prompt) - offset)
             self.metrics["prefill_tokens"] += float(n_real)
+            reqlog.mark(slot.request.request_id, "engine.prefill_chunk",
+                        tenant=slot.request.tenant, offset=offset, tokens=n_real)
             tokens[lane, :n_real] = prompt[offset : offset + n_real]
             page_rows[lane] = self.block_tables[idx]
             window = slot.pages[first_page : first_page + cp]
@@ -1024,8 +1108,10 @@ class PagedLLMEngine:
             packed = _dec_pack(self._tokens_dev, sampled,
                                to_device(dec_active == 1, self.device))
             self._fetch("block", dec_lanes, packed)
-            for i, _, _ in dec_lanes:
+            for i, request, _ in dec_lanes:
                 slot = self.slots[i]
+                reqlog.mark(request.request_id, "engine.decode_block",
+                            tenant=request.tenant, steps=1)
                 slot.position += 1
                 slot.dispatch_remaining -= 1
                 slot.blocks_in_flight += 1
@@ -1041,6 +1127,13 @@ class PagedLLMEngine:
             slot.position = int(totals[lane])
             self.metrics["prefill_chunks"] += 1
             if not slot.prefilling:
+                request = slot.request
+                tracing.tracer().record_span(
+                    "engine.prefill", slot.prefill_t0, time.time(),
+                    parent=request.span.context if request.span is not None else None,
+                    lane=f"engine:slot{idx}",
+                    attrs={"rid": request.rid, "prompt_tokens": len(request.prompt)},
+                )
                 finished.append((lane, idx))
                 if self.prefix_cache is not None:
                     # publish every page the prompt fully covers (their KV
@@ -1096,7 +1189,7 @@ class PagedLLMEngine:
                 slot.done_dispatching = True
                 continue
             pages_needed = (slot.position + useful - 1) // ps + 1
-            if not self._grow(i, slot, pages_needed):
+            if not self._grow(i, slot, pages_needed, reason="decode_growth"):
                 continue
             # copy-on-write: every page this block writes must be private
             if not all(self._ensure_private_page(i, slot, pi)
@@ -1118,11 +1211,20 @@ class PagedLLMEngine:
             toks = self._decode["filtered"](block_tables=bt, positions=positions, mask=mask,
                                             temps=temps, top_ks=top_ks, top_ps=top_ps)
         else:
+            if self._tick_cost is None:
+                # price the K-step decode block once, on meta copies of its
+                # inputs, before its first dispatch
+                self._tick_cost = _tick_cost(
+                    self._decode_program, self.params, self.cache, self._rope,
+                    torch.from_numpy(bt), self._tokens_dev, torch.from_numpy(positions),
+                    torch.from_numpy(mask), torch.from_numpy(temps)) or False
             toks = self._decode["plain"](block_tables=bt, positions=positions, mask=mask,
                                          temps=temps)
         self._fetch("block", lanes, toks)
-        for i, _, _ in lanes:
+        for i, request, _ in lanes:
             slot = self.slots[i]
+            reqlog.mark(request.request_id, "engine.decode_block",
+                        tenant=request.tenant, steps=useful_steps[i])
             slot.position += useful_steps[i]
             slot.dispatch_remaining -= K
             slot.blocks_in_flight += 1
@@ -1184,7 +1286,7 @@ class PagedLLMEngine:
             # rollback floor: only pages this round grows are ever trimmed
             pre_pages = len(slot.pages)
             pages_needed = (slot.position + count - 1) // ps + 1
-            if not self._grow(i, slot, pages_needed):
+            if not self._grow(i, slot, pages_needed, reason="spec_growth"):
                 continue
             if not all(self._ensure_private_page(i, slot, pi)
                        for pi in range(slot.position // ps, pages_needed)):
@@ -1351,12 +1453,16 @@ class PagedLLMEngine:
             # free only pages THIS round grew past the accepted frontier
             # (admit-time spares below pre_pages stay mapped)
             keep = max((new_pos - 1) // ps + 1, pre_pages)
+            rolled = 0
             if keep < len(slot.pages):
                 trimmed = slot.pages[keep:]
                 slot.pages = slot.pages[:keep]
                 self.allocator.free(trimmed)
                 self.block_tables[idx, keep:] = 0
-                self.metrics["spec_rollback_pages"] += float(len(trimmed))
+                rolled = len(trimmed)
+                self.metrics["spec_rollback_pages"] += float(rolled)
+            reqlog.mark(request.request_id, "engine.spec_round", tenant=request.tenant,
+                        proposed=count - 1, accepted=m - 1, rollback_pages=rolled)
             slot.dispatch_remaining -= m
             if slot.dispatch_remaining <= 0:
                 slot.done_dispatching = True
@@ -1373,7 +1479,9 @@ class PagedLLMEngine:
             return  # stale block for an already-retired stream
         if first and request.first_token_at is None:
             request.first_token_at = time.perf_counter()
-            _observe_tenant_ttft(request)
+            buckets = _observe_tenant_ttft(request)
+            reqlog.mark(request.request_id, "engine.first_token", tenant=request.tenant,
+                        **buckets)
         request.generated += 1
         request.out.put(token)
         # the resume ledger: a preempted lane folds these into its prompt
@@ -1402,6 +1510,12 @@ class PagedLLMEngine:
         # pool right after result() sees them returned
         self.allocator.free(slot.pages)
         if slot.request is not None:
+            if slot.request.span is not None:
+                # span=None means the timeout path already sealed this
+                # request with its own terminal mark
+                reqlog.mark(slot.request.request_id, "engine.finished",
+                            tenant=slot.request.tenant, generated=slot.request.generated)
+            _finish_request_span(slot.request)
             slot.request.out.put(None)
         slot.pages = []
         slot.request = None
@@ -1464,6 +1578,7 @@ class PagedLLMEngine:
         pc = self.paged
         gate = self.config.max_inflight_blocks
         while not self._stop.is_set():
+            tick_t0 = time.perf_counter()
             self._admit()
             self._deadline_sweep()
             progressed = self._mixed_tick()
@@ -1498,6 +1613,7 @@ class PagedLLMEngine:
             self.metrics["pages_in_use"] = float(
                 pc.num_pages - 1 - self.allocator.available
             )
+            self.metrics["batch_fill"] = occupied / max(len(self.slots), 1)
             if self.prefix_cache is not None:
                 pcs = self.prefix_cache.stats()
                 for key in ("hits", "misses", "evictions", "pages", "hit_rate"):
@@ -1506,6 +1622,8 @@ class PagedLLMEngine:
                 prop = self.metrics["spec_proposed"]
                 self.metrics["spec_acceptance_rate"] = (
                     self.metrics["spec_accepted"] / prop if prop else 0.0)
+            if progressed:
+                _observe_tick(self, time.perf_counter() - tick_t0)
             if occupied == 0 and not self._inflight:
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()

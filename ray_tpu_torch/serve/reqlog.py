@@ -8,10 +8,11 @@ phases → finish/shed/timeout. Marks live in a bounded ring plus a
 bounded per-request summary index; the shared request id also lands on
 the trace spans, joining the two views.
 
-In the port the HTTP frontends and the router mark their phases; the
-engines' own marks (admit, prefill chunks, first token, decode blocks,
-preemption) are ROADMAP A2.4, as is the federation of each node's tail
-into the control store, which comes with clusters.
+The HTTP frontends, the router and both engines mark their phases
+(`serve/llm/engine.py`, `paged_engine.py`); `util/state.py` answers
+`request_timeline` / `list_requests` from this process's ring. The
+federation of each node's tail into the control store comes with clusters
+(ROADMAP A6).
 
 Phases are TYPED: every ``mark`` names a phase registered in ``PHASES``,
 so the waterfall renderer and the TTFT decomposition can rely on phase

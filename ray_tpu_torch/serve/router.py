@@ -9,11 +9,12 @@ replica on replica-death-class errors with jittered backoff;
 capacity, resilient unary calls park in a weighted-fair queue by tenant
 and priority; requests carry an absolute deadline that fails fast once
 expired (handle.options(timeout_s=...)); a resilient stream fails over
-mid-stream, skipping the prefix already delivered.
+mid-stream, skipping the prefix already delivered. Registering a
+deployment's replica set starts the serve SLO monitor when an objective is
+configured (`util/watchdog.ensure_serve_slo_monitor`).
 
-Not ported yet: the serve SLO monitor the JAX router starts
-(`util/watchdog.ensure_serve_slo_monitor`), and the degraded mode under a
-GCS head outage, which comes with clusters.
+Not ported yet: the degraded mode under a GCS head outage, which comes
+with clusters (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ _replica_sets: "weakref.WeakSet" = weakref.WeakSet()
 
 def _register_replica_set(rset: "ReplicaSet") -> None:
     from ..util.metrics import get_or_create_gauge
+    from ..util.watchdog import ensure_serve_slo_monitor
 
     _replica_sets.add(rset)
     get_or_create_gauge(
@@ -97,6 +99,7 @@ def _register_replica_set(rset: "ReplicaSet") -> None:
             for rs in list(_replica_sets)
         ],
     )
+    ensure_serve_slo_monitor()
 
 
 def _retry_backoff_s(attempt: int) -> float:

@@ -13,16 +13,18 @@ Port of `ray_tpu/serve/tenancy.py`, host-only Python copied into the port
   admission; a shed raises the typed ``BackPressureError`` carrying the
   bucket's actual refill time.
 - **TTFT windows** — engines report each request's time to first token
-  and its decomposition here; a monitor drains the windows.
+  and its decomposition here; ``ServeSLOMonitor`` (util/watchdog.py)
+  drains the windows every check period and keeps per-tenant attainment
+  gauges and burn.
 
 - **HTTP surfacing** — `resolve_http_tenant` reads the tenant from the
   ``cfg.serve_tenant_header`` header or a registered API key, and the
   priority from ``x-priority``, for the serve proxy and the OpenAI
   frontend.
 
-The JAX package also feeds Prometheus-style counters and a rate-limited
-event per shed; here `count_shed` and `count_request` keep plain
-per-tenant counts (`shed_counts`, `request_counts`).
+`count_shed` and `count_request` feed the per-tenant
+``raytpu_serve_tenant_shed_total`` / ``raytpu_serve_tenant_requests_total``
+counters, and a shed emits a rate-limited ``serve.shed`` event.
 
 The registry is module-level, as in the JAX package: engines in one
 process share it.
@@ -90,8 +92,7 @@ _buckets: Dict[str, _TokenBucket] = {}  # guarded-by: _lock
 _ttft_window: Dict[str, List[float]] = {}  # guarded-by: _lock
 _ttft_breakdown: Dict[str, List[Dict[str, float]]] = {}  # guarded-by: _lock
 _queue_wait_window: Dict[str, List[float]] = {}  # guarded-by: _lock
-_shed: Dict[str, int] = {}  # guarded-by: _lock
-_requests: Dict[str, int] = {}  # guarded-by: _lock
+_last_shed_event: Dict[str, float] = {}  # guarded-by: _lock
 _api_keys: Dict[str, str] = {}  # guarded-by: _lock
 
 
@@ -136,11 +137,11 @@ def spec(name: str) -> TenantSpec:
 
 
 def reset() -> None:
-    """Drop all declared tenants, buckets, counts and TTFT windows (test
-    isolation)."""
+    """Drop all declared tenants, buckets, API keys, and TTFT windows
+    (test isolation)."""
     with _lock:
         for table in (_specs, _buckets, _ttft_window, _ttft_breakdown,
-                      _queue_wait_window, _shed, _requests, _api_keys):
+                      _queue_wait_window, _last_shed_event, _api_keys):
             table.clear()
 
 
@@ -166,6 +167,13 @@ def ttft_objective(tenant: str) -> float:
     if slo <= 0:
         slo = float(cfg.serve_slo_ttft_p99_s)
     return slo
+
+
+def any_tenant_slo() -> bool:
+    """True when at least one declared tenant carries its own TTFT
+    objective (the SLO monitor must run even if fleet SLOs are off)."""
+    with _lock:
+        return any(s.ttft_slo_s > 0 for s in _specs.values())
 
 
 # ---------------------------------------------------------------------------
@@ -202,25 +210,42 @@ def quota_check(tenant: str) -> Optional[float]:
 
 
 def count_shed(tenant: str, retry_after_s: Optional[float] = None) -> None:
-    """Attribute one shed to the tenant."""
+    """Attribute one shed to the tenant: per-tenant counter plus a
+    rate-limited serve.shed event (at most one per tenant per second so a
+    flooding tenant cannot flood the flight recorder too)."""
+    from ..util.events import emit
+    from ..util.metrics import get_or_create_counter
+
+    get_or_create_counter(
+        "raytpu_serve_tenant_shed_total",
+        "Requests shed by admission control, by tenant.",
+        tag_keys=("tenant",),
+    ).inc(tags={"tenant": tenant})
+    now = time.monotonic()
     with _lock:
-        _shed[tenant] = _shed.get(tenant, 0) + 1
+        last = _last_shed_event.get(tenant, 0.0)
+        if now - last < 1.0:
+            return
+        _last_shed_event[tenant] = now
+    emit(
+        "WARNING",
+        "serve",
+        f"shedding tenant {tenant!r} (retry_after_s={retry_after_s})",
+        kind="serve.shed",
+        tenant=tenant,
+        retry_after_s=retry_after_s,
+    )
 
 
 def count_request(tenant: str) -> None:
     """Attribute one admitted request to the tenant."""
-    with _lock:
-        _requests[tenant] = _requests.get(tenant, 0) + 1
+    from ..util.metrics import get_or_create_counter
 
-
-def shed_counts() -> Dict[str, int]:
-    with _lock:
-        return dict(_shed)
-
-
-def request_counts() -> Dict[str, int]:
-    with _lock:
-        return dict(_requests)
+    get_or_create_counter(
+        "raytpu_serve_tenant_requests_total",
+        "Requests admitted to an engine, by tenant.",
+        tag_keys=("tenant",),
+    ).inc(tags={"tenant": tenant})
 
 
 # ---------------------------------------------------------------------------

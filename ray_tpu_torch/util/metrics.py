@@ -1,12 +1,13 @@
 """Metrics: Counter/Gauge/Histogram registry with Prometheus exposition.
 
 Port of `ray_tpu/util/metrics.py`: one registry per process, callback
-gauges sampled at scrape time, the Prometheus text format, the merge of
-several nodes' expositions under a `node_id` label, and a stdlib HTTP
-endpoint. `register_runtime_gauges` and the federated cluster payload
-read the control plane and wait for it (ROADMAP A6): until then
-`/metrics/cluster` serves this process's registry labelled "local", as
-the JAX package does outside a runtime.
+gauges sampled at scrape time (`register_runtime_gauges` samples the
+runtime's object store and task log), the Prometheus text format, the
+merge of several nodes' expositions under a `node_id` label, and a stdlib
+HTTP endpoint. Without a cluster `/metrics/cluster` serves this process's
+registry labelled with the head node's id ("local" outside a runtime), as
+the JAX package does; the fan-out over node agents comes with clusters
+(ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -249,6 +250,29 @@ def get_or_create_histogram(name: str, description: str = "",
     return Histogram(name, description, boundaries, tag_keys)
 
 
+def register_runtime_gauges() -> None:
+    """Callback gauges over live runtime internals (scrape-time sampling)."""
+    from ..core import runtime as rt
+
+    def usage(key):
+        def sample():
+            if not rt.is_initialized():
+                return 0.0
+            return float(rt.get_runtime().object_store.usage()[key])
+
+        return sample
+
+    Gauge("raytpu_object_store_host_bytes", "host-tier bytes", fn=usage("host_bytes"))
+    Gauge("raytpu_object_store_num_objects", "objects in store", fn=usage("num_objects"))
+
+    def tasks_finished():
+        if not rt.is_initialized():
+            return 0.0
+        return float(len(rt.get_runtime().task_events()))
+
+    Gauge("raytpu_tasks_finished_total", "completed task events", fn=tasks_finished)
+
+
 # ------------------------------------------------------ head-side federation
 
 
@@ -313,10 +337,24 @@ def merge_cluster_expositions(parts: Dict[str, str],
     return "\n".join(lines) + "\n"
 
 
+def cluster_prometheus_text() -> str:
+    """The /metrics/cluster payload without a cluster: this process's
+    registry labelled with the head node's id ("local" outside a
+    runtime), as JAX's answer without one. The fan-out over node agents
+    comes with clusters (ROADMAP A6)."""
+    from ..core import runtime as rt
+
+    local_text = registry().prometheus_text()
+    if not rt.is_initialized():
+        return merge_cluster_expositions({"local": local_text})
+    local_hex = rt.get_runtime().scheduler.head_node().node_id.hex()
+    return merge_cluster_expositions({local_hex: local_text})
+
+
 def start_metrics_server(host: str = "127.0.0.1", port: int = 0) -> int:
     """Expose /metrics (this process) and /metrics/cluster (the same
-    series, node_id-labeled "local" until the control plane is ported);
-    returns the bound port."""
+    series, node_id-labeled: `cluster_prometheus_text`); returns the
+    bound port."""
     import socketserver
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -324,9 +362,7 @@ def start_metrics_server(host: str = "127.0.0.1", port: int = 0) -> int:
         def do_GET(self):  # noqa: N802
             path = self.path.rstrip("/") or "/metrics"
             if path == "/metrics/cluster":
-                body = merge_cluster_expositions(
-                    {"local": registry().prometheus_text()}
-                ).encode()
+                body = cluster_prometheus_text().encode()
             elif path in ("", "/metrics"):
                 body = registry().prometheus_text().encode()
             else:

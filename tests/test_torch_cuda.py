@@ -1100,3 +1100,79 @@ def test_two_paged_replicas_capture_at_once_and_match_one_engine(cuda):
     # the replicas' page pools go with their engines at shutdown (what
     # stays: cuBLAS workspaces of the capture streams and threads)
     assert serving - torch.cuda.memory_allocated() >= pools
+
+
+# ------------------------------------------------------- observability plane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["decode", "mixed"])
+def test_ragged_custom_op_launches_the_kernel_and_matches_plain(cuda, batch):
+    """K5's entry is the custom op `ray_tpu_torch::ragged_paged_attention`:
+    on CUDA tensors the op launches the kernel (the wrapper's counts move,
+    by kind) and matches the plain version; on meta copies its fake runs
+    and nothing launches."""
+    from ray_tpu_torch.ops.ragged_paged_attention import LAUNCHES_BY_KIND
+
+    (q, kp, vp, desc), kw = _RAGGED_BATCHES[batch](torch.bfloat16, 128, 4)
+    before, kinds = ops.RAGGED.launches, dict(LAUNCHES_BY_KIND)
+    out = torch.ops.ray_tpu_torch.ragged_paged_attention(
+        q, kp, vp, *desc, kw["block_q"], kw["max_q_blocks"], 1.0 / np.sqrt(128))
+    assert ops.RAGGED.launches == before + 1
+    assert LAUNCHES_BY_KIND[batch] == kinds[batch] + 1
+    q_scaled = (q.float() / np.sqrt(128)).to(torch.bfloat16)
+    ref = ops.ragged_reference_attention(q_scaled, kp, vp, *desc, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    meta = [t.to("meta") for t in (q, kp, vp, *desc)]
+    fake = ops.ragged_paged_attention(*meta, **kw)
+    assert fake.device.type == "meta" and fake.shape == q.shape
+    assert ops.RAGGED.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_profile_capture_sees_the_ragged_kernels_of_a_paged_run(cuda):
+    """state.profile() around a paged engine's run on the card: the
+    capture's meta says the device trace ran, and its device events hold
+    the ragged kernels, at most the engine's own count for the window,
+    placed on the wall clock inside the capture window."""
+    import threading
+    import time
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime import get_runtime
+    from ray_tpu_torch.util import profiling, state
+
+    engine = _graph_engine(precompile=True)
+    rt.init(num_cpus=2)
+    try:
+        before = engine.stats()
+
+        def requests():
+            time.sleep(0.2)
+            streams = [engine.submit(list(range(1, 30 + 9 * i)), max_tokens=24)
+                       for i in range(4)]
+            for s in streams:
+                s.result(timeout=300)
+
+        t = threading.Thread(target=requests)
+        t.start()
+        record = state.profile(duration_s=1.5)
+        t.join(timeout=60)
+        assert not t.is_alive()
+        counted = sum(v - before.get(k, 0.0) for k, v in engine.stats().items()
+                      if k in ("launches.ragged.decode", "launches.ragged.mixed"))
+        (node_hex, meta), = [(nh, m) for nh, m in record["nodes"].items()
+                             if not m.get("artifacts_at")]
+        assert meta["device"] == "ok", meta
+        artifacts = {name.split("/", 1)[1]: data for name, data in
+                     get_runtime().profiles.artifacts_for(record["profile_id"]).items()}
+        events = profiling.load_device_trace_events(artifacts, started_at=meta["started_at"])
+        ragged = [e for e in events if e["cat"] == "device" and "ragged" in e["name"]]
+        main = [e for e in ragged if "combine" not in e["name"]]
+        assert 0 < len(main) <= counted
+        lo, hi = meta["started_at"] - 0.05, meta["started_at"] + meta["duration_s"] + 0.05
+        assert all(lo <= e["ts"] / 1e6 <= hi for e in ragged)
+    finally:
+        rt.shutdown()
+        engine.shutdown()

@@ -328,6 +328,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.util.tracing, ray_tpu_torch.serve.deployment, ray_tpu_torch.serve.multiplex\n"
         "import ray_tpu_torch.serve.reqlog, ray_tpu_torch.serve.router, ray_tpu_torch.serve.controller\n"
         "import ray_tpu_torch.serve.api, ray_tpu_torch.serve.llm.openai, ray_tpu_torch.serve.llm.server\n"
+        "import ray_tpu_torch.util.state, ray_tpu_torch.util.watchdog, ray_tpu_torch.util.goodput\n"
+        "import ray_tpu_torch.util.postmortem, ray_tpu_torch.util\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -217,20 +217,29 @@ def test_queue_bound_sheds_typed(manual, manual_dense, kind):
 def test_quota_sheds_typed_with_retry_after(manual, manual_dense, kind):
     """A tenant over its token bucket sheds with the bucket's refill time;
     other tenants are unaffected."""
+    from ray_tpu.util import metrics as jmetrics
+    from ray_tpu_torch.util import metrics as tmetrics
+
     pairs = manual(max_slots=1) if kind == "paged" else manual_dense
-    seen = []
-    for (name, engine), m in zip(pairs, (jtenancy, ttenancy)):
+    seen, counters = [], []
+    for (name, engine), m, metrics in zip(pairs, (jtenancy, ttenancy), (jmetrics, tmetrics)):
+        metrics.registry().clear()
         m.set_tenant("free", quota_rps=0.1, quota_burst=1.0)
         engine.submit([3, 1, 4], max_tokens=2, tenant="free")
         with pytest.raises(SHEDS[name]) as info:
             engine.submit([3, 1, 4], max_tokens=2, tenant="free")
         engine.submit([2, 7, 1], max_tokens=2, tenant="other")
         seen.append((info.value.retry_after_s, engine.metrics["shed"], engine._queue.qsize()))
+        counters.append({
+            metric: {tags["tenant"]: v for tags, v in metrics.registry().get(metric).collect()}
+            for metric in ("raytpu_serve_tenant_shed_total", "raytpu_serve_tenant_requests_total")
+        })
     for retry, shed, queued in seen:
         assert 9.0 < retry <= 10.0 and shed == 1.0 and queued == 2
     assert seen[0][0] == pytest.approx(seen[1][0], abs=0.5)
-    assert ttenancy.shed_counts() == {"free": 1} and ttenancy.request_counts() == {
-        "free": 1, "other": 1}
+    assert counters[0] == counters[1] == {
+        "raytpu_serve_tenant_shed_total": {"free": 1.0},
+        "raytpu_serve_tenant_requests_total": {"free": 1.0, "other": 1.0}}
 
 
 def test_priority_orders_admission_without_preemption(manual):

@@ -234,14 +234,34 @@ def test_ttft_windows_match_jax():
 
 
 def test_shed_and_request_counts_are_plain_values():
-    ttenancy.count_request("a")
-    ttenancy.count_request("a")
-    ttenancy.count_shed("a", 1.5)
-    ttenancy.count_shed("b")
-    assert ttenancy.request_counts() == {"a": 2}
-    assert ttenancy.shed_counts() == {"a": 1, "b": 1}
-    ttenancy.reset()
-    assert ttenancy.request_counts() == {} == ttenancy.shed_counts()
+    """count_request / count_shed feed the per-tenant counters, as JAX's
+    do, and a shed emits one serve.shed event per tenant per second."""
+    from ray_tpu.util import events as jevents
+    from ray_tpu.util import metrics as jmetrics
+    from ray_tpu_torch.util import events as tevents
+    from ray_tpu_torch.util import metrics as tmetrics
+
+    seen = []
+    for m, metrics, events in ((jtenancy, jmetrics, jevents), (ttenancy, tmetrics, tevents)):
+        metrics.registry().clear()
+        t0 = time.time()
+        m.count_request("a")
+        m.count_request("a")
+        m.count_shed("a", 1.5)
+        m.count_shed("a")
+        m.count_shed("b")
+        counts = {
+            name: sorted((tags["tenant"], v) for tags, v in metrics.registry().get(name).collect())
+            for name in ("raytpu_serve_tenant_requests_total", "raytpu_serve_tenant_shed_total")
+        }
+        sheds = [(e["extra"]["tenant"], e["extra"]["retry_after_s"])
+                 for e in events.events().list(kind="serve.shed", since_ts=t0)]
+        seen.append((counts, sheds))
+        m.reset()
+    assert seen[0] == seen[1]
+    assert seen[1][0] == {"raytpu_serve_tenant_requests_total": [("a", 2.0)],
+                          "raytpu_serve_tenant_shed_total": [("a", 2.0), ("b", 1.0)]}
+    assert seen[1][1] == [("a", 1.5), ("b", None)]
 
 
 # ----------------------------------------------------------------- context
