@@ -155,11 +155,41 @@ nonzero and no result line is printed):
              maybe_restore() at 20 with params and moments equal bitwise,
              and a trainer restored at step 10 reproducing steps 11-15's
              losses (bitwise).
+8. ingest  — the streaming data plane and the one-process gang feeding
+             GPT-2 124M (ray_tpu_torch.init() with GPU 1.0): 48 .npy
+             shards of 4096 windows of 1025 int32 tokens drawn from
+             [0, 50257) with numpy from the seed (806 MB, in a temporary
+             directory removed at the end). Pass A: lm_batch_iterator(
+             read_npy(shards)) over the corpus, each batch's int64 sum
+             added on the card (no host read per batch); pass B:
+             read_npy(shards).map_batches(windows).iter_torch_batches(8,
+             drop_last=True); both sums must equal numpy's, bitwise (tokens/s,
+             MB/s landed, StreamStats: produced bytes, peak in-flight bytes
+             against the 64 MiB budget, stalls; each batch's host time
+             pinning and enqueuing its copy). Then Trainer(train_fn,
+             ScalingConfig(num_workers=1, use_gpu=True), datasets={"train":
+             read_npy(shards)}).fit(): the rank runs LMTrainer (the trainer
+             phase's seed and optimizer) for 40 steps, reports every 10
+             through session.report, fed by lm_batch_iterator(
+             get_dataset_shard("train")); then the same 40 steps directly
+             (the same init, a plain iter_blocks() over the shards): every
+             loss and the 4 reports must be equal bitwise, the Result must
+             carry 4 reports and no error, and each flash kernel must launch
+             12 times a step (step medians both ways, data_wait's share of
+             the sampled steps' wall, the controller's dominant bucket, the
+             idle share of steps 21-30 under torch.profiler, started on the
+             main thread while the rank steps). A restart drill
+             (FailureConfig(max_failures=1)): attempt 0 checkpoints at step
+             10, reports it and raises; attempt 1 restores it and runs to
+             step 20: one restart, final step 20, attempt 0's parameters
+             gone when attempt 1 starts, allocated bytes between the
+             attempts and after fit() within 64 MiB of their value before
+             (each reading taken with PyTorch's cuBLAS workspaces dropped).
 
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; train: phase 6;
-trainer: phase 7's 20-step run; each counted from zero just before it,
-profiled repeats left out), its
+trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; each
+counted from zero just before it, profiled repeats left out), its
 error against the plain version and its times; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -233,7 +263,7 @@ from ray_tpu_torch.serve.llm.speculative import (
     ReplayProposer,
     accept_speculative,
 )
-from ray_tpu_torch.data import lm_batch_iterator
+from ray_tpu_torch.data import lm_batch_iterator, read_npy
 from ray_tpu_torch.train import (
     CheckpointConfig,
     CheckpointManager,
@@ -2761,6 +2791,355 @@ def _trainer_run(config, ckpt_dir: str) -> dict:
     return dict(launches=launches, step_ms=step_ms)
 
 
+# ----------------------------------------------------------------- ingest
+
+INGEST_SHARDS = 48
+INGEST_WINDOWS = 4096  # windows of TRAIN_SEQ + 1 tokens a shard: 4 198 400 int32, 16.0 MiB
+INGEST_STEPS = 40
+INGEST_REPORT_EVERY = 10
+INGEST_SAMPLE_EVERY = 5  # the step log's sampled steps (each synchronises the device)
+INGEST_PROFILE = (20, 30)  # the profiled window: after step 20's dispatch to after step 30's
+INGEST_RESTART_AT, INGEST_RESTART_TO = 10, 20  # the drill's checkpoint step and final step
+INGEST_MEM_SLACK = 64 << 20  # allocated bytes a finished fit() may leave over its start
+
+
+def _ingest_corpus(directory: str, vocab: int) -> tuple:
+    """The token shards, drawn from [0, vocab) with numpy from the seed,
+    and numpy's int64 sum of every packed window (each shard packs exactly
+    INGEST_WINDOWS windows of TRAIN_SEQ + 1 tokens)."""
+    rng = np.random.default_rng(SEED + 3)
+    paths, total = [], 0
+    for i in range(INGEST_SHARDS):
+        tokens = rng.integers(0, vocab, INGEST_WINDOWS * (TRAIN_SEQ + 1), dtype=np.int32)
+        total += int(tokens.reshape(INGEST_WINDOWS, TRAIN_SEQ + 1).sum(dtype=np.int64))
+        paths.append(os.path.join(directory, f"shard{i:03d}.npy"))
+        np.save(paths[-1], tokens)
+    return paths, total
+
+
+class _Shards:
+    """The direct feed: the shards' blocks in order through a plain
+    iter_blocks(), no runtime, no gang."""
+
+    def __init__(self, paths):
+        self.paths = paths
+
+    def iter_blocks(self):
+        for path in self.paths:
+            yield {"tokens": np.load(path)}
+
+
+def _ingest_pass(batches) -> dict:
+    """Land every batch on the device and add its int64 sum to a device
+    accumulator (no host read per batch); one read at the end. The host
+    seconds each batch spent pinning and enqueuing its copy are summed."""
+    acc = torch.zeros((), dtype=torch.int64, device="cuda")
+    n, pin, enqueue = 0, 0.0, 0.0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for batch in batches:
+        acc += batch["tokens"].sum(dtype=torch.int64)
+        pin += batch.pin_s
+        enqueue += batch.enqueue_s
+        n += 1
+    total = acc.item()
+    return dict(sum=total, batches=n, wall_s=time.perf_counter() - t, pin_s=pin,
+                enqueue_s=enqueue)
+
+
+def _log_pass(label: str, card: str, p: dict) -> None:
+    tokens = p["batches"] * TRAIN_BATCH * (TRAIN_SEQ + 1)
+    per = p["wall_s"] / max(p["batches"], 1)
+    log("ingest", f"{label}: {p['batches']} batches of {TRAIN_BATCH} x {TRAIN_SEQ + 1} in "
+        f"{p['wall_s']:.3f} s: {tokens / p['wall_s'] / 1e6:.2f} M tokens/s, "
+        f"{tokens * 4 / p['wall_s'] / 1e6:.1f} MB/s landed ({card}); a batch's host time "
+        f"{per * 1e6:.1f} us, of it pinning {p['pin_s'] / max(p['batches'], 1) * 1e6:.1f} us "
+        f"({p['pin_s'] / p['wall_s']:.3f} of the pass) and enqueuing the copy "
+        f"{p['enqueue_s'] / max(p['batches'], 1) * 1e6:.1f} us; device sum {p['sum']}")
+
+
+def _ingest_trainer(config, checkpoint_config=None) -> LMTrainer:
+    return LMTrainer(
+        config, optimizer=default_optimizer(TRAIN_LR, warmup_steps=2, total_steps=INGEST_STEPS),
+        learning_rate=TRAIN_LR, total_steps=INGEST_STEPS, seed=SEED, device="cuda",
+        checkpoint_config=checkpoint_config)
+
+
+class _StepWatch:
+    """Each step of a trainer, through its step_fn: the loss tensor, a CUDA
+    event after the step (nothing is read back), the host clock after its
+    dispatch, and `hook(step)` (1-based) after the step."""
+
+    def __init__(self, trainer: LMTrainer, hook=None):
+        self.losses, self.ends, self.host = [], [], []
+        step = trainer.step_fn
+
+        def watched(state, batch):
+            state, metrics = step(state, batch)
+            self.losses.append(metrics["loss"])
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.ends.append(end)
+            self.host.append(time.perf_counter())
+            if hook is not None:
+                hook(len(self.losses))
+            return state, metrics
+
+        trainer.step_fn = watched
+
+    def medians(self, synced, skip) -> dict:
+        """Median step time over steps n whose own dispatch and whose
+        predecessor ran on a queue no synchronisation had drained (n and
+        n - 1 not in `synced`) and that lie outside `skip`: the device time
+        between consecutive steps' ends (CUDA events), and the host's."""
+        steps = [n for n in range(2, len(self.losses) + 1)
+                 if n not in synced and n - 1 not in synced and n not in skip]
+        return dict(steps=len(steps), host_ms=statistics.median(
+            (self.host[n - 1] - self.host[n - 2]) * 1e3 for n in steps),
+            device_ms=statistics.median(
+                self.ends[n - 2].elapsed_time(self.ends[n - 1]) for n in steps))
+
+
+def _data_wait_share(run: str) -> tuple:
+    """data_wait over wall_s summed over one run's sampled steps."""
+    steps = [s for s in steplog.log().steps(run=run) if s.get("sealed")]
+    wait = sum(s["buckets"].get("data_wait", 0.0) for s in steps)
+    return wait / sum(s["wall_s"] for s in steps), len(steps)
+
+
+def _busy_s(prof) -> float:
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA) / 1e9
+
+
+def phase_ingest(card: str) -> dict:
+    """The data plane and the one-process gang feeding GPT-2 124M: passes A
+    and B over the corpus, the gang-fed run against the direct one, the
+    restart drill. Returns each kernel's launches over the gang-fed run
+    (counted from zero just before it)."""
+    t0 = time.perf_counter()
+    config = get_config(TRAIN_MODEL)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    cfg.set(step_log_sample_every=INGEST_SAMPLE_EVERY)
+    rt = ray_tpu_torch.init()
+    try:
+        log("ingest", f"runtime: {rt.cluster_resources()}")
+        paths, total = _ingest_corpus(tmp, config.vocab_size)
+        nbytes = sum(os.path.getsize(p) for p in paths)
+        log("ingest", f"corpus: {INGEST_SHARDS} shards x {INGEST_WINDOWS * (TRAIN_SEQ + 1)} int32 tokens "
+            f"({nbytes} bytes on disk) in {time.perf_counter() - t0:.2f} s; numpy sum of every "
+            f"packed window {total}")
+        out = _ingest_feeds(card, paths, total)
+        out.update(_ingest_gang(card, config, paths, tmp))
+        _ingest_drill(card, config, paths, tmp)
+    finally:
+        ray_tpu_torch.shutdown()
+        cfg.reset("step_log_sample_every")
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("ingest", f"phase {time.perf_counter() - t0:.2f} s ({card})")
+    return out
+
+
+def _ingest_feeds(card: str, paths, total: int) -> dict:
+    """Pass A (lm_batch_iterator over read_npy) and pass B (the dataset's
+    own iter_torch_batches over windows made by map_batches): both sums
+    against numpy's, bitwise."""
+    ds = read_npy(paths)
+    a = _ingest_pass(lm_batch_iterator(ds, TRAIN_SEQ, TRAIN_BATCH, device="cuda"))
+    _log_pass("pass A, lm_batch_iterator(read_npy(shards))", card, a)
+    stats = ds.stats()
+    log("ingest", f"pass A StreamStats: produced {stats['blocks_produced']} blocks / "
+        f"{stats['bytes_produced']} bytes, consumed {stats['blocks_consumed']} / "
+        f"{stats['bytes_consumed']}, peak in-flight {stats['max_inflight_bytes']} bytes against "
+        f"the budget {stats['byte_budget']}, backpressure stalls {stats['backpressure_stall_s']} s "
+        f"(store pressure, the only stall reason; the byte window's yields are not stalls), "
+        f"spilled {stats['spilled_bytes']} bytes ({card})")
+    windowed = read_npy(paths).map_batches(
+        lambda b: {"tokens": b["tokens"].reshape(-1, TRAIN_SEQ + 1)})
+    b = _ingest_pass(windowed.iter_torch_batches(TRAIN_BATCH, device="cuda", drop_last=True))
+    _log_pass("pass B, read_npy(shards).map_batches(windows).iter_torch_batches", card, b)
+    if not a["sum"] == b["sum"] == total:
+        raise AssertionError(f"ingest: device sums A {a['sum']} B {b['sum']}, numpy {total}")
+    if stats["max_inflight_bytes"] > stats["byte_budget"]:
+        raise AssertionError("ingest: the in-flight window passed its byte budget")
+    return dict(pass_a=a, pass_b=b)
+
+
+def _profiled_run(name: str, target, marks) -> dict:
+    """Run `target` on a thread of its own and profile, from this (the
+    main) thread, the window between its two step marks: torch.profiler
+    starts on the main thread only (Kineto refuses another), and the two
+    feeds are measured alike. Returns the target's value, the run's wall,
+    and the window's wall and device busy time."""
+    done = {}
+
+    def run():
+        try:
+            done["value"] = target()
+        except BaseException as exc:  # noqa: BLE001 - raised again below, on this thread
+            done["error"] = exc
+
+    def wait(mark) -> None:
+        while not mark.wait(0.1):
+            if not thread.is_alive():
+                raise done.get("error") or AssertionError(f"ingest: {name} ended before its window")
+
+    thread = threading.Thread(target=run, name=name)
+    t = time.perf_counter()
+    thread.start()
+    wait(marks[0])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        wait(marks[1])
+        window = time.perf_counter() - w0
+    thread.join(600)
+    if thread.is_alive():
+        raise AssertionError(f"ingest: {name} did not end")
+    if "error" in done:
+        raise done["error"]
+    return dict(value=done["value"], wall_s=time.perf_counter() - t, window_s=window,
+                busy_s=_busy_s(prof), t0=t)
+
+
+def _ingest_gang(card: str, config, paths, tmp: str) -> dict:
+    """Trainer.fit() with one GPU rank fed by get_dataset_shard, then the
+    same steps directly; the losses must be equal bitwise."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, Trainer, get_dataset_shard
+
+    watch, built, marks = {}, {}, {}
+
+    def trained(label, feed, **kw):
+        trainer = _ingest_trainer(config)
+        built[label] = time.perf_counter()
+        watch[label] = _StepWatch(trainer, lambda n: n in INGEST_PROFILE and
+                                  marks[label][INGEST_PROFILE.index(n)].set())
+        trainer.train(lm_batch_iterator(feed(), TRAIN_SEQ, TRAIN_BATCH, device="cuda"),
+                      num_steps=INGEST_STEPS, report_every=INGEST_REPORT_EVERY, **kw)
+
+    marks["gang"] = [threading.Event() for _ in INGEST_PROFILE]
+    gang = Trainer(lambda: trained("gang", lambda: get_dataset_shard("train")),
+                   scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+                   run_config=RunConfig(name="ingest-gang", storage_path=os.path.join(tmp, "gang")),
+                   datasets={"train": read_npy(paths)})
+    for kernel in KERNELS:
+        kernel.launches = 0
+    runs = {"gang": _profiled_run("ingest-gang-fit", gang.fit, marks["gang"])}
+    launches = {k.name: k.launches for k in KERNELS}
+    result = runs["gang"]["value"]
+    log("ingest", f"gang-fed fit: status {result.status.value}, error {result.error}, "
+        f"{len(result.metrics_history)} reports, restarts {result.num_restarts}, world sizes "
+        f"{gang.controller.world_sizes}; goodput {result.goodput['buckets']}")
+    direct_reports = []
+    marks["direct"] = [threading.Event() for _ in INGEST_PROFILE]
+    runs["direct"] = _profiled_run("ingest-direct", lambda: trained(
+        "direct", lambda: _Shards(paths), report_fn=direct_reports.append,
+        run_name="ingest-direct"), marks["direct"])
+
+    gang_losses = [x.item() for x in watch["gang"].losses]
+    direct_losses = [x.item() for x in watch["direct"].losses]
+    reported = [r["loss"] for r in result.metrics_history]
+    direct_reported = [r["loss"] for r in direct_reports]
+    synced = set(range(1, INGEST_STEPS + 1, INGEST_SAMPLE_EVERY))
+    synced.update(range(INGEST_REPORT_EVERY, INGEST_STEPS + 1, INGEST_REPORT_EVERY))
+    skip = set(range(INGEST_PROFILE[0] + 1, INGEST_PROFILE[1] + 2))
+    medians = {k: watch[k].medians(synced, skip) for k in ("gang", "direct")}
+    shares = {"gang": _data_wait_share("ingest-gang"), "direct": _data_wait_share("ingest-direct")}
+    dominant = gang.controller.stall_watchdog.dominant_bucket(0)
+    for label, s in (("gang-fed", "gang"), ("direct", "direct")):
+        r, m, w = runs[s], medians[s], watch[s]
+        log("ingest", f"{label}: {r['wall_s']:.2f} s: trainer built at "
+            f"{built[s] - r['t0']:.2f} s, first step dispatched at {w.host[0] - r['t0']:.2f} s, "
+            f"step {INGEST_STEPS} at {w.host[-1] - r['t0']:.2f} s; step median device "
+            f"{m['device_ms']:.3f} ms, host {m['host_ms']:.3f} ms over "
+            f"{m['steps']} queued steps ({card}); data_wait {shares[s][0]:.4f} of the wall of "
+            f"{shares[s][1]} sampled steps; profiled steps {INGEST_PROFILE[0] + 1}-"
+            f"{INGEST_PROFILE[1]}: wall {r['window_s']:.4f} s, device busy {r['busy_s']:.4f} s, "
+            f"idle share {1 - r['busy_s'] / r['window_s']:.4f}")
+    log("ingest", f"the controller's dominant bucket {dominant}")
+    log("ingest", "gang-fed reported losses " + " ".join(repr(x) for x in reported)
+        + "; direct " + " ".join(repr(x) for x in direct_reported))
+    if result.status.value != "FINISHED" or result.error is not None:
+        raise AssertionError(f"ingest: the gang-fed fit ended {result.status.value}: {result.error}")
+    if len(reported) != INGEST_STEPS // INGEST_REPORT_EVERY:
+        raise AssertionError(f"ingest: the Result carries {len(reported)} reports")
+    if reported != direct_reported or gang_losses != direct_losses:
+        raise AssertionError("ingest: the gang-fed losses differ from the direct run's")
+    for kernel in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+        if launches[kernel.name] != config.n_layers * INGEST_STEPS:
+            raise AssertionError(f"ingest: {kernel.name}: {launches[kernel.name]} launches in "
+                                 f"{INGEST_STEPS} steps, want {config.n_layers} per step")
+    return dict(launches=launches, medians=medians)
+
+
+def _ingest_drill(card: str, config, paths, tmp: str) -> None:
+    """FailureConfig(max_failures=1): attempt 0 checkpoints at step 10,
+    reports it and raises; attempt 1 restores it and runs to step 20. The
+    failed attempt's parameters must be gone when attempt 1 starts, and the
+    allocated bytes between the attempts and after fit() within
+    INGEST_MEM_SLACK of their value before fit()."""
+    import weakref
+
+    from ray_tpu_torch.train import (
+        FailureConfig, RunConfig, ScalingConfig, Trainer, get_checkpoint, get_dataset_shard,
+        report,
+    )
+
+    ckpt_dir = os.path.join(tmp, "drill-ckpt")
+    seen = {}
+
+    def allocated() -> int:
+        # PyTorch keeps a 32 MiB cuBLAS workspace for each (handle, stream)
+        # it has used, one more for each new rank thread's handle: each
+        # reading drops them, so that it sees what the attempts left behind
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated()
+
+    def train_fn(config_=None):
+        feed = lm_batch_iterator(get_dataset_shard("train"), TRAIN_SEQ, TRAIN_BATCH, device="cuda")
+        if "first" not in seen:
+            trainer = _ingest_trainer(config, CheckpointConfig(
+                checkpoint_dir=ckpt_dir, checkpoint_every=INGEST_RESTART_AT))
+            seen["first"] = weakref.ref(trainer.state.params["wte"])
+            trainer.train(feed, num_steps=INGEST_RESTART_AT, report_every=INGEST_RESTART_AT)
+            report({"step": int(trainer.state.step)},
+                   checkpoint={"step": int(trainer.state.step), "dir": ckpt_dir})
+            raise RuntimeError(f"attempt 0 dies after its step-{INGEST_RESTART_AT} checkpoint")
+        seen["first_alive"] = seen["first"]() is not None
+        seen["between"] = allocated()
+        ck = get_checkpoint()
+        trainer = _ingest_trainer(config, CheckpointConfig(checkpoint_dir=ck["dir"]))
+        trainer.restore(ck["step"])
+        trainer.train(feed, num_steps=INGEST_RESTART_TO - ck["step"],
+                      report_every=INGEST_RESTART_TO - ck["step"])
+
+    before = allocated()
+    t = time.perf_counter()
+    result = Trainer(
+        train_fn, scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=RunConfig(name="ingest-drill", storage_path=os.path.join(tmp, "drill"),
+                             failure=FailureConfig(max_failures=1)),
+        datasets={"train": read_npy(paths)}).fit()
+    fit_s = time.perf_counter() - t
+    after = allocated()
+    log("ingest", f"restart drill: status {result.status.value}, restarts {result.num_restarts}, "
+        f"final step {result.metrics.get('step')}, checkpoint step {result.checkpoint_step}, "
+        f"{fit_s:.2f} s ({card}); allocated without cuBLAS workspaces: before fit() {before} "
+        f"bytes, between the attempts {seen.get('between')}, after fit() {after} (slack "
+        f"{INGEST_MEM_SLACK}); attempt 0's parameters alive when attempt 1 started: "
+        f"{seen.get('first_alive')}")
+    if result.status.value != "FINISHED" or result.num_restarts != 1:
+        raise AssertionError(f"ingest: the drill ended {result.status.value} after "
+                             f"{result.num_restarts} restarts: {result.error}")
+    if result.metrics.get("step") != INGEST_RESTART_TO:
+        raise AssertionError(f"ingest: the drill's final step {result.metrics.get('step')}")
+    if seen.get("first_alive") is not False:
+        raise AssertionError("ingest: attempt 0's parameters outlived it")
+    for label, value in (("between the attempts", seen["between"]), ("after fit()", after)):
+        if abs(value - before) > INGEST_MEM_SLACK:
+            raise AssertionError(f"ingest: allocated {label} {value}, before fit() {before}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2795,12 +3174,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trainer = phase_trainer()
+    gc.collect()
+    ingest = phase_ingest(card)
     kernels = []
     for k in KERNELS:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
                    "deploy": deploy["launches"][k.name], "observe": observe["launches"][k.name],
-                   "train": train_launches[k.name], "trainer": trainer["launches"][k.name]}
+                   "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
+                   "ingest": ingest["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))

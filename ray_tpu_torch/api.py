@@ -129,6 +129,8 @@ _DEFAULT_TASK_OPTIONS: Dict[str, Any] = dict(
     name=None,
     runtime_env=None,
     executor="thread",  # "process" (pooled OS workers) is not ported yet
+    stream_max_backlog=None,  # streaming producers: block when consumer lags
+    locality_hint=None,  # NodeID: soft preference for the block-holding node
 )
 
 _DEFAULT_ACTOR_OPTIONS: Dict[str, Any] = dict(
@@ -186,6 +188,8 @@ class RemoteFunction:
             scheduling_strategy=opts["scheduling_strategy"],
             runtime_env=opts.get("runtime_env"),
             executor=opts.get("executor", "thread"),
+            stream_max_backlog=opts.get("stream_max_backlog"),
+            locality_hint=opts.get("locality_hint"),
         )
 
     def __call__(self, *args, **kwargs):

@@ -136,6 +136,11 @@ define_flag("autoscale_pressure_floor", 0.25,
             "burn may scale up: a burn with an idle router is a "
             "cold-start artifact, not missing capacity.")
 
+# train resilience
+define_flag("train_ckpt_keep", 2,
+            "Session (pickle) checkpoints retained per trial dir when "
+            "RunConfig.checkpoint.session_keep is unset.")
+
 # training stall watchdog (util/watchdog.py StallWatchdog)
 define_flag("train_stall_window_s", 30.0,
             "Training stall watchdog: no worker report for this long "

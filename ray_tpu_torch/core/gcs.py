@@ -17,6 +17,12 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
+# Pub/sub channel carrying announced node preemptions: messages are
+# {node_hex, reason, warning_s, deadline}. Train controllers subscribe
+# (emergency checkpoint + restart); in one process nothing publishes on it
+# until `preempt_node` is ported (ROADMAP A6).
+PREEMPT_CHANNEL = "node_preemption"
+
 # KV namespace for registered profile captures: profile_id -> capture
 # record (meta only; artifact bytes stay in the runtime's ProfileStore)
 PROFILE_NS = "_profiles"

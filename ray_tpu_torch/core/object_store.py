@@ -26,10 +26,12 @@ event after the write and the consumer waits on it (as
 
 Handles are refcounted (`ObjectRef` increfs, its `__del__` decrefs): at
 zero handles the value is released and an entry with recorded lineage
-drops to LOST, to be re-executed if a ref comes back. The JAX package's
-shared-memory arena tier (`native_store.py`) and its REMOTE tier (a value
-in another node's store, borrowed references) come with multi-process
-workers and clusters.
+drops to LOST, to be re-executed if a ref comes back. A pin (`pin` /
+`unpin`, counted in `pin_count`) holds a sealed value against that
+release and against spilling; `free` drops an object at once. The JAX
+package's shared-memory arena tier (`native_store.py`) and its REMOTE
+tier (a value in another node's store, borrowed references) come with
+multi-process workers and clusters.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ class ObjectState(enum.Enum):
 class ObjectEntry:
     __slots__ = (
         "object_id", "state", "value", "error", "tier", "nbytes",
-        "event", "callbacks", "spill_path", "owner_task",
+        "pin_count", "event", "callbacks", "spill_path", "owner_task",
         "last_access", "lock", "handle_count", "gc_on_seal", "gc_done",
     )
 
@@ -99,6 +101,8 @@ class ObjectEntry:
         self.error: Optional[BaseException] = None
         self.tier = Tier.INLINE
         self.nbytes = 0
+        # pins hold a sealed value against GC and spilling (`pin` / `unpin`)
+        self.pin_count = 0
         self.event = threading.Event()
         self.callbacks: List[Callable[["ObjectEntry"], None]] = []
         self.spill_path: Optional[str] = None
@@ -399,7 +403,7 @@ class ObjectStore:
 
     def _gc_entry(self, entry: ObjectEntry) -> None:
         with entry.lock:
-            if entry.handle_count > 0:
+            if entry.handle_count > 0 or entry.pin_count > 0:
                 return  # a handle was recreated (incref) since the decref
             if entry.gc_done:
                 return  # a concurrent last-releaser already ran
@@ -415,6 +419,18 @@ class ObjectStore:
             # concurrent incref.
             with self._lock:
                 self._entries.pop(entry.object_id, None)
+
+    def pin(self, object_id: ObjectID) -> None:
+        entry = self.entry(object_id)
+        if entry is not None:
+            with entry.lock:
+                entry.pin_count += 1
+
+    def unpin(self, object_id: ObjectID) -> None:
+        entry = self.entry(object_id)
+        if entry is not None:
+            with entry.lock:
+                entry.pin_count = max(0, entry.pin_count - 1)
 
     def _release_value(self, entry: ObjectEntry) -> None:
         """Drop a READY entry's stored value and every resource behind it
@@ -433,17 +449,29 @@ class ObjectStore:
         entry.spill_path = None
         entry.value = None
 
+    def free(self, object_id: ObjectID) -> None:
+        """Drop an object now, whatever its handles and pins: its value
+        and accounting are released and the entry leaves the table."""
+        with self._lock:
+            entry = self._entries.pop(object_id, None)
+        if entry is not None:
+            with entry.lock:
+                if not entry.gc_done:  # a racing GC may have released it
+                    entry.gc_done = True
+                    self._release_value(entry)
+
     # -------------------------------------------------------------- spill/LRU
 
     def _maybe_spill(self) -> None:
         with self._lock:
             if self._host_bytes <= self._capacity:
                 return
-            # LRU over host-tier entries (victim selection only; the I/O
-            # happens per-entry outside the store lock).
+            # LRU over unpinned host-tier entries (victim selection only;
+            # the I/O happens per-entry outside the store lock).
             candidates = sorted(
                 (e for e in self._entries.values()
-                 if e.state == ObjectState.READY and e.tier == Tier.HOST),
+                 if e.state == ObjectState.READY and e.tier == Tier.HOST
+                 and e.pin_count == 0),
                 key=lambda e: e.last_access,
             )
         for entry in candidates:
@@ -451,7 +479,7 @@ class ObjectStore:
                 if self._host_bytes <= self._capacity:
                     break
             with entry.lock:
-                if entry.tier != Tier.HOST:
+                if entry.tier != Tier.HOST or entry.pin_count > 0:
                     continue
                 if self._spill_dir is not None:
                     self._spill(entry)

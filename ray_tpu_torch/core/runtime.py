@@ -226,6 +226,8 @@ class Runtime:
         scheduling_strategy: Any = "DEFAULT",
         runtime_env: Any = None,
         executor: str = "thread",
+        stream_max_backlog: Optional[int] = None,
+        locality_hint: Any = None,
     ) -> Union[ObjectRef, List[ObjectRef], "ObjectRefGenerator"]:
         if executor != "thread":
             raise _not_ported(f"executor={executor!r}", _PROCESS_TODO)
@@ -248,6 +250,8 @@ class Runtime:
             scheduling_strategy=scheduling_strategy,
             return_ids=return_ids,
             streaming=streaming,
+            stream_max_backlog=stream_max_backlog,
+            locality_hint=locality_hint,
         )
         if streaming:
             import weakref

@@ -10,8 +10,11 @@ deadlock the pool; concurrency is gated by resources, not thread count.
 Policy: hybrid (pack onto busy-but-below-threshold nodes, else spread to
 the emptiest), "SPREAD", node affinity (hard or soft), node labels (hard
 filter, soft preference) and placement groups (PACK / SPREAD /
-STRICT_PACK / STRICT_SPREAD, reserved all-or-nothing). Retries re-submit
-a failed task up to `max_retries` when `retry_exceptions` allows.
+STRICT_PACK / STRICT_SPREAD, reserved all-or-nothing), and a task's
+`locality_hint` (a soft preference for one node, the data plane's block
+affinity). Retries re-submit a failed task up to `max_retries` when
+`retry_exceptions` allows; a streaming task with `stream_max_backlog`
+blocks while its consumer lags that many items behind.
 
 The JAX package also dispatches to remote node agents over RPC (with a
 two-phase bundle reservation there), reschedules a placement group whose
@@ -107,6 +110,13 @@ class TaskSpec:
     # keep it alive, or consumer abandonment could never be detected
     # (the backpressured producer would block forever)
     stream: Any = None
+    # producer flow control: block when the consumer lags this many items
+    # behind (None = unbounded, the reference's default)
+    stream_max_backlog: Optional[int] = None
+    # soft locality preference: prefer this node when it is feasible
+    # (data plane schedules map tasks next to their input block); never a
+    # hard filter — a dead or saturated hinted node must not strand work
+    locality_hint: Optional[NodeID] = None
     # internal
     attempt: int = 0
     cancelled: bool = False
@@ -655,6 +665,12 @@ class ClusterScheduler:
             feasible = preferred or feasible
         if strategy == "SPREAD":
             return min(feasible, key=lambda n: n.utilization())
+        # Explicit locality hint (data-plane block affinity): honor it
+        # whenever the hinted node is feasible right now.
+        if spec.locality_hint is not None:
+            for n in feasible:
+                if n.node_id == spec.locality_hint:
+                    return n
         # Hybrid: pack onto busy-but-below-threshold nodes first, else
         # spread to the emptiest — randomized among the top-k candidates.
         below = [n for n in feasible if n.utilization() < self.HYBRID_THRESHOLD]
@@ -764,6 +780,8 @@ class ClusterScheduler:
         stream = spec.live_stream()
         already = stream._appended if stream is not None else 0
         for idx, item in enumerate(result):
+            if stream is not None and spec.stream_max_backlog:
+                stream._wait_backlog(spec.stream_max_backlog)
             oid = ObjectID.for_task_return(spec.task_id, idx)
             self._store.create(oid, owner_task=spec)
             self._store.seal(oid, item)

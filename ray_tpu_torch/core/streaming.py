@@ -5,7 +5,9 @@ actor methods return an `ObjectRefGenerator` the consumer iterates while
 the producer is still running. Each yielded value is sealed into its own
 ObjectID (task_id ⊕ yield index) the moment it is produced, so consumers
 overlap with producers — the substrate of serve's streaming responses
-(`LLMServer.stream_generate` through a streaming handle).
+(`LLMServer.stream_generate` through a streaming handle) and of the data
+plane's streaming reads (`data.from_generator`), whose producer a task's
+`stream_max_backlog` holds to the consumer's pace (`_wait_backlog`).
 
 The stream is an in-process handoff queue of ObjectRefs; the *values* live
 in the ordinary tiered object store with lineage (a lost item re-executes
@@ -43,7 +45,8 @@ class ObjectRefGenerator:
         self._abandoned = False
 
     def __del__(self):
-        # a dropped consumer stops the router's failover feeder
+        # a dropped consumer must unblock a backpressured producer (and
+        # stops the router's failover feeder)
         try:
             with self._cond:
                 self._abandoned = True
@@ -73,6 +76,26 @@ class ObjectRefGenerator:
             self._done = True
             self._error = error
             self._cond.notify_all()
+
+    def _wait_backlog(self, max_backlog: int, timeout: Optional[float] = None) -> None:
+        """Producer-side flow control: block until the consumer has fewer
+        than max_backlog unread items (the streaming analogue of the
+        bounded in-flight window). Raises if the consumer abandoned the
+        stream, so a backpressured producer never blocks forever."""
+        with self._cond:
+            ok = self._cond.wait_for(
+                lambda: (len(self._refs) - self._read) < max_backlog
+                or self._abandoned,
+                timeout,
+            )
+            if self._abandoned:
+                raise RuntimeError(
+                    "stream consumer abandoned the generator; stopping producer"
+                )
+            if not ok:
+                raise TimeoutError(
+                    f"stream backlog stayed at {max_backlog} for {timeout}s"
+                )
 
     # ---------------------------------------------------------------- consumer
 

@@ -4,9 +4,10 @@ Port of `ray_tpu/data/lm.py`: documents → one flat token stream →
 fixed-length windows, the standard GPT pretraining packing (no padding,
 every position supervised), then (B, S+1) token batches on the device
 through the prefetch window of `data/dataset.py`. `lm_batch_iterator`
-takes any object with `iter_blocks()` (the streaming `Dataset` and its
-split iterators come with ROADMAP A6); per-rank placement (`sharding=`)
-comes with the multi-device mesh (ROADMAP A7).
+takes any object with `iter_blocks()`: a streaming `Dataset` (ROADMAP
+A2), a gang rank's `DataIterator` (`train.get_dataset_shard`), or a plain
+iterable of blocks behind that method; per-rank placement (`sharding=`) comes with
+the multi-device mesh (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ def lm_batch_iterator(
     if sharding is not None:
         raise NotImplementedError(
             "lm_batch_iterator(sharding=...) places batches per rank on a "
-            "multi-device mesh, which comes with ROADMAP A7"
+            "multi-device mesh, which comes with ROADMAP A4"
         )
     packed = pack_tokens(
         dataset_or_iterator.iter_blocks(), seq_len, batch_size, column=column

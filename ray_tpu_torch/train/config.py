@@ -2,9 +2,10 @@
 CheckpointConfig.
 
 Port of `ray_tpu/train/config.py`. The gang fields (workers, elastic
-sizing, restart budgets) are read by the gang trainer, which comes with
-ROADMAP A9; `LMTrainer` reads `CheckpointConfig`. A worker's accelerator
-resource is the GPU where JAX's is the TPU."""
+sizing, restart budgets, session checkpoint retention) are read by the
+gang `Trainer` and its `TrainController`; `LMTrainer` reads
+`CheckpointConfig`. A worker's accelerator resource is the GPU where
+JAX's is the TPU."""
 
 from __future__ import annotations
 
@@ -59,9 +60,10 @@ class CheckpointConfig:
     max_to_keep: int = 3
     checkpoint_every: int = 0  # steps; 0 = only on report(checkpoint=...)
     async_save: bool = False
-    # retention for SESSION checkpoints in the trial dir —
-    # report(checkpoint=...), with the gang session (ROADMAP A9) —
-    # distinct from the step checkpoints' max_to_keep above
+    # retention for SESSION (pickle) checkpoints in the trial dir —
+    # report(checkpoint=...) — distinct from the step checkpoints'
+    # max_to_keep above; None falls back to the RAY_TPU_TRAIN_CKPT_KEEP
+    # flag (default 2)
     session_keep: Optional[int] = None
 
 

@@ -11,9 +11,10 @@ Marks live in a bounded per-process ring plus a bounded per-(run, rank,
 step) summary index. ``ingest`` folds per-step records from a gang's
 report plane (the reserved metrics key ``_steplog``) into the ring,
 deduplicating; ``summarize_steps``, ``skew_matrix``, ``dominant_bucket``
-and ``render_waterfall`` are the derived views. The gang controller,
-the watchdog and the federation into the control plane's ``_steps``
-table wait for ROADMAP A6 and A9.
+and ``render_waterfall`` are the derived views. The gang controller
+(`train/controller.py`) ingests each rank's records and feeds the stall
+watchdog's per-rank buckets; the federation into the control plane's
+``_steps`` table waits for clusters (ROADMAP A6).
 
 Phases are TYPED: every ``mark`` names a phase registered in
 ``STEP_PHASES``; components may register more with

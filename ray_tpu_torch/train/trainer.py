@@ -1,16 +1,21 @@
-"""The language-model trainer: `LMTrainer`.
+"""User-facing trainers: the generic gang `Trainer` and `LMTrainer`.
 
-Port of `LMTrainer` from `ray_tpu/train/trainer.py` for one device: the
-same constructor and `train(...)` signature, the same report keys and the
-same step-log decomposition, with `restore`, `maybe_restore` and
-`save_checkpoint` on the port's `CheckpointManager`. It is a host-side
-object: the step is the port's eager train step, and Python feeds
-batches and drains metrics.
+Port of `ray_tpu/train/trainer.py`:
+- `Trainer`: run any train_loop_per_worker on a gang of N thread actors
+  with failure handling (reference parity: DataParallelTrainer); datasets
+  passed as `datasets={name: ds}` are split across the ranks
+  (`train.get_dataset_shard`). With `ScalingConfig(use_gpu=True)` each
+  rank asks for a GPU and `fit()` raises without a CUDA device.
+- `LMTrainer` for one device: the same constructor and `train(...)`
+  signature, the same report keys and the same step-log decomposition,
+  with `restore`, `maybe_restore` and `save_checkpoint` on the port's
+  `CheckpointManager`. It is a host-side object: the step is the port's
+  eager train step, and Python feeds batches and drains metrics.
 
 What differs from JAX, and why:
 - One device, named by `device` (default "cuda", raising without a CUDA
   device; "cpu" runs the plain paths). A `mesh_spec` over more than one
-  device raises NotImplementedError (ROADMAP A7), and so does an int8 or
+  device raises NotImplementedError (ROADMAP A4), and so does an int8 or
   sharded-update dp sync (`dp_allreduce_dtype`, `dp_shard_update`); the
   reports give JAX's one-replica values (`dp_sync_mode` "xla_psum",
   `dp_sync_bytes` 0, `dp_sync_s` 0). `rules` (the logical sharding
@@ -22,10 +27,10 @@ What differs from JAX, and why:
   the step on meta tensors where JAX reads the compiled step's
   `cost_analysis()`; the count runs at the first report that needs it
   and is cached, as JAX's AOT compile is.
-- There is no gang session yet (ROADMAP A9): `report_fn` defaults to a
-  no-op, `run_name` to "local" and the rank is 0, JAX's values outside a
-  gang; sampled-step records travel in each report's reserved `_steplog`
-  key. The generic gang `Trainer` comes with A9 too.
+- As in JAX, `train` reports through `session.report` inside a gang
+  rank, keyed by the gang's run name and the rank's `world_rank`; outside
+  a gang `report_fn` is a no-op, `run_name` "local" and the rank 0.
+  Sampled-step records travel in each report's reserved `_steplog` key.
 """
 
 from __future__ import annotations
@@ -36,14 +41,49 @@ from typing import Any, Callable, Dict, Iterable, Optional, Union
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..core.config import cfg
 from ..models.transformer import TransformerConfig, count_params
 from ..ops.losses import auto_loss_chunk
 from ..parallel.mesh import MeshSpec, build_mesh
 from . import steplog
 from .checkpoint import CheckpointManager
-from .config import CheckpointConfig
+from .config import CheckpointConfig, RunConfig, ScalingConfig
+from .controller import Result, TrainController
 from .lm import create_train_state, default_optimizer, make_train_step
+
+
+class Trainer:
+    """Generic gang trainer: `fit()` = start controller, return Result.
+    The run's controller stays readable as `self.controller` (its stall
+    watchdog, goodput accountant and world sizes)."""
+
+    def __init__(
+        self,
+        train_loop_per_worker: Callable,
+        *,
+        scaling_config: Optional[ScalingConfig] = None,
+        run_config: Optional[RunConfig] = None,
+        train_loop_config: Optional[Dict[str, Any]] = None,
+        datasets: Optional[Dict[str, Any]] = None,
+    ):
+        self.train_fn = train_loop_per_worker
+        self.scaling = scaling_config or ScalingConfig()
+        self.run_config = run_config or RunConfig()
+        self.train_config = train_loop_config
+        # name -> data.Dataset: streaming_split across the gang at start;
+        # workers read their per-rank split via train.get_dataset_shard
+        self.datasets = datasets
+        self.controller: Optional[TrainController] = None
+
+    def fit(self) -> Result:
+        if self.scaling.use_gpu:
+            resolve_device("cuda")  # a GPU gang without a card raises, not queues
+        self.controller = TrainController(
+            self.train_fn, self.scaling, self.run_config, self.train_config,
+            datasets=self.datasets,
+        )
+        return self.controller.run()
 
 
 class LMTrainer:
@@ -77,7 +117,7 @@ class LMTrainer:
         self.rules = rules
         # dp sync knobs: explicit args win, cfg flags are the default. One
         # device has no dp axis: an int8 or sharded-update sync waits for
-        # the multi-device mesh (ROADMAP A7)
+        # the multi-device mesh (ROADMAP A4)
         if dp_allreduce_dtype is None:
             dp_allreduce_dtype = cfg.dp_allreduce_dtype
         if dp_shard_update is None:
@@ -85,7 +125,7 @@ class LMTrainer:
         if dp_allreduce_dtype != "f32" or dp_shard_update:
             raise NotImplementedError(
                 f"dp_allreduce_dtype={dp_allreduce_dtype!r}, dp_shard_update={dp_shard_update}: "
-                "the explicit data-parallel sync comes with the multi-device mesh (ROADMAP A7)"
+                "the explicit data-parallel sync comes with the multi-device mesh (ROADMAP A4)"
             )
         # JAX's name for the implicit sync, kept so reports read alike; on
         # one device nothing syncs
@@ -156,14 +196,17 @@ class LMTrainer:
         run_name: Optional[str] = None,
     ) -> Dict[str, Any]:
         """Drive the step over a batch iterator. Returns final metrics incl.
-        tokens/sec. `report_fn` defaults to a no-op (JAX's default outside
-        a gang worker). `run_name` keys the step-forensics records
-        (default "local")."""
+        tokens/sec. `report_fn` defaults to session.report when inside a
+        worker, else a no-op. `run_name` keys the step-forensics records
+        (default: the session's run name, else "local")."""
+        from .session import _local
+
+        session = getattr(_local, "session", None)
         if report_fn is None:
-            report_fn = lambda m: None  # noqa: E731 - no gang session (ROADMAP A9)
+            report_fn = session.report if session is not None else (lambda m: None)
         if run_name is None:
-            run_name = "local"
-        rank = 0
+            run_name = session.context.run_name if session is not None else "local"
+        rank = session.context.world_rank if session is not None else 0
 
         ckpt_every = self.ckpt_config.checkpoint_every if self.ckpt_config else 0
         # step forensics (train/steplog): every sample_every-th step is
@@ -251,6 +294,12 @@ class LMTrainer:
                     wall=time.perf_counter() - t_step0,
                 ))
                 del pending_steps[:-64]  # bounded if reports never drain
+        if pending_steps and session is not None:
+            # trailing sampled steps with no report behind them: ship a
+            # reserved-keys-only report (the controller drops it from
+            # metric publication after popping the steplog payload)
+            report_fn({"_steplog": pending_steps,
+                       "_mono": time.perf_counter()})
         if self.ckpt_mgr is not None and self.ckpt_config.checkpoint_every:
             self.save_checkpoint()
             self.ckpt_mgr.wait_until_finished()

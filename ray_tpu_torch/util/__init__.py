@@ -1,8 +1,8 @@
 """ray_tpu_torch.util — observability (metrics, state API, flight recorder,
 goodput accounting, watchdogs, profiling, postmortem bundles) and the
 state-tree walker the checkpoints and the cost layer share. Ports of
-`ray_tpu.util`'s modules of the same names; `actor_pool`, `queue` and
-`multiprocessing` come with ROADMAP A2 and A5."""
+`ray_tpu.util`'s modules of the same names, with `ActorPool` and `Queue`
+over the port's thread actors; `multiprocessing` comes with ROADMAP A5."""
 
 from .metrics import (  # noqa: F401
     Counter,
@@ -37,6 +37,7 @@ from .state import (  # noqa: F401
     trace_dump,
 )
 from . import goodput, postmortem, tracing, watchdog  # noqa: F401
+from .actor_pool import ActorPool  # noqa: F401
 from .events import (  # noqa: F401
     EVENT_KINDS,
     EventLog,
@@ -45,6 +46,7 @@ from .events import (  # noqa: F401
 )
 from .goodput import GoodputAccountant, serve_slo_report  # noqa: F401
 from .postmortem import build_bundle, load_bundle  # noqa: F401
+from .queue import Empty, Full, Queue  # noqa: F401
 from .profiling import (  # noqa: F401
     ProfilingError,
     StepCost,

@@ -8,8 +8,7 @@ federation comes with clusters, ROADMAP A6). `head_summary` is None (no
 cluster, no durability armed), `cluster_metrics` / `cluster_events` /
 `cluster_logs` answer for the one local node, and `node_stats` carries
 the object store and the profiling status of this process (the node stats
-collector, `core/stats.py`, is ROADMAP A6). Objects have no pin count
-(the store's `pin` is ROADMAP A2).
+collector, `core/stats.py`, is ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -46,6 +45,7 @@ def list_objects(limit: int = 1000) -> List[Dict[str, Any]]:
             "state": entry.state.name,
             "tier": entry.tier.value if entry.tier else None,
             "nbytes": entry.nbytes,
+            "pin_count": entry.pin_count,
         }
         for oid, entry in entries
     ]

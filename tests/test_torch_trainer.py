@@ -249,7 +249,7 @@ def test_lm_batch_iterator_matches_jax_batches():
     for a, b in zip(mine, ref):
         assert isinstance(a["tokens"], torch.Tensor) and a["tokens"].device.type == "cpu"
         np.testing.assert_array_equal(a["tokens"].numpy(), np.asarray(b["tokens"]))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A4"):
         lm_batch_iterator(_Blocks(6), 9, 4, device="cpu", sharding=object())
 
 
@@ -378,15 +378,15 @@ def test_mesh_spec_and_dp_sync_bytes_match_jax():
 
 def test_lm_trainer_refuses_dp_sync_modes_it_cannot_run(monkeypatch):
     """One device has no dp axis: an int8 or sharded-update sync, asked for
-    by argument or by flag, raises naming ROADMAP A7 instead of being
+    by argument or by flag, raises naming ROADMAP A4 instead of being
     ignored."""
     config = get_config("gpt2-tiny")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A4"):
         LMTrainer(config, dp_allreduce_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A4"):
         LMTrainer(config, dp_shard_update=True, device="cpu")
     monkeypatch.setenv("RAY_TPU_DP_ALLREDUCE_DTYPE", "int8")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A4"):
         LMTrainer(config, device="cpu")
     trainer = LMTrainer(config, dp_allreduce_dtype="f32", device="cpu")
     assert (trainer.dp_sync_mode, trainer.dp_sync_bytes) == ("xla_psum", 0)
