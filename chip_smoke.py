@@ -186,9 +186,34 @@ nonzero and no result line is printed):
              attempts and after fit() within 64 MiB of their value before
              (each reading taken with PyTorch's cuBLAS workspaces dropped).
 
+9. dp      — data-parallel GPT-2 124M across processes: a TrainController
+             drives a MultihostWorkerGroup of 2 processes on the one card
+             over gloo (NCCL refuses two ranks on one device); each rank
+             runs LMTrainer(mesh_spec=MeshSpec(dp=2)) fed by
+             lm_batch_iterator(sharding=data_sharding(mesh)) over the
+             global 8 x 1025 batch made with numpy from the seed (4 rows
+             each), 10 steps in each of the modes f32 (the implicit sync),
+             int8 with error feedback, f32 + dp_shard_update and int8 +
+             dp_shard_update (torch_dp_rank.py), against the same 10 steps
+             in this process on the whole batch from the same initial
+             state. Per mode and rank: the step median, the sync's seconds
+             from CUDA events beside JAX's estimate, the bytes the rank's
+             collectives moved beside dp_sync_bytes at the rows layout's
+             padded size, the peak allocated bytes; the flash kernels'
+             launches come back in the ranks' report files. Checks: step
+             0's loss within 1e-3 of the one-process loss in every mode,
+             f32 + sharded update within 1e-5 of f32 at every step, each
+             int8 run's final loss within DP_INT8_FINAL_ATOL of f32's, every
+             stage-1 residual at most half its block's step, the bytes
+             equal to dp_sync_bytes, 12 x 10 launches of each flash kernel
+             per rank and mode; a rank that hangs past the phase's timeout
+             fails it. Two ranks on one card measure correctness and the
+             sync's cost over this transport, not scaling.
+
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; train: phase 6;
-trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; each
+trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; dp: phase
+9's ranks, all modes; each
 counted from zero just before it, profiled repeats left out), its
 error against the plain version and its times; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -264,6 +289,7 @@ from ray_tpu_torch.serve.llm.speculative import (
     accept_speculative,
 )
 from ray_tpu_torch.data import lm_batch_iterator, read_npy
+from ray_tpu_torch.parallel import dp_sync_bytes
 from ray_tpu_torch.train import (
     CheckpointConfig,
     CheckpointManager,
@@ -3140,6 +3166,167 @@ def _ingest_drill(card: str, config, paths, tmp: str) -> None:
             raise AssertionError(f"ingest: allocated {label} {value}, before fit() {before}")
 
 
+# --------------------------------------------------------------------- dp
+
+DP_RANKS = 2  # two processes on the one card, over gloo (NCCL refuses two ranks on a device)
+DP_STEPS = 10
+DP_MODES = ("f32", "int8", "f32+shard", "int8+shard")
+DP_TIMEOUT_S = 240  # every collective of the gang, and its start-up
+DP_PHASE_TIMEOUT_S = 420  # the whole gang run: a hung rank fails the phase
+DP_FIRST_LOSS_RTOL = 1e-3  # step 0 against the one-process step on the whole batch
+DP_SHARD_RTOL = 1e-5  # f32 + sharded update against f32, every step
+DP_INT8_FINAL_ATOL = 0.1  # int8 final loss against f32's (the bound PERF.md's prediction states)
+# a stage-1 residual is at most half its block's step, plus the rounding of
+# x / scale (|x / scale| <= 127: at most 127 x 2^-24 of a step)
+DP_EF_BOUND = 1.0 + 2.0 ** -16
+
+
+def phase_dp(card: str) -> dict:
+    """Data-parallel GPT-2 124M over two processes on the card: a
+    TrainController drives a MultihostWorkerGroup of DP_RANKS gloo ranks,
+    each running LMTrainer(mesh_spec=MeshSpec(dp=2)) fed by
+    lm_batch_iterator(sharding=) (torch_dp_rank.dp_rank) in every sync
+    mode, against the same steps in this process on the whole batch.
+    Returns each kernel's launches summed over the ranks and modes."""
+    from ray_tpu_torch.train import FailureConfig, RunConfig, ScalingConfig, TrainController
+    from ray_tpu_torch.train.multihost import MultihostWorkerGroup
+
+    t0 = time.perf_counter()
+    config = get_config(TRAIN_MODEL)
+    rng = np.random.default_rng(SEED + 3)
+    tokens = rng.integers(0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)
+    opt_kw = dict(warmup_steps=2, total_steps=DP_STEPS)
+    # the reference: the same steps in this process on the whole batch
+    opt = default_optimizer(TRAIN_LR, **opt_kw)
+    state = create_train_state(config, opt, SEED, device="cuda")
+    step = make_train_step(config, opt, device="cuda")
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    ref = [step(state, batch)[1]["loss"].item() for _ in range(DP_STEPS)]
+    del state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("dp", f"one-process reference: {DP_STEPS} steps on the whole {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ + 1} batch: loss " + " ".join(f"{x:.4f}" for x in ref))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    groups = []
+
+    def group():
+        groups.append(MultihostWorkerGroup(DP_RANKS, run_name="chip-smoke-dp", report_dir=tmp,
+                                           backend="gloo", timeout_s=DP_TIMEOUT_S))
+        return groups[-1]
+
+    rank_config = dict(model=TRAIN_MODEL, tokens=tokens, steps=DP_STEPS, modes=DP_MODES,
+                       lr=TRAIN_LR, seed=SEED, **opt_kw)
+    import torch_dp_rank
+
+    controller = TrainController(
+        torch_dp_rank.dp_rank, ScalingConfig(num_workers=DP_RANKS),
+        RunConfig(name="chip-smoke-dp", failure=FailureConfig(max_failures=0)), rank_config,
+        group_factory=group)
+    outcome = {}
+    runner = threading.Thread(target=lambda: outcome.update(result=controller.run()),
+                              name="chip-smoke-dp", daemon=True)
+    t = time.perf_counter()
+    runner.start()
+    runner.join(DP_PHASE_TIMEOUT_S)
+    try:
+        if runner.is_alive():
+            for g in groups:
+                g.shutdown()
+            raise AssertionError(f"dp: the gang did not finish in {DP_PHASE_TIMEOUT_S} s")
+        result = outcome["result"]
+        if result.status.value != "FINISHED" or result.error is not None:
+            raise AssertionError(f"dp: the gang ended {result.status.value}: {result.error}")
+        gang_s = time.perf_counter() - t
+        runs = {}
+        for rank in range(DP_RANKS):
+            with open(os.path.join(tmp, f"reports_rank{rank}.jsonl")) as f:
+                for line in f:
+                    rec = json.loads(line)["metrics"]
+                    if "mode" in rec:
+                        runs[(rec["mode"], rec["rank"])] = rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("dp", f"gang of {DP_RANKS} processes ({runs[(DP_MODES[0], 0)]['backend']}, both on "
+        f"{runs[(DP_MODES[0], 0)]['device']}): {gang_s:.2f} s for {len(DP_MODES)} modes x "
+        f"{DP_STEPS} steps, start-up included")
+    launches = {k.name: 0 for k in KERNELS}
+    finals = {}
+    for mode in DP_MODES:
+        _dp_mode(mode, runs, ref, launches, config, finals, card)
+    # checks across modes
+    for mode in DP_MODES:
+        gap = abs(finals[mode] - finals["f32"])
+        log("dp", f"{mode}: final loss {finals[mode]:.6f}, f32 {finals['f32']:.6f}, gap {gap:.6f}")
+        if "int8" in mode and not gap <= DP_INT8_FINAL_ATOL:
+            raise AssertionError(f"dp: {mode}: final loss {finals[mode]} is {gap} from f32's, "
+                                 f"over {DP_INT8_FINAL_ATOL}")
+    log("dp", f"phase {time.perf_counter() - t0:.2f} s ({card})")
+    return dict(launches=launches)
+
+
+def _dp_mode(mode, runs, ref, launches, config, finals, card) -> None:
+    """Print one mode's numbers and hold its checks."""
+    recs = [runs[(mode, r)] for r in range(DP_RANKS)]
+    losses = recs[0]["losses"]
+    for r in recs[1:]:
+        if r["losses"] != losses:
+            raise AssertionError(f"dp: {mode}: the ranks' losses differ")
+    finals[mode] = losses[-1]
+    int8, shard = "int8" in mode, "shard" in mode
+    n_params = recs[0]["n_params"]
+    block = recs[0]["quant_block"]
+    padded = recs[0]["rows_elements"]  # the rows layout: every leaf padded to n x k
+    want = (dp_sync_bytes(padded, DP_RANKS, mode="int8" if int8 else "f32", shard_update=shard,
+                          block=block)
+            if (int8 or shard) else dp_sync_bytes(n_params, DP_RANKS))
+    for r in recs:
+        wire = r["wire"]
+        moved = wire["dp_sync"]["bytes"] + wire.get("dp_gather", {}).get("bytes", 0)
+        sync_s = wire["dp_sync"]["seconds"] + wire.get("dp_gather", {}).get("seconds", 0.0)
+        med = statistics.median(r["step_s"][1:])
+        log("dp", f"{mode} rank {r['rank']}: step median {med * 1e3:.2f} ms (first "
+            f"{r['step_s'][0] * 1e3:.2f}; min {min(r['step_s'][1:]) * 1e3:.2f}, max "
+            f"{max(r['step_s'][1:]) * 1e3:.2f}); sync measured {sync_s / DP_STEPS * 1e3:.3f} ms a "
+            f"step (CUDA events around the gradient sync and the gather) beside JAX's estimate "
+            f"{r['dp_sync_est_s'] * 1e3:.3f} ms ({r['dp_sync_bytes']} bytes / "
+            f"steplog_dp_bandwidth_gbs); bytes moved {moved / DP_STEPS:.0f} a step beside "
+            f"dp_sync_bytes {want} at {padded if (int8 or shard) else n_params} elements "
+            f"({n_params} params, rows padding {padded - n_params}); by label "
+            + ", ".join(f"{k} {v['bytes']} B {v['calls']} calls {v['seconds'] * 1e3:.2f} ms"
+                        for k, v in sorted(wire.items()))
+            + f"; peak allocated {r['peak_bytes'] / 2**30:.3f} GiB; report mfu "
+            f"{r['report'].get('mfu')} dp_sync_s {r['report'].get('dp_sync_s')} "
+            f"({r['dp_sync_mode']}, {card})")
+        if moved != want * DP_STEPS:
+            raise AssertionError(f"dp: {mode} rank {r['rank']}: {moved} bytes moved in {DP_STEPS} "
+                                 f"steps, dp_sync_bytes gives {want} a step")
+        if int8:
+            ratio = r["ef_max_over_half_step"]
+            log("dp", f"{mode} rank {r['rank']}: stage-1 residual max |e| / (step / 2) {ratio:.6f} "
+                f"over {r['ef_elements']} elements")
+            if not ratio <= DP_EF_BOUND:
+                raise AssertionError(f"dp: {mode}: a stage-1 residual exceeds half its block's step")
+        for kernel in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+            n = r["launches"][kernel.name]
+            if n != config.n_layers * DP_STEPS:
+                raise AssertionError(f"dp: {mode} rank {r['rank']}: {kernel.name} launched {n} "
+                                     f"times, want {config.n_layers} x {DP_STEPS}")
+        for k in launches:
+            launches[k] += r["launches"][k]
+    log("dp", f"{mode}: loss " + " ".join(f"{x:.6f}" for x in losses))
+    gap0 = abs(losses[0] - ref[0]) / abs(ref[0])
+    if not gap0 <= DP_FIRST_LOSS_RTOL:
+        raise AssertionError(f"dp: {mode}: step 0 loss {losses[0]} vs one-process {ref[0]}")
+    if mode == "f32+shard":
+        f32 = runs[("f32", 0)]["losses"]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(losses, f32))
+        log("dp", f"f32+shard against f32: largest relative gap {worst:.3e}")
+        if not worst <= DP_SHARD_RTOL:
+            raise AssertionError(f"dp: f32+shard departs from f32 by {worst} relative")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3176,13 +3363,16 @@ def main() -> int:
     trainer = phase_trainer()
     gc.collect()
     ingest = phase_ingest(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = phase_dp(card)
     kernels = []
     for k in KERNELS:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
                    "deploy": deploy["launches"][k.name], "observe": observe["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
-                   "ingest": ingest["launches"][k.name]}
+                   "ingest": ingest["launches"][k.name], "dp": dp["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))

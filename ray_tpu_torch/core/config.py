@@ -156,9 +156,8 @@ define_flag("train_stall_min_s", 1.0,
             "with scheduler jitter do not flap the stalled gauge.")
 
 # training: data-parallel sync knobs, JAX's names and defaults. On one
-# device nothing syncs: LMTrainer raises for a mode other than these
-# defaults, and the quantizer block and the bandwidth estimate are read
-# once the mesh spans devices (ROADMAP A7)
+# device nothing syncs and every mode runs the standard step; across the
+# ranks of a dp mesh they pick the sync (train/lm.py)
 define_flag("dp_allreduce_dtype", "f32",
             "Wire dtype of the data-parallel gradient sync: 'f32' (exact) "
             "or 'int8' (block-quantized all-reduce with error feedback).")

@@ -369,6 +369,7 @@ class DeviceBatch(dict):
     ready: Optional[torch.cuda.Event] = None
     pin_s: float = 0.0
     enqueue_s: float = 0.0
+    sharding: Any = None  # the NamedSharding that placed this rank's block, if any
 
 
 def _torch_batch_stream(
@@ -377,6 +378,7 @@ def _torch_batch_stream(
     device: Union[str, torch.device],
     columns: Optional[List[str]],
     dtypes: Optional[Dict[str, Any]] = None,
+    sharding: Any = None,
 ) -> Iterator[DeviceBatch]:
     """Device-prefetch window over a host batch iterator on `device`
     (resolved now: a missing CUDA device raises here, not at the first
@@ -384,15 +386,21 @@ def _torch_batch_stream(
     the window tops up to `prefetch` batches behind the consumer's step —
     overlap without paying the whole window before step 0. `dtypes`
     converts columns once they are on the device, on the consumer's
-    stream."""
-    dev = resolve_device(device)
+    stream. `sharding` (a `parallel.NamedSharding`) places each column's
+    block for this rank on the mesh's device, as JAX's `device_put(v,
+    sharding)` places a global batch: only that block is copied."""
+    dev = sharding.mesh.device if sharding is not None else resolve_device(device)
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
     def to_device(batch: Block):
         sel = {k: batch[k] for k in (columns or batch.keys())}
+        if sharding is not None:
+            sel = {k: sharding.shard(v) for k, v in sel.items()}
         if side is None:
-            return DeviceBatch({k: torch.as_tensor(np.ascontiguousarray(v))
-                                for k, v in sel.items()}), ()
+            out = DeviceBatch({k: torch.as_tensor(np.ascontiguousarray(v))
+                               for k, v in sel.items()})
+            out.sharding = sharding
+            return out, ()
         t0 = time.perf_counter()
         hosts = [torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for v in sel.values()]
         t1 = time.perf_counter()
@@ -401,6 +409,7 @@ def _torch_batch_stream(
             out.ready = torch.cuda.Event()
             out.ready.record(side)
         out.pin_s, out.enqueue_s = t1 - t0, time.perf_counter() - t1
+        out.sharding = sharding
         return out, hosts
 
     def hand_over(entry) -> DeviceBatch:
@@ -549,16 +558,20 @@ class Dataset:
         columns: Optional[List[str]] = None,
         dtypes: Optional[Dict[str, Any]] = None,
         device: Union[str, torch.device] = "cuda",
+        sharding: Any = None,
     ) -> Iterator[Dict[str, Any]]:
         """Batches as torch tensors (reference Dataset.iter_torch_batches).
         On a CUDA device (the default; raising without one) each batch
         rides a device-prefetch window: the next batch's copy to the card
         overlaps the current step, and the first batch yields as soon as
         its copy is enqueued (JAX's `iter_jax_batches`). On
-        device="cpu" these are JAX's CPU tensors."""
+        device="cpu" these are JAX's CPU tensors. `sharding=` places each
+        batch per rank in a multihost gang (`parallel.data_sharding(mesh)`:
+        this rank's rows, on the mesh's device), as `iter_jax_batches`
+        does."""
         return _torch_batch_stream(
             self.iter_batches(batch_size, drop_last=drop_last),
-            self._ctx.target_batch_prefetch, device, columns, dtypes,
+            self._ctx.target_batch_prefetch, device, columns, dtypes, sharding,
         )
 
     def take(self, n: int = 20) -> List[Any]:
@@ -786,13 +799,14 @@ class DataIterator:
         columns: Optional[List[str]] = None,
         dtypes: Optional[Dict[str, Any]] = None,
         device: Union[str, torch.device] = "cuda",
+        sharding: Any = None,
     ) -> Iterator[Dict[str, Any]]:
         """Per-rank torch batches (see Dataset.iter_torch_batches), with
         JAX's `iter_jax_batches` default drop_last=True so gang ranks
         agree on step counts."""
         return _torch_batch_stream(
             self.iter_batches(batch_size, drop_last=drop_last),
-            self._ctx.target_batch_prefetch, device, columns, dtypes,
+            self._ctx.target_batch_prefetch, device, columns, dtypes, sharding,
         )
 
     def iter_rows(self) -> Iterator[Any]:

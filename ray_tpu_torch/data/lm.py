@@ -6,8 +6,10 @@ every position supervised), then (B, S+1) token batches on the device
 through the prefetch window of `data/dataset.py`. `lm_batch_iterator`
 takes any object with `iter_blocks()`: a streaming `Dataset` (ROADMAP
 A2), a gang rank's `DataIterator` (`train.get_dataset_shard`), or a plain
-iterable of blocks behind that method; per-rank placement (`sharding=`) comes with
-the multi-device mesh (ROADMAP A4).
+iterable of blocks behind that method. In a multihost gang `sharding=`
+(`parallel.data_sharding(mesh)`) places each batch per rank: every rank
+packs the global batch and copies its own rows to its device, as JAX's
+`make_array_from_process_local_data` does.
 """
 
 from __future__ import annotations
@@ -70,14 +72,10 @@ def lm_batch_iterator(
     feed straight into LMTrainer.train(). Batches ride a device-prefetch
     window (the first yields as soon as its copy is enqueued; the window
     tops up behind the consumer's step) on `device` (default "cuda",
-    raising without one; "cpu" wraps the numpy batches)."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "lm_batch_iterator(sharding=...) places batches per rank on a "
-            "multi-device mesh, which comes with ROADMAP A4"
-        )
+    raising without one; "cpu" wraps the numpy batches), or with
+    `sharding=` this rank's rows on the sharding's mesh device."""
     packed = pack_tokens(
         dataset_or_iterator.iter_blocks(), seq_len, batch_size, column=column
     )
     prefetch = DataContext.get_current().target_batch_prefetch
-    return _torch_batch_stream(packed, prefetch, device, None)
+    return _torch_batch_stream(packed, prefetch, device, None, sharding=sharding)

@@ -11,5 +11,6 @@ from .transformer import (  # noqa: F401
     init_cache,
     init_params,
     lm_head_weights,
+    logical_axes,
     prefill,
 )

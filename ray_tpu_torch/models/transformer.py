@@ -151,6 +151,46 @@ def init_params(
     return params
 
 
+def logical_axes(config: TransformerConfig) -> Params:
+    """Logical-axis tree mirroring init_params output (the sharding rules'
+    input, `parallel/sharding.py`)."""
+    c = config
+    blocks: Params = {
+        "ln1_scale": ("layers", None),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+        "ln2_scale": ("layers", None),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    if c.act == "swiglu":
+        blocks["w_gate"] = ("layers", "embed", "mlp")
+    if c.norm == "layernorm":
+        blocks["ln1_bias"] = ("layers", None)
+        blocks["ln2_bias"] = ("layers", None)
+    if c.use_bias:
+        blocks["bq"] = ("layers", "heads", "head_dim")
+        blocks["bk"] = ("layers", "kv_heads", "head_dim")
+        blocks["bv"] = ("layers", "kv_heads", "head_dim")
+        blocks["bo"] = ("layers", None)
+        blocks["b_up"] = ("layers", "mlp")
+        blocks["b_down"] = ("layers", None)
+    axes: Params = {
+        "wte": ("vocab", "embed"),
+        "blocks": blocks,
+        "lnf_scale": (None,),
+    }
+    if c.pos_emb == "learned":
+        axes["wpe"] = (None, "embed")
+    if c.norm == "layernorm":
+        axes["lnf_bias"] = (None,)
+    if not c.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 def count_params(params: Params) -> int:
     """Number of parameters (elements over every leaf)."""
     return sum(count_params(v) if isinstance(v, dict) else v.numel() for v in params.values())

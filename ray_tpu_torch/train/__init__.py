@@ -1,7 +1,9 @@
-"""ray_tpu_torch.train — training on one device: the step (port of
-`ray_tpu.train.lm`), `LMTrainer`, checkpoints, the step log, the train
-configs, and the gang control plane (`Trainer`, `TrainController`,
-`WorkerGroup`, the per-rank session) over the port's thread actors."""
+"""ray_tpu_torch.train — training: the step (port of `ray_tpu.train.lm`,
+on one device or data-parallel over a mesh's ranks), `LMTrainer`,
+checkpoints, the step log, the train configs, and the gang control plane
+(`Trainer`, `TrainController`, `WorkerGroup` over the port's thread
+actors, `MultihostWorkerGroup` over one process per rank, the per-rank
+session)."""
 
 from . import steplog  # noqa: F401
 from .checkpoint import CheckpointManager, verify_step_dir, write_step_manifest  # noqa: F401
@@ -10,15 +12,19 @@ from .controller import Result, RunStatus, TrainController  # noqa: F401
 from .lm import (  # noqa: F401
     Optimizer,
     TrainState,
+    clip_by_global_norm_sharded,
     create_train_state,
     default_optimizer,
     global_norm,
+    infer_state_specs,
     loss_and_grads,
     make_eval_step,
     make_train_step,
+    state_specs,
     train_state_from_numpy,
     tree_leaves,
 )
+from .multihost import MultihostWorkerGroup  # noqa: F401
 from .session import (  # noqa: F401
     get_checkpoint,
     get_context,

@@ -24,6 +24,21 @@ is written into `<step>.tmp-<pid>` and renamed into place once its
 manifest and COMMIT are in it. Reading an orbax directory (the JAX
 package's checkpoints) is out of scope.
 
+A data-parallel state (a manager given a mesh of n > 1 ranks, and the
+state's leaf specs, `train.lm.state_specs`) is saved by every rank into
+one step directory, as orbax writes each process's addressable shards:
+the replicated leaves and the scalars once, by rank 0 (`state.bin`,
+`index.json`), and each rank's block of the rank-sharded leaves (the
+rows-layout moments and `ef`) in `rank<r>.bin` / `rank<r>.json`;
+`index.json` records the layout (ranks, and each sharded leaf's spec and
+global shape). The ranks meet at two barriers of a gloo group of their
+own (on the writer thread, apart from the step's collectives): once every
+rank's files are in the temporary directory, rank 0 writes the manifest
+over all of them and COMMIT and renames the directory; after the second
+barrier every rank sees the step. A restore reads the replicated leaves
+and this rank's block, bitwise; a checkpoint of another number of ranks
+raises (no resharding).
+
 The port's train step updates its tensors in place, where JAX arrays are
 immutable and orbax may read them later. So `save()` copies every tensor
 to host memory (pinned, for CUDA tensors, and synchronised on an event)
@@ -42,7 +57,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -151,23 +166,30 @@ class _Snapshot:
     data: torch.Tensor  # uint8, host
 
 
-def _snapshot(state: Any, buffer: Optional[torch.Tensor]) -> _Snapshot:
-    """Copy every tensor of `state` into a host buffer (reusing `buffer`
-    when it has the size) and wait for the copies: once this returns the
-    caller may update the state in place."""
+def _snapshot(state: Any, buffer: Optional[torch.Tensor],
+              keep: Optional[Callable[[str], bool]] = None, data_file: str = DATA_NAME,
+              scalars: bool = True) -> _Snapshot:
+    """Copy every tensor of `state` (those whose path `keep` accepts) into
+    a host buffer (reusing `buffer` when it has the size) and wait for the
+    copies: once this returns the caller may update the state in place.
+    The index names `data_file` for its tensors; `scalars=False` leaves
+    the Python scalars out."""
     tensors: Dict[str, Any] = {}
-    scalars: Dict[str, Any] = {}
+    saved_scalars: Dict[str, Any] = {}
     leaves = []
     offset = 0
     for path, leaf in flatten(state):
         if isinstance(leaf, torch.Tensor):
+            if keep is not None and not keep(path):
+                continue
             nbytes = leaf.numel() * leaf.element_size()
             tensors[path] = {"dtype": _dtype_name(leaf.dtype), "shape": list(leaf.shape),
-                             "offset": offset, "nbytes": nbytes}
+                             "offset": offset, "nbytes": nbytes, "file": data_file}
             leaves.append((offset, leaf))
             offset += -(-nbytes // _ALIGN) * _ALIGN
         elif leaf is None or isinstance(leaf, (bool, int, float, str)):
-            scalars[path] = leaf
+            if scalars:
+                saved_scalars[path] = leaf
         else:
             raise TypeError(f"checkpoint: cannot save {type(leaf).__name__} at {path!r}")
     on_card = any(t.is_cuda for _, t in leaves)
@@ -181,7 +203,7 @@ def _snapshot(state: Any, buffer: Optional[torch.Tensor]) -> _Snapshot:
         done = torch.cuda.Event()
         done.record()
         done.synchronize()
-    return _Snapshot({"tensors": tensors, "scalars": scalars}, buffer)
+    return _Snapshot({"tensors": tensors, "scalars": saved_scalars}, buffer)
 
 
 def _dead_writer_tmp(name: str) -> bool:
@@ -198,35 +220,62 @@ def _dead_writer_tmp(name: str) -> bool:
     return False
 
 
-def _write_step(directory: str, step: int, snap: _Snapshot) -> None:
+def _write_files(tmp: str, snaps: Dict[str, _Snapshot]) -> None:
+    """Each snapshot as `<name>.bin` + its index `<name>.json` (the
+    replicated part is `state.bin` + `index.json`)."""
+    for name, snap in snaps.items():
+        data, index = _part_names(name)
+        with open(os.path.join(tmp, data), "wb") as f:
+            f.write(snap.data.numpy().data)
+        with open(os.path.join(tmp, index), "w") as f:
+            json.dump(snap.index, f)
+
+
+def _part_names(name: str) -> Tuple[str, str]:
+    if name == "state":
+        return DATA_NAME, INDEX_NAME
+    return f"{name}.bin", f"{name}.json"
+
+
+def _write_step(directory: str, step: int, snaps: Dict[str, _Snapshot]) -> None:
     """Write one snapshot as `<directory>/<step>/`: data, index, manifest
     and COMMIT into a temporary directory, then one rename."""
     tmp = os.path.join(directory, f"{step}.tmp-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    with open(os.path.join(tmp, DATA_NAME), "wb") as f:
-        f.write(snap.data.numpy().data)
-    with open(os.path.join(tmp, INDEX_NAME), "w") as f:
-        json.dump(snap.index, f)
+    _write_files(tmp, snaps)
     write_step_manifest(tmp)
     os.replace(tmp, os.path.join(directory, str(step)))
 
 
-def _read_step(step_dir: str, target: Any, device: torch.device) -> Any:
+def _read_step(step_dir: str, target: Any, device: torch.device, rank: int = 0,
+               ranks: int = 1) -> Any:
     with open(os.path.join(step_dir, INDEX_NAME)) as f:
         index = json.load(f)
-    data = torch.from_numpy(np.fromfile(os.path.join(step_dir, DATA_NAME), dtype=np.uint8))
+    saved_ranks = index.get("layout", {}).get("ranks", 1)
+    if saved_ranks != ranks:
+        raise ValueError(f"{step_dir}: saved by {saved_ranks} ranks, restored by {ranks}: "
+                         f"a checkpoint restores on as many ranks as saved it")
+    entries = dict(index["tensors"])
+    if saved_ranks > 1:
+        with open(os.path.join(step_dir, _part_names(f"rank{rank}")[1])) as f:
+            entries.update(json.load(f)["tensors"])
+    data: Dict[str, torch.Tensor] = {}
 
     def leaf(path: str, want: Any) -> Any:
         if isinstance(want, torch.Tensor):
-            entry = index["tensors"].get(path)
+            entry = entries.get(path)
             if entry is None:
                 raise KeyError(f"{step_dir}: no tensor at {path!r}")
             if list(want.shape) != entry["shape"]:
                 raise ValueError(f"{step_dir}: {path!r} has shape {entry['shape']}, "
                                  f"the target {list(want.shape)}")
+            name = entry.get("file", DATA_NAME)
+            if name not in data:
+                data[name] = torch.from_numpy(
+                    np.fromfile(os.path.join(step_dir, name), dtype=np.uint8))
             start = entry["offset"]
-            saved = data[start:start + entry["nbytes"]].view(getattr(torch, entry["dtype"]))
+            saved = data[name][start:start + entry["nbytes"]].view(getattr(torch, entry["dtype"]))
             out = saved.view(entry["shape"]).to(device=device, dtype=want.dtype, copy=True)
             return out.requires_grad_(True) if want.requires_grad else out
         if path in index["scalars"]:
@@ -236,13 +285,29 @@ def _read_step(step_dir: str, target: Any, device: torch.device) -> Any:
     return rebuild(target, leaf)
 
 
+def _sharded_paths(specs: Optional[Dict[str, Any]], mesh: Any) -> Dict[str, Any]:
+    """{path: spec} of the leaves whose spec splits them over an axis of
+    size > 1: this rank holds a block of each."""
+    if mesh is None or mesh.size == 1 or not specs:
+        return {}
+
+    def splits(entry) -> bool:
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        return any(mesh.shape[a] > 1 for a in axes)
+
+    return {path: spec for path, spec in specs.items() if any(splits(e) for e in spec)}
+
+
 class CheckpointManager:
     """Step-indexed checkpoint directory with retention + verification.
 
     save() accepts a tree of dicts, lists, tuples and dataclasses over
     tensors and Python scalars (e.g. TrainState); restore() takes a
     target tree of the same structure (real or meta tensors) and returns
-    a new one."""
+    a new one. With a `mesh` of n > 1 ranks every rank makes the same
+    calls in the same order (one gloo group of the manager's own is built
+    here, a collective call): the leaves that `specs` splits over the mesh
+    are saved and restored per rank."""
 
     def __init__(
         self,
@@ -250,16 +315,31 @@ class CheckpointManager:
         *,
         max_to_keep: int = 3,
         async_save: bool = False,
+        mesh: Any = None,
     ):
         self.directory = os.path.abspath(os.fspath(directory))
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.async_save = async_save
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.rank = self.mesh.rank if self.mesh is not None else 0
         self._writer: Optional[threading.Thread] = None
         self._writer_error: Optional[BaseException] = None
         self._pending: Optional[int] = None  # the step the writer is writing
-        self._buffer: Optional[torch.Tensor] = None  # host buffer, reused across saves
-        self._gc_uncommitted()
+        self._buffers: Dict[str, torch.Tensor] = {}  # host buffers, reused across saves
+        self._group = None
+        self._token = str(os.getpid())
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            # the ranks' barriers run on the writer thread, on a group apart
+            # from the step's; rank 0's pid names the shared temporary dir
+            self._group = dist.new_group(backend="gloo")
+            token = [self._token]
+            dist.broadcast_object_list(token, src=0, group=self._group)
+            self._token = token[0]
+        if self.rank == 0:
+            self._gc_uncommitted()
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(step))
@@ -293,38 +373,87 @@ class CheckpointManager:
             removed += 1
         return removed
 
-    def save(self, step: int, state: Any, *, force: bool = False) -> bool:
+    def save(self, step: int, state: Any, *, force: bool = False,
+             specs: Optional[Dict[str, Any]] = None) -> bool:
         """Save `state` as step `step`; False (nothing written) when a step
         at or past it exists already, as orbax's `should_save` decides
         (`force=True` saves regardless, but never over an existing step).
         Returns once every tensor is copied to host: with async_save the
-        write, manifest and COMMIT finish on the writer thread."""
+        write, manifest and COMMIT finish on the writer thread. `specs`
+        ({leaf path: PartitionSpec}) names the rank-sharded leaves."""
         self.wait_until_finished()
         latest = self.latest_step()
         if not force and latest is not None and latest >= step:
             return False
         if os.path.exists(self._step_dir(step)):
             raise FileExistsError(f"checkpoint step {step} exists under {self.directory}")
-        snap = _snapshot(state, self._buffer)
-        self._buffer = snap.data
+        snaps = self._snapshots(state, specs)
         if not self.async_save:
-            self._write(step, snap)
+            self._write(step, snaps)
             return True
         self._pending = step
         self._writer = threading.Thread(
-            target=self._write_async, args=(step, snap), daemon=True, name="ckpt-writer")
+            target=self._write_async, args=(step, snaps), daemon=True, name="ckpt-writer")
         self._writer.start()
         return True
 
-    def _write(self, step: int, snap: _Snapshot) -> None:
-        _write_step(self.directory, step, snap)
-        if self.max_to_keep:  # retention: the newest max_to_keep steps
+    def _snapshots(self, state: Any, specs: Optional[Dict[str, Any]]) -> Dict[str, _Snapshot]:
+        """The host copies this rank writes: the whole state on one rank;
+        in a gang, the replicated part on rank 0 and each rank's block of
+        the sharded leaves."""
+        sharded = _sharded_paths(specs, self.mesh)
+        parts: Dict[str, Any] = {}
+        if self.mesh is None:
+            parts["state"] = dict()
+        else:
+            if self.rank == 0:
+                parts["state"] = dict(keep=lambda path: path not in sharded)
+            name = f"rank{self.rank}"
+            parts[name] = dict(keep=lambda path: path in sharded, data_file=f"{name}.bin",
+                               scalars=False)
+        snaps = {}
+        for name, kwargs in parts.items():
+            snaps[name] = _snapshot(state, self._buffers.get(name), **kwargs)
+            self._buffers[name] = snaps[name].data
+        if self.mesh is not None and self.rank == 0:
+            layout = {}
+            for path, leaf in flatten(state):
+                if path in sharded:
+                    spec = sharded[path]
+                    layout[path] = {"spec": [list(e) if isinstance(e, tuple) else e for e in spec],
+                                    "global_shape": _global_shape(self.mesh, spec, leaf.shape)}
+            snaps["state"].index["layout"] = {"ranks": self.mesh.size, "sharded": layout}
+        return snaps
+
+    def _write(self, step: int, snaps: Dict[str, _Snapshot]) -> None:
+        if self.mesh is None:
+            _write_step(self.directory, step, snaps)
+        else:
+            self._write_gang(step, snaps)
+        if self.max_to_keep and self.rank == 0:  # retention: the newest max_to_keep steps
             for old in self._step_dirs()[:-self.max_to_keep]:
                 shutil.rmtree(self._step_dir(old), ignore_errors=True)
 
-    def _write_async(self, step: int, snap: _Snapshot) -> None:
+    def _write_gang(self, step: int, snaps: Dict[str, _Snapshot]) -> None:
+        """Every rank's files into one temporary dir; rank 0 commits it
+        once all are there; every rank returns once it is committed."""
+        import torch.distributed as dist
+
+        tmp = os.path.join(self.directory, f"{step}.tmp-{self._token}")
+        if self.rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        dist.barrier(group=self._group)
+        _write_files(tmp, snaps)
+        dist.barrier(group=self._group)
+        if self.rank == 0:
+            write_step_manifest(tmp)
+            os.replace(tmp, self._step_dir(step))
+        dist.barrier(group=self._group)
+
+    def _write_async(self, step: int, snaps: Dict[str, _Snapshot]) -> None:
         try:
-            self._write(step, snap)
+            self._write(step, snaps)
         except BaseException as exc:  # noqa: BLE001 - re-raised by wait_until_finished
             self._writer_error = exc
 
@@ -355,8 +484,10 @@ class CheckpointManager:
         """Restore into the structure of `state_target` (real or meta
         tensors give the dtypes and shapes), with its tensors on `device`.
         step=None → newest VERIFIED step; an explicitly requested step
-        that fails verification is quarantined and the restore falls back
-        to the newest step that verifies."""
+        that fails verification is quarantined (by rank 0, in a gang) and
+        the restore falls back to the newest step that verifies. In a gang
+        each rank reads the replicated leaves and its own block of the
+        sharded ones, as the step's index lays them out."""
         dev = resolve_device(device)
         self.wait_until_finished()
         candidates = sorted(self.all_steps(), reverse=True)
@@ -365,11 +496,13 @@ class CheckpointManager:
             candidates = [step] + [s for s in candidates if s != step]
         if not candidates:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        ranks = self.mesh.size if self.mesh is not None else 1
         for candidate in candidates:
             reason = verify_step_dir(self._step_dir(candidate))
             if reason is None:
-                return _read_step(self._step_dir(candidate), state_target, dev)
-            self._quarantine(candidate, reason)
+                return _read_step(self._step_dir(candidate), state_target, dev, self.rank, ranks)
+            if self.rank == 0:
+                self._quarantine(candidate, reason)
         raise FileNotFoundError(
             f"no VALID checkpoints under {self.directory} (all candidates "
             f"failed verification and were quarantined)"
@@ -398,4 +531,14 @@ class CheckpointManager:
 
     def close(self) -> None:
         self.wait_until_finished()
-        self._buffer = None
+        self._buffers.clear()
+
+
+def _global_shape(mesh: Any, spec: Any, shape: Any) -> List[int]:
+    """The global shape of a leaf whose local block has `shape`."""
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        for axis in axes:
+            out[dim] *= mesh.shape[axis]
+    return out

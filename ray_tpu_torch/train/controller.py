@@ -114,8 +114,9 @@ class TrainController:
         # staleness) and reschedule the placement group before a restart
         # can succeed — hot-looping would just burn the failure budget
         self.restart_backoff_s = restart_backoff_s
-        # default: in-process actor gang; a factory builds another group
-        # (JAX's MultihostWorkerGroup comes with ROADMAP A4)
+        # default: in-process actor gang; pass a factory building a
+        # MultihostWorkerGroup for one-process-per-rank data parallelism
+        # (train/multihost.py)
         self.group_factory = group_factory
         self.status = RunStatus.PENDING
         self.metrics_history: List[Dict[str, Any]] = []

@@ -75,7 +75,7 @@ class Session:
         self._should_checkpoint = False
         self._preempted = False
         self._preempt_deadline = 0.0
-        # cross-process sessions (multihost, ROADMAP A4) read the
+        # cross-process sessions (train/multihost.py) read the
         # controller's flags through a probe instead of the in-memory fields
         self._flag_probe: Optional[Callable[[], Dict[str, Any]]] = None
         # streaming-data gang feed: name -> DataIterator for THIS rank's

@@ -6,27 +6,39 @@ Port of `ray_tpu/train/trainer.py`:
   passed as `datasets={name: ds}` are split across the ranks
   (`train.get_dataset_shard`). With `ScalingConfig(use_gpu=True)` each
   rank asks for a GPU and `fit()` raises without a CUDA device.
-- `LMTrainer` for one device: the same constructor and `train(...)`
-  signature, the same report keys and the same step-log decomposition,
-  with `restore`, `maybe_restore` and `save_checkpoint` on the port's
+- `LMTrainer`: the same constructor and `train(...)` signature, the same
+  report keys and the same step-log decomposition, with `restore`,
+  `maybe_restore` and `save_checkpoint` on the port's
   `CheckpointManager`. It is a host-side object: the step is the port's
-  eager train step, and Python feeds batches and drains metrics.
+  eager train step, and Python feeds batches and drains metrics. In a
+  torch.distributed job of n ranks (a `MultihostWorkerGroup` rank) it
+  runs data-parallel over `mesh_spec=MeshSpec(dp=n)`, with JAX's dp sync
+  modes (`dp_allreduce_dtype`, `dp_shard_update`), their `dp_sync_mode`
+  and `dp_sync_bytes`, and JAX's host estimate of the sync's seconds
+  (bytes / `steplog_dp_bandwidth_gbs`) in the reports and in the step
+  log's `dp_sync` bucket. On one device an int8 or sharded-update sync
+  runs the standard step (`dp_sync_mode` "xla_psum", `dp_sync_bytes` 0),
+  as JAX's does.
 
 What differs from JAX, and why:
-- One device, named by `device` (default "cuda", raising without a CUDA
-  device; "cpu" runs the plain paths). A `mesh_spec` over more than one
-  device raises NotImplementedError (ROADMAP A4), and so does an int8 or
-  sharded-update dp sync (`dp_allreduce_dtype`, `dp_shard_update`); the
-  reports give JAX's one-replica values (`dp_sync_mode` "xla_psum",
-  `dp_sync_bytes` 0, `dp_sync_s` 0). `rules` (the logical sharding
-  rules) are kept but have nothing to shard.
+- One process per device: `device` (default "cuda", raising without a
+  CUDA device; "cpu" runs the plain paths) is this rank's device. The
+  default mesh is JAX's, `MeshSpec().with_devices(world size)`: fsdp over
+  the job's ranks, which raises NotImplementedError past one rank (FSDP
+  comes with ROADMAP A4), so a gang asks for `MeshSpec(dp=n)`.
+- A batch that `lm_batch_iterator(sharding=)` or `iter_torch_batches(
+  sharding=)` placed is this rank's rows; any other batch is the global
+  one, and the trainer takes this rank's rows of it (JAX's step places a
+  global array by its sharding the same way). tokens/s counts the
+  global batch, as JAX's does.
 - Device work is queued, as JAX's dispatch is asynchronous: only sampled
   steps synchronise the device (JAX's `block_until_ready`), and a report
   reads its metrics back (JAX's `float()` does too).
 - MFU and the roofline come from `util/profiling.step_cost`, which counts
   the step on meta tensors where JAX reads the compiled step's
-  `cost_analysis()`; the count runs at the first report that needs it
-  and is cached, as JAX's AOT compile is.
+  `cost_analysis()`: this rank's forward, backward and update on its rows
+  (the sync's collectives are not counted); the count runs at the first
+  report that needs it and is cached, as JAX's AOT compile is.
 - As in JAX, `train` reports through `session.report` inside a gang
   rank, keyed by the gang's run name and the rank's `world_rank`; outside
   a gang `report_fn` is a no-op, `run_name` "local" and the rank 0.
@@ -35,22 +47,33 @@ What differs from JAX, and why:
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
 from ..core.config import cfg
 from ..models.transformer import TransformerConfig, count_params
 from ..ops.losses import auto_loss_chunk
-from ..parallel.mesh import MeshSpec, build_mesh
+from ..parallel.collectives import dp_sync_bytes
+from ..parallel.mesh import MeshSpec, build_mesh, data_sharding
+from ..parallel.sharding import default_rules
 from . import steplog
 from .checkpoint import CheckpointManager
 from .config import CheckpointConfig, RunConfig, ScalingConfig
 from .controller import Result, TrainController
-from .lm import create_train_state, default_optimizer, make_train_step
+from .lm import (
+    AdamWState,
+    TrainState,
+    create_train_state,
+    default_optimizer,
+    make_train_step,
+    state_specs,
+)
 
 
 class Trainer:
@@ -112,32 +135,52 @@ class LMTrainer:
         device: Union[str, torch.device] = "cuda",
     ):
         self.config = config
-        self.mesh = build_mesh(mesh_spec or MeshSpec().with_devices(1), [device])
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+        self.mesh = build_mesh(mesh_spec or MeshSpec().with_devices(world), [device])
         self.device = self.mesh.device
-        self.rules = rules
-        # dp sync knobs: explicit args win, cfg flags are the default. One
-        # device has no dp axis: an int8 or sharded-update sync waits for
-        # the multi-device mesh (ROADMAP A4)
+        self.rules = rules or default_rules()
+        # dp sync knobs: explicit args win, cfg flags are the default
         if dp_allreduce_dtype is None:
             dp_allreduce_dtype = cfg.dp_allreduce_dtype
         if dp_shard_update is None:
             dp_shard_update = cfg.dp_shard_update
-        if dp_allreduce_dtype != "f32" or dp_shard_update:
-            raise NotImplementedError(
-                f"dp_allreduce_dtype={dp_allreduce_dtype!r}, dp_shard_update={dp_shard_update}: "
-                "the explicit data-parallel sync comes with the multi-device mesh (ROADMAP A4)"
-            )
-        # JAX's name for the implicit sync, kept so reports read alike; on
-        # one device nothing syncs
-        self.dp_sync_mode = "xla_psum"
-        self.dp_sync_bytes = 0
-        self.optimizer = optimizer or default_optimizer(learning_rate, total_steps=total_steps)
+        n_dp = self.mesh.shape["dp"]
+        explicit_dp = (dp_shard_update or dp_allreduce_dtype == "int8") and n_dp > 1
+        self.dp_sync_mode = (
+            f"{dp_allreduce_dtype}" + ("+shard_update" if dp_shard_update else "")
+            if explicit_dp else "xla_psum"
+        )
+        self.optimizer = optimizer or default_optimizer(
+            learning_rate, total_steps=total_steps,
+            shard_axis="dp" if (explicit_dp and dp_shard_update) else None,
+        )
         self.total_steps = total_steps
-        self.state = create_train_state(self.config, self.optimizer, seed, device=self.device)
+        self.state = create_train_state(
+            self.config, self.optimizer, seed, mesh=self.mesh, rules=self.rules,
+            dp_shard_update=explicit_dp and dp_shard_update,
+            dp_error_feedback=explicit_dp and dp_allreduce_dtype == "int8",
+        )
+        # JAX's state shardings: which leaves are this rank's block
+        self.state_specs = state_specs(self.state, config, self.rules,
+                                       dp_shard_update=explicit_dp and dp_shard_update)
         self._step_kwargs = dict(z_loss_coeff=z_loss_coeff, grad_accum=grad_accum)
         self._loss_chunk = loss_chunk
-        self.step_fn = make_train_step(self.config, self.optimizer, device=self.device,
-                                       loss_chunk=loss_chunk, **self._step_kwargs)
+        self.step_fn = make_train_step(
+            self.config, self.optimizer, mesh=self.mesh, loss_chunk=loss_chunk,
+            dp_allreduce_dtype=dp_allreduce_dtype, dp_shard_update=dp_shard_update,
+            **self._step_kwargs)
+        self.dp_sync_bytes = dp_sync_bytes(
+            count_params(self.state.params), n_dp,
+            mode=dp_allreduce_dtype, shard_update=dp_shard_update,
+            block=cfg.dp_quant_block,
+        ) if explicit_dp else dp_sync_bytes(count_params(self.state.params), n_dp)
+        # per-step dp_sync ESTIMATE for the step-phase decomposition
+        # (train/steplog): wire bytes over the assumed interconnect
+        # bandwidth — 0 on a single replica, where nothing syncs
+        self._dp_sync_est_s = (
+            self.dp_sync_bytes / (cfg.steplog_dp_bandwidth_gbs * 1e9) if n_dp > 1 else 0.0
+        )
+        self._batch_sharding = data_sharding(self.mesh)
         # the step's counted cost (util/profiling), computed the first time
         # a report needs it (one run of the step on meta tensors; disable
         # with profile_cost_accounting=False)
@@ -149,6 +192,7 @@ class LMTrainer:
                 checkpoint_config.checkpoint_dir,
                 max_to_keep=checkpoint_config.max_to_keep,
                 async_save=checkpoint_config.async_save,
+                mesh=self.mesh,
             )
 
     @property
@@ -170,6 +214,13 @@ class LMTrainer:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _place(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows: a batch placed by a sharding is kept; a global
+        one is cut to this rank's block of rows."""
+        if self.mesh.size == 1 or getattr(batch, "sharding", None) is not None:
+            return batch
+        return {"tokens": self._batch_sharding.shard(batch["tokens"])}
 
     def _land(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Have the batch on the device before a sampled step's dispatch,
@@ -223,6 +274,8 @@ class LMTrainer:
         # these out of the step_compute bucket
         window_input_wait = 0.0
         window_ckpt_save = 0.0
+        window_dp_sync = 0.0
+        data_parts = self._batch_sharding.parts(0)[0]
         batch_iter = iter(batches)
         while True:
             t_step0 = time.perf_counter()
@@ -235,9 +288,10 @@ class LMTrainer:
             if num_steps is not None and steps >= num_steps:
                 break
             sampled = sample_every > 0 and steps % sample_every == 0
+            if isinstance(batch["tokens"], np.ndarray):
+                batch = {"tokens": torch.from_numpy(batch["tokens"])}
+            batch = self._place(batch)
             tokens = batch["tokens"]
-            if isinstance(tokens, np.ndarray):
-                batch = {"tokens": torch.from_numpy(tokens)}
             if sampled:
                 # the ONE deliberate sync before dispatch: land the batch
                 batch = self._land(batch)
@@ -248,7 +302,8 @@ class LMTrainer:
             t_dev = time.perf_counter()
             steps += 1
             window_steps += 1
-            tokens_done += float(tokens.shape[0] * (tokens.shape[1] - 1))
+            window_dp_sync += self._dp_sync_est_s
+            tokens_done += float(tokens.shape[0] * data_parts * (tokens.shape[1] - 1))
             t_rep0 = time.perf_counter()
             if steps % report_every == 0 or (num_steps is not None and steps == num_steps):
                 metrics = {k: float(v) for k, v in metrics.items()}
@@ -258,8 +313,8 @@ class LMTrainer:
                 metrics["step"] = int(self.state.step)
                 metrics["input_wait_s"] = round(window_input_wait, 6)
                 metrics["ckpt_save_s"] = round(window_ckpt_save, 6)
-                metrics["dp_sync_s"] = 0.0  # one device: nothing syncs
-                window_input_wait = window_ckpt_save = 0.0
+                metrics["dp_sync_s"] = round(window_dp_sync, 6)
+                window_input_wait = window_ckpt_save = window_dp_sync = 0.0
                 # MFU/roofline from the step's counted cost over this
                 # window's measured step time (the first window absorbs the
                 # first steps' set-up, so its MFU reads low)
@@ -312,11 +367,13 @@ class LMTrainer:
         """Decompose one SAMPLED step into the typed steplog buckets.
 
         The step is one device interval on the host's clock (dispatch to
-        synchronise): fwd_bwd_compute is all of it, dp_sync is exactly 0
-        (one replica: JAX's wire-byte estimate is 0 there too) and
-        optimizer_update stays 0 (inside the same interval). `other` is wall minus every measured
-        bucket, so the recorded buckets sum EXACTLY to wall_s."""
-        fwd_bwd, dp_sync = device, 0.0
+        synchronise): dp_sync is JAX's wire-byte ESTIMATE
+        (cfg.steplog_dp_bandwidth_gbs; exactly 0 on one replica),
+        fwd_bwd_compute the rest of the interval, and optimizer_update
+        stays 0 (inside the same interval). `other` is wall minus every
+        measured bucket, so the recorded buckets sum EXACTLY to wall_s."""
+        dp_sync = min(self._dp_sync_est_s, device)
+        fwd_bwd = device - dp_sync
         measured = data_wait + h2d + device + report + ckpt
         other = wall - measured
         if other < 0.0:  # clock jitter: wall is then the measured sum
@@ -347,15 +404,23 @@ class LMTrainer:
         if self._step_cost is None:
             from ..util import profiling
 
-            tokens = torch.as_tensor(batch["tokens"])
+            tokens = torch.as_tensor(self._place(batch)["tokens"])
             chunk = self._loss_chunk
             if chunk is None:  # what the live step's auto choice picks on its device
                 micro = tokens.shape[0] // self._step_kwargs["grad_accum"]
                 chunk = auto_loss_chunk(micro, tokens.shape[1] - 1, self.config.vocab_size,
                                         device=self.device)
-            meta_step = make_train_step(self.config, self.optimizer, device="meta",
-                                        loss_chunk=chunk, **self._step_kwargs)
-            self._step_cost = profiling.step_cost(meta_step, self.state, {"tokens": tokens})
+            # the optimizer of the sharded update clips over the ranks: the
+            # count prices the same update on whole leaves, on one device
+            optimizer = dataclasses.replace(self.optimizer, shard_axis=None)
+            meta_step = make_train_step(self.config, optimizer, device="meta",
+                                        loss_chunk=chunk, dp_allreduce_dtype="f32",
+                                        dp_shard_update=False, **self._step_kwargs)
+            # this rank's step on its rows, with the moments in the params'
+            # layout (the sharded update's rows are priced as whole leaves)
+            meta = TrainState(step=self.state.step, params=self.state.params, opt_state=AdamWState(
+                count=self.state.opt_state.count, mu=self.state.params, nu=self.state.params))
+            self._step_cost = profiling.step_cost(meta_step, meta, {"tokens": tokens})
         return self._step_cost
 
     def profiling_metrics(self, batch: Dict[str, Any],
@@ -386,5 +451,5 @@ class LMTrainer:
 
     def save_checkpoint(self) -> int:
         step = int(self.state.step)
-        self.ckpt_mgr.save(step, self.state)
+        self.ckpt_mgr.save(step, self.state, specs=self.state_specs)
         return step

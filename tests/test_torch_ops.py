@@ -333,7 +333,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.data, ray_tpu_torch.data.block, ray_tpu_torch.data.datasource\n"
         "import ray_tpu_torch.data.executor, ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.queue\n"
         "import ray_tpu_torch.train.session, ray_tpu_torch.train.worker_group\n"
-        "import ray_tpu_torch.train.controller\n"
+        "import ray_tpu_torch.train.controller, ray_tpu_torch.train.multihost\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.sharding\n"
+        "import ray_tpu_torch.core.worker_pool, ray_tpu_torch.core.worker_main\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

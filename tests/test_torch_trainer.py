@@ -32,7 +32,9 @@ from ray_tpu.util import profiling as jprofiling
 from ray_tpu_torch.core.config import cfg as tcfg
 from ray_tpu_torch.data import DataContext, lm_batch_iterator, pack_tokens
 from ray_tpu_torch.models import get_config
-from ray_tpu_torch.parallel import MeshSpec, build_mesh, dp_sync_bytes, single_device_mesh
+from ray_tpu_torch.parallel import (
+    MeshSpec, build_mesh, data_sharding, dp_sync_bytes, single_device_mesh,
+)
 from ray_tpu_torch.train import (
     CheckpointConfig,
     LMTrainer,
@@ -249,8 +251,20 @@ def test_lm_batch_iterator_matches_jax_batches():
     for a, b in zip(mine, ref):
         assert isinstance(a["tokens"], torch.Tensor) and a["tokens"].device.type == "cpu"
         np.testing.assert_array_equal(a["tokens"].numpy(), np.asarray(b["tokens"]))
-    with pytest.raises(NotImplementedError, match="A4"):
-        lm_batch_iterator(_Blocks(6), 9, 4, device="cpu", sharding=object())
+    # sharding= places each batch on the mesh's device (one rank here: the
+    # whole batch), as JAX's places it by its NamedSharding
+    from jax.sharding import NamedSharding as JNamedSharding, PartitionSpec as JP
+    from ray_tpu.parallel import build_mesh as jbuild_mesh
+
+    jmesh = jbuild_mesh(JMeshSpec(), devices=jax.devices()[:1])
+    jplaced = list(jdata_lm.lm_batch_iterator(
+        _Blocks(6), 9, 4, sharding=JNamedSharding(jmesh, JP(("dp", "fsdp"), None))))
+    sharding = data_sharding(build_mesh(MeshSpec(), ["cpu"]))
+    placed = list(lm_batch_iterator(_Blocks(6), 9, 4, sharding=sharding))
+    assert len(placed) == len(jplaced) == len(ref)
+    for a, b in zip(placed, jplaced):
+        assert a.sharding is sharding and a["tokens"].device.type == "cpu"
+        np.testing.assert_array_equal(a["tokens"].numpy(), np.asarray(b["tokens"]))
 
 
 def test_batch_stream_yields_the_first_batch_before_filling_the_window():
@@ -364,9 +378,11 @@ def test_mesh_spec_and_dp_sync_bytes_match_jax():
     mesh = build_mesh(MeshSpec(), ["cpu"])
     assert mesh.device.type == "cpu" and mesh.shape == {a: 1 for a in mesh.axis_names}
     assert single_device_mesh("cpu").devices == mesh.devices
-    with pytest.raises(NotImplementedError, match="A7"):
+    # past pure dp: the GSPMD-style axes wait for ROADMAP A4's FSDP/TP
+    # training; a dp mesh needs a torch.distributed job of its size
+    with pytest.raises(NotImplementedError, match="A4"):
         build_mesh(MeshSpec(fsdp=8), ["cpu"])
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="torch.distributed"):
         LMTrainer(get_config("gpt2-tiny"), mesh_spec=MeshSpec(dp=2), device="cpu")
     for n_params in (1000, 124_439_808):
         for n in (1, 2, 8):
@@ -378,17 +394,27 @@ def test_mesh_spec_and_dp_sync_bytes_match_jax():
 
 def test_lm_trainer_refuses_dp_sync_modes_it_cannot_run(monkeypatch):
     """One device has no dp axis: an int8 or sharded-update sync, asked for
-    by argument or by flag, raises naming ROADMAP A4 instead of being
-    ignored."""
+    by argument or by flag, runs the standard step, as JAX's trainer does
+    (`explicit_dp` needs n_dp > 1): dp_sync_mode "xla_psum", 0 sync bytes,
+    no error-feedback buffer, moments in the params' layout, and losses
+    equal to JAX's trainer's in the same mode from the same state."""
     config = get_config("gpt2-tiny")
-    with pytest.raises(NotImplementedError, match="A4"):
-        LMTrainer(config, dp_allreduce_dtype="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        LMTrainer(config, dp_shard_update=True, device="cpu")
+    batches = _batches(3, 2, config.vocab_size)
+    for kw in ({"dp_allreduce_dtype": "int8"}, {"dp_shard_update": True},
+               {"dp_allreduce_dtype": "int8", "dp_shard_update": True}):
+        jtrainer = _jax_trainer(**kw)
+        trainer = _carried(jtrainer, **kw)
+        assert (trainer.dp_sync_mode, trainer.dp_sync_bytes) == \
+            (jtrainer.dp_sync_mode, jtrainer.dp_sync_bytes) == ("xla_psum", 0)
+        assert trainer.state.ef is None and jtrainer.state.ef is None
+        assert [m.shape for m in tree_leaves(trainer.state.opt_state.mu)] == \
+            [p.shape for p in tree_leaves(trainer.state.params)]
+        jreports, treports = _train(jtrainer, batches), _train(trainer, batches)
+        for jr, tr in zip(jreports, treports):
+            assert tr["dp_sync_s"] == jr["dp_sync_s"] == 0.0
+            np.testing.assert_allclose(jr["loss"], tr["loss"], **STEP_TOL)
     monkeypatch.setenv("RAY_TPU_DP_ALLREDUCE_DTYPE", "int8")
-    with pytest.raises(NotImplementedError, match="A4"):
-        LMTrainer(config, device="cpu")
-    trainer = LMTrainer(config, dp_allreduce_dtype="f32", device="cpu")
+    trainer = LMTrainer(config, device="cpu")
     assert (trainer.dp_sync_mode, trainer.dp_sync_bytes) == ("xla_psum", 0)
 
 
