@@ -209,11 +209,37 @@ nonzero and no result line is printed):
              per rank and mode; a rank that hangs past the phase's timeout
              fails it. Two ranks on one card measure correctness and the
              sync's cost over this transport, not scaling.
+10. fsdp_tp — FSDP and tensor-parallel training over gloo ranks that
+             share the card (torch_fsdp_tp_rank.py), each mode against the
+             same steps in this process on the whole batch from the same
+             seeded weights (run and freed before the ranks start): (a)
+             GPT-2 124M at f32 compute on 4 ranks, MeshSpec(fsdp=2, tp=2)
+             with override_rules(default_rules(), vocab=None) (50257 does
+             not divide by 2), make_train_step on each rank's 4 rows, then
+             the sharded state checkpointed and restored bitwise; (a2) a
+             bare LMTrainer on GPT-2 124M (bf16) in a gang of 2, JAX's
+             default mesh fsdp=2, fed the global batch; (b) Llama-3-8B's
+             full width at FSDP_TP_LLAMA_LAYERS layers (bf16) on 2 ranks,
+             MeshSpec(tp=2), default rules: the vocab-parallel embedding
+             and loss and 4 of 8 kv heads per rank. FSDP_TP_STEPS steps a
+             mode, a fresh global batch each step drawn from a Zipf law
+             (_zipf_tokens); each mode's losses held to the reference's
+             at its own tolerance (FSDP_TP_TOL). Before the ranks, the
+             flash forward and both backward kernels against their
+             plain versions at the tp-local shapes: GPT-2 6 heads x 64
+             on 4 rows in bf16 and in f32 (mode (a) runs the f32
+             kernels), Llama 16 / 4 heads x 128 in bf16. Per step and
+             rank: the wall to a device synchronisation split into
+             compute and the
+             collectives (CUDA events: fsdp_gather, fsdp_scatter,
+             tp_allreduce, fsdp_sync / dp_sync, metrics), peak allocated
+             bytes; every mode must launch each flash kernel.
 
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; train: phase 6;
 trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; dp: phase
-9's ranks, all modes; each
+9's ranks, all modes; fsdp_tp: phase 10's ranks, all modes, also
+split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16; each
 counted from zero just before it, profiled repeats left out), its
 error against the plain version and its times; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA device.
@@ -564,23 +590,26 @@ def _ragged_batch(dtype, gen, q_lens, kv_lens, counts, max_q_blocks):
     return q, k_pages, v_pages, desc, dict(block_q=bq, max_q_blocks=max_q_blocks), nbytes, flops
 
 
+# Each kernel against its plain version: (atol, rtol, why).
+KERNEL_TOL = {
+    torch.bfloat16: (2e-2, 2e-2, "the bf16 kernels round p to bf16 before P.V (the "
+                     "flash kernels too), the plain versions keep p in f32: a relative "
+                     "error of up to 2^-9 in each weight, which with f32 sums in another "
+                     "order moves an output by up to about one bf16 ulp (2^-6 at "
+                     "|x| in [2, 4)) against atol + rtol |x|"),
+    torch.float32: (1e-4, 1e-4, "f32 sums over up to 1024 keys in another order"),
+}
+
+
 def phase_kernels(timer: _Timer) -> dict:
     """Each kernel against its plain version on the same inputs. Returns the
     bf16 (serving dtype) numbers per kernel for the final line."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    tol = {
-        torch.bfloat16: (2e-2, 2e-2, "the bf16 kernels round p to bf16 before P.V (the "
-                         "flash kernels too), the plain versions keep p in f32: a relative "
-                         "error of up to 2^-9 in each weight, which with f32 sums in another "
-                         "order moves an output by up to about one bf16 ulp (2^-6 at "
-                         "|x| in [2, 4)) against atol + rtol |x|"),
-        torch.float32: (1e-4, 1e-4, "f32 sums over up to 901 keys in another order"),
-    }
     results = {}
     for dtype in (torch.bfloat16, torch.float32):
-        atol, rtol, why = tol[dtype]
+        atol, rtol, why = KERNEL_TOL[dtype]
         # ---- ragged paged attention: a mixed tick's batch, a decode
         # step's, a decode-only verify tick's
         ragged = {label: _ragged_checks(timer, dtype, gen, label, make, atol, rtol, why)
@@ -3327,6 +3356,200 @@ def _dp_mode(mode, runs, ref, launches, config, finals, card) -> None:
             raise AssertionError(f"dp: f32+shard departs from f32 by {worst} relative")
 
 
+FSDP_TP_STEPS = 4
+FSDP_TP_WARMUP = 2  # the schedule's warmup: step 0 moves nothing
+FSDP_TP_LLAMA_LAYERS = 2  # Llama-3-8B width: 1.49 B params, 24 GB of f32 state in one process
+FSDP_TP_LLAMA_BATCH, FSDP_TP_LLAMA_SEQ = 2, 1024
+FSDP_TP_TIMEOUT_S = 300  # every collective of a gang, and its start-up
+# Each step's loss against one process's, relative: |loss - ref| <= rtol |ref|.
+# Every step takes a fresh batch from a Zipf law (_zipf_tokens): each
+# update moves the loss by nats (GPT-2 10.96 -> 9.85 -> 9.22; Llama-3's
+# width overshoots at this learning rate, 12.55 -> 34.1 -> 19.3) and keeps
+# it far from 0, where a relative bound keeps its meaning. Each bound is
+# about 10x the largest gap that mode measured on the card (PERF.md §6,
+# run G), far under what one update moves the loss:
+# - (a) f32 compute: the sharded step sums the same f32 products in
+#   another order (the tp all-reduce of partial products, the fsdp
+#   reduce-scatter of the gradients): 1.0e-7 measured;
+# - (a2) bf16 compute, fsdp only: cuBLAS tiles a rank's rows otherwise,
+#   bf16 roundings (2^-9) through 12 layers and 4 Adam steps: 3.3e-5;
+# - (b) bf16, tp: a rank also rounds its partial product to bf16 before
+#   the all-reduce sums it: 1.9e-4.
+FSDP_TP_TOL = {"a": 1e-6, "a2": 4e-4, "b": 2e-3}
+
+FLASH_SHAPES["gpt2_tp2"] = (TRAIN_BATCH // 2, 6, 6, TRAIN_SEQ, 64)  # a fsdp=2 x tp=2 rank
+FLASH_SHAPES["llama_tp2"] = (FSDP_TP_LLAMA_BATCH, 16, 4, FSDP_TP_LLAMA_SEQ, 128)  # a tp=2 rank
+
+
+def _zipf_tokens(rng, vocab: int, shape: tuple) -> np.ndarray:
+    """Tokens from a Zipf law over a shuffled vocabulary (p ∝ 1 / rank, as
+    word frequencies in text): an update learns the unigram, so the loss
+    falls from about ln V toward the law's entropy (7.57 nats over GPT-2's
+    vocabulary, 8.11 over Llama-3's) and no fixed batch is memorised."""
+    p = 1.0 / np.arange(1, vocab + 1)
+    ids = rng.permutation(vocab).astype(np.int32)
+    return ids[rng.choice(vocab, size=shape, p=p / p.sum())]
+
+
+def _reference_losses(model, tokens: np.ndarray, opt_kw: dict) -> list:
+    """A step of make_train_step in this process on each whole batch of
+    `tokens` (steps, batch, seq + 1) from init_params(model, SEED), the
+    state freed after."""
+    opt = default_optimizer(TRAIN_LR, **opt_kw)
+    state = create_train_state(model, opt, SEED, device="cuda")
+    step = make_train_step(model, opt, device="cuda")
+    losses = [step(state, {"tokens": torch.from_numpy(t).cuda()})[1]["loss"].item()
+              for t in tokens]
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _gang_run(n: int, configs: list) -> list:
+    """Each config run by a fresh MultihostWorkerGroup of n gloo ranks on
+    the card, one after another; returns the ranks' outputs by config."""
+    from ray_tpu_torch.train.multihost import MultihostWorkerGroup
+    import torch_fsdp_tp_rank
+
+    group = MultihostWorkerGroup(n, run_name=f"chip-smoke-fsdp-tp-{n}", backend="gloo",
+                                 timeout_s=FSDP_TP_TIMEOUT_S)
+    try:
+        group.start()
+        outs = []
+        for config in configs:
+            outs.append(group.finish(group.run_async(torch_fsdp_tp_rank.fsdp_tp_rank, config),
+                                     timeout=2 * FSDP_TP_TIMEOUT_S))
+        return outs
+    finally:
+        group.shutdown()
+
+
+def _fsdp_tp_mode(label, ranks, ref, rtol, card) -> dict:
+    """Print one mode's numbers per rank and step; hold its checks."""
+    from torch_fsdp_tp_rank import LABELS
+
+    losses = ranks[0]["losses"]
+    for r in ranks[1:]:
+        if r["losses"] != losses:
+            raise AssertionError(f"fsdp_tp: {label}: the ranks' losses differ: "
+                                 f"{[x['losses'] for x in ranks]}")
+    gaps = [abs(a - b) for a, b in zip(losses, ref)]
+    rel = [g / abs(b) for g, b in zip(gaps, ref)]
+    log("fsdp_tp", f"{label} ({ranks[0]['mesh']}, {ranks[0]['backend']}, {len(ranks)} ranks on "
+        f"{ranks[0]['device']}; split groups {ranks[0]['split_group']}): loss "
+        + " ".join(f"{x:.6f}" for x in losses) + " against one process "
+        + " ".join(f"{x:.6f}" for x in ref) + f": largest gap {max(gaps):.3e}, largest "
+        f"relative gap {max(rel):.3e} (tolerance {rtol} relative); step moves "
+        + " ".join(f"{b - a:+.6f}" for a, b in zip(ref, ref[1:])) + " nats")
+    out = {"losses": losses, "reference": ref, "largest_gap": max(gaps),
+           "largest_rel_gap": max(rel), "rtol": rtol, "ranks": [],
+           "launches": {k.name: sum(r["launches"][k.name] for r in ranks) for k in KERNELS}}
+    for r in ranks:
+        rows = []
+        for i, (wall, split) in enumerate(zip(r["step_s"], r["splits"])):
+            coll = {k: split[k]["seconds"] for k in LABELS if k in split}
+            compute = wall - sum(coll.values())
+            rows.append(dict(step=i, wall_s=wall, compute_s=compute, **coll,
+                             bytes={k: split[k]["bytes"] for k in split},
+                             calls={k: split[k]["calls"] for k in split}))
+            log("fsdp_tp", f"{label} rank {r['rank']} step {i}: wall {wall * 1e3:.2f} ms = compute "
+                f"{compute * 1e3:.2f} ms + " + " + ".join(
+                    f"{k} {v * 1e3:.2f} ms ({split[k]['calls']} calls, {split[k]['bytes']} B)"
+                    for k, v in coll.items()) + f" ({card})")
+        later = rows[1:] or rows
+        med = {k: statistics.median(x.get(k, 0.0) for x in later)
+               for k in ("wall_s", "compute_s") + LABELS}
+        log("fsdp_tp", f"{label} rank {r['rank']}: median over steps 1-{len(rows) - 1}: wall "
+            f"{med['wall_s'] * 1e3:.2f} ms, compute {med['compute_s'] * 1e3:.2f} ms ("
+            + ", ".join(f"{k} {med[k] / med['wall_s']:.3f}" for k in LABELS if med[k])
+            + f" of the step); peak allocated {r['peak_bytes'] / 2**30:.3f} GiB; launches "
+            + ", ".join(f"{k} {v}" for k, v in r["launches"].items()))
+        out["ranks"].append(dict(rank=r["rank"], median=med, steps=rows, peak_bytes=r["peak_bytes"]))
+        for kernel in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+            if r["launches"][kernel.name] == 0:
+                raise AssertionError(f"fsdp_tp: {label} rank {r['rank']}: {kernel.name} never "
+                                     f"launched")
+    if not all(g <= rtol * abs(b) for g, b in zip(gaps, ref)):
+        raise AssertionError(f"fsdp_tp: {label}: losses {losses} depart from the one-process "
+                             f"{ref} by more than {rtol} relative")
+    return out
+
+
+def phase_fsdp_tp(card: str) -> dict:
+    """FSDP and tensor-parallel training over gloo ranks on the card: the
+    kernels at the tp-local shapes, then modes (a), (a2) and (b) of the
+    module docstring, each against its one-process reference. Returns the
+    flash kernels' launches summed over the ranks and modes, and the
+    kernel checks."""
+    t0 = time.perf_counter()
+    timer = _Timer()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    checks = {}
+    for label, dtype in (("gpt2_tp2", torch.bfloat16), ("gpt2_tp2", torch.float32),
+                         ("llama_tp2", torch.bfloat16)):
+        atol, rtol, _ = KERNEL_TOL[dtype]
+        key = label if dtype == torch.bfloat16 else f"{label}_f32"
+        checks[key] = dict(forward=_fwd_checks(timer, dtype, gen, label, True, atol, rtol),
+                           **_bwd_checks(timer, dtype, gen, label, FLASH_SHAPES[label], atol,
+                                         rtol))
+    del timer
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 4)
+    gpt2 = get_config(TRAIN_MODEL)
+    llama = get_config(MODEL).replace(n_layers=FSDP_TP_LLAMA_LAYERS)
+    gpt2_tokens = _zipf_tokens(rng, gpt2.vocab_size, (FSDP_TP_STEPS, TRAIN_BATCH, TRAIN_SEQ + 1))
+    llama_tokens = _zipf_tokens(rng, llama.vocab_size,
+                                (FSDP_TP_STEPS, FSDP_TP_LLAMA_BATCH, FSDP_TP_LLAMA_SEQ + 1))
+    opt_kw = dict(warmup_steps=FSDP_TP_WARMUP, total_steps=FSDP_TP_STEPS)
+    t = time.perf_counter()
+    refs = {"a": _reference_losses(gpt2.replace(dtype=torch.float32), gpt2_tokens, opt_kw),
+            "a2": _reference_losses(gpt2, gpt2_tokens, opt_kw),
+            "b": _reference_losses(llama, llama_tokens, opt_kw)}
+    log("fsdp_tp", f"one-process references ({time.perf_counter() - t:.2f} s): " + "; ".join(
+        f"{k} " + " ".join(f"{x:.6f}" for x in v) for k, v in refs.items()))
+    common = dict(lr=TRAIN_LR, seed=SEED, **opt_kw)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_tp_")
+    try:
+        t = time.perf_counter()
+        (a,) = _gang_run(4, [dict(common, mode="gpt2_fsdp2_tp2", model=TRAIN_MODEL, f32=True,
+                                  mesh=dict(fsdp=2, tp=2), vocab_whole=True, tokens=gpt2_tokens,
+                                  checkpoint=tmp)])
+        gang4_s = time.perf_counter() - t
+        t = time.perf_counter()
+        a2, b = _gang_run(2, [
+            dict(common, mode="gpt2_lmtrainer", model=TRAIN_MODEL, tokens=gpt2_tokens),
+            dict(common, mode="llama_tp2", model=MODEL, n_layers=FSDP_TP_LLAMA_LAYERS,
+                 mesh=dict(tp=2), tokens=llama_tokens)])
+        gang2_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("fsdp_tp", f"gang of 4: {gang4_s:.2f} s, gang of 2: {gang2_s:.2f} s, start-up included")
+    modes = {
+        "a": _fsdp_tp_mode("(a) gpt2-small f32 fsdp=2 x tp=2, vocab whole", a, refs["a"],
+                           FSDP_TP_TOL["a"], card),
+        "a2": _fsdp_tp_mode("(a2) gpt2-small bf16 LMTrainer default mesh", a2, refs["a2"],
+                            FSDP_TP_TOL["a2"], card),
+        "b": _fsdp_tp_mode(f"(b) llama3-8b width, {FSDP_TP_LLAMA_LAYERS} layers, bf16 tp=2", b,
+                           refs["b"], FSDP_TP_TOL["b"], card),
+    }
+    for r in a2:
+        if r["mesh"] != "fsdp=2" or r["report"]["num_tokens"] != TRAIN_BATCH * TRAIN_SEQ:
+            raise AssertionError(f"fsdp_tp: (a2) rank {r['rank']}: mesh {r['mesh']}, report "
+                                 f"{r['report']}")
+    for r in a:
+        ckpt = r["checkpoint"]
+        log("fsdp_tp", f"(a) rank {r['rank']}: checkpoint of {ckpt['bytes']} state bytes saved in "
+            f"{ckpt['save_s']:.2f} s (every rank's blocks, one step dir), restored bitwise "
+            f"{ckpt['bitwise']} at step {ckpt['step']}")
+        if not ckpt["bitwise"] or ckpt["step"] != FSDP_TP_STEPS:
+            raise AssertionError(f"fsdp_tp: (a) rank {r['rank']}: the restored state differs")
+    log("fsdp_tp", f"phase {time.perf_counter() - t0:.2f} s ({card})")
+    launches = {k.name: sum(m["launches"][k.name] for m in modes.values()) for k in KERNELS}
+    return dict(launches=launches, checks=checks, modes=modes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3366,16 +3589,28 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dp = phase_dp(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fsdp_tp = phase_fsdp_tp(card)
+    for label, check in fsdp_tp["checks"].items():
+        results["flash_attention_fwd"][f"{label}_shape"] = check["forward"]
+        for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+            results[name][f"{label}_shape"] = check[name]
+    by_mode = {f"({m}) {'f32' if m == 'a' else 'bf16'}": fsdp_tp["modes"][m]["launches"]
+               for m in ("a", "a2", "b")}
     kernels = []
     for k in KERNELS:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
                    "deploy": deploy["launches"][k.name], "observe": observe["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
-                   "ingest": ingest["launches"][k.name], "dp": dp["launches"][k.name]}
+                   "ingest": ingest["launches"][k.name], "dp": dp["launches"][k.name],
+                   "fsdp_tp": fsdp_tp["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))
+        if k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+            kernels[-1]["fsdp_tp_launches_by_mode"] = {m: n[k.name] for m, n in by_mode.items()}
         if k is RAGGED:
             kernels[-1]["serve_launches_by_kind"] = ragged_split
             kernels[-1]["serve_device_kernels_profiled_repeat"] = profiled

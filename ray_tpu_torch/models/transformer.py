@@ -14,6 +14,19 @@ backward; their plain versions on the CPU), or `mha_reference` when
 `torch.utils.checkpoint` (the counterpart of `jax.checkpoint` on the scan
 body) while gradients are being recorded.
 
+Under a mesh past dp the full-sequence forward takes `spmd`
+(`parallel.spmd.ModelSharding`), where JAX's GSPMD partitions the same
+code: the parameters are this rank's blocks, `layer_params` gathers a
+layer's fsdp-split weights in the compute dtype just before the layer
+runs (each layer then runs under `torch.utils.checkpoint`, remat or
+not, so the backward gathers its weights again and one layer is whole at
+a time), q / k / v and the MLP's up / gate products are
+column-parallel over the local heads and hidden units with `wo` and
+`w_down` row-parallel (the tp all-reduce follows; `bo` and `b_down` are
+added after it), the embedding and the head are vocab-parallel when the
+vocabulary is split, and attention runs on the local heads. With
+`spmd=None` every function is the one-device path.
+
 Two fields of the JAX config have no counterpart here: `fused_qkv` (the
 same math as one wider product; a performance choice for the MXU) and
 `scan_unroll` (the unroll of `lax.scan` over layers; eager PyTorch runs
@@ -196,9 +209,18 @@ def count_params(params: Params) -> int:
     return sum(count_params(v) if isinstance(v, dict) else v.numel() for v in params.values())
 
 
-def layer_params(params: Params, i: int) -> Params:
-    """Layer i's weights: views into the stacked block tensors."""
-    return {name: w[i] for name, w in params["blocks"].items()}
+def layer_params(params: Params, i: int, spmd: Any = None,
+                 dtype: Optional[torch.dtype] = None) -> Params:
+    """Layer i's weights: views into the stacked block tensors; under
+    `spmd`, this rank's blocks with their gathered dimensions whole (in
+    `dtype`, the compute dtype the forward casts them to)."""
+    lp = {name: w[i] for name, w in params["blocks"].items()}
+    return lp if spmd is None else spmd.gather_layer(lp, dtype)
+
+
+def _leaf(params: Params, name: str, spmd: Any, dtype: torch.dtype) -> torch.Tensor:
+    """A top-level weight (gathered whole under `spmd`, in `dtype`)."""
+    return params[name] if spmd is None else spmd.gather_leaf(name, params[name], dtype)
 
 
 # -------------------------------------------------------------------- forward
@@ -222,12 +244,15 @@ def attention_sublayer(
     config: TransformerConfig,
     rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]],
     positions: Optional[torch.Tensor],
+    spmd: Any = None,
 ) -> torch.Tensor:
     """Pre-norm self-attention (causal unless the config says not) +
-    residual on (B, S, E)."""
+    residual on (B, S, E); under a tp split, on this rank's heads."""
     c = config
     dt = c.dtype
     h = _norm(x, lp["ln1_scale"], lp.get("ln1_bias"), c.norm)
+    if spmd is not None:
+        h = spmd.enter("attn", h)
     q = _heads(h, lp["wq"].to(dt))
     k = _heads(h, lp["wk"].to(dt))
     v = _heads(h, lp["wv"].to(dt))
@@ -242,16 +267,22 @@ def attention_sublayer(
     attn = flash_attention(q, k, v, causal=c.causal, implementation=c.attn_impl)  # (B, H, S, D)
     b, _, s, _ = attn.shape
     out = attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"].to(dt).reshape(-1, c.d_model)
+    if spmd is not None:
+        out = spmd.leave("attn", out)
     if c.use_bias:
         out = out + lp["bo"].to(dt)
     return x + out
 
 
-def mlp_sublayer(x: torch.Tensor, lp: Params, config: TransformerConfig) -> torch.Tensor:
-    """Pre-norm dense MLP + residual on (..., E)."""
+def mlp_sublayer(x: torch.Tensor, lp: Params, config: TransformerConfig,
+                 spmd: Any = None) -> torch.Tensor:
+    """Pre-norm dense MLP + residual on (..., E); under a tp split, on
+    this rank's hidden units."""
     c = config
     dt = c.dtype
     h = _norm(x, lp["ln2_scale"], lp.get("ln2_bias"), c.norm)
+    if spmd is not None:
+        h = spmd.enter("mlp", h)
     up = h @ lp["w_up"].to(dt)
     if c.use_bias:
         up = up + lp["b_up"].to(dt)
@@ -260,19 +291,31 @@ def mlp_sublayer(x: torch.Tensor, lp: Params, config: TransformerConfig) -> torc
     else:
         act = gelu(up)
     down = act @ lp["w_down"].to(dt)
+    if spmd is not None:
+        down = spmd.leave("mlp", down)
     if c.use_bias:
         down = down + lp["b_down"].to(dt)
     return x + down
 
 
-def _block(x, lp, config, rope_tables, positions):
+def _block(x, lp, config, rope_tables, positions, spmd=None):
     """One transformer block on (B, S, E) activations."""
-    x = attention_sublayer(x, lp, config, rope_tables, positions)
-    return mlp_sublayer(x, lp, config)
+    x = attention_sublayer(x, lp, config, rope_tables, positions, spmd)
+    return mlp_sublayer(x, lp, config, spmd)
 
 
-def embed(params: Params, tokens: torch.Tensor, config: TransformerConfig) -> torch.Tensor:
-    """Token embedding rows in the compute dtype (gathered, then cast)."""
+def _layer(x, params, i, config, rope_tables, positions, spmd):
+    """Block i with its weights (gathered under `spmd`) on (B, S, E)."""
+    return _block(x, layer_params(params, i, spmd, config.dtype), config, rope_tables, positions,
+                  spmd)
+
+
+def embed(params: Params, tokens: torch.Tensor, config: TransformerConfig,
+          spmd: Any = None) -> torch.Tensor:
+    """Token embedding rows in the compute dtype (gathered, then cast);
+    vocab-parallel under a split vocabulary."""
+    if spmd is not None:
+        return spmd.embed(_leaf(params, "wte", spmd, config.dtype), tokens, config.dtype)
     return params["wte"][tokens.long()].to(config.dtype)
 
 
@@ -282,36 +325,45 @@ def forward_hidden(
     config: TransformerConfig,
     *,
     positions: Optional[torch.Tensor] = None,
+    spmd: Any = None,
 ) -> torch.Tensor:
     """Forward up to (but excluding) the LM head: (B, S) → (B, S, E)."""
     c = config
     dt = c.dtype
     s = tokens.shape[1]
-    x = embed(params, tokens, c)
+    x = embed(params, tokens, c, spmd)
     if c.pos_emb == "learned":
+        wpe = _leaf(params, "wpe", spmd, dt)
         if positions is None:
-            x = x + params["wpe"][:s].to(dt)[None]
+            x = x + wpe[:s].to(dt)[None]
         else:
-            x = x + params["wpe"][positions.long()].to(dt)
+            x = x + wpe[positions.long()].to(dt)
         rope_tables = None
     else:
         rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=x.device)
-    remat = c.remat and torch.is_grad_enabled()
+    # ZeRO-3: a layer whose weights are gathered is recomputed in the
+    # backward, gathers included, so no gathered weight outlives its layer
+    # (not on meta tensors: the cost count prices the step as JAX's GSPMD
+    # runs it, without the recompute)
+    gathered = spmd is not None and spmd.gathers_layers and x.device.type != "meta"
+    remat = (c.remat or gathered) and torch.is_grad_enabled()
     for i in range(c.n_layers):
-        lp = layer_params(params, i)
         if remat:
-            x = checkpoint(_block, x, lp, c, rope_tables, positions, use_reentrant=False)
+            x = checkpoint(_layer, x, params, i, c, rope_tables, positions, spmd,
+                           use_reentrant=False)
         else:
-            x = _block(x, lp, c, rope_tables, positions)
-    return _norm(x, params["lnf_scale"], params.get("lnf_bias"), c.norm)
+            x = _layer(x, params, i, c, rope_tables, positions, spmd)
+    lnf_bias = _leaf(params, "lnf_bias", spmd, dt) if "lnf_bias" in params else None
+    return _norm(x, _leaf(params, "lnf_scale", spmd, dt), lnf_bias, c.norm)
 
 
-def lm_head_weights(params: Params, config: TransformerConfig) -> torch.Tensor:
+def lm_head_weights(params: Params, config: TransformerConfig, spmd: Any = None) -> torch.Tensor:
     """(E, V) output projection — tied to wte unless a separate lm_head
-    exists."""
-    head = params.get("lm_head", None)
-    if head is None:
-        head = params["wte"].T
+    exists; this rank's vocabulary columns under a split vocabulary."""
+    if "lm_head" in params:
+        head = _leaf(params, "lm_head", spmd, config.dtype)
+    else:
+        head = _leaf(params, "wte", spmd, config.dtype).T
     return head.to(config.dtype)
 
 
@@ -321,10 +373,14 @@ def forward(
     config: TransformerConfig,
     *,
     positions: Optional[torch.Tensor] = None,
+    spmd: Any = None,
 ) -> torch.Tensor:
-    """Full-sequence forward: (B, S) → (B, S, V)."""
-    x = forward_hidden(params, tokens, config, positions=positions)
-    return x @ lm_head_weights(params, config)
+    """Full-sequence forward: (B, S) → (B, S, V); under a split
+    vocabulary, this rank's columns (B, S, V local)."""
+    x = forward_hidden(params, tokens, config, positions=positions, spmd=spmd)
+    if spmd is not None:
+        x = spmd.enter("head", x)
+    return x @ lm_head_weights(params, config, spmd)
 
 
 # --------------------------------------------------------------------- decode

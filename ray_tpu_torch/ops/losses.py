@@ -7,11 +7,18 @@ the (B, S, V) logits, running the LM head and the loss chunk by chunk
 under `torch.utils.checkpoint` (the counterpart of `jax.checkpoint` in the
 JAX scan body). Plain PyTorch: these functions reach no kernel of the
 TPU package.
+
+Under a split vocabulary (`vocab`, a `parallel.spmd.VocabShard`) the
+logits are this rank's columns: the max, the sum of exponentials and
+the target logit are each reduced over the ranks of the split, the loss
+and z-loss are taken on the global logsumexp and every rank returns the
+same loss. This is the vocab-parallel loss that JAX's GSPMD makes of the
+same code; the chunked head keeps its chunks.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -22,18 +29,38 @@ def z_loss(logits: torch.Tensor) -> torch.Tensor:
     return torch.logsumexp(logits.float(), dim=-1).square().mean()
 
 
+def _vocab_parallel(logits32: torch.Tensor, targets: torch.Tensor,
+                    vocab: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logsumexp, target logit), each (..., 1), of logits whose last
+    dimension is this rank's slice of the vocabulary: the max, the sum of
+    exponentials and the target logit (zero outside the slice) are
+    reduced over the ranks of the split."""
+    size = logits32.shape[-1]
+    peak = vocab.max(logits32.amax(dim=-1, keepdim=True))
+    logz = peak + vocab.sum((logits32 - peak).exp().sum(dim=-1, keepdim=True)).log()
+    local = targets[..., None].long() - vocab.start
+    inside = (local >= 0) & (local < size)
+    tgt = logits32.gather(-1, local.clamp(0, size - 1)).masked_fill(~inside, 0.0)
+    return logz, vocab.sum(tgt)
+
+
 def cross_entropy_loss(
     logits: torch.Tensor,
     targets: torch.Tensor,
     *,
     mask: Optional[torch.Tensor] = None,
     z_loss_coeff: float = 0.0,
+    vocab: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-level CE. logits (..., V), targets (...) int. Returns
-    (mean_loss, num_tokens) as f32 tensors. mask=0 drops a position."""
+    (mean_loss, num_tokens) as f32 tensors. mask=0 drops a position.
+    `vocab`: the logits are this rank's slice of a split vocabulary."""
     logits32 = logits.float()
-    logz = torch.logsumexp(logits32, dim=-1, keepdim=True)
-    tgt = logits32.gather(-1, targets[..., None].long())
+    if vocab is None:
+        logz = torch.logsumexp(logits32, dim=-1, keepdim=True)
+        tgt = logits32.gather(-1, targets[..., None].long())
+    else:
+        logz, tgt = _vocab_parallel(logits32, targets, vocab)
     nll = (logz - tgt)[..., 0]
     if mask is not None:
         mask_f = mask.float()
@@ -94,10 +121,14 @@ def _device_hbm_bytes(device: Union[str, torch.device, None]) -> int:
     return int(torch.cuda.get_device_properties(dev or torch.cuda.current_device()).total_memory)
 
 
-def _chunk_loss(xc, head, tc, mc):
+def _chunk_loss(xc, head, tc, mc, vocab=None):
     logits32 = (xc @ head).float()
-    logz = torch.logsumexp(logits32, dim=-1, keepdim=True)
-    nll = -(logits32 - logz).gather(-1, tc[..., None].long())[..., 0]
+    if vocab is None:
+        logz = torch.logsumexp(logits32, dim=-1, keepdim=True)
+        nll = -(logits32 - logz).gather(-1, tc[..., None].long())[..., 0]
+    else:
+        logz, tgt = _vocab_parallel(logits32, tc, vocab)
+        nll = (logz - tgt)[..., 0]
     return (nll * mc).sum(), (logz[..., 0].square() * mc).sum(), mc.sum()
 
 
@@ -109,13 +140,16 @@ def fused_linear_cross_entropy(
     chunk: int = 256,
     mask: Optional[torch.Tensor] = None,
     z_loss_coeff: float = 0.0,
+    vocab: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """LM-head product + CE over sequence chunks: each chunk's logits live
     only inside a checkpointed function, forward and backward, at the cost
     of one more head product per chunk in the backward.
 
     x (B, S, E) pre-head hidden states; head (E, V); targets (B, S). Same
-    return contract as cross_entropy_loss. S % chunk must be 0."""
+    return contract as cross_entropy_loss. S % chunk must be 0. `vocab`:
+    `head` holds this rank's columns of a split vocabulary (its backward
+    then recomputes each chunk's reductions over the split's ranks)."""
     b, s, _ = x.shape
     if s % chunk:
         raise ValueError(f"seq len {s} not divisible by loss chunk {chunk}")
@@ -128,7 +162,8 @@ def fused_linear_cross_entropy(
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
         nll, zl, n = checkpoint(
-            _chunk_loss, x[:, sl], head, targets[:, sl], mask_f[:, sl], use_reentrant=False
+            _chunk_loss, x[:, sl], head, targets[:, sl], mask_f[:, sl], vocab,
+            use_reentrant=False
         )
         total_nll, total_zl, num = total_nll + nll, total_zl + zl, num + n
     num = num.clamp(min=1.0)

@@ -1,6 +1,8 @@
 """ray_tpu_torch.parallel — meshes over the ranks of a torch.distributed
-job, sharding rules and collectives (port of `ray_tpu.parallel`; `dcn.py`
-comes with a later part of ROADMAP A4, the pipeline schedule with A7)."""
+job, sharding rules, collectives and the explicit FSDP / TP collectives
+that stand in for GSPMD (`spmd.py`) (port of `ray_tpu.parallel`;
+`dcn.py` comes with a later part of ROADMAP A4, the pipeline schedule
+with A7)."""
 
 from .collectives import (  # noqa: F401
     CollectiveGroup,
@@ -40,3 +42,4 @@ from .sharding import (  # noqa: F401
     tree_specs,
     validate_divisibility,
 )
+from .spmd import ModelSharding, VocabShard  # noqa: F401

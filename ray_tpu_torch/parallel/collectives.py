@@ -6,8 +6,9 @@ call on the process group of that axis (`Mesh.group(axis)`), made by the
 rank's own process. Three layers:
 
 1. `Wire`: the transport of one group. It runs the few collectives the
-   port uses (all-reduce, all-to-all of rows, all-gather, broadcast,
-   barrier) on the tensors as they are, CUDA tensors included: NCCL takes
+   port uses (all-reduce, all-to-all of rows, all-gather, the tiled
+   all-gather and reduce-scatter along a dimension, broadcast, barrier)
+   on the tensors as they are, CUDA tensors included: NCCL takes
    them, and so does gloo (every collective here, on torch 2.11 with
    CUDA 12.8, probed on an H100; gloo stages them through host memory
    itself). It counts, per label, the bytes each rank ships under the
@@ -52,6 +53,8 @@ _OPS = {"sum": "SUM", "max": "MAX", "min": "MIN"}
 class Wire:
     """The transport of one process group (`group=None` is the default
     group; `size=1`, or a one-rank group, makes every call the identity).
+    On meta tensors (the cost count of `util/profiling`) a call makes
+    the result's shape and moves and counts nothing.
 
     `stats()` gives, per label, the calls, the bytes this rank shipped
     (ring model: an all-reduce ships 2 (n-1)/n of its payload, an
@@ -123,8 +126,9 @@ class Wire:
     # ------------------------------------------------------------- collectives
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """In place: x becomes the reduction over the group."""
-        if self.size == 1:
+        """In place: x becomes the reduction over the group (on meta
+        tensors nothing moves)."""
+        if self.size == 1 or x.device.type == "meta":
             return x
         dist.all_reduce(x, op=getattr(dist.ReduceOp, _OPS[op]), group=self.group)
         self._count(2 * (self.size - 1) / self.size * x.numel() * x.element_size())
@@ -134,7 +138,7 @@ class Wire:
         """x (n, ...): row r goes to rank r; out row r came from rank r."""
         if x.shape[0] != self.size:
             raise ValueError(f"all_to_all_rows: leading dim {x.shape[0]} != group size {self.size}")
-        if self.size == 1:
+        if self.size == 1 or x.device.type == "meta":
             return x.clone()
         x = x.contiguous()
         out = torch.empty_like(x)
@@ -146,11 +150,34 @@ class Wire:
         """(n, *x.shape): row r is rank r's x."""
         if self.size == 1:
             return x[None].clone()
+        if x.device.type == "meta":
+            return x[None].expand(self.size, *x.shape).clone()
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x, group=self.group)
         self._count((self.size - 1) * x.numel() * x.element_size())
         return torch.stack(parts)
+
+    def gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The members' blocks concatenated along `dim` in member order (a
+        tiled all-gather, JAX's `all_gather(tiled=True)`)."""
+        if self.size == 1:
+            return x
+        return torch.cat(list(self.all_gather(x)), dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This member's block along `dim` of the sum over the group, in
+        x's dtype (a tiled reduce-scatter, JAX's `psum_scatter(tiled=
+        True)`): an all-to-all of the blocks, then a local sum in member
+        order."""
+        if self.size == 1:
+            return x
+        if x.shape[dim] % self.size:
+            raise ValueError(f"reduce_scatter: dim {dim} of size {x.shape[dim]} not divisible "
+                             f"by the group size {self.size}")
+        rows = x.movedim(dim, 0)
+        rows = rows.reshape(self.size, rows.shape[0] // self.size, *rows.shape[1:])
+        return self.all_to_all_rows(rows).sum(dim=0).movedim(0, dim)
 
     def broadcast(self, x: torch.Tensor, root: int = 0) -> torch.Tensor:
         """In place: x becomes group member `root`'s x."""
@@ -326,11 +353,7 @@ class CollectiveGroup:
     def reducescatter(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the group, scattering the leading dim across members:
         this member's block of the sum."""
-        if x.shape[0] % self.size:
-            raise ValueError(f"reducescatter: leading dim {x.shape[0]} not divisible by the "
-                             f"group size {self.size}")
-        rows = x.reshape(self.size, x.shape[0] // self.size, *x.shape[1:])
-        return self.wire.all_to_all_rows(rows).sum(dim=0)
+        return self.wire.reduce_scatter(x) if self.size > 1 else x.clone()
 
     def barrier(self) -> None:
         """Complete when every member has entered."""

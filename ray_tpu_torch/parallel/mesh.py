@@ -11,13 +11,17 @@ group of each axis it belongs to.
 What differs from JAX, and why:
 - One process per rank, one device per process: `Mesh.devices` holds
   this process's device (JAX's mesh holds every device of the job).
-- Pure data parallelism only. A spec with fsdp, tp, sp, ep or pp above 1
-  raises NotImplementedError: those axes shard parameters through
-  GSPMD's partitioner, which PyTorch has no counterpart for; they come
-  with ROADMAP A4's FSDP/TP training through the sharding rules. JAX's
-  default for n devices, `MeshSpec().with_devices(n)`, is fsdp=n, so a
-  bare `LMTrainer` in a gang of n > 1 raises the same error and never
-  silently becomes dp.
+- The axes dp, fsdp and tp: a spec with sp, ep or pp above 1 raises
+  NotImplementedError naming ROADMAP A7 (sequence parallel, MoE and the
+  pipeline schedule). JAX shards parameters over fsdp and tp through
+  GSPMD's partitioner, which PyTorch has no counterpart for: the port
+  writes those collectives out (`parallel/spmd.py`: ZeRO-3 gathers over
+  fsdp, Megatron's column- and row-parallel products over tp), so JAX's
+  default for n devices, `MeshSpec().with_devices(n)` (fsdp=n), is a
+  mesh the port trains on.
+- `NamedSharding.assemble` is the inverse of `shard`: the global array
+  from every rank's block, which JAX's `np.asarray` of a sharded array
+  gives (the port's ranks hold blocks only).
 - The backend is fixed when the job calls `init_process_group` (NCCL
   when every rank has its own device, gloo otherwise: NCCL refuses two
   ranks on one device), or named by `build_mesh(backend=)`, which builds
@@ -31,6 +35,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -45,9 +50,9 @@ AXIS_ORDER: Tuple[str, ...] = ("dp", "pp", "fsdp", "ep", "sp", "tp")
 # Axes over which batch (data) is partitioned.
 DATA_AXES: Tuple[str, ...] = ("dp", "fsdp")
 
-# the axes that shard parameters or activations: GSPMD-style sharding
-SHARDING_AXES: Tuple[str, ...] = ("pp", "fsdp", "ep", "sp", "tp")
-SHARDING_ITEM = "ROADMAP A4 (FSDP/TP training through the sharding rules)"
+# the axes the port's meshes do not lay out yet, and the item that brings them
+UNPORTED_AXES: Tuple[str, ...] = ("pp", "ep", "sp")
+UNPORTED_ITEM = "ROADMAP A7 (sequence parallel, pipeline and MoE)"
 
 
 @dataclass(frozen=True)
@@ -151,14 +156,13 @@ class Mesh:
         return self.groups.get(axis)
 
 
-def _check_pure_dp(spec: MeshSpec) -> None:
-    sharded = [a for a in SHARDING_AXES if getattr(spec, a) > 1]
-    if sharded:
+def _check_axes(spec: MeshSpec) -> None:
+    unported = [a for a in UNPORTED_AXES if getattr(spec, a) > 1]
+    if unported:
         raise NotImplementedError(
-            f"MeshSpec {spec.describe()}: the axes {sharded} shard parameters or "
-            f"activations through GSPMD-style partitioning, which the port does "
-            f"not have yet; it builds pure data-parallel meshes (dp only) until "
-            f"{SHARDING_ITEM}"
+            f"MeshSpec {spec.describe()}: the axes {unported} shard sequences, stages "
+            f"or experts, which the port does not lay out yet; it builds meshes over "
+            f"dp, fsdp and tp until {UNPORTED_ITEM}"
         )
 
 
@@ -196,7 +200,8 @@ def build_mesh(
     devices needs a `torch.distributed` job of world size n, initialised
     by the caller (`init_process_group`, as the multihost gang's ranks
     are); `backend` builds the axis groups on another backend than the
-    job's default one. Specs past pure dp raise NotImplementedError."""
+    job's default one. Specs with sp, ep or pp above 1 raise
+    NotImplementedError."""
     devices = list(devices) if devices is not None else ["cuda"]
     if len(devices) != 1:
         raise ValueError(f"a mesh holds this process's device: got {len(devices)} devices")
@@ -205,7 +210,7 @@ def build_mesh(
         dev = torch.device("cuda", torch.cuda.current_device())
     if spec.num_devices == 1:
         return Mesh(spec, (dev,))
-    _check_pure_dp(spec)
+    _check_axes(spec)
     if not (dist.is_available() and dist.is_initialized()):
         raise ValueError(
             f"MeshSpec {spec.describe()} wants {spec.num_devices} ranks; this process "
@@ -241,31 +246,41 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
+def spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one PartitionSpec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_parts(shape: Dict[str, int], coords: Dict[str, int], spec: Sequence,
+                dim: int) -> Tuple[int, int]:
+    """(number of blocks, the block at `coords`) along dimension `dim` of
+    an array laid out by `spec` over a mesh of axis sizes `shape`: the
+    row-major index of the coordinates on the entry's axes."""
+    if dim >= len(spec):
+        return 1, 0
+    count, index = 1, 0
+    for axis in spec_axes(spec[dim]):
+        count, index = count * shape[axis], index * shape[axis] + coords[axis]
+    return count, index
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A PartitionSpec over a mesh (JAX's `NamedSharding`). `shard(x)`
     takes this rank's block of a global array: each dimension named by
     axes is split into as many equal blocks as those axes' sizes
     multiply to, and the rank keeps the block at its row-major
-    coordinate on them (JAX's placement of a global array)."""
+    coordinate on them (JAX's placement of a global array).
+    `assemble(blocks)` puts every rank's block back in its place."""
 
     mesh: Mesh
     spec: PartitionSpec
 
-    def _axes(self, entry) -> Tuple[str, ...]:
-        if entry is None:
-            return ()
-        return (entry,) if isinstance(entry, str) else tuple(entry)
-
     def parts(self, dim: int) -> Tuple[int, int]:
         """(number of blocks, this rank's block) along dimension `dim`."""
-        if dim >= len(self.spec):
-            return 1, 0
-        count, index = 1, 0
-        for axis in self._axes(self.spec[dim]):
-            size = self.mesh.shape[axis]
-            count, index = count * size, index * size + self.mesh.axis_index(axis)
-        return count, index
+        return block_parts(self.mesh.shape, self.mesh.coords, self.spec, dim)
 
     def local_shape(self, global_shape: Sequence[int]) -> Tuple[int, ...]:
         out = []
@@ -277,15 +292,41 @@ class NamedSharding:
             out.append(size // count)
         return tuple(out)
 
+    def _index(self, coords: Dict[str, int], local: Sequence[int]) -> Tuple[slice, ...]:
+        index = []
+        for dim, size in enumerate(local):
+            _, i = block_parts(self.mesh.shape, coords, self.spec, dim)
+            index.append(slice(i * size, (i + 1) * size))
+        return tuple(index)
+
     def shard(self, x):
         """This rank's block of the global array `x` (a numpy array or a
         tensor): a view, not a copy."""
-        local = self.local_shape(x.shape)
-        index = []
-        for dim, size in enumerate(local):
-            _, i = self.parts(dim)
-            index.append(slice(i * size, (i + 1) * size))
-        return x[tuple(index)]
+        return x[self._index(self.mesh.coords, self.local_shape(x.shape))]
+
+    def assemble(self, blocks: Sequence):
+        """The global array from every rank's block, `blocks[r]` being
+        world rank r's (numpy arrays or tensors, one kind): each block
+        goes where `shard` took it from; a block that several ranks hold
+        is taken from the first of them."""
+        first = blocks[0]
+        if len(blocks) != self.mesh.size:
+            raise ValueError(f"assemble: {len(blocks)} blocks for a mesh of {self.mesh.size} ranks")
+        global_shape = []
+        for dim, size in enumerate(first.shape):
+            global_shape.append(size * self.parts(dim)[0])
+        if isinstance(first, torch.Tensor):
+            out = first.new_empty(global_shape)
+        else:
+            out = np.empty(global_shape, dtype=first.dtype)
+        done = set()
+        for rank, block in enumerate(blocks):
+            index = self._index(dict(zip(AXIS_ORDER, coords_of(self.mesh.spec, rank))), block.shape)
+            key = tuple((s.start, s.stop) for s in index)
+            if key not in done:
+                out[index] = block
+                done.add(key)
+        return out
 
 
 def replicated(mesh: Mesh) -> NamedSharding:

@@ -9,11 +9,15 @@ mesh axes. Two rule systems compose:
   parameter tree paths (escape hatch for foreign trees)
 
 The rules, specs and divisibility checks are JAX's. Placing a tree by
-them (`tree_shardings`, `shard_tree`) works on the meshes the port can
-build, which are pure data-parallel (`mesh.py`): a spec that names an
-axis of size 1 keeps that dimension whole, one that names dp splits it
-over the ranks. Sharding over fsdp / tp comes with ROADMAP A4's
-FSDP/TP training.
+them (`tree_shardings`, `shard_tree`) gives each rank its block of every
+leaf on the meshes the port builds (dp, fsdp, tp; `mesh.py`): a spec
+that names an axis of size 1 keeps that dimension whole, one that names
+axes of size > 1 splits it over them. `NamedSharding.assemble` puts the
+ranks' blocks back together. A dimension that does not divide by its
+axes raises ValueError (`validate_divisibility`), as JAX's `device_put`
+refuses it: GPT-2's vocabulary of 50257 over tp = 2 is one
+(`override_rules(default_rules(), vocab=None)` keeps it whole). The
+collectives that compute on these blocks are `parallel/spmd.py`'s.
 """
 
 from __future__ import annotations
@@ -116,10 +120,12 @@ def tree_shardings(logical_tree: Any, rules: LogicalRules, mesh: Mesh) -> Any:
 
 def shard_tree(tree: Any, logical_tree: Any, rules: LogicalRules, mesh: Mesh) -> Any:
     """This rank's blocks of a parameter tree, by its logical axes, on the
-    mesh's device."""
+    mesh's device (each a copy of its own, not a view of the global
+    leaf). A dimension that does not divide by its axes raises."""
     if _is_logical(logical_tree):
         spec = logical_to_spec(logical_tree, rules)
-        return NamedSharding(mesh, spec).shard(tree).to(mesh.device)
+        validate_divisibility(tree.shape, spec, mesh)
+        return NamedSharding(mesh, spec).shard(tree).to(mesh.device).clone()
     if isinstance(logical_tree, dict):
         return {k: shard_tree(tree[k], v, rules, mesh) for k, v in logical_tree.items()}
     return type(logical_tree)(shard_tree(t, v, rules, mesh) for t, v in zip(tree, logical_tree))

@@ -1,12 +1,17 @@
 """ray_tpu_torch.train — training: the step (port of `ray_tpu.train.lm`,
-on one device or data-parallel over a mesh's ranks), `LMTrainer`,
+on one device or over a mesh's ranks: dp, fsdp, tp), `LMTrainer`,
 checkpoints, the step log, the train configs, and the gang control plane
 (`Trainer`, `TrainController`, `WorkerGroup` over the port's thread
 actors, `MultihostWorkerGroup` over one process per rank, the per-rank
 session)."""
 
 from . import steplog  # noqa: F401
-from .checkpoint import CheckpointManager, verify_step_dir, write_step_manifest  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    CheckpointManager,
+    read_global,
+    verify_step_dir,
+    write_step_manifest,
+)
 from .config import CheckpointConfig, FailureConfig, RunConfig, ScalingConfig  # noqa: F401
 from .controller import Result, RunStatus, TrainController  # noqa: F401
 from .lm import (  # noqa: F401

@@ -24,20 +24,24 @@ is written into `<step>.tmp-<pid>` and renamed into place once its
 manifest and COMMIT are in it. Reading an orbax directory (the JAX
 package's checkpoints) is out of scope.
 
-A data-parallel state (a manager given a mesh of n > 1 ranks, and the
+A state on a mesh (a manager given a mesh of n > 1 ranks, and the
 state's leaf specs, `train.lm.state_specs`) is saved by every rank into
 one step directory, as orbax writes each process's addressable shards:
 the replicated leaves and the scalars once, by rank 0 (`state.bin`,
-`index.json`), and each rank's block of the rank-sharded leaves (the
-rows-layout moments and `ef`) in `rank<r>.bin` / `rank<r>.json`;
-`index.json` records the layout (ranks, and each sharded leaf's spec and
-global shape). The ranks meet at two barriers of a gloo group of their
-own (on the writer thread, apart from the step's collectives): once every
-rank's files are in the temporary directory, rank 0 writes the manifest
-over all of them and COMMIT and renames the directory; after the second
+`index.json`), and each distinct block of a sharded leaf (split over
+dp, fsdp and / or tp: the params and moments by the rules, the
+rows-layout moments and `ef` over dp) once, by the rank whose
+coordinates on the axes outside the leaf's spec are 0, in
+`rank<r>.bin` / `rank<r>.json`; `index.json` records the layout (the
+ranks, the mesh's axis sizes, and each sharded leaf's spec and global
+shape). The ranks meet at two barriers of a gloo group of their own (on
+the writer thread, apart from the step's collectives): once every rank's
+files are in the temporary directory, rank 0 writes the manifest over
+all of them and COMMIT and renames the directory; after the second
 barrier every rank sees the step. A restore reads the replicated leaves
-and this rank's block, bitwise; a checkpoint of another number of ranks
-raises (no resharding).
+and this rank's blocks from their writers' files, bitwise; a checkpoint
+of another mesh raises (no resharding). `read_global(step_dir)` puts the
+blocks back together into the global leaves.
 
 The port's train step updates its tensors in place, where JAX arrays are
 immutable and orbax may read them later. So `save()` copies every tensor
@@ -53,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import shutil
 import threading
@@ -63,6 +68,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel.mesh import AXIS_ORDER, MeshSpec, block_parts, coords_of, rank_of, spec_axes
 from ..util.tree import flatten, rebuild
 
 MANIFEST_NAME = "_raytpu_manifest.json"
@@ -248,18 +254,48 @@ def _write_step(directory: str, step: int, snaps: Dict[str, _Snapshot]) -> None:
     os.replace(tmp, os.path.join(directory, str(step)))
 
 
+def _writer(mesh_shape: Dict[str, int], spec: Any, rank: int) -> int:
+    """The rank that writes the block of a leaf laid out by `spec` that
+    `rank` holds: the same coordinates on the spec's axes, 0 on the
+    others."""
+    named = {a for entry in spec for a in spec_axes(entry)}
+    sizes = [mesh_shape.get(a, 1) for a in AXIS_ORDER]
+    coords = coords_of(MeshSpec(*sizes), rank)
+    return rank_of(MeshSpec(*sizes), [c if a in named else 0 for a, c in zip(AXIS_ORDER, coords)])
+
+
+def _read_index(step_dir: str, name: str) -> Dict[str, Any]:
+    with open(os.path.join(step_dir, name)) as f:
+        return json.load(f)
+
+
+def _layout(index: Dict[str, Any]) -> Dict[str, Any]:
+    """A step's layout: its ranks, mesh and sharded leaves. A gang's
+    index written before it carried the mesh (a pure-dp gang's) has
+    none: its mesh is dp over its ranks."""
+    layout = dict(index.get("layout", {"ranks": 1, "sharded": {}}))
+    if "mesh" not in layout:
+        ranks = layout["ranks"]
+        layout["mesh"] = {**{a: 1 for a in AXIS_ORDER}, "dp": ranks} if ranks > 1 else {}
+    return layout
+
+
 def _read_step(step_dir: str, target: Any, device: torch.device, rank: int = 0,
-               ranks: int = 1) -> Any:
-    with open(os.path.join(step_dir, INDEX_NAME)) as f:
-        index = json.load(f)
-    saved_ranks = index.get("layout", {}).get("ranks", 1)
-    if saved_ranks != ranks:
-        raise ValueError(f"{step_dir}: saved by {saved_ranks} ranks, restored by {ranks}: "
-                         f"a checkpoint restores on as many ranks as saved it")
+               mesh_shape: Optional[Dict[str, int]] = None) -> Any:
+    index = _read_index(step_dir, INDEX_NAME)
+    layout = _layout(index)
+    ranks = math.prod(mesh_shape.values()) if mesh_shape else 1
+    if layout["ranks"] != ranks or (ranks > 1 and layout["mesh"] != mesh_shape):
+        raise ValueError(f"{step_dir}: saved on the mesh {layout['mesh'] or 'of one rank'}, "
+                         f"restored on {mesh_shape or 'one rank'}: a checkpoint restores on "
+                         f"the mesh that saved it")
     entries = dict(index["tensors"])
-    if saved_ranks > 1:
-        with open(os.path.join(step_dir, _part_names(f"rank{rank}")[1])) as f:
-            entries.update(json.load(f)["tensors"])
+    parts: Dict[int, Dict[str, Any]] = {}
+    for path, leaf in layout["sharded"].items():
+        w = _writer(layout["mesh"], leaf["spec"], rank)
+        if w not in parts:
+            parts[w] = _read_index(step_dir, _part_names(f"rank{w}")[1])["tensors"]
+        entries[path] = parts[w][path]
     data: Dict[str, torch.Tensor] = {}
 
     def leaf(path: str, want: Any) -> Any:
@@ -290,12 +326,40 @@ def _sharded_paths(specs: Optional[Dict[str, Any]], mesh: Any) -> Dict[str, Any]
     size > 1: this rank holds a block of each."""
     if mesh is None or mesh.size == 1 or not specs:
         return {}
+    return {path: spec for path, spec in specs.items()
+            if any(mesh.shape[a] > 1 for e in spec for a in spec_axes(e))}
 
-    def splits(entry) -> bool:
-        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
-        return any(mesh.shape[a] > 1 for a in axes)
 
-    return {path: spec for path, spec in specs.items() if any(splits(e) for e in spec)}
+def read_global(step_dir: str) -> Dict[str, np.ndarray]:
+    """Every tensor leaf of a step as its global array, {path: array}: the
+    replicated leaves as saved, a sharded leaf put together from its
+    blocks in the writers' files. Reads every file of the step."""
+    index = _read_index(step_dir, INDEX_NAME)
+    layout = _layout(index)
+    out = {path: _entry_array(step_dir, entry) for path, entry in index["tensors"].items()}
+    sizes = [layout["mesh"].get(a, 1) for a in AXIS_ORDER]
+    shape = dict(zip(AXIS_ORDER, sizes))
+    for rank in sorted({_writer(layout["mesh"], leaf["spec"], r)
+                        for leaf in layout["sharded"].values() for r in range(layout["ranks"])}):
+        coords = dict(zip(AXIS_ORDER, coords_of(MeshSpec(*sizes), rank)))
+        for path, entry in _read_index(step_dir, _part_names(f"rank{rank}")[1])["tensors"].items():
+            leaf = layout["sharded"][path]
+            if path not in out:
+                out[path] = np.empty(leaf["global_shape"], dtype=_entry_array(step_dir, entry).dtype)
+            block = _entry_array(step_dir, entry)
+            spec = [tuple(e) if isinstance(e, list) else e for e in leaf["spec"]]
+            index_ = tuple(slice(i * n, (i + 1) * n) for n, i in (
+                (size, block_parts(shape, coords, spec, d)[1]) for d, size in enumerate(block.shape)))
+            out[path][index_] = block
+    return out
+
+
+def _entry_array(step_dir: str, entry: Dict[str, Any]) -> np.ndarray:
+    """One saved tensor as a numpy array (bf16 read as f32)."""
+    raw = np.fromfile(os.path.join(step_dir, entry.get("file", DATA_NAME)), dtype=np.uint8,
+                      count=entry["nbytes"], offset=entry["offset"])
+    t = torch.from_numpy(raw).view(getattr(torch, entry["dtype"])).view(entry["shape"])
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 class CheckpointManager:
@@ -399,8 +463,8 @@ class CheckpointManager:
 
     def _snapshots(self, state: Any, specs: Optional[Dict[str, Any]]) -> Dict[str, _Snapshot]:
         """The host copies this rank writes: the whole state on one rank;
-        in a gang, the replicated part on rank 0 and each rank's block of
-        the sharded leaves."""
+        in a gang, the replicated part on rank 0 and the blocks of the
+        sharded leaves that this rank is the writer of."""
         sharded = _sharded_paths(specs, self.mesh)
         parts: Dict[str, Any] = {}
         if self.mesh is None:
@@ -409,7 +473,9 @@ class CheckpointManager:
             if self.rank == 0:
                 parts["state"] = dict(keep=lambda path: path not in sharded)
             name = f"rank{self.rank}"
-            parts[name] = dict(keep=lambda path: path in sharded, data_file=f"{name}.bin",
+            mine = {path for path, spec in sharded.items()
+                    if _writer(self.mesh.shape, spec, self.rank) == self.rank}
+            parts[name] = dict(keep=lambda path: path in mine, data_file=f"{name}.bin",
                                scalars=False)
         snaps = {}
         for name, kwargs in parts.items():
@@ -422,7 +488,8 @@ class CheckpointManager:
                     spec = sharded[path]
                     layout[path] = {"spec": [list(e) if isinstance(e, tuple) else e for e in spec],
                                     "global_shape": _global_shape(self.mesh, spec, leaf.shape)}
-            snaps["state"].index["layout"] = {"ranks": self.mesh.size, "sharded": layout}
+            snaps["state"].index["layout"] = {"ranks": self.mesh.size, "mesh": self.mesh.shape,
+                                              "sharded": layout}
         return snaps
 
     def _write(self, step: int, snaps: Dict[str, _Snapshot]) -> None:
@@ -496,11 +563,12 @@ class CheckpointManager:
             candidates = [step] + [s for s in candidates if s != step]
         if not candidates:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
-        ranks = self.mesh.size if self.mesh is not None else 1
+        mesh_shape = self.mesh.shape if self.mesh is not None else None
         for candidate in candidates:
             reason = verify_step_dir(self._step_dir(candidate))
             if reason is None:
-                return _read_step(self._step_dir(candidate), state_target, dev, self.rank, ranks)
+                return _read_step(self._step_dir(candidate), state_target, dev, self.rank,
+                                  mesh_shape)
             if self.rank == 0:
                 self._quarantine(candidate, reason)
         raise FileNotFoundError(

@@ -28,6 +28,27 @@ Data parallelism (a mesh with dp = n > 1, one process per rank):
   batch (`parallel.data_sharding(mesh).shard(global)`, which
   `lm_batch_iterator(sharding=)` does).
 
+FSDP and tensor parallelism (a mesh with fsdp or tp above 1, with dp or
+not; JAX's default for n devices is fsdp = n):
+- The state holds this rank's blocks of every leaf by the rules' specs
+  (`rules`, default `default_rules()`: `embed` over fsdp; heads, mlp and
+  vocab over tp), the moments inheriting their parameter's spec, as in
+  JAX's `create_train_state`.
+- The step runs the model through `parallel.spmd.ModelSharding`, the
+  port's explicit stand-in for GSPMD: each layer's fsdp blocks gathered
+  just before it runs and their gradients reduce-scattered back,
+  Megatron's column- and row-parallel products and vocab-parallel
+  embedding and loss over tp, then the gradient blocks all-reduced over
+  the data axes their gathers did not sum. Each microbatch's loss is
+  weighted by its share of the global batch's tokens before the
+  backward, so the loss is the global token mean and the gradients its
+  gradients, as JAX's GSPMD result is. The clip takes the global norm:
+  each leaf's sum of squares summed over the axes its spec splits.
+- `batch["tokens"]` is this rank's rows over (dp, fsdp); the tp ranks
+  of a row block get the same rows.
+- The explicit dp step (int8, the sharded update) needs a pure-dp mesh
+  and raises past it, as JAX's does.
+
 What differs from JAX, and why:
 - The step runs eagerly, not as one jitted program. Parameters and Adam
   moments are updated in place under `torch.no_grad()`, the counterpart of
@@ -76,8 +97,9 @@ from ..parallel.collectives import (
     quantized_psum_rows,
     quantized_psum_scatter_rows,
 )
-from ..parallel.mesh import Mesh, PartitionSpec
-from ..parallel.sharding import LogicalRules, default_rules, tree_specs
+from ..parallel.mesh import AXIS_ORDER, Mesh, PartitionSpec
+from ..parallel.sharding import LogicalRules, default_rules, shard_tree, tree_specs
+from ..parallel.spmd import ModelSharding, dict_items, model_sharded
 from ..util.tree import flatten
 
 Params = Dict[str, Any]
@@ -164,11 +186,16 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: AdamWState, params: Params, *,
-               wire: Optional[Wire] = None) -> AdamWState:
+               wire: Optional[Wire] = None, norm: Optional[torch.Tensor] = None) -> AdamWState:
+        """`norm`: the global norm of `grads` when they are blocks of
+        sharded leaves (the fsdp / tp step computes it over the mesh);
+        the clip then scales by it."""
         p = tree_leaves(params)
         g = list(grads)
         mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
-        if self.shard_axis:
+        if norm is not None:
+            _clip_by_norm(g, norm, self.grad_clip)
+        elif self.shard_axis:
             if wire is None:
                 raise ValueError(f"an optimizer with shard_axis={self.shard_axis!r} updates "
                                  "shards: it runs inside the explicit dp step, which passes "
@@ -312,7 +339,7 @@ def _mentions(spec: PartitionSpec, axis: str) -> bool:
 def _check_pure_dp(param_specs: Any) -> None:
     """The explicit dp sync paths assume params replicated across `dp` —
     they move whole leaves through the rows layout."""
-    bad = [spec for _, spec in _spec_items(param_specs) if _mentions(spec, "dp")]
+    bad = [spec for _, spec in dict_items(param_specs) if _mentions(spec, "dp")]
     if bad:
         raise ValueError(
             "explicit dp sync (dp_shard_update / int8 all-reduce) requires "
@@ -320,21 +347,12 @@ def _check_pure_dp(param_specs: Any) -> None:
         )
 
 
-def _spec_items(spec_tree: Any, prefix: str = ""):
-    """(path, spec) over a tree of dicts whose leaves are PartitionSpecs."""
-    if isinstance(spec_tree, PartitionSpec):
-        yield prefix.rstrip("/"), spec_tree
-        return
-    for key, child in spec_tree.items():
-        yield from _spec_items(child, f"{prefix}{key}/")
-
-
 def infer_state_specs(state: Any, param_specs: Any) -> Dict[str, PartitionSpec]:
     """PartitionSpec of every tensor leaf of a state tree, as {path: spec}:
     a leaf whose tree-path suffix is a param path (the params themselves,
     Adam's mu / nu) gets that param's spec; everything else (counts,
     scalars) is replicated."""
-    by_path = {tuple(path.split("/")): spec for path, spec in _spec_items(param_specs)}
+    by_path = {tuple(path.split("/")): spec for path, spec in dict_items(param_specs)}
     out: Dict[str, PartitionSpec] = {}
     for path, leaf in flatten(state):
         if not isinstance(leaf, torch.Tensor):
@@ -384,6 +402,9 @@ def create_train_state(
     and zero moments; on the mesh's device when a mesh is given, else on
     `device`.
 
+    On a mesh whose rules split parameters (fsdp or tp above 1) each rank
+    keeps its blocks of the params and moments (a dimension that does not
+    divide by its axes raises ValueError, as JAX's placement refuses it).
     dp_shard_update stores Adam's moments in the cross-replica rows layout,
     this rank's row only (each replica keeps 1/n of them — arxiv
     2004.13336); dp_error_feedback adds the int8-sync residual buffer,
@@ -398,7 +419,11 @@ def create_train_state(
         _check_pure_dp(tree_specs(logical_axes(config), rules or default_rules()))
     if params is None:
         params = init_params(config, seed, device=dev)
-    params = _tree_map(lambda t: t.detach().to(dev).clone().requires_grad_(True), params)
+    if model_sharded(mesh, logical_axes(config), rules):
+        params = shard_tree(params, logical_axes(config), rules or default_rules(), mesh)
+        params = _tree_map(lambda t: t.detach().requires_grad_(True), params)
+    else:
+        params = _tree_map(lambda t: t.detach().to(dev).clone().requires_grad_(True), params)
     if dp_shard_update:
         def row(p):
             return torch.zeros((1, _rows_k(p.numel(), n_dp, dp_quant_block)),
@@ -434,6 +459,7 @@ def train_state_from_numpy(
     device: Union[str, torch.device] = "cuda",
     *,
     mesh: Optional[Mesh] = None,
+    rules: Optional[LogicalRules] = None,
 ) -> TrainState:
     """The port's TrainState from a JAX `TrainState` whose leaves are numpy
     arrays (`jax.tree.map(np.asarray, state)`, or any object with `step`,
@@ -443,17 +469,22 @@ def train_state_from_numpy(
     given). A run continues from it as the JAX run would from `state`: the
     schedule reads the same count.
 
-    Rows-layout leaves (the moments of a dp_shard_update state, (n, k) per
-    param, and `ef`, (n, n, k)) are global in JAX: this rank keeps its row
-    (its coordinate on the mesh's dp axis)."""
+    JAX's leaves are global: on a mesh whose `rules` split parameters
+    this rank keeps its block of each parameter and moment. Rows-layout
+    leaves (the moments of a dp_shard_update state, (n, k) per param, and
+    `ef`, (n, n, k)) keep this rank's row (its coordinate on the mesh's
+    dp axis)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     row = mesh.axis_index("dp") if mesh is not None else 0
     adam = _adam_state(state.opt_state)
     if adam is None:
         raise ValueError("opt_state holds no Adam moments (no node with mu and nu)")
+    sharded = model_sharded(mesh, logical_axes(config), rules)
 
     def tree(values):
-        return params_from_numpy(values, config, device=dev, dtype=torch.float32)
+        out = params_from_numpy(values, config, device=dev, dtype=torch.float32)
+        return shard_tree(out, logical_axes(config), rules or default_rules(), mesh) if sharded \
+            else out
 
     def moments(values):
         shapes = {p: np.shape(v) for p, v in flatten(values)}
@@ -487,6 +518,7 @@ def loss_and_grads(
     z_loss_coeff: float = 0.0,
     grad_accum: int = 1,
     loss_chunk: Optional[int] = None,
+    spmd: Optional[ModelSharding] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, List[torch.Tensor]]:
     """(loss, num_tokens, grads) for tokens (B, S+1): the forward and
     backward of one train step. Microbatch gradients are summed, then
@@ -494,7 +526,13 @@ def loss_and_grads(
     `tree_leaves(params)`.
 
     loss_chunk > 0 takes the fused chunked head + loss; None picks it with
-    `auto_loss_chunk` from the device's memory; 0 forces the dense loss."""
+    `auto_loss_chunk` from the device's memory; 0 forces the dense loss.
+
+    Under `spmd` the params are this rank's blocks and tokens its rows:
+    the loss and num_tokens are the global batch's and grads the blocks'
+    gradients of that loss, each summed over the axes its gathers
+    reduce-scatter over (not yet over the other data axes:
+    `ModelSharding.sync_grads`)."""
     leaves = tree_leaves(params)
     dev = tokens.device
 
@@ -504,19 +542,25 @@ def loss_and_grads(
         if chunk is None:
             chunk = auto_loss_chunk(tok.shape[0], tok.shape[1] - 1, config.vocab_size, device=dev)
         if chunk:
-            hidden = forward_hidden(params, tok[:, :-1], config)
+            hidden = forward_hidden(params, tok[:, :-1], config, spmd=spmd)
+            head = lm_head_weights(params, config, spmd)
+            if spmd is not None:
+                hidden = spmd.enter("head", hidden)
             return fused_linear_cross_entropy(
-                hidden, lm_head_weights(params, config), targets,
-                chunk=chunk, z_loss_coeff=z_loss_coeff,
+                hidden, head, targets, chunk=chunk, z_loss_coeff=z_loss_coeff,
+                vocab=_vocab_shard(spmd, head.shape[-1]),
             )
-        logits = forward(params, tok[:, :-1], config)
-        return cross_entropy_loss(logits, targets, z_loss_coeff=z_loss_coeff)
+        logits = forward(params, tok[:, :-1], config, spmd=spmd)
+        return cross_entropy_loss(logits, targets, z_loss_coeff=z_loss_coeff,
+                                  vocab=_vocab_shard(spmd, logits.shape[-1]))
 
+    if tokens.shape[0] % grad_accum:
+        raise ValueError(f"batch {tokens.shape[0]} not divisible by grad_accum {grad_accum}")
+    if spmd is not None:
+        return _sharded_loss_and_grads(spmd, loss_fn, leaves, tokens, grad_accum)
     if grad_accum == 1:
         loss, ntok = loss_fn(tokens)
         return loss.detach(), ntok, list(torch.autograd.grad(loss, leaves))
-    if tokens.shape[0] % grad_accum:
-        raise ValueError(f"batch {tokens.shape[0]} not divisible by grad_accum {grad_accum}")
     grads: Optional[List[torch.Tensor]] = None
     total_loss = torch.zeros((), dtype=torch.float32, device=dev)
     total_ntok = torch.zeros((), dtype=torch.float32, device=dev)
@@ -534,6 +578,33 @@ def loss_and_grads(
     return total_loss * scale, total_ntok, grads
 
 
+def _vocab_shard(spmd: Optional[ModelSharding], local_size: int):
+    return spmd.vocab_shard(local_size) if spmd is not None else None
+
+
+def _sharded_loss_and_grads(spmd: ModelSharding, loss_fn, leaves: List[torch.Tensor],
+                            tokens: torch.Tensor, grad_accum: int):
+    """Each microbatch's loss on this rank's rows weighted by its share of
+    the microbatch's tokens over the data axes (and by 1/grad_accum)
+    before its backward: the weighted losses sum, over the ranks, to
+    JAX's loss, and their gradients to its gradients."""
+    grads: Optional[List[torch.Tensor]] = None
+    total_loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    total_ntok = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for mb in tokens.view(grad_accum, tokens.shape[0] // grad_accum, *tokens.shape[1:]):
+        loss, ntok = loss_fn(mb)
+        mb_ntok = spmd.data_sum(ntok.float())
+        weight = ntok.float() / (mb_ntok * grad_accum)
+        mb_grads = torch.autograd.grad(loss * weight, leaves)
+        if grads is None:
+            grads = list(mb_grads)
+        else:
+            torch._foreach_add_(grads, mb_grads)
+        total_loss = total_loss + loss.detach() * weight
+        total_ntok = total_ntok + mb_ntok
+    return spmd.data_sum(total_loss), total_ntok, grads
+
+
 def make_train_step(
     config: TransformerConfig,
     optimizer: Optimizer,
@@ -545,8 +616,9 @@ def make_train_step(
     mesh: Optional[Mesh] = None,
     dp_allreduce_dtype: Optional[str] = None,
     dp_shard_update: Optional[bool] = None,
+    rules: Optional[LogicalRules] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Metrics]]:
-    """One training step. batch = {"tokens": (B, S+1) int}: under a dp
+    """One training step. batch = {"tokens": (B, S+1) int}: under a
     mesh, this rank's rows of the global batch. The state is updated in
     place (the counterpart of JAX's donation) and returned; metrics =
     {"loss", "grad_norm" (before the clip), "num_tokens"} as f32 device
@@ -566,7 +638,14 @@ def make_train_step(
     named scopes do. Under a dp mesh the returned function has a `wire`
     attribute (`parallel.Wire` of the dp group): the bytes and seconds of
     its collectives, labelled "dp_sync" (the gradient sync), "dp_gather"
-    (the sharded update's parameter all-gather) and "metrics"."""
+    (the sharded update's parameter all-gather) and "metrics".
+
+    On a mesh whose `rules` (default `default_rules()`, the ones the state
+    was built with) split parameters, the step runs through
+    `parallel.spmd.ModelSharding`, kept as the step's `spmd` attribute:
+    `spmd.stats()` gives its collectives' bytes and seconds by label
+    ("fsdp_gather", "fsdp_scatter", "tp_allreduce", "dp_sync",
+    "fsdp_sync", "metrics")."""
     from ..core.config import cfg
 
     if dp_allreduce_dtype is None:
@@ -587,6 +666,10 @@ def make_train_step(
             dp_shard_update=dp_shard_update,
             dp_quant_block=cfg.dp_quant_block,
         )
+    if model_sharded(mesh, logical_axes(config), rules):
+        return _make_sharded_step(config, optimizer, ModelSharding(mesh, logical_axes(config), rules),
+                                  dev, z_loss_coeff=z_loss_coeff, grad_accum=grad_accum,
+                                  loss_chunk=loss_chunk)
     wire = Wire.for_axis(mesh, "dp") if n_dp > 1 else None
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, Metrics]:
@@ -608,6 +691,34 @@ def make_train_step(
 
     if wire is not None:
         step.wire = wire
+    return step
+
+
+def _make_sharded_step(config: TransformerConfig, optimizer: Optimizer, spmd: ModelSharding,
+                       dev: torch.device, *, z_loss_coeff: float, grad_accum: int,
+                       loss_chunk: Optional[int]):
+    """The step on this rank's blocks through `spmd`: the forward and
+    backward with its gathers and tp pairs, the gradients' all-reduce over
+    the remaining data axes, the clip at the global norm, AdamW on the
+    blocks. On meta tensors (`dev` meta: the cost count) the collectives
+    make shapes only."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, Metrics]:
+        tokens = batch["tokens"].to(dev)
+        paths = [path for path, _ in flatten(state.params)]
+        with record_function("steplog.fwd_bwd_compute"):
+            loss, ntok, grads = loss_and_grads(config, state.params, tokens,
+                                               z_loss_coeff=z_loss_coeff, grad_accum=grad_accum,
+                                               loss_chunk=loss_chunk, spmd=spmd)
+        with record_function("steplog.dp_sync"):
+            spmd.sync_grads(paths, grads)
+        with record_function("steplog.optimizer_update"):
+            gnorm = spmd.sumsq(paths, grads).sqrt().float()
+            state.opt_state = optimizer.update(grads, state.opt_state, state.params, norm=gnorm)
+        state.step += 1
+        return state, {"loss": loss.float(), "grad_norm": gnorm, "num_tokens": ntok.float()}
+
+    step.spmd = spmd
     return step
 
 
@@ -640,7 +751,12 @@ def _make_explicit_dp_step(optimizer: Optimizer, mesh: Mesh, microbatch_grads, *
     replica's quantization residual re-enters its next-step gradient.
     Every leaf's rows travel side by side in one (n, sum of k) matrix."""
     axis = "dp"
-    n = mesh.shape[axis]  # build_mesh makes pure-dp meshes only
+    n = mesh.shape[axis]
+    others = [a for a in AXIS_ORDER if a != axis and mesh.shape[a] > 1]
+    if others:
+        raise ValueError(
+            f"explicit dp sync requires a pure-dp mesh; axes {others} have size > 1 "
+            f"(fsdp/tp sharding syncs through the sharded step's own collectives)")
     quantized = dp_allreduce_dtype == "int8"
     if dp_allreduce_dtype not in ("f32", "int8"):
         raise ValueError(f"unknown dp_allreduce_dtype {dp_allreduce_dtype!r}")
@@ -723,16 +839,25 @@ def _make_explicit_dp_step(optimizer: Optimizer, mesh: Mesh, microbatch_grads, *
 
 
 def make_eval_step(
-    config: TransformerConfig, device: Union[str, torch.device] = "cuda"
+    config: TransformerConfig, device: Union[str, torch.device] = "cuda", *,
+    mesh: Optional[Mesh] = None, rules: Optional[LogicalRules] = None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Metrics]:
-    """Eval loss on batch = {"tokens": (B, S+1)}: {"eval_loss", "num_tokens"}."""
-    dev = resolve_device(device)
+    """Eval loss on batch = {"tokens": (B, S+1)}: {"eval_loss", "num_tokens"}.
+    Under a mesh of n > 1 ranks, batch is this rank's rows, the state its
+    blocks (by `rules`), and both numbers are the global batch's."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    spmd = ModelSharding(mesh, logical_axes(config), rules) if mesh is not None and mesh.size > 1 \
+        else None
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: Dict[str, torch.Tensor]) -> Metrics:
         tokens = batch["tokens"].to(dev)
-        logits = forward(state.params, tokens[:, :-1], config)
-        loss, ntok = cross_entropy_loss(logits, tokens[:, 1:])
-        return {"eval_loss": loss.float(), "num_tokens": ntok}
+        logits = forward(state.params, tokens[:, :-1], config, spmd=spmd)
+        loss, ntok = cross_entropy_loss(logits, tokens[:, 1:],
+                                        vocab=_vocab_shard(spmd, logits.shape[-1]))
+        if spmd is None:
+            return {"eval_loss": loss.float(), "num_tokens": ntok}
+        total = spmd.data_sum(torch.stack([loss.float() * ntok, ntok.float()]))
+        return {"eval_loss": total[0] / total[1], "num_tokens": total[1]}
 
     return eval_fn

@@ -5,7 +5,7 @@ child (`core/worker_pool.py`, started as its own program, never forked)
 that calls `init_process_group(backend, store=..., rank, world_size)`
 where JAX's hosts call `jax.distributed.initialize`, runs the train
 function and calls `destroy_process_group` at the end. From there the
-ranks' `build_mesh(MeshSpec(dp=n))` spans the job, and the train step
+ranks' `build_mesh(spec)` spans the job (dp, fsdp, tp), and the train step
 syncs over its process groups.
 
 Rendezvous: the parent holds a `TCPStore` bound to port 0 (the kernel
@@ -91,14 +91,18 @@ def _host_entry(
     flags_path: Optional[str] = None,
     backend: Optional[str] = None,
     timeout_s: float = 600.0,
+    run_index: int = 0,
 ):
-    """Runs inside the rank's process (module-level: pickled by reference)."""
+    """Runs inside the rank's process (module-level: pickled by reference).
+    Each run of the gang rendezvouses under a key prefix of its own, so a
+    later run's `init_process_group` never reads an earlier run's keys."""
     import torch
     import torch.distributed as dist
 
     if num_processes > 1:
         timeout = datetime.timedelta(seconds=timeout_s)
         store = dist.TCPStore(store_addr[0], store_addr[1], is_master=False, timeout=timeout)
+        store = dist.PrefixStore(f"run{run_index}/", store)
         backend = backend or default_backend(num_processes)
         if backend == "nccl":
             torch.cuda.set_device(process_id % torch.cuda.device_count())
@@ -141,6 +145,7 @@ class MultihostWorkerGroup:
         self.workers: List[WorkerProcess] = []
         self._futures: List[Future] = []
         self._store = None
+        self._runs = 0  # run_async calls so far: each run's rendezvous prefix
 
     def _report_path(self, rank: int) -> str:
         return os.path.join(self.report_dir, f"reports_rank{rank}.jsonl")
@@ -165,9 +170,12 @@ class MultihostWorkerGroup:
             w.request("ping", timeout=self.timeout_s)
 
     def run_async(self, train_fn: Callable, config: Optional[Dict[str, Any]]):
-        """Launch the SPMD loop on every rank; returns per-rank Futures."""
+        """Launch the SPMD loop on every rank; returns per-rank Futures. A
+        gang may run one function after another (each run is a job of its
+        own: `init_process_group` to `destroy_process_group`)."""
         self._futures = [Future() for _ in self.workers]
         store_addr = ("127.0.0.1", self._store.port) if self._store is not None else None
+        run_index, self._runs = self._runs, self._runs + 1
 
         def drive(rank: int, worker: WorkerProcess, fut: Future) -> None:
             payload = (
@@ -183,6 +191,7 @@ class MultihostWorkerGroup:
                     self._flags_path(),
                     self.backend,
                     self.timeout_s,
+                    run_index,
                 ),
                 {},
             )

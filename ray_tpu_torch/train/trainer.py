@@ -12,8 +12,10 @@ Port of `ray_tpu/train/trainer.py`:
   `CheckpointManager`. It is a host-side object: the step is the port's
   eager train step, and Python feeds batches and drains metrics. In a
   torch.distributed job of n ranks (a `MultihostWorkerGroup` rank) it
-  runs data-parallel over `mesh_spec=MeshSpec(dp=n)`, with JAX's dp sync
-  modes (`dp_allreduce_dtype`, `dp_shard_update`), their `dp_sync_mode`
+  trains over JAX's default mesh, fsdp = n, or the `mesh_spec` given (dp,
+  fsdp and tp; the parameters split by `rules`, default
+  `default_rules()`, through `parallel.spmd`). Over dp it has JAX's dp
+  sync modes (`dp_allreduce_dtype`, `dp_shard_update`), their `dp_sync_mode`
   and `dp_sync_bytes`, and JAX's host estimate of the sync's seconds
   (bytes / `steplog_dp_bandwidth_gbs`) in the reports and in the step
   log's `dp_sync` bucket. On one device an int8 or sharded-update sync
@@ -24,20 +26,21 @@ What differs from JAX, and why:
 - One process per device: `device` (default "cuda", raising without a
   CUDA device; "cpu" runs the plain paths) is this rank's device. The
   default mesh is JAX's, `MeshSpec().with_devices(world size)`: fsdp over
-  the job's ranks, which raises NotImplementedError past one rank (FSDP
-  comes with ROADMAP A4), so a gang asks for `MeshSpec(dp=n)`.
+  the job's ranks.
 - A batch that `lm_batch_iterator(sharding=)` or `iter_torch_batches(
-  sharding=)` placed is this rank's rows; any other batch is the global
-  one, and the trainer takes this rank's rows of it (JAX's step places a
-  global array by its sharding the same way). tokens/s counts the
-  global batch, as JAX's does.
+  sharding=)` placed is this rank's rows over (dp, fsdp), the same on
+  every tp rank; any other batch is the global one, and the trainer
+  takes this rank's rows of it (JAX's step places a global array by its
+  sharding the same way). tokens/s counts the global batch, as JAX's
+  does.
 - Device work is queued, as JAX's dispatch is asynchronous: only sampled
   steps synchronise the device (JAX's `block_until_ready`), and a report
   reads its metrics back (JAX's `float()` does too).
 - MFU and the roofline come from `util/profiling.step_cost`, which counts
   the step on meta tensors where JAX reads the compiled step's
   `cost_analysis()`: this rank's forward, backward and update on its rows
-  (the sync's collectives are not counted); the count runs at the first
+  and blocks (the collectives are not counted: on meta tensors they make
+  shapes only); the count runs at the first
   report that needs it and is cached, as JAX's AOT compile is.
 - As in JAX, `train` reports through `session.report` inside a gang
   rank, keyed by the gang's run name and the rank's `world_rank`; outside
@@ -57,11 +60,12 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 from ..core.config import cfg
-from ..models.transformer import TransformerConfig, count_params
+from ..models.transformer import TransformerConfig, count_params, logical_axes
 from ..ops.losses import auto_loss_chunk
 from ..parallel.collectives import dp_sync_bytes
 from ..parallel.mesh import MeshSpec, build_mesh, data_sharding
 from ..parallel.sharding import default_rules
+from ..parallel.spmd import ModelSharding
 from . import steplog
 from .checkpoint import CheckpointManager
 from .config import CheckpointConfig, RunConfig, ScalingConfig
@@ -69,6 +73,7 @@ from .controller import Result, TrainController
 from .lm import (
     AdamWState,
     TrainState,
+    _make_sharded_step,
     create_train_state,
     default_optimizer,
     make_train_step,
@@ -168,12 +173,14 @@ class LMTrainer:
         self.step_fn = make_train_step(
             self.config, self.optimizer, mesh=self.mesh, loss_chunk=loss_chunk,
             dp_allreduce_dtype=dp_allreduce_dtype, dp_shard_update=dp_shard_update,
-            **self._step_kwargs)
+            rules=self.rules, **self._step_kwargs)
+        # the step's collectives on a mesh whose rules split parameters
+        self._spmd = getattr(self.step_fn, "spmd", None)
         self.dp_sync_bytes = dp_sync_bytes(
-            count_params(self.state.params), n_dp,
+            self.num_params, n_dp,
             mode=dp_allreduce_dtype, shard_update=dp_shard_update,
             block=cfg.dp_quant_block,
-        ) if explicit_dp else dp_sync_bytes(count_params(self.state.params), n_dp)
+        ) if explicit_dp else dp_sync_bytes(self.num_params, n_dp)
         # per-step dp_sync ESTIMATE for the step-phase decomposition
         # (train/steplog): wire bytes over the assumed interconnect
         # bandwidth — 0 on a single replica, where nothing syncs
@@ -197,7 +204,11 @@ class LMTrainer:
 
     @property
     def num_params(self) -> int:
-        return count_params(self.state.params)
+        """The model's parameters (the global leaves' elements, where this
+        rank holds blocks)."""
+        if self._spmd is None:
+            return count_params(self.state.params)
+        return self._spmd.num_params(self.state.params)
 
     def restore(self, step: Optional[int] = None) -> int:
         """Resume from a checkpoint; returns the restored step."""
@@ -413,9 +424,17 @@ class LMTrainer:
             # the optimizer of the sharded update clips over the ranks: the
             # count prices the same update on whole leaves, on one device
             optimizer = dataclasses.replace(self.optimizer, shard_axis=None)
-            meta_step = make_train_step(self.config, optimizer, device="meta",
-                                        loss_chunk=chunk, dp_allreduce_dtype="f32",
-                                        dp_shard_update=False, **self._step_kwargs)
+            if self._spmd is not None:
+                # this rank's blocks through the mesh's collectives, which
+                # make shapes only on meta tensors (its own wires: the
+                # step's counts stay the step's)
+                spmd = ModelSharding(self.mesh, logical_axes(self.config), self.rules)
+                meta_step = _make_sharded_step(self.config, optimizer, spmd, torch.device("meta"),
+                                               loss_chunk=chunk, **self._step_kwargs)
+            else:
+                meta_step = make_train_step(self.config, optimizer, device="meta",
+                                            loss_chunk=chunk, dp_allreduce_dtype="f32",
+                                            dp_shard_update=False, **self._step_kwargs)
             # this rank's step on its rows, with the moments in the params'
             # layout (the sharded update's rows are priced as whole leaves)
             meta = TrainState(step=self.state.step, params=self.state.params, opt_state=AdamWState(

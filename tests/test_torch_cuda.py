@@ -240,6 +240,10 @@ _FWD_SHAPES = {
     "llama_gqa32_8_s16": (1, 32, 8, 16, 16, 128),
     "llama_gqa32_8_s32": (1, 32, 8, 32, 32, 128),
     "llama_gqa32_8_s1024": (1, 32, 8, 1024, 1024, 128),
+    # a tp = 2 rank's heads: GPT-2 124M's 6 of 12 (the fsdp = 2 rows of
+    # its batch of 8), Llama-3-8B's 16 of 32 query and 4 of 8 kv heads
+    "gpt2_tp2_local_s1024": (4, 6, 6, 1024, 1024, 64),
+    "llama_tp2_local_s512": (2, 16, 4, 512, 512, 128),
 }
 
 
@@ -327,14 +331,16 @@ def _bwd_inputs(dtype, shape, causal, seed=2):
 @pytest.mark.parametrize(
     "shape",
     [(2, 4, 4, 200, 64), (1, 8, 2, 131, 128), (1, 2, 2, 37, 64), (1, 4, 2, 129, 64),
-     (2, 8, 2, 65, 128)],
-    ids=["mha_d64", "gqa_d128", "short_d64", "edge_d64", "gqa_edge_d128"])
+     (2, 8, 2, 65, 128), (4, 6, 6, 1024, 64), (2, 16, 4, 512, 128)],
+    ids=["mha_d64", "gqa_d128", "short_d64", "edge_d64", "gqa_edge_d128", "gpt2_tp2_local",
+         "llama_tp2_local"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, causal):
     """dq, dk, dv of both backward kernels against _flash_bwd_plain; S 200
     and 131 leave a ragged last tile, GQA 8/2 sums four heads per kv head.
     The bf16 kernels' tiles are 64 rows: S 37 is under one tile, S 129 and
-    65 are one row past a tile edge."""
+    65 are one row past a tile edge. The last two are a tp = 2 rank's
+    heads of GPT-2 124M (6 x 64) and Llama-3-8B (16 / 4 x 128)."""
     q, k, v, out, lse, do = _bwd_inputs(dtype, shape, causal)
     scale = 1.0 / np.sqrt(shape[-1])
     before = (ops.FLASH_BWD_DKV.launches, ops.FLASH_BWD_DQ.launches)

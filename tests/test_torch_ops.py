@@ -334,7 +334,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.data.executor, ray_tpu_torch.util.actor_pool, ray_tpu_torch.util.queue\n"
         "import ray_tpu_torch.train.session, ray_tpu_torch.train.worker_group\n"
         "import ray_tpu_torch.train.controller, ray_tpu_torch.train.multihost\n"
-        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.sharding\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.spmd\n"
         "import ray_tpu_torch.core.worker_pool, ray_tpu_torch.core.worker_main\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
