@@ -279,10 +279,23 @@ def mlp_sublayer(x: torch.Tensor, lp: Params, config: TransformerConfig,
     """Pre-norm dense MLP + residual on (..., E); under a tp split, on
     this rank's hidden units."""
     c = config
-    dt = c.dtype
     h = _norm(x, lp["ln2_scale"], lp.get("ln2_bias"), c.norm)
     if spmd is not None:
         h = spmd.enter("mlp", h)
+    down = mlp_products(h, lp, c)
+    if spmd is not None:
+        down = spmd.leave("mlp", down)
+    if c.use_bias:
+        down = down + lp["b_down"].to(c.dtype)
+    return x + down
+
+
+def mlp_products(h: torch.Tensor, lp: Params, config: TransformerConfig) -> torch.Tensor:
+    """The MLP's products on the normed input, through the down
+    projection and before its bias: over this block's hidden units, a
+    partial sum when they are split over tp."""
+    c = config
+    dt = c.dtype
     up = h @ lp["w_up"].to(dt)
     if c.use_bias:
         up = up + lp["b_up"].to(dt)
@@ -290,12 +303,7 @@ def mlp_sublayer(x: torch.Tensor, lp: Params, config: TransformerConfig,
         act = swiglu(h @ lp["w_gate"].to(dt), up)
     else:
         act = gelu(up)
-    down = act @ lp["w_down"].to(dt)
-    if spmd is not None:
-        down = spmd.leave("mlp", down)
-    if c.use_bias:
-        down = down + lp["b_down"].to(dt)
-    return x + down
+    return act @ lp["w_down"].to(dt)
 
 
 def _block(x, lp, config, rope_tables, positions, spmd=None):

@@ -31,8 +31,15 @@ dispatcher's `bf16(f32(q) * f32(sm_scale))`, so the serve loop spends no
 elementwise launches on it; the plain version takes q already scaled.
 The bf16 decode path (`max_q_blocks == 1`) splits each lane's kv walk
 over several blocks and combines their partials in a second kernel, in
-an f32 workspace this wrapper allocates (`_split_plan`). The
-tensor-parallel `mesh` path of the JAX module is not ported yet.
+an f32 workspace this wrapper allocates (`_split_plan`).
+
+Under a tensor-parallel mesh (`mesh=`, the JAX module's `shard_map` over
+the head axes) q's heads and the pages' kv heads split into tp equal
+groups, each the block of its tp coordinate (`NamedSharding.block`), the
+descriptor is shared, each shard launches the kernels on its own head
+group and the outputs concatenate on the head axis. The mesh is a
+single-controller one (`parallel.mesh.build_mesh` over local devices),
+whose shards share one device.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
+from ..parallel.mesh import NamedSharding, PartitionSpec
 from ._build import Kernel
 
 _NEG_INF = -1e30  # finite "minus infinity": exp() lands at exactly 0.0
@@ -310,12 +318,16 @@ def ragged_paged_attention(
     block_q: int = 8,
     sm_scale: Optional[float] = None,
     max_q_blocks: Optional[int] = None,
+    mesh=None,
+    tp_axis: str = "tp",
 ) -> torch.Tensor:
     """Causal ragged paged attention over a page pool; returns (Hq, T, D).
 
     Query row r of a region sits at absolute position kv_len - q_len + r,
     so the same descriptor covers prefill chunks (q_len = chunk fill),
-    decode lanes (q_len = 1) and verify regions (q_len = K).
+    decode lanes (q_len = 1) and verify regions (q_len = K). With a mesh
+    whose `tp_axis` exceeds 1, every tp shard runs the call on its head
+    group (`head_blocks`).
     """
     hq, t, d = q.shape
     if t % block_q:
@@ -328,5 +340,24 @@ def ragged_paged_attention(
     if max_q_blocks is None:
         # T is exactly the sum of the regions, so T // block_q bounds any one
         max_q_blocks = t // block_q
-    return _ragged_op(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables,
-                      int(block_q), int(max_q_blocks), float(sm_scale))
+    args = (starts, counts, q_lens, kv_lens, tables, int(block_q), int(max_q_blocks),
+            float(sm_scale))
+    if mesh is None or mesh.shape.get(tp_axis, 1) == 1:
+        return _ragged_op(q, k_pages, v_pages, *args)
+    shards = zip(head_blocks(q, mesh, tp_axis), head_blocks(k_pages, mesh, tp_axis),
+                 head_blocks(v_pages, mesh, tp_axis))
+    return torch.cat([_ragged_op(q_s, k_s, v_s, *args) for q_s, k_s, v_s in shards])
+
+
+def head_blocks(x: torch.Tensor, mesh, tp_axis: str = "tp") -> list:
+    """The blocks of `x` along its leading (head) axis at each tp
+    coordinate of a single-controller mesh, in device order: views, so a
+    pool's blocks are written in place."""
+    if not mesh.local:
+        raise ValueError("the tp form of ragged paged attention runs every shard of a "
+                         "single-controller mesh (build_mesh over this process's devices)")
+    tp = mesh.shape[tp_axis]
+    if x.shape[0] % tp:
+        raise ValueError(f"tp={tp} must divide the head axis of size {x.shape[0]}")
+    sharding = NamedSharding(mesh, PartitionSpec(tp_axis))
+    return [sharding.block(x, mesh.device_coords(i)) for i in range(mesh.size)]

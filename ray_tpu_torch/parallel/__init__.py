@@ -1,8 +1,8 @@
 """ray_tpu_torch.parallel — meshes over the ranks of a torch.distributed
-job, sharding rules, collectives and the explicit FSDP / TP collectives
-that stand in for GSPMD (`spmd.py`) (port of `ray_tpu.parallel`;
-`dcn.py` comes with a later part of ROADMAP A4, the pipeline schedule
-with A7)."""
+job (or, for TP serving, over this process's devices), sharding rules,
+collectives and the explicit FSDP / TP collectives that stand in for
+GSPMD (`spmd.py`) (port of `ray_tpu.parallel`; `dcn.py` comes with
+ROADMAP A6's cluster mode, the pipeline schedule with A7)."""
 
 from .collectives import (  # noqa: F401
     CollectiveGroup,

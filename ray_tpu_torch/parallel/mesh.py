@@ -11,6 +11,14 @@ group of each axis it belongs to.
 What differs from JAX, and why:
 - One process per rank, one device per process: `Mesh.devices` holds
   this process's device (JAX's mesh holds every device of the job).
+  The exception is the single-controller form, one program over local
+  tp shards, which serving uses (`LLMServer(tensor_parallel=n)`):
+  `build_mesh(MeshSpec(tp=n), devices=[d] * n)` outside a
+  `torch.distributed` job holds all n devices and no process group. A
+  device may repeat (the shards then share it: `["cpu"] * n` in the CPU
+  tests, `["cuda:0"] * n` on one card); n distinct CUDA devices raise
+  NotImplementedError naming ROADMAP A4 (TP serving across cards).
+  Training refuses such a mesh (`Mesh.device`, `ModelSharding`).
 - The axes dp, fsdp and tp: a spec with sp, ep or pp above 1 raises
   NotImplementedError naming ROADMAP A7 (sequence parallel, MoE and the
   pipeline schedule). JAX shards parameters over fsdp and tp through
@@ -53,6 +61,7 @@ DATA_AXES: Tuple[str, ...] = ("dp", "fsdp")
 # the axes the port's meshes do not lay out yet, and the item that brings them
 UNPORTED_AXES: Tuple[str, ...] = ("pp", "ep", "sp")
 UNPORTED_ITEM = "ROADMAP A7 (sequence parallel, pipeline and MoE)"
+ACROSS_CARDS_ITEM = "ROADMAP A4 (TP serving across cards)"
 
 
 @dataclass(frozen=True)
@@ -115,7 +124,11 @@ class Mesh:
     """The spec's layout over the job's ranks, seen from this process:
     `devices` holds this rank's device, `rank` its world rank, `coords`
     its coordinate on each axis, `groups` the process group of each axis
-    of size > 1 (the ranks that differ from this one on that axis only)."""
+    of size > 1 (the ranks that differ from this one on that axis only).
+
+    A single-controller mesh (`local`) holds every device of its spec in
+    row-major order (`devices[i]` at `coords_of(spec, i)`), rank 0 and no
+    group: one process runs the program of every shard."""
 
     spec: MeshSpec
     devices: Tuple[torch.device, ...]
@@ -133,8 +146,26 @@ class Mesh:
         return dict(zip(AXIS_ORDER, self.spec.shape))
 
     @property
+    def local(self) -> bool:
+        """Whether this process runs every device of the mesh (the
+        single-controller form) rather than one rank's."""
+        return len(self.devices) > 1
+
+    @property
     def device(self) -> torch.device:
+        """This rank's device. A single-controller mesh has no one device
+        and raises: training runs one rank per process."""
+        if self.local:
+            raise ValueError(
+                f"this mesh holds {len(self.devices)} local devices (one program over its "
+                f"tp shards, for serving); training runs one rank per process: build its "
+                f"mesh inside a torch.distributed job"
+            )
         return self.devices[0]
+
+    def device_coords(self, index: int) -> Dict[str, int]:
+        """The coordinates of `devices[index]` on each axis."""
+        return dict(zip(AXIS_ORDER, coords_of(self.spec, index)))
 
     @property
     def size(self) -> int:
@@ -194,7 +225,8 @@ def build_mesh(
     backend: Optional[str] = None,
 ) -> Mesh:
     """A `Mesh` matching the spec. `devices` names this process's device
-    (default "cuda": the current CUDA device, raising without one).
+    (default "cuda": the current CUDA device, raising without one), or,
+    for a single-controller tp mesh, all of its devices (`_local_mesh`).
 
     A spec over one device needs no process group. A spec over n > 1
     devices needs a `torch.distributed` job of world size n, initialised
@@ -203,11 +235,11 @@ def build_mesh(
     job's default one. Specs with sp, ep or pp above 1 raise
     NotImplementedError."""
     devices = list(devices) if devices is not None else ["cuda"]
-    if len(devices) != 1:
-        raise ValueError(f"a mesh holds this process's device: got {len(devices)} devices")
-    dev = resolve_device(devices[0])
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    if len(devices) > 1:
+        return _local_mesh(spec, devices)
+    if not devices:
+        raise ValueError("a mesh needs a device")
+    dev = _resolve(devices[0])
     if spec.num_devices == 1:
         return Mesh(spec, (dev,))
     _check_axes(spec)
@@ -226,6 +258,48 @@ def build_mesh(
     backend = backend or dist.get_backend()
     return Mesh(spec, (dev,), rank=rank, backend=backend,
                 groups=_axis_groups(spec, rank, backend))
+
+
+def _resolve(device: Union[str, torch.device]) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _local_mesh(spec: MeshSpec, devices: Sequence[Union[str, torch.device]]) -> Mesh:
+    """The single-controller form: every device of a tp-only spec in this
+    process, which must not be a rank of a torch.distributed job. The
+    devices are of one type; they may repeat (shards that share a device),
+    and n distinct CUDA devices raise NotImplementedError: a program over
+    several cards needs peer copies or NCCL inside the serving graphs,
+    which no machine here can check."""
+    if len(devices) != spec.num_devices:
+        raise ValueError(
+            f"MeshSpec {spec.describe()} wants {spec.num_devices} devices, got {len(devices)}"
+        )
+    _check_axes(spec)
+    others = [a for a in AXIS_ORDER if a != "tp" and getattr(spec, a) > 1]
+    if others:
+        raise ValueError(
+            f"MeshSpec {spec.describe()}: a mesh over this process's devices splits tp only "
+            f"(one serving program over its shards); {others} need a torch.distributed job "
+            f"with one rank per device"
+        )
+    if dist.is_available() and dist.is_initialized():
+        raise ValueError(
+            "a mesh over several devices is one program's; this process is a rank of a "
+            "torch.distributed job, whose mesh holds the rank's own device"
+        )
+    devs = tuple(_resolve(d) for d in devices)
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"a mesh's devices are of one type, got {[str(d) for d in devs]}")
+    if len(set(devs)) > 1:
+        raise NotImplementedError(
+            f"a mesh over distinct devices {sorted({str(d) for d in devs})}: the port runs "
+            f"the tp shards of one program on one device until {ACROSS_CARDS_ITEM}"
+        )
+    return Mesh(spec, devs)
 
 
 def single_device_mesh(device: Union[str, torch.device] = "cuda") -> Mesh:
@@ -292,6 +366,12 @@ class NamedSharding:
             out.append(size // count)
         return tuple(out)
 
+    def block(self, x, coords: Dict[str, int]):
+        """The block of the global array `x` at mesh coordinates `coords`
+        (a view): `shard` at any device of the mesh, such as each shard of
+        a single-controller mesh (`Mesh.device_coords`)."""
+        return x[self._index(coords, self.local_shape(x.shape))]
+
     def _index(self, coords: Dict[str, int], local: Sequence[int]) -> Tuple[slice, ...]:
         index = []
         for dim, size in enumerate(local):
@@ -302,7 +382,7 @@ class NamedSharding:
     def shard(self, x):
         """This rank's block of the global array `x` (a numpy array or a
         tensor): a view, not a copy."""
-        return x[self._index(self.mesh.coords, self.local_shape(x.shape))]
+        return self.block(x, self.mesh.coords)
 
     def assemble(self, blocks: Sequence):
         """The global array from every rank's block, `blocks[r]` being

@@ -154,6 +154,47 @@ class VocabShard:
 # ------------------------------------------------------------------ the plan
 
 
+def split_axes(spec: PartitionSpec, dim: int, shape: Dict[str, int]) -> Tuple[str, ...]:
+    """The axes of size > 1 (in a mesh of axis sizes `shape`) that split
+    dimension `dim` of a leaf laid out by `spec`."""
+    if dim >= len(spec):
+        return ()
+    return tuple(a for a in spec_axes(spec[dim]) if shape[a] > 1)
+
+
+def megatron_split(specs: Dict[str, PartitionSpec], logical: Any, shape: Dict[str, int]
+                   ) -> Tuple[Dict[str, bool], set]:
+    """Which of Megatron's groups stay local on a mesh of axis sizes
+    `shape`: ({group: split}, the (path, dimension) entries of the split
+    groups). A group ("attn", "mlp", "embed": the embedding's vocabulary,
+    "head": the LM head's) is split when tp > 1 and tp alone splits every
+    weight dimension of it that names its logical axes; the training step
+    (`ModelSharding`) and the serving layout (`serve/llm/paged_engine.
+    serving_shardings`) both read it."""
+    names = dict(dict_items(logical))
+    groups = {g: [(p, d) for p, axes in names.items() if p.startswith("blocks/")
+                  for d, a in enumerate(axes) if a in logical_names]
+              for g, logical_names in _GROUP_AXES.items()}
+    groups["embed"] = [("wte", 0)]
+    groups["head"] = [("lm_head", 1)] if "lm_head" in names else [("wte", 0)]
+    split = {g: shape[MODEL_AXIS] > 1 and bool(entries) and all(
+        split_axes(specs[p], d, shape) == (MODEL_AXIS,) for p, d in entries)
+        for g, entries in groups.items()}
+    return split, {e for g, entries in groups.items() if split[g] for e in entries}
+
+
+def vocab_rows(wte: torch.Tensor, tokens: torch.Tensor, start: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """A vocab-parallel embedding's partial rows: the rows of the tokens
+    inside this block's range [start, start + rows) in `dtype`, zeros for
+    the others. Summed over the blocks they give the embedding exactly
+    (one block's row is nonzero)."""
+    size = wte.shape[0]
+    local = tokens.long() - start
+    inside = (local >= 0) & (local < size)
+    return wte[local.clamp(0, size - 1)].masked_fill(~inside[..., None], 0.0).to(dtype)
+
+
 class ModelSharding:
     """The collectives of a model whose parameters are this rank's blocks
     by `rules` over `mesh` (the logical-axis tree is
@@ -167,22 +208,17 @@ class ModelSharding:
     so the backward gathers it again)."""
 
     def __init__(self, mesh: Mesh, logical: Any, rules: Optional[LogicalRules] = None):
+        if mesh.local:
+            raise ValueError(
+                f"ModelSharding runs one rank's blocks per process; this mesh holds "
+                f"{len(mesh.devices)} local devices (a serving program over its tp shards)"
+            )
         self.mesh = mesh
         rules = rules or default_rules()
         self.specs: Dict[str, PartitionSpec] = dict(dict_items(tree_specs(logical, rules)))
-        names = dict(dict_items(logical))
         self.wires = {axis: Wire.for_axis(mesh, axis) for axis in AXIS_ORDER
                       if mesh.shape[axis] > 1}
-        tp = mesh.shape[MODEL_AXIS]
-        groups = {g: [(p, d) for p, axes in names.items() if p.startswith("blocks/")
-                      for d, a in enumerate(axes) if a in logical_names]
-                  for g, logical_names in _GROUP_AXES.items()}
-        groups["embed"] = [("wte", 0)]
-        groups["head"] = [("lm_head", 1)] if "lm_head" in names else [("wte", 0)]
-        self.split = {g: tp > 1 and bool(entries) and all(
-            self.axes(p, d) == (MODEL_AXIS,) for p, d in entries)
-            for g, entries in groups.items()}
-        local = {e for g, entries in groups.items() if self.split[g] for e in entries}
+        self.split, local = megatron_split(self.specs, logical, mesh.shape)
         self.steps: Dict[str, List[Tuple[int, str]]] = {}
         for path, spec in self.specs.items():
             steps = [(d, a) for d in range(len(spec)) if (path, d) not in local
@@ -198,10 +234,7 @@ class ModelSharding:
 
     def axes(self, path: str, dim: int) -> Tuple[str, ...]:
         """The axes of size > 1 that split dimension `dim` of a leaf."""
-        spec = self.specs[path]
-        if dim >= len(spec):
-            return ()
-        return tuple(a for a in spec_axes(spec[dim]) if self.mesh.shape[a] > 1)
+        return split_axes(self.specs[path], dim, self.mesh.shape)
 
     def leaf_axes(self, path: str) -> Tuple[str, ...]:
         """Every axis of size > 1 that splits the leaf, in mesh order."""
@@ -263,11 +296,8 @@ class ModelSharding:
         the ranks' rows are summed (exact: one of them is nonzero)."""
         if not self.split["embed"]:
             return wte[tokens.long()].to(dtype)
-        size = wte.shape[0]
-        local = tokens.long() - self.mesh.axis_index(MODEL_AXIS) * size
-        inside = (local >= 0) & (local < size)
-        rows = wte[local.clamp(0, size - 1)].masked_fill(~inside[..., None], 0.0)
-        return self.leave("embed", rows.to(dtype))
+        start = self.mesh.axis_index(MODEL_AXIS) * wte.shape[0]
+        return self.leave("embed", vocab_rows(wte, tokens, start, dtype))
 
     def vocab_shard(self, local_size: int) -> Optional[VocabShard]:
         """The loss's slice of the vocabulary, `local_size` columns of

@@ -24,6 +24,20 @@ the donated buffer), these write the pool IN PLACE with indexed
 assignment and return the same dict. `rope_tables` takes the (cos, sin)
 tables an engine computes once (JAX's jit folds them into constants);
 without it a pass computes them itself.
+
+TENSOR PARALLELISM (`mesh=`, a single-controller tp mesh): JAX runs the
+passes as one SPMD program under `serving_shardings` and lets XLA insert
+the collectives; here the pass loops over the shards, in one process.
+`params` is then the list of the shards' parameter trees
+(`paged_engine.place_params`) and `cache` the list of their pools
+(`init_paged_cache(mesh=)`: kv heads split, (Hkv/tp, L*P, ps, D) each).
+Layer by layer each shard computes q, k and v for its heads, writes its
+pool and launches the ragged kernel on it; the output projection and the
+MLP's down projection are row-parallel, so the shards' partial sums are
+added (`_tp_sum`, in shard order: the all-reduce, whose result every
+shard holds; the replicated activations are kept once). A split
+vocabulary is embedded by masked lookups summed over the shards and
+projected by each shard's head columns, concatenated before sampling.
 """
 
 from __future__ import annotations
@@ -45,9 +59,11 @@ from ...models.transformer import (
     embed,
     layer_params,
     lm_head_weights,
+    mlp_products,
     mlp_sublayer,
 )
 from ...ops import apply_rope, ragged_paged_attention, rope_frequencies
+from ...parallel.spmd import vocab_rows
 
 Params = Dict[str, Any]
 
@@ -78,20 +94,85 @@ def init_paged_cache(
     model: TransformerConfig,
     paged: PagedConfig,
     device: Union[str, torch.device] = "cuda",
-) -> Dict[str, torch.Tensor]:
+    mesh: Any = None,
+) -> Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]:
     """One FLAT page pool across layers: layer i owns pages
-    [i*num_pages, (i+1)*num_pages), in the model's compute dtype."""
-    dev = resolve_device(device)
+    [i*num_pages, (i+1)*num_pages), in the model's compute dtype. Under a
+    tp mesh, one pool per shard on its device, holding its kv heads
+    (the pool's kv-head axis split, as `serving_shardings` lays it out)."""
+    tp = _tp(mesh)
+    if model.kv_heads % tp:
+        raise ValueError(f"tp={tp} must divide kv_heads ({model.kv_heads})")
     shape = (
-        model.kv_heads,
+        model.kv_heads // tp,
         model.n_layers * paged.num_pages,
         paged.page_size,
         model.head_dim,
     )
-    return {
+    devices = [resolve_device(device)] if mesh is None or tp == 1 else mesh.devices
+    pools = [{
         "k": torch.zeros(shape, dtype=model.dtype, device=dev),
         "v": torch.zeros(shape, dtype=model.dtype, device=dev),
-    }
+    } for dev in devices]
+    return pools if tp > 1 else pools[0]
+
+
+def _tp(mesh: Any) -> int:
+    return 1 if mesh is None else mesh.shape["tp"]
+
+
+def _shards(params: Any, cache: Any, mesh: Any
+            ) -> Tuple[List[Params], List[Dict[str, torch.Tensor]]]:
+    """The tp shards' parameter trees and pools as lists: under a tp mesh
+    the lists `place_params` and `init_paged_cache(mesh=)` give, else the
+    one tree and pool."""
+    tp = _tp(mesh)
+    if tp == 1:
+        return [params], [cache]
+    if len(params) != tp or len(cache) != tp:
+        raise ValueError(f"a tp={tp} pass takes {tp} shards' params and pools, got "
+                         f"{len(params)} and {len(cache)}")
+    return list(params), list(cache)
+
+
+def _tp_sum(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The shards' partial sums added in shard order: the all-reduce of a
+    single-controller mesh, whose one result every shard holds."""
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def _embed_shards(shards: List[Params], tokens: torch.Tensor, c: TransformerConfig) -> torch.Tensor:
+    """Token embeddings in the compute dtype; a vocabulary split over the
+    shards is looked up vocab-parallel (each shard's rows in its range,
+    zeros elsewhere) and summed."""
+    rows = shards[0]["wte"].shape[0]
+    if rows == c.vocab_size:
+        return embed(shards[0], tokens, c)
+    return _tp_sum([vocab_rows(p["wte"], tokens, i * rows, c.dtype)
+                    for i, p in enumerate(shards)])
+
+
+def _head_logits(shards: List[Params], x: torch.Tensor, c: TransformerConfig) -> torch.Tensor:
+    """x @ the LM head; a head split into vocabulary columns gives each
+    shard's logits, concatenated in shard order."""
+    heads = [lm_head_weights(p, c) for p in shards]
+    if heads[0].shape[-1] == c.vocab_size:
+        return x @ heads[0]
+    return torch.cat([x @ head for head in heads], dim=-1)
+
+
+def _mlp_shards(x: torch.Tensor, lps: List[Params], c: TransformerConfig) -> torch.Tensor:
+    """`mlp_sublayer` over the shards' hidden units: each shard's
+    products (`mlp_products`, column- then row-parallel), the partial
+    sums added, then the bias and the residual."""
+    h = _norm(x, lps[0]["ln2_scale"], lps[0].get("ln2_bias"), c.norm)
+    down = _tp_sum([mlp_products(h, lp, c) for lp in lps])
+    if c.use_bias:
+        down = down + lps[0]["b_down"].to(c.dtype)
+    return x + down
 
 
 class PageAllocator:
@@ -308,10 +389,12 @@ def _gather_ref_attention(q, k_cache, v_cache, block_tables, lengths):
     return torch.einsum("bhk,bhkd->bhd", probs.to(v.dtype), v)
 
 
-def paged_attention(q, k_cache, v_cache, block_tables, lengths, *, page_size: int):
+def paged_attention(q, k_cache, v_cache, block_tables, lengths, *, page_size: int,
+                    mesh: Any = None):
     """Decode-step paged attention: the q_len == 1 case of the ragged
     kernel. Each (B, Hq, D) lane becomes one block_q-row region whose real
-    row is row 0."""
+    row is row 0. Under a tp mesh each shard runs its head group
+    (`ragged_paged_attention(mesh=)`)."""
     b, hq, head_dim = q.shape
     block_q = 8
     q_r = torch.zeros((hq, b, block_q, head_dim), dtype=q.dtype, device=q.device)
@@ -321,7 +404,7 @@ def paged_attention(q, k_cache, v_cache, block_tables, lengths, *, page_size: in
         q_r.reshape(hq, b * block_q, head_dim), k_cache, v_cache,
         torch.arange(b, dtype=torch.int32, device=q.device), ones, ones,
         lengths.to(torch.int32), block_tables.to(torch.int32),
-        block_q=block_q, max_q_blocks=1,
+        block_q=block_q, max_q_blocks=1, mesh=mesh,
     )
     return out.reshape(hq, b, block_q, head_dim)[:, :, 0].transpose(0, 1)  # (B, Hq, D)
 
@@ -459,7 +542,8 @@ def ragged_mixed_step(
     page_size: int,
     block_q: int = 8,
     rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+    mesh: Any = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """ONE pass for a mixed tick: P prefill chunks AND B decode lanes run
     through a single token-major transformer pass whose attention is one
     ragged-paged-attention launch per layer.
@@ -473,7 +557,10 @@ def ragged_mixed_step(
 
     Returns (prefill last-token logits (P, V), decode logits — (B, V) for
     1-D dec_tokens, else (B, Kd, V) — and the pool, updated in place).
+    Under a tp `mesh`, `params` and `cache` are the shards' (module
+    docstring) and each shard launches the kernel once a layer.
     """
+    shards, pools = _shards(params, cache, mesh)
     c = config
     dt = c.dtype
     dev = prefill_tokens.device
@@ -501,11 +588,11 @@ def ragged_mixed_step(
     dec_region_tok = torch.zeros((b_lanes, dec_region), dtype=torch.long, device=dev)
     dec_region_tok[:, :dec_width] = dec_tokens
     tokens = torch.cat([prefill_tokens.reshape(-1).long(), dec_region_tok.reshape(-1)])
-    x = embed(params, tokens, c)  # (T, E)
+    x = _embed_shards(shards, tokens, c)  # (T, E)
     # pad rows may sit past max_seq: table lookups clamp, as XLA's gathers do
     rope_pos = torch.clamp(positions, 0, c.max_seq - 1)
     if c.pos_emb == "learned":
-        x = x + params["wpe"][rope_pos].to(dt)
+        x = x + shards[0]["wpe"][rope_pos].to(dt)
         rope_tables = None
     elif rope_tables is None:
         rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=dev)
@@ -542,77 +629,81 @@ def ragged_mixed_step(
         + torch.arange(dec_width, device=dev)[None, :]
     ).reshape(-1)  # token rows of the decode inputs
 
-    k_full, v_full = cache["k"], cache["v"]
-    num_pages = k_full.shape[1] // c.n_layers
+    num_pages = pools[0]["k"].shape[1] // c.n_layers
     max_q_blocks = max(cb, dec_blocks)
     for i in range(c.n_layers):
-        lp = layer_params(params, i)
-        h = _norm(x, lp["ln1_scale"], lp.get("ln1_bias"), c.norm)
-        # heads-leading token-major projections: (T, E) @ (E, H, D) -> (H, T, D)
-        q = _token_heads(h, lp["wq"].to(dt))
-        k = _token_heads(h, lp["wk"].to(dt))
-        v = _token_heads(h, lp["wv"].to(dt))
+        lps = [layer_params(p, i) for p in shards]
+        h = _norm(x, lps[0]["ln1_scale"], lps[0].get("ln1_bias"), c.norm)
+        table = (rows_l + i * num_pages).to(i32)
+        parts = []
+        for lp, pool in zip(lps, pools):
+            k_full, v_full = pool["k"], pool["v"]
+            # heads-leading token-major projections: (T, E) @ (E, H, D) -> (H, T, D)
+            q = _token_heads(h, lp["wq"].to(dt))
+            k = _token_heads(h, lp["wk"].to(dt))
+            v = _token_heads(h, lp["wv"].to(dt))
+            if c.use_bias:
+                q = q + lp["bq"].to(dt)[:, None, :]
+                k = k + lp["bk"].to(dt)[:, None, :]
+                v = v + lp["bv"].to(dt)[:, None, :]
+            if rope_tables is not None:
+                cos, sin = rope_tables
+                q = apply_rope(q[None], cos, sin, rope_pos[None])[0]
+                k = apply_rope(k[None], cos, sin, rope_pos[None])[0]
+            hkv, d = k.shape[0], k.shape[-1]
+            # prefill KV: whole pages, (lane, chunk page) -> pool page
+            layer_flat = flat_ids + i * num_pages
+            k_full[:, layer_flat] = (
+                k[:, : p_lanes * chunk].reshape(hkv, p_lanes * chunk_pages, page_size, d).to(c.dtype)
+            )
+            v_full[:, layer_flat] = (
+                v[:, : p_lanes * chunk].reshape(hkv, p_lanes * chunk_pages, page_size, d).to(c.dtype)
+            )
+            # decode KV: one row per (lane, token) at (page, row)
+            k_full[:, dec_pages + i * num_pages, dec_rows] = k[:, dec_src].to(c.dtype)
+            v_full[:, dec_pages + i * num_pages, dec_rows] = v[:, dec_src].to(c.dtype)
+            # ONE ragged attention launch for every lane, prefill and decode
+            attn = ragged_paged_attention(
+                q, k_full, v_full, starts, counts, q_lens, kv_lens, table,
+                block_q=block_q, max_q_blocks=max_q_blocks,
+            )  # (Hq / tp, T, D)
+            # row-parallel output projection: this shard's partial sum
+            parts.append(attn.to(dt).transpose(0, 1).reshape(x.shape[0], -1)
+                         @ lp["wo"].to(dt).reshape(-1, c.d_model))
+        out = _tp_sum(parts)
         if c.use_bias:
-            q = q + lp["bq"].to(dt)[:, None, :]
-            k = k + lp["bk"].to(dt)[:, None, :]
-            v = v + lp["bv"].to(dt)[:, None, :]
-        if rope_tables is not None:
-            cos, sin = rope_tables
-            q = apply_rope(q[None], cos, sin, rope_pos[None])[0]
-            k = apply_rope(k[None], cos, sin, rope_pos[None])[0]
-        hkv, d = k.shape[0], k.shape[-1]
-        # prefill KV: whole pages, (lane, chunk page) -> pool page
-        layer_flat = flat_ids + i * num_pages
-        k_full[:, layer_flat] = (
-            k[:, : p_lanes * chunk].reshape(hkv, p_lanes * chunk_pages, page_size, d).to(c.dtype)
-        )
-        v_full[:, layer_flat] = (
-            v[:, : p_lanes * chunk].reshape(hkv, p_lanes * chunk_pages, page_size, d).to(c.dtype)
-        )
-        # decode KV: one row per (lane, token) at (page, row)
-        k_full[:, dec_pages + i * num_pages, dec_rows] = k[:, dec_src].to(c.dtype)
-        v_full[:, dec_pages + i * num_pages, dec_rows] = v[:, dec_src].to(c.dtype)
-        # ONE ragged attention launch for every lane, prefill and decode
-        attn = ragged_paged_attention(
-            q, k_full, v_full, starts, counts, q_lens, kv_lens,
-            (rows_l + i * num_pages).to(i32),
-            block_q=block_q, max_q_blocks=max_q_blocks,
-        )  # (Hq, T, D)
-        out = attn.to(dt).transpose(0, 1).reshape(x.shape[0], -1) @ lp["wo"].to(dt).reshape(-1, c.d_model)
-        if c.use_bias:
-            out = out + lp["bo"].to(dt)
-        x = mlp_sublayer(x + out, lp, c)
-    x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), c.norm)
+            out = out + lps[0]["bo"].to(dt)
+        x = _mlp_shards(x + out, lps, c)
+    x = _norm(x, shards[0]["lnf_scale"], shards[0].get("lnf_bias"), c.norm)
     # vocab projection ONLY for sample rows: each prefill lane's last real
     # token and each decode lane's Kd token rows
     last = torch.clamp(totals - offsets - 1, 0, chunk - 1)
     pre_rows = torch.arange(p_lanes, device=dev) * chunk + last
-    logits = x[torch.cat([pre_rows, dec_src])] @ lm_head_weights(params, c)  # (P+B*Kd, V)
+    logits = _head_logits(shards, x[torch.cat([pre_rows, dec_src])], c)  # (P+B*Kd, V)
     dec_logits = logits[p_lanes:].reshape(b_lanes, dec_width, -1)
     if squeeze_dec:
         dec_logits = dec_logits[:, 0]
     return logits[:p_lanes], dec_logits, cache
 
 
-def copy_page(
-    cache: Dict[str, torch.Tensor], src, dst, *, n_layers: int,
-) -> Dict[str, torch.Tensor]:
+def copy_page(cache: Any, src, dst, *, n_layers: int, mesh: Any = None) -> Any:
     """Copy one logical page (every layer's stripe) src -> dst in the flat
     pool, in place: the device half of copy-on-write. Layer i's stripe
     lives at page + i*num_pages (see init_paged_cache). src / dst are ints
-    or 0-d integer tensors."""
-    k_full, v_full = cache["k"], cache["v"]
-    num_pages = k_full.shape[1] // n_layers
-    stripes = torch.arange(n_layers, device=k_full.device) * num_pages
-    src_idx, dst_idx = stripes + src, stripes + dst
-    k_full[:, dst_idx] = k_full[:, src_idx]
-    v_full[:, dst_idx] = v_full[:, src_idx]
+    or 0-d integer tensors. Under a tp mesh, in every shard's pool."""
+    for pool in [cache] if _tp(mesh) == 1 else cache:
+        k_full, v_full = pool["k"], pool["v"]
+        num_pages = k_full.shape[1] // n_layers
+        stripes = torch.arange(n_layers, device=k_full.device) * num_pages
+        src_idx, dst_idx = stripes + src, stripes + dst
+        k_full[:, dst_idx] = k_full[:, src_idx]
+        v_full[:, dst_idx] = v_full[:, src_idx]
     return cache
 
 
 def paged_decode_step(
     params: Params,
-    cache: Dict[str, torch.Tensor],
+    cache: Any,
     block_tables: torch.Tensor,  # (B, maxP) int32
     tokens: torch.Tensor,        # (B,) int
     positions: torch.Tensor,     # (B,) int — write slot; length = position + 1
@@ -620,9 +711,12 @@ def paged_decode_step(
     *,
     page_size: int,
     rope_tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    mesh: Any = None,
+) -> Tuple[torch.Tensor, Any]:
     """One continuous-batching decode step over the paged pool; returns
-    (logits (B, V), the pool updated in place)."""
+    (logits (B, V), the pool updated in place). Under a tp `mesh`,
+    `params` and `cache` are the shards' (module docstring)."""
+    shards, pools = _shards(params, cache, mesh)
     c = config
     dt = c.dtype
     dev = tokens.device
@@ -631,9 +725,9 @@ def paged_decode_step(
     # Overshoot steps of a final decode block run past the block table and
     # past max_seq; XLA clamps such gather indices, and so do these lookups.
     table_pos = torch.clamp(positions, max=c.max_seq - 1)
-    x = embed(params, tokens, c)[:, None, :]  # (B, 1, E)
+    x = _embed_shards(shards, tokens, c)[:, None, :]  # (B, 1, E)
     if c.pos_emb == "learned":
-        x = x + params["wpe"][table_pos].to(dt)[:, None, :]
+        x = x + shards[0]["wpe"][table_pos].to(dt)[:, None, :]
         rope_tables = None
     elif rope_tables is None:
         rope_tables = rope_frequencies(c.head_dim, c.max_seq, c.rope_theta, device=dev)
@@ -643,34 +737,37 @@ def paged_decode_step(
     page_ids = tables_l[torch.arange(b, device=dev), page_col]  # (B,)
     rows = positions % page_size  # (B,)
 
-    k_full, v_full = cache["k"], cache["v"]
-    num_pages = k_full.shape[1] // c.n_layers
+    num_pages = pools[0]["k"].shape[1] // c.n_layers
     for i in range(c.n_layers):
-        lp = layer_params(params, i)
-        h = _norm(x, lp["ln1_scale"], lp.get("ln1_bias"), c.norm)[:, 0]  # (B, E)
+        lps = [layer_params(p, i) for p in shards]
+        h = _norm(x, lps[0]["ln1_scale"], lps[0].get("ln1_bias"), c.norm)[:, 0]  # (B, E)
         e = h.shape[-1]
-        q = (h @ lp["wq"].to(dt).reshape(e, -1)).view(b, c.n_heads, -1)
-        k = (h @ lp["wk"].to(dt).reshape(e, -1)).view(b, c.kv_heads, -1)
-        v = (h @ lp["wv"].to(dt).reshape(e, -1)).view(b, c.kv_heads, -1)
+        table = (tables_l + i * num_pages).to(torch.int32)
+        parts = []
+        for lp, pool in zip(lps, pools):
+            k_full, v_full = pool["k"], pool["v"]
+            q = (h @ lp["wq"].to(dt).reshape(e, -1)).view(b, lp["wq"].shape[-2], -1)
+            k = (h @ lp["wk"].to(dt).reshape(e, -1)).view(b, lp["wk"].shape[-2], -1)
+            v = (h @ lp["wv"].to(dt).reshape(e, -1)).view(b, lp["wv"].shape[-2], -1)
+            if c.use_bias:
+                q = q + lp["bq"].to(dt)[None]
+                k = k + lp["bk"].to(dt)[None]
+                v = v + lp["bv"].to(dt)[None]
+            if rope_tables is not None:
+                cos, sin = rope_tables
+                pos2d = table_pos[:, None]
+                q = apply_rope(q[:, :, None], cos, sin, pos2d)[:, :, 0]
+                k = apply_rope(k[:, :, None], cos, sin, pos2d)[:, :, 0]
+            # this token's K/V into each lane's current page/row, in place
+            k_full[:, page_ids + i * num_pages, rows] = k.transpose(0, 1).to(c.dtype)
+            v_full[:, page_ids + i * num_pages, rows] = v.transpose(0, 1).to(c.dtype)
+            attn = paged_attention(q, k_full, v_full, table, lengths,
+                                   page_size=page_size)  # (B, Hq / tp, D)
+            # row-parallel output projection: this shard's partial sum
+            parts.append(attn.to(dt).reshape(b, 1, -1) @ lp["wo"].to(dt).reshape(-1, c.d_model))
+        out = _tp_sum(parts)
         if c.use_bias:
-            q = q + lp["bq"].to(dt)[None]
-            k = k + lp["bk"].to(dt)[None]
-            v = v + lp["bv"].to(dt)[None]
-        if rope_tables is not None:
-            cos, sin = rope_tables
-            pos2d = table_pos[:, None]
-            q = apply_rope(q[:, :, None], cos, sin, pos2d)[:, :, 0]
-            k = apply_rope(k[:, :, None], cos, sin, pos2d)[:, :, 0]
-        # this token's K/V into each lane's current page/row, in place
-        k_full[:, page_ids + i * num_pages, rows] = k.transpose(0, 1).to(c.dtype)
-        v_full[:, page_ids + i * num_pages, rows] = v.transpose(0, 1).to(c.dtype)
-        attn = paged_attention(
-            q, k_full, v_full, (tables_l + i * num_pages).to(torch.int32), lengths,
-            page_size=page_size,
-        )  # (B, Hq, D)
-        out = attn.to(dt).reshape(b, 1, -1) @ lp["wo"].to(dt).reshape(-1, c.d_model)
-        if c.use_bias:
-            out = out + lp["bo"].to(dt)
-        x = mlp_sublayer(x + out, lp, c)
-    x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), c.norm)
-    return x[:, 0] @ lm_head_weights(params, c), cache
+            out = out + lps[0]["bo"].to(dt)
+        x = _mlp_shards(x + out, lps, c)
+    x = _norm(x, shards[0]["lnf_scale"], shards[0].get("lnf_bias"), c.norm)
+    return _head_logits(shards, x[:, 0], c), cache

@@ -60,8 +60,21 @@ loop the values; `serve.lane_preempted` / `serve.lane_resumed` events; and
 the engine gauges (`batch_fill`, `tick_seconds`: the EWMA wall time of a
 loop iteration that made progress; `decode_mfu`: the plain K-step decode
 block's counted FLOPs over it). A mark carries host values only and is
-never made inside a graph capture. Tensor parallelism is not ported yet
-(ROADMAP A4).
+never made inside a graph capture.
+
+TENSOR PARALLELISM (`mesh=`, a single-controller tp mesh from
+`parallel.build_mesh(MeshSpec(tp=n), devices=...)`): `serving_shardings`
+lays the weights out by the training rules (Megatron's split: heads,
+kv heads and the MLP's hidden units over tp; the vocabulary too when it
+divides) and the pool on its kv-head axis; `place_params` gives each
+shard its blocks, and every pass loops over the shards (`paged.py`),
+captured as one CUDA graph on the card. The host state (slots, block
+tables, allocator, prefix cache, fair queue, preemption) is one
+scheduler for all shards, as in JAX. Under a mesh the cost count
+(`decode_flops`) runs every shard, the same FLOPs as one device; the
+shards share one card, so `decode_mfu` prices that count against one
+card's peak (JAX's per-device count over a per-device peak gives the
+same ratio when the devices are distinct).
 """
 
 from __future__ import annotations
@@ -78,8 +91,11 @@ import torch
 
 from ..._device import resolve_device
 from ...core.config import cfg
-from ...models.transformer import TransformerConfig
+from ...models.transformer import TransformerConfig, logical_axes
 from ...ops import rope_frequencies
+from ...parallel.mesh import NamedSharding, PartitionSpec
+from ...parallel.sharding import default_rules, override_rules, tree_specs
+from ...parallel.spmd import dict_items, megatron_split, split_axes
 from ...util import tracing
 from ...util.events import emit
 from .. import reqlog
@@ -143,6 +159,75 @@ class PagedEngineConfig:
     paged: PagedConfig = dataclasses.field(default_factory=PagedConfig)
 
 
+# ------------------------------------------------------------------ TP layout
+
+
+def serving_shardings(model_config: TransformerConfig, mesh: Any, rules: Any = None):
+    """(param shardings, KV-pool sharding, replicated) for TP serving, as
+    JAX's: the parameter specs of `tree_specs(logical_axes(config),
+    rules or default_rules())` over the mesh (a tree of NamedSharding),
+    the pool split on its leading kv-head axis, and the replicated spec.
+
+    The groups that stay local are training's (`parallel.spmd.
+    megatron_split`); the passes run each shard's heads and hidden units,
+    so rules that leave the attention or the MLP unsplit over tp raise,
+    and a dimension the rules split over tp outside those groups is kept
+    whole, since the passes gather nothing. A vocabulary that tp does not
+    divide (GPT-2's 50257) stays whole, as the training callers keep it
+    with `override_rules(rules, vocab=None)`; JAX's `device_put` refuses
+    such a split."""
+    tp = mesh.shape["tp"]
+    if model_config.kv_heads % tp or model_config.n_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide kv_heads ({model_config.kv_heads}) and "
+            f"n_heads ({model_config.n_heads})"
+        )
+    rules = rules or default_rules()
+    if model_config.vocab_size % tp:
+        rules = override_rules(rules, vocab=None)
+    logical = logical_axes(model_config)
+    specs = dict(dict_items(tree_specs(logical, rules)))
+    split, local = megatron_split(specs, logical, mesh.shape)
+    unsplit = [g for g in ("attn", "mlp") if tp > 1 and not split[g]]
+    if unsplit:
+        raise ValueError(f"TP serving runs each shard's heads and MLP units: the rules leave "
+                         f"{unsplit} unsplit over tp")
+    param_sh: Dict[str, Any] = {}
+    for path, spec in specs.items():
+        entries = [None if (path, d) not in local and "tp" in split_axes(spec, d, mesh.shape)
+                   else entry for d, entry in enumerate(spec)]
+        *parents, leaf = path.split("/")
+        node = param_sh
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = NamedSharding(mesh, PartitionSpec(*entries))
+    kv = NamedSharding(mesh, PartitionSpec("tp", None, None, None))
+    return param_sh, {"k": kv, "v": kv}, NamedSharding(mesh, PartitionSpec())
+
+
+def place_params(params: Any, model_config: TransformerConfig, mesh: Any,
+                 rules: Any = None) -> List[Any]:
+    """Each shard's parameter tree on its device (`serving_shardings`):
+    a split leaf's block is a copy of its own, a whole leaf the caller's
+    tensor on that device (shards that share a device share it, as
+    replicas share `params`)."""
+    param_sh, _, _ = serving_shardings(model_config, mesh, rules)
+
+    def place(tree, shardings, coords, device):
+        out = {}
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[key] = place(leaf, shardings[key], coords, device)
+                continue
+            block = shardings[key].block(leaf, coords)
+            out[key] = (leaf.to(device) if block.shape == leaf.shape
+                        else block.to(device).clone(memory_format=torch.contiguous_format))
+        return out
+
+    return [place(params, param_sh, mesh.device_coords(i), dev)
+            for i, dev in enumerate(mesh.devices)]
+
+
 # ------------------------------------------------------------------ sampling
 
 
@@ -166,7 +251,7 @@ def mixed_block_q(chunk_tokens: int) -> int:
 def run_decode_block(
     params, cache, block_tables, tokens, positions, config: TransformerConfig,
     *, page_size: int, steps: int, sample: Callable[[torch.Tensor], torch.Tensor],
-    rope_tables=None,
+    rope_tables=None, mesh=None,
 ):
     """K fused decode+sample steps; tokens never leave the device inside
     the block. Returns ((K+1, B) tokens — row 0 is the INPUT token
@@ -175,7 +260,7 @@ def run_decode_block(
     for _ in range(steps):
         logits, cache = paged_decode_step(
             params, cache, block_tables, tokens, positions, config,
-            page_size=page_size, rope_tables=rope_tables,
+            page_size=page_size, rope_tables=rope_tables, mesh=mesh,
         )
         tokens = sample(logits)
         positions = positions + 1
@@ -297,20 +382,41 @@ class _PagedSlot:
 
 class PagedLLMEngine:
     """Continuous batching over a paged KV pool with chunked prefill and
-    pipelined block decoding, on one device."""
+    pipelined block decoding, on one device or over a tp mesh's shards."""
 
     def __init__(
         self,
         model_config: TransformerConfig,
         params: Any,
         engine_config: Optional[PagedEngineConfig] = None,
+        mesh: Any = None,
         *,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,
     ):
-        self.device = resolve_device(device)
+        """`device` (default "cuda") runs the engine on one device. `mesh`,
+        a single-controller mesh with a tp axis, shards the weights and the
+        page pool over its shards (`serving_shardings`) and runs every pass
+        over them, on the mesh's device; `params` is then the global tree
+        on that device."""
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.devices[0]:
+                raise ValueError(f"the engine runs on its mesh's device {mesh.devices[0]}, "
+                                 f"not {device}")
+            if mesh.shape["tp"] > 1 and not mesh.local:
+                raise ValueError("the paged engine runs every tp shard in this process: "
+                                 "build its mesh over this process's devices")
+            self.device = mesh.devices[0]
+        else:
+            self.device = resolve_device(device or "cuda")
         _check_params_device(params, self.device)
         self.model_config = model_config
+        # the tp mesh the passes run over; None on one device
+        self.mesh = mesh if mesh is not None and mesh.shape["tp"] > 1 else None
         self.params = params
+        if self.mesh is not None:
+            self.params = place_params(params, model_config, self.mesh)
+            for shard, dev in zip(self.params, self.mesh.devices):
+                _check_params_device(shard, dev)
         self.config = engine_config or PagedEngineConfig()
         pc = self.config.paged
         if pc.max_pages_per_slot % pc.chunk_pages:
@@ -325,7 +431,7 @@ class PagedLLMEngine:
                 f"({pc.num_pages - 1} allocatable pages)"
             )
         self.paged = pc
-        self.cache = init_paged_cache(model_config, pc, self.device)
+        self.cache = init_paged_cache(model_config, pc, self.device, mesh=self.mesh)
         self.allocator = PageAllocator(pc.num_pages)
         self.prefix_cache: Optional[PrefixCache] = (
             PrefixCache(self.allocator, pc.page_size, pc.prefix_cache_pages)
@@ -439,12 +545,13 @@ class PagedLLMEngine:
                 rope_frequencies(mc.head_dim, mc.max_seq, mc.rope_theta, device=self.device))
         block_q = mixed_block_q(ct)
         spec = self.spec_tokens > 0
+        mesh = self.mesh
 
         def mixed(page_rows, chunk_ids, tokens, offsets, totals, dec_positions, dec_active):
             logits, dec_logits, _ = ragged_mixed_step(
                 self.params, self.cache, page_rows, chunk_ids, tokens, offsets, totals,
                 self._tokens_dev, dec_positions, dec_active, mc,
-                page_size=ps, block_q=block_q, rope_tables=rope,
+                page_size=ps, block_q=block_q, rope_tables=rope, mesh=mesh,
             )
             return logits, dec_logits
 
@@ -453,7 +560,7 @@ class PagedLLMEngine:
             logits, dec_logits, _ = ragged_mixed_step(
                 self.params, self.cache, page_rows, chunk_ids, tokens, offsets, totals,
                 dec_tokens, dec_positions, dec_active, mc,
-                page_size=ps, block_q=block_q, rope_tables=rope,
+                page_size=ps, block_q=block_q, rope_tables=rope, mesh=mesh,
             )
             out, n_out = accept_speculative(dec_logits, dec_tokens, dec_active, self._gen,
                                             temps, top_ks, top_ps)
@@ -482,7 +589,7 @@ class PagedLLMEngine:
                           mask, generator, temps, *filters):
             toks, _ = run_decode_block(
                 params, cache, block_tables, tokens, positions, mc,
-                page_size=ps, steps=K, rope_tables=rope_tables,
+                page_size=ps, steps=K, rope_tables=rope_tables, mesh=mesh,
                 sample=lambda logits: sampler(logits, generator, temps, *filters),
             )
             _merge_tokens(tokens, toks[-1], mask)
@@ -999,7 +1106,8 @@ class PagedLLMEngine:
                 reqlog.mark(slot.request.request_id, "engine.page_stall",
                             tenant=slot.request.tenant, reason="cow")
             return False
-        copy_page(self.cache, page, fresh[0], n_layers=self.model_config.n_layers)
+        copy_page(self.cache, page, fresh[0], n_layers=self.model_config.n_layers,
+                  mesh=self.mesh)
         self.allocator.free([page])
         slot.pages[page_index] = fresh[0]
         self.block_tables[idx, page_index] = fresh[0]

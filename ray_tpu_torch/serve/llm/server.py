@@ -7,19 +7,25 @@ engine (paged KV pool, chunked prefill, the pipelined passes); None or an
 `EngineConfig` builds the dense slot-grid `LLMEngine`. Token-id
 interface: the payload carries `prompt_tokens`, and text encode/decode is
 the caller's concern. `build_llm_app` binds LLMServer into a serve
-deployment (`serve.run(build_llm_app(...))`). Tensor parallelism
-(`tensor_parallel > 1`) is not ported yet (ROADMAP A2.5).
+deployment (`serve.run(build_llm_app(...))`). `tensor_parallel=n > 1`
+shards the paged engine over a tp mesh of the first n devices of the
+server's device type, as JAX's takes `jax.devices()[:n]`: n CPU devices
+on the CPU; on CUDA, n distinct cards, which raise NotImplementedError
+until ROADMAP A4 (TP serving across cards). One card runs a tp engine
+whose shards share it through `PagedLLMEngine(mesh=build_mesh(
+MeshSpec(tp=n), ["cuda:0"] * n))`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from ..._device import resolve_device
 from ...models import get_config, init_params
 from ...models.transformer import TransformerConfig
+from ...parallel.mesh import MeshSpec, build_mesh
 from ..deployment import Application, deployment
 from ..context import (
     get_request_deadline,
@@ -32,8 +38,9 @@ from .paged_engine import PagedEngineConfig, PagedLLMEngine
 
 
 class LLMServer:
-    """Hosts one engine (one model replica) on one device. `params` is
-    held by reference: replicas built from one weight tree share its
+    """Hosts one engine (one model replica) on one device, or on a tp
+    mesh of `tensor_parallel` devices (the paged engine only). `params`
+    is held by reference: replicas built from one weight tree share its
     tensors."""
 
     def __init__(
@@ -46,16 +53,24 @@ class LLMServer:
         *,
         device: Union[str, torch.device] = "cuda",
     ):
-        if tensor_parallel > 1:
-            raise NotImplementedError(_TP_TODO)
         dev = resolve_device(device)
+        mesh = None
+        if tensor_parallel > 1:
+            mesh = build_mesh(MeshSpec(tp=tensor_parallel),
+                              devices=_first_devices(dev, tensor_parallel))
         config = get_config(model) if isinstance(model, str) else model
         if params is None:
             params = init_params(config, seed, device=dev)
         self.model_config = config
         if isinstance(engine_config, PagedEngineConfig):
-            self.engine = PagedLLMEngine(config, params, engine_config, device=dev)
+            self.engine = PagedLLMEngine(config, params, engine_config, mesh=mesh,
+                                         device=None if mesh is not None else dev)
         else:
+            if mesh is not None:
+                raise ValueError(
+                    "tensor_parallel requires the paged engine "
+                    "(engine_config=PagedEngineConfig(...))"
+                )
             self.engine = LLMEngine(config, params, engine_config, device=dev)
 
     def _submit(self, payload: Dict[str, Any]):
@@ -150,8 +165,15 @@ class LLMServer:
             pass
 
 
-_TP_TODO = ("tensor_parallel > 1 is not ported to ray_tpu_torch yet: "
-            "ROADMAP A2.5 (TP serving)")
+def _first_devices(device: torch.device, n: int) -> List[str]:
+    """The first n devices of `device`'s type (JAX's `jax.devices()[:n]`):
+    the CPU n times; n CUDA devices, of which there must be as many."""
+    if device.type == "cpu":
+        return ["cpu"] * n
+    count = torch.cuda.device_count()
+    if count < n:
+        raise ValueError(f"tensor_parallel={n} wants {n} CUDA devices; this machine has {count}")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 def build_llm_app(
@@ -172,10 +194,12 @@ def build_llm_app(
     the JAX package. `params` (a weight tree on `device`) is shared by
     reference between the replicas; None makes each replica draw its own
     from seed 0. Replicas run on `device`: the CUDA device by default,
-    which must exist (this raises without one unless device="cpu")."""
+    which must exist (this raises without one unless device="cpu").
+    tensor_parallel > 1 shards each replica's paged engine over a tp mesh
+    (`LLMServer`)."""
     resolve_device(device)
-    if tensor_parallel > 1:
-        raise NotImplementedError(_TP_TODO)
+    if tensor_parallel > 1 and not paged:
+        raise ValueError("tensor_parallel requires paged=True")
     dep = deployment(
         LLMServer, name=name, num_replicas=num_replicas, max_ongoing_requests=max_slots * 2
     )

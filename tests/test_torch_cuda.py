@@ -33,6 +33,7 @@ from ray_tpu_torch.ops.attention import _flash_bwd_cuda, _flash_bwd_plain, _flas
 from ray_tpu_torch.ops.ragged_paged_attention import _ragged_cuda, _split_plan
 from ray_tpu_torch.models import forward
 from ray_tpu_torch.models.transformer import decode_step
+from ray_tpu_torch.parallel import MeshSpec, build_mesh
 from ray_tpu_torch.serve.llm import (
     EngineConfig,
     LLMEngine,
@@ -218,6 +219,34 @@ def test_ragged_bf16_decode_with_an_odd_count_of_partial_rows(cuda, groups):
     inputs = _ragged_batch(torch.bfloat16, 128, groups, [1, 1, 1], [300, 5 * 64, 1], [1] * 3,
                            maxp=5, hkv=1, bq=1)
     _check_ragged(inputs, dict(block_q=1, max_q_blocks=1), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["decode", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ragged_kernels_at_tp_local_shapes(cuda, dtype, batch):
+    """Llama-3-8B's heads over a tp = 2 mesh whose shards share the card:
+    ragged_paged_attention(mesh=) on a global 32 / 8 call launches the
+    kernels once a shard at 16 / 4 heads (D 128, pages of 64), each
+    shard's heads against the plain version on its own block."""
+    q_lens, kv_lens, counts, kw = {
+        "decode": ([1, 1, 1, 4, 0], [1, 128, 512, 258, 0], [1] * 5,
+                   dict(block_q=8, max_q_blocks=1)),
+        "mixed": ([100, 1, 4, 0, 256], [100, 300, 196, 0, 320], [16, 1, 1, 1, 32],
+                  dict(block_q=8, max_q_blocks=32)),
+    }[batch]
+    q, kp, vp, desc = _ragged_batch(dtype, 128, 4, q_lens, kv_lens, counts, hkv=8)
+    mesh = build_mesh(MeshSpec(tp=2), devices=["cuda:0"] * 2)
+    before = ops.RAGGED.launches
+    out = ops.ragged_paged_attention(q, kp, vp, *desc, **kw, mesh=mesh)
+    assert ops.RAGGED.launches == before + 2
+    q_scaled = (q.float() / np.sqrt(128)).to(dtype)
+    tol = TOLS[dtype]
+    for s in range(2):
+        heads, kv = slice(16 * s, 16 * (s + 1)), slice(4 * s, 4 * (s + 1))
+        ref = ops.ragged_reference_attention(q_scaled[heads], kp[kv], vp[kv], *desc, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[heads].float(), ref.float(), atol=tol, rtol=tol)
 
 
 # (B, Hq, Hkv, Sq, Skv, D). The bf16 kernel's tiles are 64 rows: S 37 is

@@ -468,6 +468,10 @@ def test_openai_multibyte_stop_sequence(llm, stream):
 
 
 def test_llm_app_builders_reject_tensor_parallel():
-    with pytest.raises(NotImplementedError, match="A2.5"):
-        tbuild_llm_app("gpt2-tiny", paged=True, tensor_parallel=2, device="cpu")
+    """Tensor parallelism needs the paged engine: both packages'
+    `build_llm_app` refuse tensor_parallel > 1 with the dense one, with
+    JAX's ValueError (the paged form serves: tests/test_torch_tp_serve.py)."""
+    for build, kw in ((jbuild_llm_app, {}), (tbuild_llm_app, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="tensor_parallel requires paged=True"):
+            build("gpt2-tiny", paged=False, tensor_parallel=2, **kw)
 

@@ -10,8 +10,9 @@ paged engine with every pass captured as a CUDA graph, first on the ragged
 kernels, then with their plain version in their place (p kept in f32),
 and runs chip_smoke.py's dense check on every generated position of every
 request: the worst gap of an engine token below the dense argmax, where it
-sits, the row's largest logit, and the positions over CHECK_MARGIN. A gap
-over the margin is printed, not raised. Needs one CUDA device.
+sits, the row's largest logit, and the positions over TAIL_GAP. A gap
+over the margin, or an exact share under the floor, is printed, not
+raised. Needs one CUDA device.
 """
 
 from __future__ import annotations

@@ -211,9 +211,12 @@ def _ragged_main(fns, timer, gen, waves) -> bool:
 
 
 def _plain_ragged(q, k_pages, v_pages, starts, counts, q_lens, kv_lens, tables, *,
-                  block_q: int = 8, sm_scale=None, max_q_blocks=None):
+                  block_q: int = 8, sm_scale=None, max_q_blocks=None, mesh=None):
     """ragged_paged_attention's function on the plain version, whatever the
-    device: q scaled and rounded as the dispatcher does, p kept in f32."""
+    device: q scaled and rounded as the dispatcher does, p kept in f32.
+    One device's call: the passes launch each tp shard's own."""
+    if mesh is not None:
+        raise ValueError("the plain ragged stand-in takes one device's call, not a mesh")
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
     if max_q_blocks is None:
         max_q_blocks = q.shape[1] // block_q
