@@ -259,16 +259,49 @@ nonzero and no result line is printed):
              collectives (CUDA events: fsdp_gather, fsdp_scatter,
              tp_allreduce, fsdp_sync / dp_sync, metrics), peak allocated
              bytes; every mode must launch each flash kernel.
+11. a7     — sequence, expert and pipeline parallelism over gloo ranks that
+             share the card (torch_a7_rank.py, one gang of 2 running each
+             part in turn), then ViT in this process:
+             (s) sp = 2 at Llama-3-8B's attention width (B 1, GQA 32/8,
+             S 8192, D 128, bf16, causal): ring_attention (fused: its
+             blocks through the flash forward kernel, rank r launching it
+             exactly r + 1 times) and ulysses_attention, each rank's
+             output against the flash forward kernel over the whole
+             sequence and against mha_reference in f32 (KERNEL_TOL),
+             their gradients (the ring's through its plain body,
+             Ulysses' through the backward kernels) against
+             flash_attention's over the whole sequence (A7_GRAD_REL,
+             relative norm); the first ring call, which pays gloo's
+             set-up on the new group, timed apart;
+             (e) ep = 2: the MoE model at Mixtral-8x7B's width, 2 layers,
+             bf16 compute over f32 weights, batch 2 x 1024: moe_loss and
+             its gradient against one process holding all 8 experts (the
+             loss; each gradient leaf's norm and dot with its parameter,
+             per expert), the expert bytes a rank;
+             (p) pp = 2: Llama-3-8B's width at 2 layers (1 a stage),
+             f32 masters with bf16 compute, batch 4 x 1024 in 4
+             microbatches, 2 steps under GPipe and under 1F1B from the
+             same state against one process's make_train_step (relative
+             FSDP_TP_TOL["b"]) and against each other (A7_PP_SCHEDULE_ATOL,
+             the dry run's bound), each schedule's peak memory;
+             (v) ViT-B/16 at batch 32 (S 197, D 64, non-causal): the
+             forward and a gradient through the kernels against the plain
+             attention path (the train phase's gradient bounds), one
+             launch of each flash kernel a layer. The kernels phase holds
+             the flash forward and backward at causal=False at ViT's shape
+             and at a ring block's.
 
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; tp_serve: the
 tp engines' runs and the checks' dense forwards; train: phase 6;
 trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; dp: phase
 9's ranks, all modes; fsdp_tp: phase 10's ranks, all modes, also
-split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16; each
-counted from zero just before it, profiled repeats left out), its
-error against the plain version and its times; the last line is
-{"ok": true, "device": {...}}. Needs one CUDA device.
+split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16;
+a7: phase 11's ranks and ViT, also split by part as a7_launches_by_part;
+each counted from zero just before it, profiled repeats, first calls
+and references left out), its error against the plain version and its
+times; the last line is {"ok": true, "device": {...}}. Needs one CUDA
+device.
 """
 
 from __future__ import annotations
@@ -685,10 +718,19 @@ def phase_kernels(timer: _Timer) -> dict:
             if dtype == torch.bfloat16 and label == "gpt2":
                 results.update(bwd)
         if dtype == torch.bfloat16:
+            # the a7 phase's non-causal launches: ViT-B/16's encoder and a past
+            # ring block at Llama-3-8B's width (GQA repeated before the ring)
+            for label in ("vit", "ring_block"):
+                fwd[label, False] = _fwd_checks(timer, dtype, gen, label, False, atol, rtol)
+                bwd = _bwd_checks(timer, dtype, gen, label, FLASH_SHAPES[label], atol, rtol,
+                                  causal=False)
+                for name, check in bwd.items():
+                    results[name][f"{label}_noncausal_shape"] = check
             results["flash_attention_fwd"] = dict(
                 fwd["llama", True], train_shape=fwd["gpt2", True], draft_shape=fwd["draft", True],
                 **{f"dense_prefill_{label}": fwd[label, True]
-                   for label in ("bucket16", "bucket32", "bucket1024")})
+                   for label in ("bucket16", "bucket32", "bucket1024")},
+                **{f"{label}_noncausal_shape": fwd[label, False] for label in ("vit", "ring_block")})
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log("kernels", f"done ({time.perf_counter() - t0:.2f} s)")
@@ -872,13 +914,13 @@ def _fwd_checks(timer, dtype, gen, label, causal, atol, rtol) -> dict:
                 library_ms=lib_ms, wrapper_ms=wrapper_ms, wrapper_on_views_ms=views_ms)
 
 
-def _bwd_costs(shape, es) -> dict:
-    """(bytes, flops) of the causal backward: each kernel's own function
-    (dK, dV need the S, dP, dV and dK products; dQ needs S, dP and dQ) and
-    the whole function (5 products of 2 * D flops per unmasked pair; q, k,
-    v, o, dO, dq, dk, dv, lse and delta each moved once)."""
+def _bwd_costs(shape, es, causal: bool = True) -> dict:
+    """(bytes, flops) of the backward: each kernel's own function (dK, dV
+    need the S, dP, dV and dK products; dQ needs S, dP and dQ) and the
+    whole function (5 products of 2 * D flops per unmasked pair; q, k, v,
+    o, dO, dq, dk, dv, lse and delta each moved once)."""
     b, hq, hkv, s, d = shape
-    pairs = b * hq * s * (s + 1) / 2
+    pairs = b * hq * (s * (s + 1) / 2 if causal else s * s)
     q_bytes, kv_bytes, row_bytes = b * hq * s * d * es, b * hkv * s * d * es, b * hq * s * 4
     reads = 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes  # q, dO, k, v, lse, delta
     return {
@@ -888,14 +930,15 @@ def _bwd_costs(shape, es) -> dict:
     }
 
 
-def _bwd_launchers(q, k, v, out, lse, do, scale, dkv=FLASH_BWD_DKV.launch, dq=FLASH_BWD_DQ.launch):
+def _bwd_launchers(q, k, v, out, lse, do, scale, dkv=FLASH_BWD_DKV.launch, dq=FLASH_BWD_DQ.launch,
+                   causal: bool = True):
     """Each backward kernel alone on the wrapper's inputs (for its own
     time); `dkv` and `dq` take the C launch functions' arguments. The last
     item keeps delta and the outputs (dq, dk, dv) alive."""
     b, hq, s, d = q.shape
     delta = _delta(do, out)
     dq_out, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    tail = (_DTYPE_CODES[q.dtype], d, b, hq, k.shape[1], s, s, 1, float(scale * _LOG2E),
+    tail = (_DTYPE_CODES[q.dtype], d, b, hq, k.shape[1], s, s, int(causal), float(scale * _LOG2E),
             float(scale), torch.cuda.current_stream().cuda_stream)
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
     keep = (delta, dq_out, dk, dv)
@@ -903,40 +946,40 @@ def _bwd_launchers(q, k, v, out, lse, do, scale, dkv=FLASH_BWD_DKV.launch, dq=FL
             lambda: dq(*ins, dq_out.data_ptr(), *tail), keep)
 
 
-def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
+def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol, causal: bool = True) -> dict:
     """Both backward kernels against _flash_bwd_plain on the forward
-    kernel's own out and lse, causal, and against their own second run
-    (bitwise: one owner block per output, no atomics); times of each
-    kernel, of delta alone, of the whole wrapper (delta + both launches),
-    of the plain version and of SDPA's backward through
-    torch.autograd.grad."""
+    kernel's own out and lse, and against their own second run (bitwise:
+    one owner block per output, no atomics); times of each kernel, of
+    delta alone, of the whole wrapper (delta + both launches), of the
+    plain version and of SDPA's backward through torch.autograd.grad."""
     b, hq, hkv, s, d = shape
     q, k, v, do = _qkv_do(dtype, gen, shape)
     scale = 1.0 / np.sqrt(d)
-    out, lse = flash_attention_with_lse(q, k, v, causal=True)
-    grads = _flash_bwd_cuda(q, k, v, out, lse, do, True, scale)
-    ref = _flash_bwd_plain(q, k, v, out, lse, do, True, scale)
+    out, lse = flash_attention_with_lse(q, k, v, causal=causal)
+    grads = _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
+    ref = _flash_bwd_plain(q, k, v, out, lse, do, causal, scale)
     torch.cuda.synchronize()
     errs = {n: (g.float() - r.float()).abs().max().item() for n, g, r in zip(("dq", "dk", "dv"), grads, ref)}
     ok = all(torch.allclose(g.float(), r.float(), atol=atol, rtol=rtol) and bool(torch.isfinite(g).all())
              for g, r in zip(grads, ref))
-    again = _flash_bwd_cuda(q, k, v, out, lse, do, True, scale)
+    again = _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
     deterministic = all(torch.equal(a, g) for a, g in zip(again, grads))
     del grads, ref, again
-    dkv_fn, dq_fn, keep = _bwd_launchers(q, k, v, out, lse, do, scale)
+    dkv_fn, dq_fn, keep = _bwd_launchers(q, k, v, out, lse, do, scale, causal=causal)
     ms_dkv = timer.ms(dkv_fn, 10)
     ms_dq = timer.ms(dq_fn, 10)
-    ms_all = timer.ms(lambda: _flash_bwd_cuda(q, k, v, out, lse, do, True, scale), 10)
+    ms_all = timer.ms(lambda: _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale), 10)
     ms_delta = timer.ms(lambda: _delta(do, out), 10)
-    plain_ms = timer.ms(lambda: _flash_bwd_plain(q, k, v, out, lse, do, True, scale), 3)
+    plain_ms = timer.ms(lambda: _flash_bwd_plain(q, k, v, out, lse, do, causal, scale), 3)
     del keep
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    o = _sdpa(qr, kr, vr, True)
+    o = _sdpa(qr, kr, vr, causal)
     lib_ms = timer.ms(lambda: torch.autograd.grad(o, (qr, kr, vr), do, retain_graph=True), 10)
     del o, qr, kr, vr
-    bounds = {n: _bound_ms(nb, fl, dtype) for n, (nb, fl) in _bwd_costs(shape, q.element_size()).items()}
+    bounds = {n: _bound_ms(nb, fl, dtype)
+              for n, (nb, fl) in _bwd_costs(shape, q.element_size(), causal).items()}
     name = str(dtype).replace("torch.", "")
-    log("kernels", f"flash_attention_bwd {name} causal=True {label} B={b} GQA {hq}/{hkv} S={s} D={d}: "
+    log("kernels", f"flash_attention_bwd {name} causal={causal} {label} B={b} GQA {hq}/{hkv} S={s} D={d}: "
         f"max_abs_err dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e} "
         f"atol={atol} rtol={rtol} (P and dS rounded to the input dtype at the same places on "
         f"both sides; exp2 and f32 sums may differ in the last bit, which can move one bf16 "
@@ -946,9 +989,11 @@ def _bwd_checks(timer, dtype, gen, label, shape, atol, rtol) -> dict:
         f"delta_ms={ms_delta:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} (SDPA backward) "
         f"deterministic={deterministic}")
     if not ok:
-        raise AssertionError(f"flash backward kernels disagree with their plain version ({name} {label})")
+        raise AssertionError(f"flash backward kernels disagree with their plain version ({name} "
+                             f"{label} causal={causal})")
     if not deterministic:
-        raise AssertionError(f"flash backward kernels: two runs differ ({name} {label})")
+        raise AssertionError(f"flash backward kernels: two runs differ ({name} {label} "
+                             f"causal={causal})")
     common = dict(plain_ms=plain_ms, library_ms=lib_ms, wrapper_ms=ms_all, delta_ms=ms_delta)
     return {
         "flash_attention_bwd_dkv": dict(max_abs_err=max(errs["dk"], errs["dv"]), ms=ms_dkv,
@@ -3851,6 +3896,275 @@ def phase_fsdp_tp(card: str) -> dict:
     return dict(launches=launches, checks=checks, modes=modes)
 
 
+A7_TIMEOUT_S = 300  # every collective of a gang, and its start-up
+A7_SP_SHAPE = (1, LLAMA_HEADS[0], LLAMA_HEADS[1], 8192, 128)  # Llama-3-8B attention, sp = 2
+# sp: the ranks' outputs against the flash forward kernel over the whole
+# sequence and against mha_reference in f32 at KERNEL_TOL[bf16]; their
+# gradients (the ring's through its plain f32 body, Ulysses' through the
+# backward kernels) against flash_attention's gradient over the whole
+# sequence by relative norm: the two sides round P and dS to bf16 at
+# different places (2^-9 each) over 8192 keys.
+A7_GRAD_REL = 2e-2
+A7_EP_LAYERS, A7_EP_BATCH, A7_EP_SEQ = 2, 2, 1024  # Mixtral-8x7B width, ep = 2
+# ep: the loss, relative, and per gradient leaf (per expert for the expert
+# stacks) the norm, relative, and the dot with the parameter, relative to
+# |g| |w|: the ep ranks sum their experts' bf16 partial outputs over ep
+# (an extra bf16 rounding) where one process sums all 8 in one product.
+A7_EP_LOSS_RTOL = 1e-3  # ~12x the measured 8.3e-5
+A7_EP_GRAD_RTOL = 1e-2  # ~13x the worst measured, 7.8e-4 (PERF.md §6)
+# Llama width. 2 layers, 1 a stage: at 4 the two stages' states (each
+# with the replicated 128256-row embedding and head: 1.49 B f32 params,
+# Adam's moments, the gradients and the update's three temporaries, 42 GB
+# a rank) do not fit beside each other on the card
+A7_PP_LAYERS, A7_PP_BATCH, A7_PP_SEQ, A7_PP_MB, A7_PP_STEPS = 2, 4, 1024, 4, 2
+# pp: each step's loss against one process's make_train_step at
+# FSDP_TP_TOL["b"] (bf16: the pipeline's microbatches of 1 row tile the
+# products otherwise), GPipe against 1F1B at JAX's dry-run bound
+A7_PP_SCHEDULE_ATOL = 1e-4
+A7_VIT_BATCH = 32
+
+FLASH_SHAPES["vit"] = (A7_VIT_BATCH, 12, 12, 197, 64)  # ViT-B/16's encoder, non-causal
+FLASH_SHAPES["ring_block"] = (1, LLAMA_HEADS[0], LLAMA_HEADS[0], A7_SP_SHAPE[3] // 2, 128)
+
+
+def _a7_gang(n: int, parts: list) -> list:
+    """Each (config, check) part run by one MultihostWorkerGroup of n gloo
+    ranks on the card, one after another, its check called on the ranks'
+    outputs as soon as they are back; returns the outputs by part."""
+    from ray_tpu_torch.train.multihost import MultihostWorkerGroup
+    import torch_a7_rank
+
+    group = MultihostWorkerGroup(n, run_name=f"chip-smoke-a7-{n}", backend="gloo",
+                                 timeout_s=A7_TIMEOUT_S)
+    outs = []
+    try:
+        group.start()
+        for config, check in parts:
+            t = time.perf_counter()
+            outs.append(group.finish(group.run_async(torch_a7_rank.a7_rank, config),
+                                     timeout=2 * A7_TIMEOUT_S))
+            log("a7", f"({config['mode']}) ranks back in {time.perf_counter() - t:.2f} s")
+            check(outs[-1])
+        return outs
+    finally:
+        group.shutdown()
+
+
+def _a7_sp(ranks, card) -> None:
+    atol, rtol, _ = KERNEL_TOL[torch.bfloat16]
+    b, hq, hkv, s, d = A7_SP_SHAPE
+    for r in ranks:
+        log("a7", f"(s) sp=2 rank {r['rank']} (B {b}, GQA {hq}/{hkv}, S {s} = 2 x {s // 2}, D {d}, "
+            f"bf16, causal): ring first call {r['ring_first_call_s'] * 1e3:.2f} ms (gloo's "
+            f"connection set-up on the sp group), then fused forward {r['ring_fwd_s'] * 1e3:.2f} ms "
+            f"launching "
+            f"flash_attention_fwd {r['ring_fwd_k1']} times (rank + 1 blocks), Ulysses forward "
+            f"{r['ulysses_fwd_s'] * 1e3:.2f} ms; max |out - K1 whole sequence| ring "
+            f"{r['ring_vs_k1']:.3e} Ulysses {r['ulysses_vs_k1']:.3e}, max |out - mha_reference "
+            f"f32| ring {r['ring_vs_ref32']:.3e} Ulysses {r['ulysses_vs_ref32']:.3e} (atol {atol} "
+            f"rtol {rtol}); gradients: ring (plain body) {r['ring_grad_s'] * 1e3:.2f} ms, peak "
+            f"{r['ring_grad_peak_bytes'] / 2**30:.3f} GiB over its inputs, rel "
+            + " ".join(f"{k} {v:.3e}" for k, v in r["ring_grad_rel"].items())
+            + f"; Ulysses (K2) {r['ulysses_grad_s'] * 1e3:.2f} ms, peak "
+            f"{r['ulysses_grad_peak_bytes'] / 2**30:.3f} GiB, rel "
+            + " ".join(f"{k} {v:.3e}" for k, v in r["ulysses_grad_rel"].items())
+            + f" (tol {A7_GRAD_REL}); max abs ring "
+            + " ".join(f"{k} {v:.3e}" for k, v in r["ring_grad_max_abs"].items())
+            + " Ulysses " + " ".join(f"{k} {v:.3e}" for k, v in r["ulysses_grad_max_abs"].items())
+            + f"; bytes shipped forward {r['fwd_bytes']}, in all {r['bytes']}; launches "
+            f"{r['launches']} ({card})")
+        if r["ring_fwd_k1"] != r["rank"] + 1:
+            raise AssertionError(f"a7 (s): rank {r['rank']}'s ring launched the flash forward "
+                                 f"{r['ring_fwd_k1']} times, not {r['rank'] + 1}")
+        if not r["outputs_ok"]:
+            raise AssertionError(f"a7 (s): rank {r['rank']}'s outputs disagree")
+        worst = max(list(r["ring_grad_rel"].values()) + list(r["ulysses_grad_rel"].values()))
+        if not worst <= A7_GRAD_REL:
+            raise AssertionError(f"a7 (s): rank {r['rank']}'s gradients depart by {worst:.3e}")
+
+
+def _a7_ep(ranks, ref, card) -> None:
+    log("a7", f"(e) one process, all 8 experts: loss {ref['loss']:.6f} (ce {ref['ce']:.6f}, aux "
+        f"{ref['aux']:.6f}) in {ref['wall_s'] * 1e3:.2f} ms, peak {ref['peak_bytes'] / 2**30:.3f} "
+        f"GiB ({card})")
+    worst = 0.0
+    for r in ranks:
+        rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        for path, rows in r["stats"].items():
+            want = {e: row for e, *row in ref["stats"][path]}
+            for e, norm, dot, wnorm in rows:
+                rn, rd, _ = want[e]
+                worst = max(worst, abs(norm - rn) / max(rn, 1e-30),
+                            abs(dot - rd) / max(rn * wnorm, 1e-30))
+        log("a7", f"(e) ep=2 rank {r['rank']} (experts {r['expert_range']}, split groups "
+            f"{r['split']}): loss {r['loss']:.6f} (ce {r['ce']:.6f}, aux {r['aux']:.6f}), rel "
+            f"{rel:.3e} (tol {A7_EP_LOSS_RTOL}); loss + gradient {r['wall_s'] * 1e3:.2f} ms; expert "
+            f"bytes {r['expert_bytes'] / 2**30:.3f} GiB of {r['param_bytes'] / 2**30:.3f} GiB "
+            f"params; peak {r['peak_bytes'] / 2**30:.3f} GiB; collectives "
+            + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B {v['seconds'] * 1e3:.2f} ms"
+                        for k, v in r["collectives"].items())
+            + f"; launches {r['launches']} ({card})")
+        if not rel <= A7_EP_LOSS_RTOL:
+            raise AssertionError(f"a7 (e): rank {r['rank']}'s loss {r['loss']} departs from "
+                                 f"{ref['loss']}")
+    log("a7", f"(e) gradients against one process: worst relative difference {worst:.3e} over "
+        f"every leaf's norm and dot with its parameter, per expert (tol {A7_EP_GRAD_RTOL})")
+    if not worst <= A7_EP_GRAD_RTOL:
+        raise AssertionError(f"a7 (e): gradients depart by {worst:.3e}")
+
+
+def _a7_pp(ranks, ref, card) -> None:
+    rtol = FSDP_TP_TOL["b"]
+    sched = {name: ranks[0]["schedules"][name]["losses"] for name in ("gpipe", "1f1b")}
+    for r in ranks:
+        for name, run in r["schedules"].items():
+            log("a7", f"(p) pp=2 stage {r['stage']} {name}: losses "
+                + " ".join(f"{x:.6f}" for x in run["losses"]) + " step "
+                + " ".join(f"{x * 1e3:.2f}" for x in run["step_s"]) + " ms, state "
+                f"{run['state_bytes'] / 2**30:.3f} GiB; peak over the state: forward + backward "
+                f"{run['fwd_bwd_peak_bytes'] / 2**30:.3f} GiB, steps "
+                + " ".join(f"{x / 2**30:.3f}" for x in run["step_peak_bytes"]) + " GiB; pp wire "
+                + ", ".join(f"{k} {v['calls']} calls {v['bytes']} B {v['seconds'] * 1e3:.2f} ms"
+                            for k, v in sorted(run["wire"].items())) + f" ({card})")
+            if run["losses"] != sched[name]:
+                raise AssertionError(f"a7 (p): the stages' {name} losses differ")
+        log("a7", f"(p) stage {r['stage']} launches {r['launches']}")
+    log("a7", "(p) one process make_train_step: " + " ".join(f"{x:.6f}" for x in ref)
+        + "; gpipe - 1f1b " + " ".join(f"{a - b:+.3e}" for a, b in zip(*sched.values()))
+        + f" (tol {A7_PP_SCHEDULE_ATOL}); relative to one process "
+        + ", ".join(f"{k} " + " ".join(f"{abs(a - b) / abs(b):.3e}" for a, b in zip(v, ref))
+                    for k, v in sched.items()) + f" (tol {rtol})")
+    for name, losses in sched.items():
+        if not all(abs(a - b) <= rtol * abs(b) for a, b in zip(losses, ref)):
+            raise AssertionError(f"a7 (p): {name} losses {losses} depart from {ref}")
+    if not all(abs(a - b) <= A7_PP_SCHEDULE_ATOL for a, b in zip(*sched.values())):
+        raise AssertionError(f"a7 (p): GPipe {sched['gpipe']} and 1F1B {sched['1f1b']} differ")
+
+
+class _PlainAttentionViT:
+    """A ViT config whose encoder runs attn_impl="xla" (mha_reference under
+    autograd): the plain attention path the kernels are held against."""
+
+    def __init__(self, config):
+        self.config = config
+
+    def __getattr__(self, name):
+        return getattr(self.config, name)
+
+    @property
+    def encoder_config(self):
+        return self.config.encoder_config.replace(attn_impl="xla")
+
+
+def _a7_vit(card) -> dict:
+    """ViT-B/16 in this process, batch A7_VIT_BATCH, bf16: the forward and
+    the gradient of a fixed linear function of the logits through the
+    kernels, against the plain attention path on the same weights."""
+    from ray_tpu_torch.models import vit
+
+    config = vit.vit_b16()
+    params = vit.init_params(config, SEED, device="cuda")
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    images = torch.randn((A7_VIT_BATCH, 224, 224, 3), generator=gen, device="cuda")
+    probe = torch.randn((A7_VIT_BATCH, config.out_dim), generator=gen, device="cuda")
+    def run():
+        out = vit.forward(params, images, config)
+        return out, torch.autograd.grad((out.float() * probe).sum(), leaves)
+
+    run()  # the first call, which sets up cuBLAS's handles and workspaces: not timed
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, grads = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k.name: k.launches for k in KERNELS}
+    out_x = vit.forward(params, images, _PlainAttentionViT(config))
+    grads_x = torch.autograd.grad((out_x.float() * probe).sum(), leaves)
+    if FLASH_FWD.launches != launches[FLASH_FWD.name]:
+        raise AssertionError("a7 (v): the plain attention path launched a flash kernel")
+    out_rel = ((out.float() - out_x.float()).norm() / out_x.float().norm()).item()
+    norm_k, norm_x = global_norm(list(grads)).item(), global_norm(list(grads_x)).item()
+    diff = global_norm([a - b for a, b in zip(grads, grads_x)]).item() / norm_x
+    leaf = [((a - b).float().norm().item() / b.float().norm().item(), name)
+            for name, a, b in zip(_leaf_names(params), grads, grads_x)
+            if b.float().norm().item() >= 1e-3 * norm_x]
+    worst, worst_name = max(leaf)
+    rel_norm = abs(norm_k - norm_x) / norm_x
+    log("a7", f"(v) vit-b16 B {A7_VIT_BATCH} x 224 x 224 (S 197, 12 heads x 64, bf16, non-causal): "
+        f"forward + gradient {wall * 1e3:.2f} ms; |out - plain| / |plain| {out_rel:.3e}; global "
+        f"norm rel {rel_norm:.3e} (tol {GRAD_TOL_NORM}), ||g - g_plain|| / ||g_plain|| {diff:.3e} "
+        f"(tol {GRAD_TOL_DIFF}), worst leaf {worst_name} {worst:.3e} (tol {GRAD_TOL_LEAF}); "
+        f"launches {launches} ({card})")
+    if not (out_rel <= GRAD_TOL_DIFF and rel_norm <= GRAD_TOL_NORM and diff <= GRAD_TOL_DIFF
+            and worst <= GRAD_TOL_LEAF and all(bool(torch.isfinite(g).all()) for g in grads)):
+        raise AssertionError("a7 (v): the kernel path departs from the plain attention path")
+    for k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+        if launches[k.name] != config.n_layers:
+            raise AssertionError(f"a7 (v): {k.name} launched {launches[k.name]} times, not once "
+                                 f"a layer")
+    return launches
+
+
+def phase_a7(card: str) -> dict:
+    """Sequence, expert and pipeline parallelism over gloo ranks that share
+    the card, then ViT-B/16 in this process: (s) ring attention and
+    Ulysses at sp = 2, (e) the MoE model at ep = 2, (p) GPipe and 1F1B at
+    pp = 2, each against one process; (v) ViT's kernels against the plain
+    attention path. Returns each kernel's launches summed over the ranks
+    and parts."""
+    import torch_a7_rank
+    from ray_tpu_torch.models import moe
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 6)
+    # (e) and (p): the one-process references first, freed before the ranks
+    moe_cfg = moe.mixtral_8x7b().replace(n_layers=A7_EP_LAYERS)
+    moe_tokens = _zipf_tokens(rng, moe_cfg.vocab_size, (A7_EP_BATCH, A7_EP_SEQ + 1))
+    torch.cuda.reset_peak_memory_stats()
+    params = moe.init_params(moe_cfg, SEED, device="cuda")
+    for t in tree_leaves(params):
+        t.requires_grad_()
+    ep_ref = torch_a7_rank.moe_grad_stats(params, torch.from_numpy(moe_tokens).cuda(), moe_cfg)
+    ep_ref["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama = get_config(MODEL).replace(n_layers=A7_PP_LAYERS)
+    pp_tokens = _zipf_tokens(rng, llama.vocab_size, (A7_PP_STEPS, A7_PP_BATCH, A7_PP_SEQ + 1))
+    opt_kw = dict(warmup_steps=0, total_steps=A7_PP_STEPS)
+    pp_ref = _reference_losses(llama, pp_tokens, opt_kw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sp, ep, pp = _a7_gang(2, [
+        (dict(mode="sp", shape=A7_SP_SHAPE, seed=SEED + 8, atol=KERNEL_TOL[torch.bfloat16][0],
+              rtol=KERNEL_TOL[torch.bfloat16][1]), lambda ranks: _a7_sp(ranks, card)),
+        (dict(mode="ep", n_layers=A7_EP_LAYERS, seed=SEED, tokens=moe_tokens),
+         lambda ranks: _a7_ep(ranks, ep_ref, card)),
+        (dict(mode="pp", model=MODEL, n_layers=A7_PP_LAYERS, seed=SEED, tokens=pp_tokens,
+              microbatches=A7_PP_MB, lr=TRAIN_LR, **opt_kw),
+         lambda ranks: _a7_pp(ranks, pp_ref, card))])
+    log("a7", f"gang of 2: {time.perf_counter() - t:.2f} s for (s), (e) and (p), start-up included")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vit_launches = _a7_vit(card)
+    by_part = {"s": sp, "e": ep, "p": pp}
+    launches = {k.name: vit_launches[k.name] + sum(r["launches"][k.name] for rs in by_part.values()
+                                                    for r in rs) for k in KERNELS}
+    for part, rs in by_part.items():
+        for k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+            if sum(r["launches"][k.name] for r in rs) == 0:
+                raise AssertionError(f"a7 ({part}): {k.name} never launched")
+    log("a7", f"phase {time.perf_counter() - t0:.2f} s ({card})")
+    return dict(launches=launches, by_part={
+        **{p: {k.name: sum(r["launches"][k.name] for r in rs) for k in KERNELS}
+           for p, rs in by_part.items()}, "v": vit_launches})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3894,6 +4208,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fsdp_tp = phase_fsdp_tp(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    a7 = phase_a7(card)
     for label, check in fsdp_tp["checks"].items():
         results["flash_attention_fwd"][f"{label}_shape"] = check["forward"]
         for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
@@ -3908,12 +4225,13 @@ def main() -> int:
                    "tp_serve": tp_serve["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
                    "ingest": ingest["launches"][k.name], "dp": dp["launches"][k.name],
-                   "fsdp_tp": fsdp_tp["launches"][k.name]}
+                   "fsdp_tp": fsdp_tp["launches"][k.name], "a7": a7["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))
         if k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
             kernels[-1]["fsdp_tp_launches_by_mode"] = {m: n[k.name] for m, n in by_mode.items()}
+            kernels[-1]["a7_launches_by_part"] = {p: n[k.name] for p, n in a7["by_part"].items()}
         if k is RAGGED:
             kernels[-1]["serve_launches_by_kind"] = ragged_split
             kernels[-1]["serve_device_kernels_profiled_repeat"] = profiled

@@ -2,7 +2,10 @@
 
 The tree has the layout `ray_tpu.models.init_params` produces:
 {"wte", "blocks": {...stacked on L...}, "lnf_scale", ["lnf_bias"],
-["wpe"], ["lm_head"]}. Matrix weights are stored in the compute dtype,
+["wpe"], ["lm_head"]}, or the MoE model's (`models/moe.py`: the blocks
+hold `router` and the expert stacks `we_gate` / `we_up` / `we_down`) or
+ViT's and CLIP's (`models/vit.py`: nested trees, converted key for key).
+Matrix weights are stored in the compute dtype,
 which is exactly what the JAX code computes with after its `.astype(dt)`;
 norm scales and biases stay float32 (the JAX code reads norm scales in
 float32 and casts biases itself).
@@ -26,8 +29,10 @@ from .transformer import TransformerConfig
 
 # leaves the JAX forward multiplies in the compute dtype
 MATRIX_KEYS = frozenset(
-    {"wte", "wpe", "lm_head", "wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate"}
+    {"wte", "wpe", "lm_head", "wq", "wk", "wv", "wo", "w_up", "w_down", "w_gate",
+     "we_gate", "we_up", "we_down", "patch_proj", "head"}
 )
+# the MoE router is read in f32 (`moe_mlp_sublayer`), as JAX reads it
 
 
 def _tensor(name: str, value: Any, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -47,11 +52,9 @@ def params_from_numpy(
     parameter dict on `device`. Matrix weights go to `dtype` (default: the
     config's compute dtype); norm scales and biases stay float32."""
     dev = resolve_device(device)
-    dt = dtype or config.dtype
-    out: Dict[str, Any] = {}
-    for name, value in tree.items():
-        if name == "blocks":
-            out[name] = {k: _tensor(k, v, dt, dev) for k, v in value.items()}
-        else:
-            out[name] = _tensor(name, value, dt, dev)
-    return out
+    return _convert(tree, dtype or config.dtype, dev)
+
+
+def _convert(tree: Mapping[str, Any], dt: torch.dtype, dev: torch.device) -> Dict[str, Any]:
+    return {name: _convert(value, dt, dev) if isinstance(value, Mapping)
+            else _tensor(name, value, dt, dev) for name, value in tree.items()}

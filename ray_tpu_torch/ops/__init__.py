@@ -4,7 +4,8 @@ Port of `ray_tpu.ops`. The attention functions dispatch by device: a CUDA
 tensor launches the hand-written kernel under `csrc/`, a CPU tensor takes
 the plain PyTorch version kept beside it (`flash_attention`'s gradient
 too: its backward is two more kernels). `losses` holds the training
-losses. `KERNELS` lists every kernel, for building them together and
+losses; `ring_attention` and `ulysses` the sequence-parallel attention
+over a mesh axis, built on the flash kernels. `KERNELS` lists every kernel, for building them together and
 reading their launch counts.
 """
 
@@ -35,5 +36,7 @@ from .ragged_paged_attention import (  # noqa: F401
     ragged_paged_attention,
     ragged_reference_attention,
 )
+from .ring_attention import ring_attention, ring_attention_sharded  # noqa: F401
+from .ulysses import ulysses_attention, ulysses_attention_sharded  # noqa: F401
 
 KERNELS = (RAGGED, FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ)

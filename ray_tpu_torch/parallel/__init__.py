@@ -1,12 +1,14 @@
 """ray_tpu_torch.parallel — meshes over the ranks of a torch.distributed
 job (or, for TP serving, over this process's devices), sharding rules,
-collectives and the explicit FSDP / TP collectives that stand in for
-GSPMD (`spmd.py`) (port of `ray_tpu.parallel`; `dcn.py` comes with
-ROADMAP A6's cluster mode, the pipeline schedule with A7)."""
+collectives, the explicit FSDP / TP / EP collectives that stand in for
+GSPMD (`spmd.py`) and the pipeline schedules over pp (`pipeline.py`)
+(port of `ray_tpu.parallel`; `dcn.py` comes with ROADMAP A6's cluster
+mode)."""
 
 from .collectives import (  # noqa: F401
     CollectiveGroup,
     Wire,
+    all_to_all,
     allgather,
     allreduce,
     barrier,
@@ -16,6 +18,7 @@ from .collectives import (  # noqa: F401
     get_group,
     init_collective_group,
     reducescatter,
+    shift,
 )
 from .mesh import (  # noqa: F401
     AXIS_ORDER,
@@ -43,3 +46,13 @@ from .sharding import (  # noqa: F401
     validate_divisibility,
 )
 from .spmd import ModelSharding, VocabShard  # noqa: F401
+from .pipeline import (  # noqa: F401
+    create_pp_train_state,
+    make_pp_loss_and_grad,
+    make_pp_loss_and_grad_1f1b,
+    make_pp_loss_fn,
+    make_pp_train_step,
+    pp_state_specs,
+    spmd_pipeline,
+    spmd_pipeline_1f1b,
+)

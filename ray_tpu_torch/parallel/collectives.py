@@ -7,13 +7,20 @@ rank's own process. Three layers:
 
 1. `Wire`: the transport of one group. It runs the few collectives the
    port uses (all-reduce, all-to-all of rows, all-gather, the tiled
-   all-gather and reduce-scatter along a dimension, broadcast, barrier)
-   on the tensors as they are, CUDA tensors included: NCCL takes
-   them, and so does gloo (every collective here, on torch 2.11 with
-   CUDA 12.8, probed on an H100; gloo stages them through host memory
-   itself). It counts, per label, the bytes each rank ships under the
-   ring model that `dp_sync_bytes` uses, and times labelled regions
-   (CUDA events on the card, the host clock on the CPU).
+   all-gather, reduce-scatter and all-to-all along dimensions, the
+   neighbour shift, broadcast, barrier) on the tensors as they are, CUDA
+   tensors included: NCCL takes them, and so does gloo (every collective
+   here, on torch 2.11 with CUDA 12.8, probed on an H100 by
+   `torch_dist_probe.py`; gloo stages them through host memory itself).
+   gloo's point-to-point calls do not take CUDA tensors (a send of one
+   aborts the process: "writev ... Bad address"), so the shift is an
+   all-to-all with split sizes, which gloo does take, on every backend.
+   It counts, per label, the bytes each rank ships under the ring model
+   that `dp_sync_bytes` uses, and times labelled regions (CUDA events on
+   the card, the host clock on the CPU). `shift` and `all_to_all` are
+   the differentiable forms (the shift's gradient is the reverse shift,
+   as `lax.ppermute` transposes; the all-to-all's is the all-to-all with
+   its two dimensions swapped).
 2. The int8 block-quantized reduce-scatter and all-reduce with their
    residuals (`quantized_psum_scatter_rows`, `quantized_psum_rows`), on
    a process group where JAX's take an axis name. Quantize and
@@ -179,6 +186,41 @@ class Wire:
         rows = rows.reshape(self.size, rows.shape[0] // self.size, *rows.shape[1:])
         return self.all_to_all_rows(rows).sum(dim=0).movedim(0, dim)
 
+    def shift(self, x: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """The neighbour shift (JAX's `ppermute` with the permutation
+        i -> (i + offset) mod n): this member's x goes to member
+        (r + offset) mod n, and the result is member (r - offset) mod n's
+        x. An all-to-all whose only nonzero split is the neighbour's."""
+        if self.size == 1 or offset % self.size == 0:
+            return x.clone()
+        if x.device.type == "meta":
+            return torch.empty_like(x)
+        flat = x.contiguous().view(-1)
+        out = torch.empty_like(flat)
+        n = flat.numel()
+        dst, src = (self.rank + offset) % self.size, (self.rank - offset) % self.size
+        dist.all_to_all_single(out, flat, output_split_sizes=[n if i == src else 0
+                                                              for i in range(self.size)],
+                               input_split_sizes=[n if i == dst else 0 for i in range(self.size)],
+                               group=self.group)
+        self._count(n * x.element_size())
+        return out.view(x.shape)
+
+    def all_to_all_dims(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """JAX's tiled `all_to_all(x, split_axis, concat_axis, tiled=True)`:
+        x's `split_dim` cut into n blocks, block j sent to member j, and
+        the blocks received concatenated along `concat_dim` in member
+        order."""
+        n = self.size
+        if n == 1:
+            return x.clone()
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of size {x.shape[split_dim]} not "
+                             f"divisible by the group size {n}")
+        rows = torch.stack(torch.chunk(x, n, dim=split_dim))
+        got = self.all_to_all_rows(rows)
+        return torch.cat(list(got), dim=concat_dim)
+
     def broadcast(self, x: torch.Tensor, root: int = 0) -> torch.Tensor:
         """In place: x becomes group member `root`'s x."""
         if self.size == 1:
@@ -195,6 +237,50 @@ class Wire:
 
 def _wire(group: Any) -> Wire:
     return group if isinstance(group, Wire) else Wire(group)
+
+
+class _Shift(torch.autograd.Function):
+    """The shift with its gradient: the reverse shift (`ppermute`'s
+    transpose), counted under the forward's label."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, wire: Wire, offset: int):
+        ctx.wire, ctx.offset, ctx.label = wire, offset, wire._label
+        return wire.shift(x, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.wire.region(ctx.label, g.device):
+            return ctx.wire.shift(g, -ctx.offset), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all with its gradient: the all-to-all with the
+    split and concat dimensions swapped (JAX's transpose rule), counted
+    under the forward's label."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, wire: Wire, split_dim: int, concat_dim: int):
+        ctx.wire, ctx.dims, ctx.label = wire, (split_dim, concat_dim), wire._label
+        return wire.all_to_all_dims(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        with ctx.wire.region(ctx.label, g.device):
+            return ctx.wire.all_to_all_dims(g, concat_dim, split_dim), None, None, None
+
+
+def shift(x: torch.Tensor, wire: Wire, offset: int = 1) -> torch.Tensor:
+    """`Wire.shift` under autograd (the counterpart of `lax.ppermute` to
+    the neighbour `offset` places on)."""
+    return _Shift.apply(x, wire, offset)
+
+
+def all_to_all(x: torch.Tensor, wire: Wire, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """`Wire.all_to_all_dims` under autograd (the counterpart of
+    `lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)`)."""
+    return _AllToAll.apply(x, wire, split_dim, concat_dim)
 
 
 # --------------------------------------------- quantized (int8) collectives

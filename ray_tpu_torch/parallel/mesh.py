@@ -19,14 +19,16 @@ What differs from JAX, and why:
   tests, `["cuda:0"] * n` on one card); n distinct CUDA devices raise
   NotImplementedError naming ROADMAP A4 (TP serving across cards).
   Training refuses such a mesh (`Mesh.device`, `ModelSharding`).
-- The axes dp, fsdp and tp: a spec with sp, ep or pp above 1 raises
-  NotImplementedError naming ROADMAP A7 (sequence parallel, MoE and the
-  pipeline schedule). JAX shards parameters over fsdp and tp through
-  GSPMD's partitioner, which PyTorch has no counterpart for: the port
-  writes those collectives out (`parallel/spmd.py`: ZeRO-3 gathers over
-  fsdp, Megatron's column- and row-parallel products over tp), so JAX's
-  default for n devices, `MeshSpec().with_devices(n)` (fsdp=n), is a
-  mesh the port trains on.
+- Every axis lays out over a torch.distributed job, as in JAX. JAX
+  shards parameters over fsdp, tp and ep through GSPMD's partitioner,
+  which PyTorch has no counterpart for: the port writes those collectives
+  out (`parallel/spmd.py`: ZeRO-3 gathers over fsdp, Megatron's column-
+  and row-parallel products over tp, the experts' enter / leave pair over
+  ep), so JAX's default for n devices, `MeshSpec().with_devices(n)`
+  (fsdp=n), is a mesh the port trains on. Over sp the attention ops
+  rotate or scatter the sequence blocks themselves (`ops/ring_attention`,
+  `ops/ulysses`), and over pp the schedule is written out
+  (`parallel/pipeline.py`), as JAX's shard_map bodies do.
 - `NamedSharding.assemble` is the inverse of `shard`: the global array
   from every rank's block, which JAX's `np.asarray` of a sharded array
   gives (the port's ranks hold blocks only).
@@ -58,9 +60,6 @@ AXIS_ORDER: Tuple[str, ...] = ("dp", "pp", "fsdp", "ep", "sp", "tp")
 # Axes over which batch (data) is partitioned.
 DATA_AXES: Tuple[str, ...] = ("dp", "fsdp")
 
-# the axes the port's meshes do not lay out yet, and the item that brings them
-UNPORTED_AXES: Tuple[str, ...] = ("pp", "ep", "sp")
-UNPORTED_ITEM = "ROADMAP A7 (sequence parallel, pipeline and MoE)"
 ACROSS_CARDS_ITEM = "ROADMAP A4 (TP serving across cards)"
 
 
@@ -187,16 +186,6 @@ class Mesh:
         return self.groups.get(axis)
 
 
-def _check_axes(spec: MeshSpec) -> None:
-    unported = [a for a in UNPORTED_AXES if getattr(spec, a) > 1]
-    if unported:
-        raise NotImplementedError(
-            f"MeshSpec {spec.describe()}: the axes {unported} shard sequences, stages "
-            f"or experts, which the port does not lay out yet; it builds meshes over "
-            f"dp, fsdp and tp until {UNPORTED_ITEM}"
-        )
-
-
 def _axis_groups(spec: MeshSpec, rank: int, backend: Optional[str]) -> Dict[str, object]:
     """One process group per slice of every axis of size > 1, created on
     every rank in the same order (`new_group` is collective); returns the
@@ -232,8 +221,7 @@ def build_mesh(
     devices needs a `torch.distributed` job of world size n, initialised
     by the caller (`init_process_group`, as the multihost gang's ranks
     are); `backend` builds the axis groups on another backend than the
-    job's default one. Specs with sp, ep or pp above 1 raise
-    NotImplementedError."""
+    job's default one."""
     devices = list(devices) if devices is not None else ["cuda"]
     if len(devices) > 1:
         return _local_mesh(spec, devices)
@@ -242,7 +230,6 @@ def build_mesh(
     dev = _resolve(devices[0])
     if spec.num_devices == 1:
         return Mesh(spec, (dev,))
-    _check_axes(spec)
     if not (dist.is_available() and dist.is_initialized()):
         raise ValueError(
             f"MeshSpec {spec.describe()} wants {spec.num_devices} ranks; this process "
@@ -278,7 +265,6 @@ def _local_mesh(spec: MeshSpec, devices: Sequence[Union[str, torch.device]]) -> 
         raise ValueError(
             f"MeshSpec {spec.describe()} wants {spec.num_devices} devices, got {len(devices)}"
         )
-    _check_axes(spec)
     others = [a for a in AXIS_ORDER if a != "tp" and getattr(spec, a) > 1]
     if others:
         raise ValueError(

@@ -17,6 +17,14 @@ specs, as autograd pairs:
   identity backward), a vocab-parallel embedding (the rows outside this
   rank's range masked, then `leave`) and a vocab-parallel loss
   (`VocabShard`, read by `ops/losses.py`).
+- The MoE layer's expert dimension split over ep (the rule `("expert",
+  "ep")`) stays local the same way, with the pair over ep: each ep rank
+  dispatches its copy of the tokens to its E / ep experts (`enter` on
+  the tokens and on the gate weights), and the combine's partial sums
+  are summed over ep (`leave`), so the replicated weights' gradients come
+  out equal on every ep rank (`models/moe.py`). GSPMD partitions JAX's
+  e-sharded einsums on its own; the port keeps the batch whole over ep,
+  as the default rules do.
 - Every other split dimension is gathered just before its weights are
   used, a layer at a time, one collective per layer and axis, in the
   compute dtype: over a data axis (dp, fsdp) the gradient of the
@@ -56,9 +64,12 @@ from .mesh import AXIS_ORDER, DATA_AXES, Mesh, NamedSharding, PartitionSpec, spe
 from .sharding import LogicalRules, default_rules, tree_specs
 
 MODEL_AXIS = "tp"
+EXPERT_AXIS = "ep"
 
-# Megatron's groups: the logical axes a tp split keeps local, by group
-_GROUP_AXES = {"attn": ("heads", "kv_heads"), "mlp": ("mlp",)}
+# Megatron's groups: the logical axes a split keeps local, by group, and
+# the mesh axis that splits them (tp, but ep for the MoE layer's experts)
+_GROUP_AXES = {"attn": ("heads", "kv_heads"), "mlp": ("mlp",), "expert": ("expert",)}
+_GROUP_MESH_AXIS = {"expert": EXPERT_AXIS}
 
 
 # ------------------------------------------------------------ autograd pairs
@@ -167,20 +178,29 @@ def megatron_split(specs: Dict[str, PartitionSpec], logical: Any, shape: Dict[st
     """Which of Megatron's groups stay local on a mesh of axis sizes
     `shape`: ({group: split}, the (path, dimension) entries of the split
     groups). A group ("attn", "mlp", "embed": the embedding's vocabulary,
-    "head": the LM head's) is split when tp > 1 and tp alone splits every
-    weight dimension of it that names its logical axes; the training step
-    (`ModelSharding`) and the serving layout (`serve/llm/paged_engine.
-    serving_shardings`) both read it."""
+    "head": the LM head's; "expert": the MoE layer's experts, over ep) is
+    split when its axis (tp, or ep for "expert") is above 1 and alone
+    splits every weight dimension of it that names its logical axes; the
+    training step (`ModelSharding`) and the serving layout
+    (`serve/llm/paged_engine.serving_shardings`) both read it."""
     names = dict(dict_items(logical))
     groups = {g: [(p, d) for p, axes in names.items() if p.startswith("blocks/")
                   for d, a in enumerate(axes) if a in logical_names]
               for g, logical_names in _GROUP_AXES.items()}
     groups["embed"] = [("wte", 0)]
     groups["head"] = [("lm_head", 1)] if "lm_head" in names else [("wte", 0)]
-    split = {g: shape[MODEL_AXIS] > 1 and bool(entries) and all(
-        split_axes(specs[p], d, shape) == (MODEL_AXIS,) for p, d in entries)
-        for g, entries in groups.items()}
+    split = {}
+    for g, entries in groups.items():
+        axis = group_axis(g)
+        split[g] = shape[axis] > 1 and bool(entries) and all(
+            split_axes(specs[p], d, shape) == (axis,) for p, d in entries)
     return split, {e for g, entries in groups.items() if split[g] for e in entries}
+
+
+def group_axis(group: str) -> str:
+    """The mesh axis that splits a Megatron group: ep for the experts, tp
+    for the others."""
+    return _GROUP_MESH_AXIS.get(group, MODEL_AXIS)
 
 
 def vocab_rows(wte: torch.Tensor, tokens: torch.Tensor, start: int,
@@ -226,7 +246,8 @@ class ModelSharding:
             if path.startswith("blocks/") and any(d == 0 for d, _ in steps):
                 raise NotImplementedError(
                     f"{path}: its stacked layer axis is split ({spec}); layers over "
-                    f"ranks are pipeline stages, ROADMAP A7")
+                    f"ranks are pipeline stages: train such a mesh with "
+                    f"parallel.pipeline.make_pp_train_step")
             self.steps[path] = steps
         self.gathers_layers = any(self.steps[p] for p in self.steps if p.startswith("blocks/"))
 
@@ -282,13 +303,25 @@ class ModelSharding:
         """The input of a split group's column-parallel products."""
         if not self.split[group]:
             return x
-        return _Copy.apply(x, self.wires[MODEL_AXIS], MODEL_AXIS)
+        axis = group_axis(group)
+        return _Copy.apply(x, self.wires[axis], axis)
 
     def leave(self, group: str, x: torch.Tensor) -> torch.Tensor:
-        """The sum over tp of a split group's partial outputs."""
+        """The sum over the group's axis (tp; ep for the experts) of a
+        split group's partial outputs."""
         if not self.split[group]:
             return x
-        return _Reduce.apply(x, self.wires[MODEL_AXIS], MODEL_AXIS)
+        axis = group_axis(group)
+        return _Reduce.apply(x, self.wires[axis], axis)
+
+    def expert_range(self, n_experts: int) -> Tuple[int, int]:
+        """[first, last) of the experts this rank holds: all of them unless
+        the experts are split over ep."""
+        if not self.split["expert"]:
+            return 0, n_experts
+        size = n_experts // self.mesh.shape[EXPERT_AXIS]
+        first = self.mesh.axis_index(EXPERT_AXIS) * size
+        return first, first + size
 
     def embed(self, wte: torch.Tensor, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """Embedding rows of `tokens` in `dtype`; under a vocabulary split
@@ -308,6 +341,15 @@ class ModelSharding:
         return VocabShard(start, self.wires[MODEL_AXIS])
 
     # ------------------------------------------------- after the backward
+
+    def data_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the data axes, the gradient passed through as it
+        is (a statistic of the global batch built from each rank's rows:
+        its gradient reaches each rank's rows unchanged)."""
+        for axis in DATA_AXES:
+            if axis in self.wires:
+                x = _Reduce.apply(x, self.wires[axis], axis)
+        return x
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
         """x summed over the data axes (no gradient), in place on a copy."""

@@ -1,8 +1,9 @@
 """Goodput accounting: where did the run's wall time actually go?
 
-Port of `ray_tpu/util/goodput.py` (host-only Python, copied). On one
-process the partition is driven by whoever owns the run (the gang
-controller that feeds it in the JAX package comes with ROADMAP A3).
+Port of `ray_tpu/util/goodput.py` (host-only Python, copied). The gang
+controller (`train/controller.py`, `TrainController`) drives the
+partition of each run it supervises, as in the JAX package; on one
+process it is driven by whoever owns the run.
 
 Fine-tuning comparisons on preemptible fleets show that step time alone
 hides exactly the costs such a fleet pays: restarts, checkpoint traffic, input stalls. This module turns the

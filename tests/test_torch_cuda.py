@@ -15,6 +15,9 @@ plain versions round p where the kernels do, so there only the order of
 the f32 sums (and exp2) differs, which can move the final bf16 rounding by
 one ulp. f32 atol = rtol = 1e-4 (f32 sums in another order). The engine's
 graphs are held bitwise against the same passes run eagerly on the card.
+The ViT and one-rank ring / Ulysses checks hold whole models or bodies
+against the plain attention path at the bf16 tolerance relative to the
+largest element (their products round at other places).
 The train step on the card against the CPU step, f32 with TF32 off:
 gradients, losses and grad norms at atol = rtol = 1e-4; parameters after
 three steps at atol 1e-3, a tenth of the learning rate, because Adam
@@ -273,6 +276,11 @@ _FWD_SHAPES = {
     # its batch of 8), Llama-3-8B's 16 of 32 query and 4 of 8 kv heads
     "gpt2_tp2_local_s1024": (4, 6, 6, 1024, 1024, 64),
     "llama_tp2_local_s512": (2, 16, 4, 512, 512, 128),
+    # ViT-B/16's encoder (S 197: three tiles and a ragged fourth; the model
+    # runs it non-causal) and a ring block (kv heads repeated to the query
+    # heads before the ring; past blocks run non-causal)
+    "vit_b16_s197": (4, 12, 12, 197, 197, 64),
+    "ring_block_s512": (1, 8, 8, 512, 512, 128),
 }
 
 
@@ -360,9 +368,10 @@ def _bwd_inputs(dtype, shape, causal, seed=2):
 @pytest.mark.parametrize(
     "shape",
     [(2, 4, 4, 200, 64), (1, 8, 2, 131, 128), (1, 2, 2, 37, 64), (1, 4, 2, 129, 64),
-     (2, 8, 2, 65, 128), (4, 6, 6, 1024, 64), (2, 16, 4, 512, 128)],
+     (2, 8, 2, 65, 128), (4, 6, 6, 1024, 64), (2, 16, 4, 512, 128), (4, 12, 12, 197, 64),
+     (1, 8, 8, 512, 128)],
     ids=["mha_d64", "gqa_d128", "short_d64", "edge_d64", "gqa_edge_d128", "gpt2_tp2_local",
-         "llama_tp2_local"])
+         "llama_tp2_local", "vit_b16", "ring_block"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, causal):
     """dq, dk, dv of both backward kernels against _flash_bwd_plain; S 200
@@ -413,6 +422,67 @@ def test_flash_attention_autograd_on_card_launches_backward_kernels(cuda):
     (ops.mha_reference(*refs, causal=True) * do).sum().backward()
     for got, want in zip(leaves, refs):
         torch.testing.assert_close(got.grad, want.grad, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vit_on_card_runs_the_kernels_non_causal(cuda):
+    """A ViT encoder (head_dim 64, S 17, bf16) through the flash kernels,
+    non-causal, against the plain attention path on the same weights:
+    the logits and the gradients at the bf16 tolerance (relative to the
+    largest element of all the gradients: bk's exact gradient is 0, a
+    per-row constant shift of the scores, so its own scale is noise), one
+    launch of each kernel a layer."""
+    from ray_tpu_torch.models import vit
+
+    config = vit.vit_tiny().replace(d_model=128, n_heads=2, dtype=torch.bfloat16)
+
+    class Plain:
+        def __getattr__(self, name):
+            return getattr(config, name)
+
+        encoder_config = config.encoder_config.replace(attn_impl="xla")
+
+    params = vit.init_params(config, 0, device="cuda")
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    images = torch.randn((4, 32, 32, 3), generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+    before = (ops.FLASH_FWD.launches, ops.FLASH_BWD_DQ.launches)
+    out = vit.forward(params, images, config)
+    grads = torch.autograd.grad(out.float().sum(), leaves)
+    assert (ops.FLASH_FWD.launches - before[0], ops.FLASH_BWD_DQ.launches - before[1]) == \
+        (config.n_layers, config.n_layers)
+    ref = vit.forward(params, images, Plain())
+    ref_grads = torch.autograd.grad(ref.float().sum(), leaves)
+    tol = TOLS[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol * ref.float().abs().max().item(),
+                               rtol=tol)
+    scale = max(r.float().abs().max().item() for r in ref_grads)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g.float(), r.float(), atol=tol * scale, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_ring_and_ulysses_on_one_rank_launch_the_kernels(cuda):
+    """On a one-rank sp mesh the fused ring is one diagonal flash block and
+    Ulysses one flash call: both launch the forward kernel on CUDA tensors
+    and equal flash_attention; the ring's gradient (its plain body) and
+    Ulysses' (the backward kernels) match flash_attention's."""
+    mesh = build_mesh(MeshSpec(), ["cuda"])
+    q, k, v, _, _, do = _bwd_inputs(torch.bfloat16, (1, 8, 2, 256, 128), True, seed=6)
+    want = ops.flash_attention(q, k, v, causal=True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref_grads = torch.autograd.grad(ops.flash_attention(*leaves, causal=True), leaves, do)
+    tol = TOLS[torch.bfloat16]
+    for fn in (ops.ring_attention, ops.ulysses_attention):
+        before = ops.FLASH_FWD.launches
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, mesh=mesh, causal=True)
+        assert ops.FLASH_FWD.launches == before + 1, fn.__name__
+        torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+        grads = torch.autograd.grad(out, leaves, do)
+        for g, r in zip(grads, ref_grads):
+            torch.testing.assert_close(g.float(), r.float(), atol=tol * r.float().abs().max().item(),
+                                       rtol=tol)
 
 
 @pytest.mark.cuda

@@ -336,6 +336,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.train.controller, ray_tpu_torch.train.multihost\n"
         "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.sharding, ray_tpu_torch.parallel.spmd\n"
         "import ray_tpu_torch.core.worker_pool, ray_tpu_torch.core.worker_main\n"
+        "import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.ops.ulysses\n"
+        "import ray_tpu_torch.models.moe, ray_tpu_torch.models.vit, ray_tpu_torch.models.convert\n"
+        "import ray_tpu_torch.parallel.pipeline, chip_smoke, torch_a7_rank\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

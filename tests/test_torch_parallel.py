@@ -391,11 +391,11 @@ def test_sharding_rules_match_jax():
     mesh = build_mesh(MeshSpec(), ["cpu"])
     validate_divisibility((8, 3), P("dp", None), mesh)
     # a mesh past dp needs a torch.distributed job of its size, as a dp
-    # mesh does; sp / ep / pp wait for ROADMAP A7
+    # mesh does (sp, ep and pp too)
     with pytest.raises(ValueError, match="torch.distributed"):
         build_mesh(MeshSpec(dp=2, tp=2), ["cpu"])
     for kw in ({"sp": 2}, {"ep": 2}, {"pp": 2}):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(ValueError, match="torch.distributed"):
             build_mesh(MeshSpec(**kw), ["cpu"])
 
 

@@ -378,12 +378,12 @@ def test_mesh_spec_and_dp_sync_bytes_match_jax():
     mesh = build_mesh(MeshSpec(), ["cpu"])
     assert mesh.device.type == "cpu" and mesh.shape == {a: 1 for a in mesh.axis_names}
     assert single_device_mesh("cpu").devices == mesh.devices
-    # a mesh over several ranks (fsdp, tp or dp) needs a torch.distributed
-    # job of its size; sp / ep / pp wait for ROADMAP A7
+    # a mesh over several ranks (fsdp, tp, dp, sp, ep or
+    # pp) needs a torch.distributed job of its size
     with pytest.raises(ValueError, match="torch.distributed"):
         build_mesh(MeshSpec(fsdp=8), ["cpu"])
     for kw in ({"sp": 2}, {"ep": 2}, {"pp": 2}):
-        with pytest.raises(NotImplementedError, match="A7"):
+        with pytest.raises(ValueError, match="torch.distributed"):
             build_mesh(MeshSpec(**kw), ["cpu"])
     with pytest.raises(ValueError, match="torch.distributed"):
         LMTrainer(get_config("gpt2-tiny"), mesh_spec=MeshSpec(dp=2), device="cpu")
