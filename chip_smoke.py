@@ -210,6 +210,34 @@ nonzero and no result line is printed):
              gone when attempt 1 starts, allocated bytes between the
              attempts and after fit() within 64 MiB of their value before
              (each reading taken with PyTorch's cuBLAS workspaces dropped).
+   process — the process plane feeding GPT-2 124M (ray_tpu_torch.init()
+             with cfg.native_store on, the arena sized within half the
+             free bytes of /dev/shm, at most PROCESS_ARENA_BYTES; the
+             port's libobjstore.so built from native/objstore.cc at first
+             use; 6 pooled workers prestarted, their pids none of this
+             process's): (a) 8192 synthetic documents (words from a seeded
+             vocabulary, ~23 MB of ASCII text in 64 blocks) mapped by
+             torch_process_udfs.tokenize_pack (normalise each document in a
+             Python loop, ByteTokenizer.encode, pack windows of 1025) with
+             executor="thread", then "process", each landed by
+             iter_torch_batches(8, device="cuda"): tokens/s landed each
+             way, shm_puts and the arena's bytes, /dev/shm's free bytes;
+             the sums and hashes (on the card) must be equal, shm_puts > 0,
+             and 20 train steps fed each pass's first batches must give
+             equal losses, bitwise; (b) a compiled graph, InputNode ->
+             Preproc.transform (a process actor: tokenise and pad 8 prompts
+             to 1024) -> LM.infer (a thread actor holding GPT-2 124M on the
+             card, returning the argmax as a CPU array), executed 32 times
+             pipelined over shared-memory edges, must equal the same chain
+             of .remote() calls (ms an execute against ms a call); (c) a
+             process actor's worker SIGKILLed while idle must be restarted
+             by the health manager, with no call in between, within
+             health_check_period_s x health_check_failures + 1 s. No worker
+             may hold a CUDA context: each says CUDA is not initialised
+             (torch.cuda.is_initialized(), read in the worker), none is
+             listed by nvidia-smi --query-compute-apps, and the card's
+             memory in use grows by less than 256 MiB while the workers
+             start; the flash forward kernel must launch in (a) and (b).
 
 9. dp      — data-parallel GPT-2 124M across processes: a TrainController
              drives a MultihostWorkerGroup of 2 processes on the one card
@@ -294,8 +322,8 @@ nonzero and no result line is printed):
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; tp_serve: the
 tp engines' runs and the checks' dense forwards; train: phase 6;
-trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; dp: phase
-9's ranks, all modes; fsdp_tp: phase 10's ranks, all modes, also
+trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; process:
+the process phase's (a) and (b); dp: phase 9's ranks, all modes; fsdp_tp: phase 10's ranks, all modes, also
 split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16;
 a7: phase 11's ranks and ViT, also split by part as a7_launches_by_part;
 each counted from zero just before it, profiled repeats, first calls
@@ -352,6 +380,7 @@ from ray_tpu_torch.ops.ragged_paged_attention import (
     ragged_reference_attention,
 )
 import ray_tpu_torch
+import torch_process_udfs as udfs
 from ray_tpu_torch import serve
 from ray_tpu_torch.core.config import cfg
 from ray_tpu_torch.core.runtime import get_runtime
@@ -373,7 +402,10 @@ from ray_tpu_torch.serve.llm.speculative import (
     ReplayProposer,
     accept_speculative,
 )
-from ray_tpu_torch.data import lm_batch_iterator, read_npy
+from ray_tpu_torch.core import object_store as store_mod
+from ray_tpu_torch.core.native_store import build_error, native_available
+from ray_tpu_torch.core.worker_pool import get_worker_pool
+from ray_tpu_torch.data import DataContext, from_numpy, lm_batch_iterator, read_npy
 from ray_tpu_torch.parallel import MeshSpec, build_mesh, dp_sync_bytes
 from ray_tpu_torch.serve.llm.paged import copy_page
 from ray_tpu_torch.train import (
@@ -3541,6 +3573,329 @@ def _ingest_drill(card: str, config, paths, tmp: str) -> None:
             raise AssertionError(f"ingest: allocated {label} {value}, before fit() {before}")
 
 
+# ---------------------------------------------------------------- process
+
+PROCESS_DOCS = 8192  # synthetic documents, 2-10-letter words from a seeded vocabulary
+PROCESS_DOC_BYTES = 4096  # a document's row in the corpus (ASCII, zero-padded)
+PROCESS_VOCAB = 8192  # the corpus's distinct words
+PROCESS_BLOCKS = 64  # 128 documents (512 KiB of text) a block: each block enters the arena
+PROCESS_WORKERS = 6  # pooled worker processes (the card's host has 8 cores)
+PROCESS_ARENA_BYTES = 2 << 30  # the arena's size, at most half the free bytes of /dev/shm
+PROCESS_TRAIN_STEPS = 20
+PROCESS_PROMPTS = 8  # prompts an execute of the compiled graph
+PROCESS_EXECUTES = 32
+PROCESS_HEALTH_SLACK_S = 1.0  # the drill's bound: period x failures + this
+PROCESS_CONTEXT_SLACK = 256 << 20  # the card's memory may not grow more while workers start
+
+
+def _process_corpus() -> tuple:
+    """PROCESS_DOCS documents of 200-600 words drawn with numpy from the
+    seed, from a vocabulary of lower-case words, a tenth capitalised, a
+    twentieth numbers, an eighth with trailing punctuation: a uint8 matrix
+    of ASCII rows and the rows' lengths."""
+    rng = np.random.default_rng(SEED + 11)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    words = []
+    for n in rng.integers(2, 11, PROCESS_VOCAB):
+        w = letters[rng.integers(0, 26, n)].tobytes()
+        r = rng.random()
+        if r < 0.1:
+            w = w.capitalize()
+        elif r < 0.15:
+            w = str(int(rng.integers(0, 100000))).encode()
+        if rng.random() < 0.125:
+            w += b".,;:!?"[int(rng.integers(0, 6))].to_bytes(1, "little")
+        words.append(w)
+    words = np.array(words, dtype=object)
+    text = np.zeros((PROCESS_DOCS, PROCESS_DOC_BYTES), np.uint8)
+    lens = np.zeros(PROCESS_DOCS, np.int32)
+    for d, n in enumerate(rng.integers(200, 600, PROCESS_DOCS)):
+        doc = b" ".join(words[rng.integers(0, PROCESS_VOCAB, n)])[:PROCESS_DOC_BYTES]
+        text[d, :len(doc)] = np.frombuffer(doc, np.uint8)
+        lens[d] = len(doc)
+    return text, lens
+
+
+def _maps_libcuda(pid: int) -> bool:
+    """Whether a process has the CUDA driver library mapped (it may be, by
+    torch's import, without a context)."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda.so" in f.read()
+    except OSError:
+        return False
+
+
+def _card_used_bytes() -> int:
+    out = _run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"])
+    return int(out.split()[0]) << 20
+
+
+def _no_cuda_context(label: str, states) -> None:
+    """No worker may hold a CUDA context: each (pid, torch imported, CUDA
+    initialised) state, read inside the worker, must say CUDA is not
+    initialised, and no worker pid may be listed by nvidia-smi
+    --query-compute-apps (printed with whether this process, which holds
+    a context, is listed: in a container the list may use other pid
+    numbers, which leaves it blind) and whether libcuda is mapped."""
+    apps = udfs.compute_app_pids()
+    pids = sorted(p for p, _, _ in states)
+    log("process", f"{label}: CUDA initialised in workers "
+        f"{ {p: c for p, _, c in states} }; nvidia-smi --query-compute-apps pids {apps}, this "
+        f"process {os.getpid()} {'listed' if os.getpid() in apps else 'not listed'}; libcuda "
+        f"mapped in this process {_maps_libcuda(os.getpid())}, in workers "
+        f"{[p for p in pids if _maps_libcuda(p)]}")
+    if any(c for _, _, c in states) or set(pids) & set(apps):
+        raise AssertionError(f"process: a worker holds a CUDA context ({label}): {states}, "
+                             f"compute apps {apps}")
+
+
+def _pool_cuda_states() -> list:
+    """Every pooled worker's cuda_state(): one overlapping task a worker."""
+    pool = get_worker_pool()
+    want = set(pool.pids())
+    task = ray_tpu_torch.remote(udfs.cuda_state_after).options(executor="process")
+    states = ray_tpu_torch.get([task.remote(0.5) for _ in want], timeout=300)
+    if {p for p, _, _ in states} != want:
+        raise AssertionError(f"process: the probes reached {sorted(p for p, _, _ in states)}, "
+                             f"the pool holds {sorted(want)}")
+    return states
+
+
+def phase_process(card: str) -> dict:
+    """The process plane feeding GPT-2 124M: (a) the corpus tokenised by a
+    map stage on pooled worker processes against the same stage on
+    threads, both landed on the card by iter_torch_batches (tokens equal
+    bitwise; 20 train steps fed each way, losses equal bitwise); (b) a
+    compiled graph over a process actor (tokenise, pad) and a thread actor
+    holding GPT-2 on the card (the argmax) against the same chain of
+    .remote() calls; (c) a process actor's worker SIGKILLed while idle and
+    restarted by the health manager with no call in between. Returns each
+    kernel's launches over (a) and (b) (counted from zero before them)."""
+    t0 = time.perf_counter()
+    ok = native_available()
+    log("process", f"libobjstore.so for the port built or found: {ok} "
+        f"({time.perf_counter() - t0:.2f} s){'' if ok else ': ' + str(build_error())}")
+    if not ok:
+        raise AssertionError("process: the native arena library did not build")
+    directory = store_mod.shm_dir()
+    free = store_mod.free_bytes(directory)
+    arena = min(PROCESS_ARENA_BYTES, free // 2)
+    cfg.set(native_store=True, object_store_capacity_bytes=arena,
+            max_process_workers=PROCESS_WORKERS)
+    ctx = DataContext.get_current()
+    saved_prefetch = ctx.prefetch_blocks
+    ctx.prefetch_blocks = 2 * PROCESS_WORKERS
+    rt = ray_tpu_torch.init()
+    try:
+        store = rt.object_store
+        log("process", f"runtime {rt.cluster_resources()}; {directory}: {free} bytes free; the "
+            f"arena {store.arena.capacity if store.arena else None} bytes at "
+            f"{store.arena.path if store.arena else store.arena_error}")
+        if store.arena is None:
+            raise AssertionError(f"process: the store has no arena: {store.arena_error}")
+        used0 = _card_used_bytes()
+        t = time.perf_counter()
+        pids = get_worker_pool().prestart(PROCESS_WORKERS)
+        log("process", f"prestarted {len(pids)} workers in {time.perf_counter() - t:.2f} s: pids "
+            f"{pids}, this process {os.getpid()}")
+        if len(set(pids)) != PROCESS_WORKERS or os.getpid() in pids:
+            raise AssertionError(f"process: worker pids {pids}")
+        t = time.perf_counter()
+        text, lens = _process_corpus()
+        log("process", f"corpus: {PROCESS_DOCS} documents, {int(lens.sum())} bytes of text "
+            f"({text.nbytes} in rows of {PROCESS_DOC_BYTES}), {PROCESS_BLOCKS} blocks, made in "
+            f"{time.perf_counter() - t:.2f} s")
+        for kernel in KERNELS:
+            kernel.launches = 0
+        out = _process_ingest(card, store, text, lens, used0)
+        out.update(_process_graph(card, text, lens))
+        out["launches"] = {k.name: k.launches for k in KERNELS}
+        log("process", f"launches in (a) and (b): {out['launches']}")
+        if out["launches"][FLASH_FWD.name] == 0:
+            raise AssertionError("process: the flash forward kernel never launched")
+        out.update(_process_health(card))
+    finally:
+        ctx.prefetch_blocks = saved_prefetch
+        ray_tpu_torch.shutdown()
+        for flag in ("native_store", "object_store_capacity_bytes", "max_process_workers"):
+            cfg.reset(flag)
+    log("process", f"/dev/shm after shutdown: {store_mod.free_bytes(directory)} bytes free; "
+        f"phase {time.perf_counter() - t0:.2f} s ({card})")
+    return out
+
+
+def _process_ingest(card: str, store, text, lens, used0: int) -> dict:
+    """(a): the corpus through map_batches(tokenize_pack) on threads, then
+    on the process pool, each landed by iter_torch_batches on the card:
+    the token streams' sums and hashes (on the card) equal, then
+    PROCESS_TRAIN_STEPS steps of GPT-2 fed each stream's first batches:
+    losses equal bitwise."""
+    # warm-up: each worker imports what the UDF imports before the timed pass
+    t = time.perf_counter()
+    warm = from_numpy({"text": text[:4 * PROCESS_WORKERS], "len": lens[:4 * PROCESS_WORKERS]},
+                      num_blocks=2 * PROCESS_WORKERS)
+    list(warm.map_batches(udfs.tokenize_pack, executor="process").iter_blocks())
+    used1 = _card_used_bytes()
+    log("process", f"warm-up pass over {2 * PROCESS_WORKERS} small blocks: "
+        f"{time.perf_counter() - t:.2f} s; the card's memory in use {used0} bytes before the "
+        f"workers started, {used1} after they ran the warm-up (a CUDA context costs hundreds "
+        f"of MiB a process)")
+    if used1 - used0 > PROCESS_CONTEXT_SLACK:
+        raise AssertionError(f"process: the card's memory grew by {used1 - used0} bytes while "
+                             f"the workers started")
+    weights = (torch.arange(1, TRAIN_BATCH * udfs.WINDOW + 1, device="cuda", dtype=torch.int64)
+               .reshape(TRAIN_BATCH, udfs.WINDOW) * 2654435761)
+    runs = {}
+    for executor in ("thread", "process"):
+        puts = store.stats["shm_puts"]
+        ds = from_numpy({"text": text, "len": lens}, num_blocks=PROCESS_BLOCKS).map_batches(
+            udfs.tokenize_pack, executor=executor)
+        total = torch.zeros((), dtype=torch.int64, device="cuda")
+        digest = torch.zeros((), dtype=torch.int64, device="cuda")
+        batches, n = [], 0
+        t = time.perf_counter()
+        for batch in ds.iter_torch_batches(TRAIN_BATCH, device="cuda", drop_last=True):
+            tok = batch["tokens"]
+            total += tok.sum(dtype=torch.int64)
+            digest.mul_(1000003).add_((tok.to(torch.int64) * weights).sum())
+            if len(batches) < PROCESS_TRAIN_STEPS:
+                batches.append(tok.to(torch.int64))
+            n += tok.numel()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs[executor] = dict(sum=int(total), hash=int(digest), tokens=n, wall_s=wall,
+                              shm_puts=store.stats["shm_puts"] - puts, batches=batches)
+        log("process", f"{executor} pass: {n} tokens in {wall:.3f} s, {n / wall:.1f} tokens/s "
+            f"landed; sum {runs[executor]['sum']} hash {runs[executor]['hash']}; shm_puts "
+            f"{runs[executor]['shm_puts']}; arena {store.arena.used} of {store.arena.capacity} "
+            f"bytes in use ({card})")
+    a, b = runs["thread"], runs["process"]
+    log("process", f"process / thread tokens/s: {a['wall_s'] / b['wall_s']:.3f} with "
+        f"{PROCESS_WORKERS} workers; store shm_puts {store.stats['shm_puts']}, shm_evictions "
+        f"{store.stats['shm_evictions']}; {store_mod.shm_dir()}: "
+        f"{store_mod.free_bytes(store_mod.shm_dir())} bytes free")
+    if (a["sum"], a["hash"], a["tokens"]) != (b["sum"], b["hash"], b["tokens"]) or not a["tokens"]:
+        raise AssertionError(f"process: token streams differ: thread {a['sum']} {a['hash']} "
+                             f"{a['tokens']}, process {b['sum']} {b['hash']} {b['tokens']}")
+    if store.stats["shm_puts"] == 0 or b["shm_puts"] == 0:
+        raise AssertionError("process: nothing entered the arena (shm_puts == 0)")
+    pids = get_worker_pool().pids()
+    if len(pids) != PROCESS_WORKERS or os.getpid() in pids:
+        raise AssertionError(f"process: pool pids {pids}")
+    _no_cuda_context("after the passes", _pool_cuda_states())
+    config = get_config(TRAIN_MODEL)
+    opt = default_optimizer(TRAIN_LR, warmup_steps=2, total_steps=PROCESS_TRAIN_STEPS)
+    step = make_train_step(config, opt, device="cuda")
+    losses = {}
+    for executor, run in runs.items():
+        state = create_train_state(config, opt, SEED, device="cuda")
+        metrics = []
+        for tok in run["batches"]:
+            state, m = step(state, {"tokens": tok})
+            metrics.append(m["loss"])
+        losses[executor] = [x.item() for x in metrics]
+        del state
+    log("process", f"{PROCESS_TRAIN_STEPS} steps fed by the thread pass, losses "
+        + " ".join(repr(x) for x in losses["thread"]) + "; by the process pass "
+        + " ".join(repr(x) for x in losses["process"]))
+    if losses["thread"] != losses["process"] or len(losses["thread"]) != PROCESS_TRAIN_STEPS:
+        raise AssertionError("process: the losses fed each way differ")
+    return dict(tokens_per_s={k: r["tokens"] / r["wall_s"] for k, r in runs.items()},
+                shm_puts=store.stats["shm_puts"], losses=losses["process"])
+
+
+def _process_graph(card: str, text, lens) -> dict:
+    """(b): InputNode -> Preproc.transform (a process actor: tokenise, pad
+    to 1024) -> LM.infer (a thread actor holding GPT-2 124M on the card:
+    the argmax), compiled and executed PROCESS_EXECUTES times, pipelined,
+    against the same chain of .remote() calls."""
+    from ray_tpu_torch.experimental import InputNode
+
+    prompts = [[text[k, :min(int(lens[k]), TRAIN_SEQ)].tobytes().decode("ascii")
+                for k in range(e * PROCESS_PROMPTS, (e + 1) * PROCESS_PROMPTS)]
+               for e in range(PROCESS_EXECUTES)]
+    t = time.perf_counter()
+    pre = ray_tpu_torch.remote(udfs.Preproc).options(executor="process").remote(TRAIN_SEQ)
+    lm = ray_tpu_torch.remote(udfs.LM).options(num_gpus=1).remote(TRAIN_MODEL, SEED)
+    pre_pid = ray_tpu_torch.get(pre.__ray_pid__.remote(), timeout=300)
+    ray_tpu_torch.get(lm.__ray_ready__.remote(), timeout=300)
+    log("process", f"actors up in {time.perf_counter() - t:.2f} s: Preproc in worker {pre_pid}, "
+        f"LM (GPT-2 124M) on the card in this process")
+    ray_tpu_torch.get(lm.infer.remote(pre.transform.remote(prompts[0])), timeout=300)  # warm-up
+    t = time.perf_counter()
+    refs = [lm.infer.remote(pre.transform.remote(p)) for p in prompts]
+    chain = ray_tpu_torch.get(refs, timeout=600)
+    chain_s = time.perf_counter() - t
+    with InputNode() as inp:
+        out = lm.infer.bind(pre.transform.bind(inp))
+    t = time.perf_counter()
+    dag = out.experimental_compile()
+    compile_s = time.perf_counter() - t
+    try:
+        dag.execute(prompts[0]).get(timeout=300)  # warm-up
+        t = time.perf_counter()
+        futs = [dag.execute(p, timeout=300) for p in prompts]
+        graph = [f.get(timeout=600) for f in futs]
+        graph_s = time.perf_counter() - t
+    finally:
+        dag.teardown()
+    log("process", f"compiled graph ({'shared-memory' if dag._use_shm else 'in-process'} "
+        f"edges, compiled in {compile_s:.3f} s): {PROCESS_EXECUTES} executes of "
+        f"{PROCESS_PROMPTS} prompts x {TRAIN_SEQ} in {graph_s:.3f} s, "
+        f"{graph_s / PROCESS_EXECUTES * 1e3:.2f} ms an execute; the .remote() chain "
+        f"{chain_s:.3f} s, {chain_s / PROCESS_EXECUTES * 1e3:.2f} ms a call ({card})")
+    equal = all(np.array_equal(x, y) for x, y in zip(chain, graph)) and len(graph) == len(chain)
+    if not dag._use_shm or not equal:
+        raise AssertionError(f"process: the compiled graph's outputs differ from the chain's "
+                             f"(shared-memory edges {dag._use_shm})")
+    if graph[0].shape != (PROCESS_PROMPTS, TRAIN_SEQ):
+        raise AssertionError(f"process: argmax shape {graph[0].shape}")
+    _no_cuda_context("the graph's process actor",
+                     [ray_tpu_torch.get(pre.__ray_apply__.remote(udfs.instance_cuda_state),
+                                        timeout=60)])
+    for handle in (pre, lm):
+        ray_tpu_torch.kill(handle)
+    return dict(execute_ms=graph_s / PROCESS_EXECUTES * 1e3,
+                chain_ms=chain_s / PROCESS_EXECUTES * 1e3)
+
+
+def _process_health(card: str) -> dict:
+    """(c): SIGKILL the worker of an idle process actor (max_restarts=1); the
+    health manager must restart it, with no method call in between, within
+    health_check_period_s x health_check_failures + PROCESS_HEALTH_SLACK_S."""
+    import signal
+
+    svc = ray_tpu_torch.remote(udfs.Counter).options(executor="process", max_restarts=1).remote(0)
+    if ray_tpu_torch.get(svc.incr.remote(), timeout=300) != 1:
+        raise AssertionError("process: the drill's actor did not count")
+    pid = ray_tpu_torch.get(svc.__ray_pid__.remote(), timeout=60)
+    bound = cfg.health_check_period_s * cfg.health_check_failures + PROCESS_HEALTH_SLACK_S
+    aid = svc._actor_id.hex()
+
+    def restarts() -> int:  # the actor table: no method call
+        return next(a["restarts"] for a in ray_tpu_torch.list_actors() if a["actor_id"] == aid)
+
+    t = time.perf_counter()
+    os.kill(pid, signal.SIGKILL)
+    while restarts() == 0 and time.perf_counter() - t < 30:
+        time.sleep(0.005)
+    detect_s = time.perf_counter() - t
+    new_pid = ray_tpu_torch.get(svc.__ray_pid__.remote(), timeout=300)
+    fresh = ray_tpu_torch.get(svc.incr.remote(), timeout=60)
+    log("process", f"health drill: worker {pid} SIGKILLed while idle; restart {restarts()} "
+        f"recorded after {detect_s:.3f} s with no call (bound {bound:.2f} s: period "
+        f"{cfg.health_check_period_s} s x {cfg.health_check_failures} failures + "
+        f"{PROCESS_HEALTH_SLACK_S} s); new worker {new_pid}, its count {fresh}")
+    if restarts() != 1 or detect_s > bound or new_pid == pid or fresh != 1:
+        raise AssertionError(f"process: the health drill failed (restarts {restarts()}, "
+                             f"{detect_s:.3f} s against {bound:.2f} s, pid {pid} -> {new_pid})")
+    _no_cuda_context("after the drill", _pool_cuda_states() + [ray_tpu_torch.get(
+        svc.__ray_apply__.remote(udfs.instance_cuda_state), timeout=60)])
+    ray_tpu_torch.kill(svc)
+    return dict(health_detect_s=detect_s)
+
+
 # --------------------------------------------------------------------- dp
 
 DP_RANKS = 2  # two processes on the one card, over gloo (NCCL refuses two ranks on a device)
@@ -4204,6 +4559,9 @@ def main() -> int:
     ingest = phase_ingest(card)
     gc.collect()
     torch.cuda.empty_cache()
+    process = phase_process(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     dp = phase_dp(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4224,7 +4582,8 @@ def main() -> int:
                    "deploy": deploy["launches"][k.name], "observe": observe["launches"][k.name],
                    "tp_serve": tp_serve["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
-                   "ingest": ingest["launches"][k.name], "dp": dp["launches"][k.name],
+                   "ingest": ingest["launches"][k.name], "process": process["launches"][k.name],
+                   "dp": dp["launches"][k.name],
                    "fsdp_tp": fsdp_tp["launches"][k.name], "a7": a7["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],

@@ -128,7 +128,7 @@ _DEFAULT_TASK_OPTIONS: Dict[str, Any] = dict(
     scheduling_strategy="DEFAULT",
     name=None,
     runtime_env=None,
-    executor="thread",  # "process" (pooled OS workers) is not ported yet
+    executor="thread",  # or "process": a pooled OS worker process (GIL-free)
     stream_max_backlog=None,  # streaming producers: block when consumer lags
     locality_hint=None,  # NodeID: soft preference for the block-holding node
 )
@@ -143,8 +143,8 @@ _DEFAULT_ACTOR_OPTIONS: Dict[str, Any] = dict(
     namespace="default",
     lifetime=None,
     scheduling_strategy="DEFAULT",
-    executor="thread",  # "process" (a worker process per actor) is not ported yet
-    runtime_env=None,  # process actors only: not ported yet
+    executor="thread",  # or "process": the instance in a worker process of its own
+    runtime_env=None,  # process actors only
 )
 
 

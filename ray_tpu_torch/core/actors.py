@@ -10,16 +10,21 @@ times. Method exceptions do NOT kill the actor; only kill() and a
 constructor that raises do. When an incarnation stops (killed, restarted
 or shut down), its instance's `__ray_shutdown__()` runs, if it has one.
 
-Constructor arguments reach the instance by reference: a serve replica
-built with a tensor of weights holds the caller's tensor, not a copy.
-The JAX package's process actors (`executor="process"`, an instance in a
-worker process behind a pipe) come with process executors.
+Constructor arguments reach a thread actor's instance by reference: a
+serve replica built with a tensor of weights holds the caller's tensor,
+not a copy. A process actor (`executor="process"`) keeps its instance in
+a worker process of its own (`worker_pool.WorkerProcess`, started with
+the actor's runtime env), and its method calls go over the worker's pipe
+by value, one at a time even with `max_concurrency > 1`; the worker's
+death is a restartable actor death, found by the call in flight or by the
+runtime's health manager between calls.
 """
 
 from __future__ import annotations
 
 import enum
 import logging
+import os
 import queue
 import threading
 import time
@@ -97,6 +102,8 @@ class ActorRuntime:
         on_death=None,
         registered_name: Optional[str] = None,
         registered_namespace: str = "default",
+        executor: str = "thread",
+        runtime_env: Optional[Dict[str, Any]] = None,
     ):
         self.actor_id = actor_id
         self.cls = cls
@@ -113,6 +120,13 @@ class ActorRuntime:
         self.registered_name = registered_name
         self.registered_namespace = registered_namespace
         self._on_death = on_death
+        # "process": the instance lives in a worker process; method calls
+        # are proxied over its pipe (state survives in the child; a crash
+        # is a restartable actor death)
+        self.executor = executor
+        self.runtime_env = runtime_env  # normalized; process actors only
+        self._worker = None  # WorkerProcess when executor == "process"
+        self._worker_lock = threading.Lock()  # serializes the worker's pipe
         self._incarnation = 0  # bumped on every (re)start; see _RestartSignal
 
         self._scheduler = scheduler
@@ -209,9 +223,25 @@ class ActorRuntime:
                 self._die(self.death_cause or "unschedulable")
                 return
             try:
-                self._instance = self.cls(*self.init_args, **self.init_kwargs)
+                if self.executor == "process":
+                    from .runtime_env import worker_env_vars
+                    from .worker_pool import WorkerProcess
+
+                    self._worker = WorkerProcess(
+                        worker_env_vars(self.runtime_env),
+                        working_dir=(self.runtime_env or {}).get("working_dir"),
+                    )
+                    self._worker.request(
+                        "actor_create", (self.cls, self.init_args, self.init_kwargs)
+                    )
+                else:
+                    self._instance = self.cls(*self.init_args, **self.init_kwargs)
             except BaseException as exc:  # noqa: BLE001
-                tb = traceback.format_exc()
+                tb = getattr(exc, "remote_traceback", None) or traceback.format_exc()
+                with self._lock:
+                    worker, self._worker = self._worker, None
+                if worker is not None:
+                    worker.kill()
                 self._release()
                 self._die(f"__init__ raised: {exc}\n{tb}")
                 return
@@ -298,8 +328,10 @@ class ActorRuntime:
 
     def _execute_inner(self, call: ActorMethodCall) -> None:
         try:
-            if call.method_name == "__ray_ready__":
+            if call.method_name == "__ray_ready__" and self._worker is None:
                 result = True
+            elif call.method_name == "__ray_pid__" and self._worker is None:
+                result = os.getpid()
             else:
                 args = tuple(
                     a.resolve() if getattr(a, "__ray_tpu_lazy__", False) else a
@@ -309,11 +341,30 @@ class ActorRuntime:
                     k: (v.resolve() if getattr(v, "__ray_tpu_lazy__", False) else v)
                     for k, v in call.kwargs.items()
                 }
-                if call.method_name == "__ray_apply__":
+                if call.method_name == "__ray_apply__" and self._worker is None:
                     # fn(instance, *args): runs a function on the instance
                     # inside the actor (reference __ray_call__)
                     fn = args[0]
                     result = fn(self._instance, *args[1:], **kwargs)
+                elif self._worker is not None:
+                    from .worker_pool import WorkerCrashedError
+
+                    inc = self._incarnation
+                    try:
+                        with self._worker_lock:
+                            result = self._worker.request(
+                                "actor_call", (call.method_name, args, kwargs)
+                            )
+                    except WorkerCrashedError as crash:
+                        # the worker died: fail this call as an actor death
+                        # and restart, unless the death was an explicit kill
+                        # (state already DEAD: no_restart stays final)
+                        call.fail(self._store, ActorDiedError(self.actor_id, str(crash)))
+                        with self._lock:
+                            dead = self.state == ActorState.DEAD
+                        if not dead:
+                            self._mailbox.put(_RestartSignal(str(crash), inc))
+                        return
                 else:
                     method = getattr(self._instance, call.method_name)
                     result = method(*args, **kwargs)
@@ -345,7 +396,7 @@ class ActorRuntime:
                 for oid, value in zip(call.return_ids, values):
                     self._store.seal(oid, value)
         except BaseException as exc:  # noqa: BLE001 - boundary
-            tb = traceback.format_exc()
+            tb = getattr(exc, "remote_traceback", None) or traceback.format_exc()
             err = TaskError(f"{self.name}.{call.method_name}", exc, tb)
             call.fail(self._store, err)
 
@@ -371,6 +422,10 @@ class ActorRuntime:
             self._pool.release(self.resources)
         self._node = None
         self._pool = None
+        with self._lock:
+            worker, self._worker = self._worker, None
+        if worker is not None:
+            worker.shutdown()
         instance, self._instance = self._instance, None
         # An instance that holds what its collection would free late or
         # never (a card's memory, threads) frees it here, when the actor
@@ -387,6 +442,11 @@ class ActorRuntime:
             self.state = ActorState.DEAD
             self.death_cause = reason
             inflight = list(self._inflight)
+            worker = self._worker  # read under the lock: _release may clear it
+        if worker is not None:
+            # kill the worker now: a call in flight observes the crash and
+            # fails at once instead of waiting for the poison
+            worker.kill()
         err = ActorDiedError(self.actor_id, reason)
         for call in inflight:
             call.fail(self._store, err)

@@ -57,12 +57,34 @@ def define_flag(name: str, default: Any, doc: str, type_: Optional[type] = None)
 
 
 # object store (core/object_store.py)
+define_flag("native_store", False,
+            "Place large numpy arrays in the native C++ shared-memory arena.")
 define_flag("object_store_capacity_bytes", 8 << 30,
             "Host-tier byte budget before LRU spill/eviction kicks in.")
 define_flag("inline_max_bytes", 100 * 1024,
             "Objects at or under this size stay in the inline tier.")
+define_flag("shm_min_bytes", 64 * 1024,
+            "Numpy arrays at or over this size go to the native arena.")
 define_flag("spill_dir", "",
             "Directory for spilled objects ('' = evict to LOST + lineage).")
+
+# process workers (core/worker_pool.py)
+define_flag("worker_idle_timeout_s", 60.0,
+            "Idle process workers are reaped after this many seconds.")
+define_flag("max_process_workers", 0,
+            "Upper bound on pooled worker processes (0 = one per CPU core).")
+
+# health (core/health.py)
+define_flag("health_check_period_s", 0.5,
+            "Interval between node/actor health probes.")
+define_flag("health_check_failures", 3,
+            "Consecutive probe failures before a target is marked dead.")
+define_flag("memory_monitor_interval_s", 0.25,
+            "Polling interval of the host memory monitor (0 = disabled).")
+define_flag("memory_usage_threshold", 0.95,
+            "Fraction of host memory in use that triggers the OOM policy.")
+define_flag("oom_policy", "retriable_fifo",
+            "Worker-killing policy: 'retriable_fifo' or 'group_by_owner'.")
 
 # serve resilience (serve/router.py)
 define_flag("serve_default_timeout_s", 0.0,

@@ -28,22 +28,40 @@ Handles are refcounted (`ObjectRef` increfs, its `__del__` decrefs): at
 zero handles the value is released and an entry with recorded lineage
 drops to LOST, to be re-executed if a ref comes back. A pin (`pin` /
 `unpin`, counted in `pin_count`) holds a sealed value against that
-release and against spilling; `free` drops an object at once. The JAX
-package's shared-memory arena tier (`native_store.py`) and its REMOTE
-tier (a value in another node's store, borrowed references) come with
-multi-process workers and clusters.
+release and against spilling; `free` drops an object at once.
+
+SHM: with `cfg.native_store`, a numpy array of at least
+``cfg.shm_min_bytes`` (not of object dtype) is copied into the native
+arena (`native_store.py`), whose pages live in a file under /dev/shm
+(`ray_tpu_torch_arena_<pid>_<id>`; files of dead processes are removed
+when a store starts). Beyond JAX's tier, a Data block (a dict of such
+arrays, `data/block.py`) of at least that size enters the arena too, as
+one object. A thread reader gets a copy; a process-executor task gets a
+pinned descriptor per array (`resolve_process_args`), which the worker
+maps as a read-only view. The arena's LRU evicts to the spill dir (or to
+LOST). The arena is capped at the free bytes of its directory (writing
+past a full tmpfs kills the process with SIGBUS). When the library
+cannot be built or the arena cannot be mapped, the store runs without
+the tier, as JAX's does, and records why in `arena_error`. The JAX
+package's REMOTE tier (a value in another node's store, borrowed
+references) comes with clusters.
 """
 
 from __future__ import annotations
 
 import enum
+import hashlib
+import logging
 import os
 import pickle
+import tempfile
 import threading
 import time
+import uuid
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .exceptions import GetTimeoutError, ObjectLostError
@@ -54,7 +72,90 @@ class Tier(enum.Enum):
     INLINE = "inline"      # small host objects, kept as-is in process
     HOST = "host"          # large host objects (numpy, CPU tensors), spillable
     DEVICE = "device"      # CUDA tensors, kept on the card, never spilled
+    SHM = "shm"            # native arena (core/native_store.py): numpy arrays, Data blocks
     SPILLED = "spilled"    # on disk
+
+logger = logging.getLogger(__name__)
+
+ARENA_PREFIX = "ray_tpu_torch_arena_"
+_ALIGN = 64  # the arena's own alignment; a block's arrays are packed at it
+
+
+def shm_dir() -> str:
+    return "/dev/shm" if os.path.isdir("/dev/shm") else tempfile.gettempdir()
+
+
+def free_bytes(directory: str) -> int:
+    st = os.statvfs(directory)
+    return st.f_bavail * st.f_frsize
+
+
+def _reap_stale_arenas(directory: str) -> None:
+    """Unlink arena files whose owning process is gone: a SIGKILLed process
+    must not leak RAM-backed tmpfs files (the names embed the creator's
+    pid so this sweep can tell)."""
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return
+    for name in names:
+        if not name.startswith(ARENA_PREFIX):
+            continue
+        try:
+            pid = int(name[len(ARENA_PREFIX):].split("_")[0])
+        except ValueError:
+            continue
+        try:
+            os.kill(pid, 0)  # probe: raises if the pid is gone
+        except ProcessLookupError:
+            try:
+                os.unlink(os.path.join(directory, name))
+            except OSError:
+                pass
+        except PermissionError:
+            pass  # someone else's live process
+
+
+def _shm_array(value: Any) -> bool:
+    return isinstance(value, np.ndarray) and value.dtype != object
+
+
+def _shm_block(value: Any) -> bool:
+    """A Data block the arena takes: a non-empty dict of str -> numpy
+    arrays, none of object dtype."""
+    return (isinstance(value, dict) and bool(value)
+            and all(isinstance(k, str) and _shm_array(v) for k, v in value.items()))
+
+
+def _shm_decode(meta, view, copy: bool):
+    """The value behind an arena object's view: an array, or a block's
+    dict of arrays. copy=False returns views into the arena."""
+    if meta[0] == "__shm__":
+        _, _, dtype_str, shape = meta
+        arr = np.frombuffer(view, dtype=np.dtype(dtype_str)).reshape(shape)
+        return arr.copy() if copy else arr
+    out = {}
+    for key, dtype_str, shape, offset, nbytes in meta[2]:
+        dtype = np.dtype(dtype_str)
+        if nbytes == 0:
+            out[key] = np.empty(shape, dtype)
+            continue
+        arr = np.frombuffer(view, dtype=dtype, count=nbytes // dtype.itemsize,
+                            offset=offset).reshape(shape)
+        out[key] = arr.copy() if copy else arr
+    return out
+
+
+def _pack_block(block) -> tuple:
+    """(uint8 buffer, layout) of a block's arrays packed at _ALIGN."""
+    layout, cursor = [], 0
+    for key, arr in block.items():
+        layout.append((key, str(arr.dtype), arr.shape, cursor, arr.nbytes))
+        cursor += -(-arr.nbytes // _ALIGN) * _ALIGN
+    buf = np.empty(max(cursor, 1), np.uint8)
+    for (key, _, _, offset, nbytes), arr in zip(layout, block.values()):
+        buf[offset:offset + nbytes] = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return buf, layout
 
 
 def _estimate_nbytes(value: Any) -> int:
@@ -134,10 +235,19 @@ class ObjectStore:
         self._host_bytes = 0
         self._device_bytes = 0
         self._spill_dir = spill_dir
+        self._shm_min = cfg.shm_min_bytes
         self.stats = {
             "puts": 0, "gets": 0, "spills": 0, "restores": 0, "evictions": 0,
-            "reconstructions": 0, "gc": 0, "spilled_bytes": 0, "restored_bytes": 0,
+            "shm_puts": 0, "shm_evictions": 0, "reconstructions": 0, "gc": 0,
+            "spilled_bytes": 0, "restored_bytes": 0,
         }
+        # The shared-memory tier: large numpy arrays (and Data blocks) in
+        # the native arena, whose file worker processes map
+        self._arena = None
+        self.arena_error: Optional[str] = None
+        if cfg.native_store:
+            self._open_arena(capacity_bytes)
+        self._shm_entries: Dict[int, ObjectID] = {}  # arena id -> object id  # guarded-by: _lock
         # Lineage resubmission hook (Runtime wires scheduler.submit here):
         # get() of a LOST entry with a recorded owner_task re-executes it.
         self._resubmit: Optional[Callable[[Any], None]] = None
@@ -146,6 +256,43 @@ class ObjectStore:
 
     def set_resubmit(self, fn: Callable[[Any], None]) -> None:
         self._resubmit = fn
+
+    def _open_arena(self, capacity_bytes: int) -> None:
+        from .native_store import NativeArena, build_error, native_available
+
+        try:
+            if not native_available():
+                self.arena_error = f"native library unavailable: {build_error()}"
+            else:
+                directory = shm_dir()
+                _reap_stale_arenas(directory)
+                room = free_bytes(directory)
+                if capacity_bytes > room:
+                    logger.warning("the arena is capped at %d bytes, the free bytes of %s "
+                                   "(asked for %d)", room, directory, capacity_bytes)
+                    capacity_bytes = room
+                path = os.path.join(
+                    directory, f"{ARENA_PREFIX}{os.getpid()}_{uuid.uuid4().hex[:8]}")
+                self._arena = NativeArena(capacity_bytes, path=path)
+        except (OSError, RuntimeError, MemoryError) as exc:
+            self._arena = None
+            self.arena_error = repr(exc)
+        if self._arena is None:
+            logger.warning("native_store is set but the arena is off: %s", self.arena_error)
+
+    @property
+    def arena(self):
+        """The native arena of the SHM tier, or None."""
+        return self._arena
+
+    def close_arena(self) -> None:
+        """Unmap the arena and remove its file. Its SHM objects are lost;
+        later reads raise ObjectLostError."""
+        with self._lock:
+            arena, self._arena = self._arena, None
+            self._shm_entries.clear()
+        if arena is not None:
+            arena.close()
 
     # ------------------------------------------------------------------ write
 
@@ -166,8 +313,60 @@ class ObjectStore:
         self.seal(object_id, value)
         return entry
 
+    def _try_shm_seal(self, object_id: ObjectID, value: Any, nbytes: int):
+        """Place a large numpy array or Data block into the native arena;
+        returns the SHM metadata value, or None to fall through to the
+        host tier.
+
+        Runs OUTSIDE the store lock: put_with_eviction may spill victims
+        to disk (pickle I/O in _on_arena_evict), and the arena has its own
+        mutex. Only the _shm_entries map is touched under the store lock."""
+        arena = self._arena
+        if arena is None:
+            return None
+        if _shm_array(value) and nbytes >= self._shm_min:
+            kind, tail = "__shm__", (str(value.dtype), value.shape)
+            payload = np.ascontiguousarray(value).reshape(-1).view(np.uint8).data
+        elif _shm_block(value) and sum(v.nbytes for v in value.values()) >= self._shm_min:
+            payload, layout = _pack_block(value)
+            kind, tail = "__shm_block__", (layout,)
+        else:
+            return None
+        # Arena ids are 64-bit: hash the FULL object id (the return index
+        # sits in its trailing bytes).
+        aid = int.from_bytes(
+            hashlib.blake2b(object_id.hex().encode(), digest_size=8).digest(), "big"
+        )
+        with self._lock:
+            # A hash collision with a live object falls through to the
+            # host tier instead of posing as out-of-space
+            if aid in self._shm_entries:
+                return None
+            # map aid -> oid BEFORE placement so a concurrent seal's
+            # eviction hooks can always resolve this block
+            self._shm_entries[aid] = object_id
+        # evictable=False: not an LRU candidate until seal() commits the
+        # entry under the store lock and calls make_evictable
+        ok = False
+        try:
+            ok = arena.put_with_eviction(
+                aid, payload, on_evict=self._on_arena_evict,
+                on_evicted=self._on_arena_evicted, evictable=False,
+            )
+        finally:
+            if not ok:  # failure OR a raising spill hook: unregister the aid
+                with self._lock:
+                    self._shm_entries.pop(aid, None)
+        if not ok:
+            return None
+        self.stats["shm_puts"] += 1
+        return (kind, aid) + tail
+
     def seal(self, object_id: ObjectID, value: Any) -> None:
         nbytes = _estimate_nbytes(value)
+        # Arena placement (and any victim spilling it triggers) happens
+        # before taking the store lock: disk I/O must never run under it.
+        shm_meta = self._try_shm_seal(object_id, value, nbytes)
         with self._lock:
             entry = self._entries[object_id]
         # entry.lock BEFORE the store lock (the established order): the
@@ -180,7 +379,12 @@ class ObjectStore:
                 # execution and both sealed. Replace, releasing the old
                 # value's accounting so bytes don't double-count.
                 self._release_value(entry)
-            if _is_device_array(value):
+            if shm_meta is not None:
+                tier = Tier.SHM
+                if shm_meta[0] == "__shm_block__":
+                    nbytes = sum(v.nbytes for v in value.values())
+                value = shm_meta
+            elif _is_device_array(value):
                 tier = Tier.DEVICE
                 self._device_bytes += nbytes
             elif nbytes <= self._inline_max:
@@ -197,6 +401,9 @@ class ObjectStore:
             entry.last_access = time.monotonic()
             callbacks = list(entry.callbacks)
             entry.callbacks.clear()
+        if shm_meta is not None and self._arena is not None:
+            # entry committed: the arena block may now become an LRU victim
+            self._arena.make_evictable(shm_meta[1])
         self.stats["puts"] += 1
         entry.event.set()
         for cb in callbacks:
@@ -288,6 +495,8 @@ class ObjectStore:
                     if entry.tier == Tier.SPILLED:
                         value = self._restore(entry)
                         restored = True
+                    elif entry.tier == Tier.SHM:
+                        value = self._shm_get(entry)
                     else:
                         value = entry.value
                     done = True
@@ -444,6 +653,13 @@ class ObjectStore:
             elif entry.tier in (Tier.INLINE, Tier.HOST):
                 with self._lock:
                     self._host_bytes -= entry.nbytes
+            elif entry.tier == Tier.SHM:
+                aid = entry.value[1]
+                with self._lock:
+                    arena = self._arena
+                    self._shm_entries.pop(aid, None)
+                if arena is not None:
+                    arena.delete(aid)
         if entry.spill_path and os.path.exists(entry.spill_path):
             os.unlink(entry.spill_path)
         entry.spill_path = None
@@ -490,6 +706,58 @@ class ObjectStore:
                         self._host_bytes -= entry.nbytes
                     self.stats["evictions"] += 1
 
+    def _shm_get(self, entry: ObjectEntry):
+        """Copy a value out of the arena: in-process readers must not hold
+        views into a block the allocator may recycle (worker processes
+        get pinned descriptors instead, resolve_process_args)."""
+        arena = self._arena
+        aid = entry.value[1]
+        view = arena.get(aid) if arena is not None else None
+        if view is None:  # evicted to disk between seal and get, or closed
+            if entry.spill_path:
+                return self._restore(entry)
+            raise ObjectLostError(entry.object_id)
+        try:
+            return _shm_decode(entry.value, view, copy=True)
+        finally:
+            arena.unpin(aid)
+
+    def _on_arena_evict(self, aid: int, view) -> None:
+        """Spill-PREPARE: the arena's LRU chose a victim: write its bytes to
+        disk (with a spill dir) but leave all bookkeeping intact. The state
+        changes in _on_arena_evicted, once the block is freed, so a failed
+        delete (victim pinned by a concurrent get) leaves it usable."""
+        with self._lock:
+            object_id = self._shm_entries.get(aid)
+            entry = self._entries.get(object_id) if object_id is not None else None
+        if entry is None or self._spill_dir is None:
+            return
+        with entry.lock:
+            os.makedirs(self._spill_dir, exist_ok=True)
+            path = os.path.join(self._spill_dir, entry.object_id.hex())
+            with open(path, "wb") as f:
+                pickle.dump(_shm_decode(entry.value, view, copy=True), f,
+                            protocol=pickle.HIGHEST_PROTOCOL)
+            entry.spill_path = path
+
+    def _on_arena_evicted(self, aid: int) -> None:
+        """Spill-COMMIT: the arena block is gone; flip the entry's tier."""
+        with self._lock:
+            object_id = self._shm_entries.pop(aid, None)
+            entry = self._entries.get(object_id) if object_id is not None else None
+        if entry is None:
+            return
+        with entry.lock:
+            if entry.spill_path is not None:
+                entry.tier = Tier.SPILLED
+                self.stats["spills"] += 1
+                self.stats["spilled_bytes"] += entry.nbytes
+            else:
+                entry.value = None
+                entry.state = ObjectState.LOST
+                self.stats["evictions"] += 1
+        self.stats["shm_evictions"] += 1
+
     def _spill(self, entry: ObjectEntry) -> None:
         """Write one entry to disk. Caller holds entry.lock (NOT the store
         lock) — only access to this object blocks on the disk write."""
@@ -515,6 +783,61 @@ class ObjectStore:
         self.stats["restores"] += 1
         self.stats["restored_bytes"] += entry.nbytes
         return value
+
+    # -------------------------------------------------- process-worker views
+
+    def resolve_process_args(self, container):
+        """Resolve task args for a process-executor worker: an SHM-tier
+        value becomes pinned zero-copy descriptors (`ShmView`: the array,
+        or a block's dict of them) that the worker maps instead of
+        receiving pickled bytes over its pipe. Everything else resolves by
+        value. Returns (resolved, release): call release() once the worker
+        is done to drop the pins."""
+        from .native_store import ShmView
+        from .runtime import ObjectRef
+
+        pinned: List[int] = []
+        arena = self._arena
+
+        def one(value):
+            if not isinstance(value, ObjectRef):
+                return value
+            entry = self.entry(value.object_id)
+            if arena is not None and arena.path is not None and entry is not None:
+                # under entry.lock like every reader: an arena eviction
+                # flips value and state
+                with entry.lock:
+                    meta = entry.value if (entry.state == ObjectState.READY
+                                           and entry.tier == Tier.SHM) else None
+                    desc = arena.descriptor(meta[1]) if meta is not None else None  # pins
+                if desc is not None:
+                    path, offset, size = desc
+                    pinned.append(meta[1])
+                    if meta[0] == "__shm__":
+                        _, _, dtype_str, shape = meta
+                        count = size // np.dtype(dtype_str).itemsize
+                        return ShmView(path, offset, count, dtype_str, shape)
+                    return {
+                        key: (ShmView(path, offset + off, nbytes // np.dtype(dtype_str).itemsize,
+                                      dtype_str, shape)
+                              if nbytes else np.empty(shape, np.dtype(dtype_str)))
+                        for key, dtype_str, shape, off, nbytes in meta[2]
+                    }
+            return self.get(value.object_id)
+
+        def release() -> None:
+            for aid in pinned:
+                arena.release_descriptor(aid)
+
+        try:
+            if isinstance(container, tuple):
+                resolved = tuple(one(v) for v in container)
+            else:
+                resolved = {k: one(v) for k, v in container.items()}
+        except BaseException:
+            release()  # pins taken before the failing arg must not leak
+            raise
+        return resolved, release
 
     # ------------------------------------------------------------------ intro
 

@@ -7,15 +7,23 @@ create_actor on top of them. Every task submit and actor call opens a
 tracing span (`util/tracing`) that the execution spans on the worker or
 actor thread parent into.
 
+Tasks and actors run on threads by default; `executor="process"` runs a
+task on a pooled worker process and an actor in a worker process of its
+own (`worker_pool.py`), with a `runtime_env` (env_vars, py_modules,
+working_dir) exported to it. Thread tasks take env_vars and py_modules,
+scoped around their body; thread actors take no runtime_env. The health
+manager probes every process actor's worker, so a killed worker is
+restarted without waiting for a call, and the memory monitor kills a
+busy pooled worker when host memory runs short (`health.py`); both start
+with the runtime, and `shutdown()` joins them and stops the pool.
+
 What the JAX runtime also does and the port does not yet — each raises
 NotImplementedError naming its ROADMAP item where a caller can ask for
 it: cluster mode (`init(head=True)` / `init(address=...)`: the GCS served
 over RPC, remote node agents, object transfer; `profile_capture` then
 fans out to node agents, here one local capture covers every selected
-logical node, as JAX's in-process runtime does), process executors
-(`executor="process"`, worker pools, runtime_env), the health manager and
-the memory monitor, GCS snapshots and the WAL, chaos injection, jobs and
-`preempt_node`.
+logical node, as JAX's in-process runtime does), GCS snapshots and the
+WAL, chaos injection, jobs and `preempt_node`.
 """
 
 from __future__ import annotations
@@ -35,7 +43,6 @@ from .scheduler import ClusterScheduler, Node, PlacementGroup, TaskSpec
 from .streaming import ObjectRefGenerator
 
 _CLUSTER_TODO = "ROADMAP A6 (cluster mode: core/cluster.py, rpc, gcs_service, object_transfer)"
-_PROCESS_TODO = "ROADMAP A5 (process executors and worker_pool)"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -137,6 +144,15 @@ class Runtime:
                 Node(NodeID.from_random(), dict(node_res), is_head=(i == 0),
                      labels=dict(labels or {}))
             )
+        # failure detection and the OOM policy (flag-driven)
+        from .health import HealthCheckManager, MemoryMonitor
+
+        self.health = HealthCheckManager(cfg.health_check_period_s, cfg.health_check_failures)
+        self.health.start()
+        self.memory_monitor = MemoryMonitor(
+            cfg.memory_usage_threshold, cfg.memory_monitor_interval_s, cfg.oom_policy,
+        )
+        self.memory_monitor.start()
         # log capture: the tail of this process's logging stream, with
         # the head node's id on every record
         from ..util import logs as _logs
@@ -229,11 +245,26 @@ class Runtime:
         stream_max_backlog: Optional[int] = None,
         locality_hint: Any = None,
     ) -> Union[ObjectRef, List[ObjectRef], "ObjectRefGenerator"]:
-        if executor != "thread":
-            raise _not_ported(f"executor={executor!r}", _PROCESS_TODO)
-        if runtime_env:
-            raise _not_ported("runtime_env", _PROCESS_TODO)
+        from . import runtime_env as _renv
+
         streaming = num_returns == "streaming"
+        if executor not in ("thread", "process"):
+            raise ValueError(f"executor must be 'thread' or 'process', not {executor!r}")
+        if streaming and executor == "process":
+            raise ValueError(
+                'num_returns="streaming" requires the thread executor: a '
+                "process worker returns one pickled result, not a live stream"
+            )
+        renv = _renv.normalize(runtime_env)
+        if renv and renv.get("working_dir") and executor != "process":
+            raise ValueError(
+                'runtime_env["working_dir"] requires executor="process": a '
+                "thread task cannot change the process-global cwd safely"
+            )
+        if executor == "process":
+            from .worker_pool import check_importable
+
+            check_importable(func, "a process task's function")
         task_id = TaskID.of(self.job_id)
         n_static = 0 if streaming else num_returns
         return_ids = [ObjectID.for_task_return(task_id, i) for i in range(n_static)]
@@ -249,6 +280,8 @@ class Runtime:
             retry_exceptions=retry_exceptions,
             scheduling_strategy=scheduling_strategy,
             return_ids=return_ids,
+            runtime_env=renv,
+            executor=executor,
             streaming=streaming,
             stream_max_backlog=stream_max_backlog,
             locality_hint=locality_hint,
@@ -313,10 +346,20 @@ class Runtime:
         executor: str = "thread",
         runtime_env: Any = None,
     ) -> "ActorHandle":
-        if executor != "thread":
-            raise _not_ported(f"executor={executor!r}", _PROCESS_TODO)
-        if runtime_env:
-            raise _not_ported("runtime_env", _PROCESS_TODO)
+        from . import runtime_env as _renv
+
+        if executor not in ("thread", "process"):
+            raise ValueError(f"executor must be 'thread' or 'process', not {executor!r}")
+        renv = _renv.normalize(runtime_env)
+        if renv and executor != "process":
+            raise ValueError(
+                "actor runtime_env requires executor='process' (thread "
+                "actors share the caller's process environment)"
+            )
+        if executor == "process":
+            from .worker_pool import check_importable
+
+            check_importable(cls, "a process actor's class")
         actor_id = ActorID.of(self.job_id)
         handle = ActorHandle(actor_id, self)
         # Reserve the name BEFORE spawning the actor so a duplicate name
@@ -329,6 +372,10 @@ class Runtime:
             # unschedulable, restarts exhausted) — not just on explicit kill.
             if rt.registered_name:
                 self.gcs.unregister_named_actor(rt.registered_name, rt.registered_namespace)
+            # stop probing a dead actor (and drop the closure pinning it)
+            target = getattr(rt, "_health_target", None)
+            if target is not None:
+                self.health.unregister(target)
 
         try:
             runtime = ActorRuntime(
@@ -346,6 +393,8 @@ class Runtime:
                 on_death=_on_death,
                 registered_name=name,
                 registered_namespace=namespace,
+                executor=executor,
+                runtime_env=renv,
             )
         except BaseException:
             if name:
@@ -353,7 +402,35 @@ class Runtime:
             raise
         with self._lock:
             self._actors[actor_id] = runtime
+        if executor == "process":
+            self._register_actor_health(actor_id, runtime)
         return handle
+
+    def _register_actor_health(self, actor_id: ActorID, rt: ActorRuntime) -> None:
+        """Probe a process actor's worker, so a killed or crashed worker is
+        detected and restarted WITHOUT waiting for the next method call."""
+        from .actors import _RestartSignal
+
+        target = f"actor:{actor_id.hex()[:12]}:{rt.name}"
+        rt._health_target = target  # unregistered by the on_death hook
+
+        def probe() -> bool:
+            if rt.state != ActorState.ALIVE:
+                return True  # pending / restarting / dead: nothing to detect
+            worker = rt._worker
+            return worker is None or worker.alive()
+
+        def on_dead(_tid: str) -> None:
+            with rt._lock:
+                dead = rt.state == ActorState.DEAD
+            if not dead:
+                rt._mailbox.put(
+                    _RestartSignal("health check: worker process died", rt._incarnation)
+                )
+                # re-arm: the restarted incarnation is probed too
+                self.health.register(target, probe, on_dead)
+
+        self.health.register(target, probe, on_dead)
 
     def actor_runtime(self, actor_id: ActorID) -> ActorRuntime:
         with self._lock:
@@ -540,8 +617,12 @@ class Runtime:
         raise _not_ported("preempt_node", "ROADMAP A6 (chaos and node preemption)")
 
     def shutdown(self) -> None:
-        """Kill every actor and join its thread, then stop the scheduler
-        and join its dispatch and task threads."""
+        """Stop the health manager and the memory monitor (joining their
+        threads), kill every actor and join its thread, stop the scheduler
+        and join its dispatch and task threads, then stop the worker pool
+        and unmap the object store's arena."""
+        self.health.stop()
+        self.memory_monitor.stop()
         with self._lock:
             actors = list(self._actors.values())
         for rt in actors:
@@ -550,6 +631,10 @@ class Runtime:
         for rt in actors:
             rt.join(timeout=max(0.0, deadline - time.monotonic()))
         self.scheduler.shutdown()
+        from .worker_pool import shutdown_worker_pool
+
+        shutdown_worker_pool()
+        self.object_store.close_arena()
 
 
 class _LazyRef:
@@ -586,8 +671,14 @@ class ActorHandle:
         return ActorMethod(self, "__ray_ready__")
 
     @property
+    def __ray_pid__(self) -> "ActorMethod":
+        """OS pid of the process executing this actor's methods."""
+        return ActorMethod(self, "__ray_pid__")
+
+    @property
     def __ray_apply__(self) -> "ActorMethod":
-        """Run fn(instance, *args) inside the actor."""
+        """Run fn(instance, *args) inside the actor: the compiled graph's
+        loop entry point."""
         return ActorMethod(self, "__ray_apply__")
 
     def state(self) -> ActorState:
@@ -610,6 +701,13 @@ class ActorMethod:
         return self._handle._runtime.submit_actor_task(
             self._handle._actor_id, self._name, args, kwargs, self._num_returns
         )
+
+    def bind(self, *args, **kwargs):
+        """Bind this method into a compiled graph (`experimental/dag.py`);
+        compile with .experimental_compile() on the leaf node."""
+        from ..experimental.dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
 
 # --------------------------------------------------------------------- globals

@@ -14,13 +14,15 @@ STRICT_PACK / STRICT_SPREAD, reserved all-or-nothing), and a task's
 `locality_hint` (a soft preference for one node, the data plane's block
 affinity). Retries re-submit a failed task up to `max_retries` when
 `retry_exceptions` allows; a streaming task with `stream_max_backlog`
-blocks while its consumer lags that many items behind.
+blocks while its consumer lags that many items behind. A task with
+`executor="process"` runs on a pooled worker process
+(`worker_pool.execute_process_task`); its thread holds the task's
+resources while the worker runs it.
 
 The JAX package also dispatches to remote node agents over RPC (with a
 two-phase bundle reservation there), reschedules a placement group whose
-bundle host died, drains preempted nodes, runs tasks in worker processes
-and queues infeasible demand for an autoscaler; those come with clusters,
-process executors and the capacity plane.
+bundle host died, drains preempted nodes and queues infeasible demand
+for an autoscaler; those come with clusters and the capacity plane.
 """
 
 from __future__ import annotations
@@ -103,6 +105,10 @@ class TaskSpec:
     retry_exceptions: bool = False
     scheduling_strategy: Any = "DEFAULT"
     return_ids: List[ObjectID] = field(default_factory=list)
+    runtime_env: Optional[Dict[str, Any]] = None  # normalized (runtime_env.py)
+    # "thread" (default: in-process, zero-copy object passing) or "process"
+    # (pooled OS worker process: GIL-free; see worker_pool.py)
+    executor: str = "thread"
     # streaming generator task (num_returns="streaming"): yielded values
     # seal into dynamic return ids and flow through `stream`
     streaming: bool = False
@@ -712,15 +718,28 @@ class ClusterScheduler:
             # emitted inside it carry the task attribution
             with tracing.use_context(exec_span.context), \
                     _logs.attribution(f"task:{spec.task_id.hex()[:8]}"):
-                args = _resolve(spec.args, self._store)
-                kwargs = _resolve(spec.kwargs, self._store)
-                result = spec.func(*args, **kwargs)
+                if spec.executor == "process":
+                    # a pooled worker process; SHM-tier args ship as
+                    # zero-copy arena descriptors
+                    from .worker_pool import execute_process_task
+
+                    result = execute_process_task(
+                        self._store, spec.func, spec.args, spec.kwargs, spec.runtime_env,
+                    )
+                else:
+                    from . import runtime_env as _renv
+
+                    args = _resolve(spec.args, self._store)
+                    kwargs = _resolve(spec.kwargs, self._store)
+                    with _renv.applied(spec.runtime_env):
+                        result = spec.func(*args, **kwargs)
                 with tracing.span("task.result", **span_attrs):
                     self._seal_returns(spec, result)
             exec_span.end()
         except BaseException as exc:  # noqa: BLE001 - boundary: remote error capture
             error = exc
-            error_tb = traceback.format_exc()
+            # process-executor errors carry the worker's traceback
+            error_tb = getattr(exc, "remote_traceback", None) or traceback.format_exc()
             exec_span.end(status="ERROR", error=repr(exc))
         finally:
             pool.release(spec.resources)

@@ -1,8 +1,9 @@
 """ray_tpu_torch.data — streaming datasets (port of `ray_tpu.data`).
 
 Lazy plans over columnar numpy blocks, executed as a streaming executor
-on the port's runtime: stages run as thread tasks (or a pool of thread
-actors) over object-store block refs, submission is windowed in blocks
+on the port's runtime: stages run as thread or process tasks (or a pool
+of thread or process actors) over object-store block refs, submission is
+windowed in blocks
 and bytes, and per-consumer splits pass refs so each gang rank fetches
 its own blocks; `iter_torch_batches` and `lm_batch_iterator` land
 batches on the card through a device-prefetch window.

@@ -30,9 +30,15 @@ held with the batch until the batch is handed over; after that PyTorch's
 pinned-memory allocator keeps the block until the copy's event has
 passed. On the CPU the window wraps a batch without a copy.
 
-`executor="process"` (pooled OS workers for map stages and actor pools)
-raises NotImplementedError: it comes with the process executors (ROADMAP
-A5).
+`executor="process"` runs a map stage's tasks on pooled worker processes
+(`core/worker_pool.py`), and `ActorPoolStrategy(n, executor="process")`
+hosts each udf actor in a worker process of its own: GIL-free, for
+CPU-bound udfs (tokenisation, cleaning, decoding). Blocks go to a worker
+by value, or as read-only views of the object store's arena under
+`cfg.native_store`; the udf (and a filter's or map's row function) must
+be importable in the worker (`worker_pool.check_importable`: the
+standard pickle, by reference), which `map_batches` checks when it is
+called.
 """
 
 from __future__ import annotations
@@ -81,14 +87,13 @@ from .executor import (
     locality_map_stream,
 )
 
-_PROCESS_TODO = "ROADMAP A5 (process executors and worker_pool)"
+def _check_executor(executor: str, fn, what: str) -> None:
+    if executor not in ("thread", "process"):
+        raise ValueError(f"executor must be 'thread' or 'process', not {executor!r}")
+    if executor == "process":
+        from ..core.worker_pool import check_importable
 
-
-def _check_executor(executor: str) -> None:
-    if executor != "thread":
-        raise NotImplementedError(
-            f"executor={executor!r} is not ported to ray_tpu_torch yet: {_PROCESS_TODO}"
-        )
+        check_importable(fn, what)
 
 
 @dataclasses.dataclass
@@ -96,8 +101,10 @@ class ActorPoolStrategy:
     """compute= strategy for map_batches: a pool of stateful actors
     instead of stateless tasks (reference ActorPoolMapOperator). Use with
     a CLASS udf whose (expensive) __init__ runs once per actor — model
-    weights, tokenizers — and whose __call__ maps a block. The actors are
-    thread actors; executor="process" raises (ROADMAP A5)."""
+    weights, tokenizers — and whose __call__ maps a block.
+
+    executor="process" hosts each actor in its own OS worker process
+    (GIL-free: CPU-bound udfs scale with cores)."""
 
     size: int = 2
     executor: str = "thread"
@@ -149,6 +156,33 @@ class _Op:
     compute: Optional[ActorPoolStrategy] = None
     fn_args: tuple = ()
     fn_kwargs: Optional[Dict[str, Any]] = None
+    # "thread" (zero-copy, GIL-shared) or "process" (pooled OS workers,
+    # GIL-free CPU parallelism) for stateless map / filter stages
+    executor: str = "thread"
+
+
+class _RowMap:
+    """`Dataset.map`'s block function: a module-level class, so a process
+    worker can unpickle it (a closure would not pickle)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = "apply"
+
+    def __call__(self, block: Block) -> Block:
+        return block_from_items([self.fn(row) for row in block_to_items(block)])
+
+
+class _FilterBlock:
+    """`Dataset.filter`'s block function (module-level, as _RowMap)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.__name__ = "filter_block"
+
+    def __call__(self, block: Block) -> Block:
+        keep = np.asarray([bool(self.fn(row)) for row in block_to_items(block)])
+        return block_take(block, np.nonzero(keep)[0]) if len(keep) else block
 
 
 class _BlockUDFActor:
@@ -188,7 +222,8 @@ def _actor_pool_stream(
     Actors are killed when the stage drains."""
     actor_cls = api.remote(_BlockUDFActor)
     pool = [
-        actor_cls.options(num_cpus=1).remote(op.fn, op.fn_args, op.fn_kwargs)
+        actor_cls.options(num_cpus=1, executor=op.compute.executor).remote(
+            op.fn, op.fn_args, op.fn_kwargs)
         for _ in builtins.range(op.compute.size)  # module range() is a Dataset
     ]
     produced: deque = deque()
@@ -269,21 +304,15 @@ def _plan_iter(ops: List[_Op], ctx: DataContext, stats: StreamStats) -> Iterator
     for op in ops[1:]:
         if op.kind == "map_batches":
             stream = locality_map_stream(
-                stream, api.remote(op.fn), stats=stats, ctx=ctx,
-                locality=ctx.locality_aware,
+                stream, api.remote(op.fn).options(executor=op.executor), stats=stats,
+                ctx=ctx, locality=ctx.locality_aware,
             )
         elif op.kind == "map_batches_actors":
             stream = _actor_pool_stream(stream, op, ctx)
         elif op.kind == "filter":
-            fn = op.fn
-
-            def filter_block(block: Block, fn=fn) -> Block:
-                keep = np.asarray([bool(fn(row)) for row in block_to_items(block)])
-                return block_take(block, np.nonzero(keep)[0]) if len(keep) else block
-
             stream = locality_map_stream(
-                stream, api.remote(filter_block), stats=stats, ctx=ctx,
-                locality=ctx.locality_aware,
+                stream, api.remote(_FilterBlock(op.fn)).options(executor=op.executor),
+                stats=stats, ctx=ctx, locality=ctx.locality_aware,
             )
         elif op.kind == "limit":
             stream = _limit_stream(stream, op.n)
@@ -470,8 +499,14 @@ class Dataset:
     ) -> "Dataset":
         """Map blocks with a function (stateless thread tasks) or, with
         compute=ActorPoolStrategy(n), a CLASS udf hosted on a pool of n
-        stateful thread actors — __init__ runs once per actor (reference
-        ActorPoolMapOperator). executor="process" raises (ROADMAP A5)."""
+        stateful actors — __init__ runs once per actor (reference
+        ActorPoolMapOperator).
+
+        executor="process" runs the udf in pooled OS worker processes
+        (GIL-free: CPU-bound udfs get real multi-core scaling); with
+        compute=, pass the executor on the strategy instead. A process
+        udf must be importable in the worker: a lambda, a nested function
+        or a function in __main__ raises TypeError here."""
         if compute is not None:
             if executor != "thread":
                 raise ValueError(
@@ -479,7 +514,7 @@ class Dataset:
                     "compute=ActorPoolStrategy(n, executor='process') — the "
                     "executor= kwarg only applies to stateless task maps"
                 )
-            _check_executor(compute.executor)
+            _check_executor(compute.executor, fn, "a map_batches udf")
             return Dataset(
                 self._ops + [_Op(
                     "map_batches_actors", fn=fn, compute=compute,
@@ -493,18 +528,16 @@ class Dataset:
                 "class udfs need compute=ActorPoolStrategy(n) so instances "
                 "have somewhere stateful to live"
             )
-        _check_executor(executor)
-        return Dataset(self._ops + [_Op("map_batches", fn=fn)], self._ctx)
+        _check_executor(executor, fn, "a map_batches udf")
+        return Dataset(self._ops + [_Op("map_batches", fn=fn, executor=executor)], self._ctx)
 
     def map(self, fn: Callable[[Any], Any], *, executor: str = "thread") -> "Dataset":
-        def apply(block: Block) -> Block:
-            return block_from_items([fn(row) for row in block_to_items(block)])
-
-        return self.map_batches(apply, executor=executor)
+        _check_executor(executor, fn, "a map function")
+        return self.map_batches(_RowMap(fn), executor=executor)
 
     def filter(self, fn: Callable[[Any], bool], *, executor: str = "thread") -> "Dataset":
-        _check_executor(executor)
-        return Dataset(self._ops + [_Op("filter", fn=fn)], self._ctx)
+        _check_executor(executor, fn, "a filter predicate")
+        return Dataset(self._ops + [_Op("filter", fn=fn, executor=executor)], self._ctx)
 
     def limit(self, n: int) -> "Dataset":
         return Dataset(self._ops + [_Op("limit", n=n)], self._ctx)

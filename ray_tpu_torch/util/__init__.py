@@ -2,7 +2,8 @@
 goodput accounting, watchdogs, profiling, postmortem bundles) and the
 state-tree walker the checkpoints and the cost layer share. Ports of
 `ray_tpu.util`'s modules of the same names, with `ActorPool` and `Queue`
-over the port's thread actors; `multiprocessing` comes with ROADMAP A5."""
+over the port's thread actors and `multiprocessing.Pool` over its
+process-executor tasks."""
 
 from .metrics import (  # noqa: F401
     Counter,
@@ -62,3 +63,4 @@ from .profiling import (  # noqa: F401
     step_cost,
     stop_device_trace,
 )
+from . import multiprocessing  # noqa: F401,E402

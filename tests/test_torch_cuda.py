@@ -26,6 +26,8 @@ gradient is near zero moves by up to lr whatever its size, and f32 sums
 in another order change that step.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1281,3 +1283,37 @@ def test_profile_capture_sees_the_ragged_kernels_of_a_paged_run(cuda):
     finally:
         rt.shutdown()
         engine.shutdown()
+
+
+@pytest.mark.cuda
+def test_process_workers_hold_no_cuda_context(cuda):
+    """A process task and a process actor run while this process holds
+    CUDA tensors; neither worker initialises CUDA (no context: the card's
+    memory is not paid per worker), a CUDA tensor is refused before the
+    pipe and its .cpu() copy crosses."""
+    import ray_tpu_torch
+    import torch_process_udfs as U
+
+    held = torch.ones(1 << 20, device="cuda")
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        task = ray_tpu_torch.remote(U.cuda_state).options(executor="process")
+        task_pid, task_torch, task_cuda = ray_tpu_torch.get(task.remote(), timeout=120)
+        actor = ray_tpu_torch.remote(U.Counter).options(executor="process").remote(0)
+        assert ray_tpu_torch.get(actor.incr.remote(), timeout=120) == 1
+        square = ray_tpu_torch.remote(U.square).options(executor="process")
+        with pytest.raises(ray_tpu_torch.TaskError) as info:
+            ray_tpu_torch.get(square.remote(held[:4]), timeout=120)
+        assert isinstance(info.value.cause, TypeError) and ".cpu()" in str(info.value.cause)
+        assert ray_tpu_torch.get(square.remote(held[:4].cpu()), timeout=120).tolist() == [1.0] * 4
+        actor_pid, actor_torch, actor_cuda = ray_tpu_torch.get(
+            actor.__ray_apply__.remote(U.instance_cuda_state), timeout=120)
+        assert actor_pid == ray_tpu_torch.get(actor.__ray_pid__.remote(), timeout=120)
+        assert not actor_cuda
+        apps = U.compute_app_pids()
+        assert task_pid != actor_pid and os.getpid() not in (task_pid, actor_pid)
+        assert task_torch and not task_cuda  # the worker imported torch, not CUDA
+        assert task_pid not in apps and actor_pid not in apps, apps
+    finally:
+        ray_tpu_torch.shutdown()
+    del held

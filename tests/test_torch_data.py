@@ -9,12 +9,16 @@ object columns), the per-rank block sequences of `streaming_split`, the
 byte-budgeted window's peak against its budget, `StreamStats`' keys,
 actor pools, `ActorPool` / `Queue`, `iter_torch_batches(device="cpu")`,
 the store's pins and `list_objects`' `pin_count`, and the runtime's
-`stream_max_backlog` and `locality_hint`. Waits are events and joins with
-timeouts, never sleeps compared to a threshold.
+`stream_max_backlog` and `locality_hint`; the process executor's map
+stages, filters and actor pools (their udfs from the root module
+`torch_process_udfs.py`), their outputs equal to JAX's and never run in
+the calling process. Waits are events and joins with timeouts, never sleeps
+compared to a threshold.
 """
 
 import builtins
 import json
+import os
 import struct
 import threading
 
@@ -24,6 +28,7 @@ import torch
 
 import ray_tpu
 import ray_tpu_torch
+import torch_process_udfs as U
 from ray_tpu import data as jdata
 from ray_tpu.core import runtime as jruntime
 from ray_tpu.data import dataset as jdataset
@@ -300,15 +305,93 @@ def test_consumers_match_jax():
 
 
 def test_process_executor_raises_naming_a5():
-    with pytest.raises(NotImplementedError, match="A5"):
+    """The port's process executor (ROADMAP A5, done) refuses, when the
+    stage is built, a udf that a worker could not import: the standard
+    pickle sends it by reference (JAX's cloudpickle would carry the
+    lambda). Importable udfs build lazily in both packages."""
+    with pytest.raises(TypeError, match="module level"):
         tdata.range(4).map_batches(lambda b: b, executor="process")
-    with pytest.raises(NotImplementedError, match="A5"):
-        tdata.range(4).map_batches(_AddOffset, compute=tdata.ActorPoolStrategy(executor="process"))
-    with pytest.raises(NotImplementedError, match="A5"):
-        tdata.range(4).filter(bool, executor="process")
+    with pytest.raises(TypeError, match="module level"):
+        tdata.range(4).filter(lambda r: True, executor="process")
+    with pytest.raises(TypeError, match="module level"):
+        tdata.range(4).map(lambda r: r, executor="process")
+    with pytest.raises(ValueError, match="executor"):
+        tdata.range(4).map_batches(U.tag_pid, executor="fork")
     for data in (jdata, tdata):
         with pytest.raises(ValueError, match="ActorPoolStrategy"):
             data.range(4).map_batches(_AddOffset)
+        with pytest.raises(ValueError, match="executor"):
+            data.range(4).map_batches(U.Tagger, executor="process",
+                                      compute=data.ActorPoolStrategy(2))
+        data.range(4).map_batches(_AddOffset, compute=data.ActorPoolStrategy(executor="process"))
+        data.range(4).filter(bool, executor="process")
+
+
+# ---------------------------------------------------------- process executor
+
+
+def test_map_batches_process_executor_runs_in_workers():
+    def program(pkg):
+        ds = pkg.data.from_numpy({"x": np.arange(64)}, num_blocks=4)
+        blocks = list(ds.map_batches(U.tag_pid, executor="process").iter_blocks())
+        pids = set(np.concatenate([b.pop("pid") for b in blocks]).tolist())
+        return blocks, pids
+
+    out = _both(program)
+    _assert_blocks_equal(out["jax"][0], out["torch"][0])
+    for _, pids in out.values():
+        assert pids and os.getpid() not in pids
+
+
+def test_actor_pool_process_executor():
+    def program(pkg):
+        ds = pkg.data.from_numpy({"x": np.arange(32)}, num_blocks=4)
+        blocks = list(ds.map_batches(
+            U.Tagger, compute=pkg.data.ActorPoolStrategy(size=2, executor="process"),
+            fn_constructor_args=(100,)).iter_blocks())
+        pids = set(np.concatenate([b.pop("pid") for b in blocks]).tolist())
+        return blocks, len(pids), os.getpid() in pids
+
+    out = _both(program)
+    _assert_blocks_equal(out["jax"][0], out["torch"][0])
+    assert out["jax"][1:] == out["torch"][1:] == (2, False)
+
+
+def test_process_filter_and_map_match_jax():
+    def program(pkg):
+        ds = pkg.data.from_numpy({"x": np.arange(40)}, num_blocks=4)
+        return list(ds.filter(U.is_even, executor="process")
+                    .map(U.row_plus, executor="process").iter_blocks())
+
+    _same_blocks(program)
+
+
+def test_process_stage_over_the_arena_equals_jax_thread_stage():
+    """The chip phase's ingest UDF at a tiny size: the port's process stage,
+    its blocks in the arena (read-only views in the workers), against
+    JAX's thread stage on the same corpus, bitwise."""
+    rng = np.random.default_rng(3)
+    words = np.array([b"Alpha,", b"beta", b"GAMMA!", b"12345", b"delta.", b"(eps)"], dtype=object)
+    text = np.zeros((48, 256), np.uint8)
+    lens = np.zeros(48, np.int32)
+    for d in range(48):
+        doc = b" ".join(words[rng.integers(0, len(words), 40)])[:256]
+        text[d, :len(doc)] = np.frombuffer(doc, np.uint8)
+        lens[d] = len(doc)
+
+    def program(pkg):
+        ds = pkg.data.from_numpy({"text": text, "len": lens}, num_blocks=4)
+        executor = "process" if pkg.name == "torch" else "thread"
+        blocks = list(ds.map_batches(U.tokenize_pack, executor=executor).iter_blocks())
+        stats = pkg.rt.core.runtime.get_runtime().object_store.stats
+        return blocks, stats.get("shm_puts", 0)
+
+    out = _both(program, _system_config={"native_store": True, "shm_min_bytes": 1024})
+    _assert_blocks_equal(out["jax"][0], out["torch"][0])
+    assert sum(b["tokens"].size for b in out["torch"][0]) > 0
+    # the port's read blocks (12 KiB of text) and token blocks entered its
+    # arena; JAX's arena takes bare arrays only, never a block
+    assert out["torch"][1] >= 4 and out["jax"][1] == 0
 
 
 # ---------------------------------------------------------- streaming_split

@@ -339,6 +339,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.ops.ring_attention, ray_tpu_torch.ops.ulysses\n"
         "import ray_tpu_torch.models.moe, ray_tpu_torch.models.vit, ray_tpu_torch.models.convert\n"
         "import ray_tpu_torch.parallel.pipeline, chip_smoke, torch_a7_rank\n"
+        "import ray_tpu_torch.core.runtime_env, ray_tpu_torch.core.native_store\n"
+        "import ray_tpu_torch.core.health, ray_tpu_torch.util.multiprocessing\n"
+        "import ray_tpu_torch.experimental, ray_tpu_torch.experimental.channel\n"
+        "import ray_tpu_torch.experimental.shm_channel, ray_tpu_torch.experimental.dag\n"
+        "import torch_process_udfs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
