@@ -155,6 +155,30 @@ nonzero and no result line is printed):
              prompts: tokens (the same rule), cached tokens, prefix hits
              and copy-on-write copies equal, verify passes replayed, then
              copy_page over the shards' pools (each stripe equal).
+   cluster — cluster mode (A6a) once the serve server is freed (the
+             driver's allocated bytes logged): this process becomes a
+             cluster head (init(head=True, num_gpus=0)) and
+             cluster_utils.Cluster.add_node(num_cpus=2, num_gpus=1) spawns
+             one node agent on the card (start-up seconds). (a) A task
+             pinned to the agent returns a 1 GiB CPU tensor made from SEED,
+             pulled here in 4 MiB windows and held bit-equal against this
+             process's own (pull GB/s); a second returns a 256 MiB bf16
+             CUDA tensor that must land on this process's card bit-equal,
+             after one host copy on the agent; a no-op actor's call round
+             trip (p50 / p90 us over CLUSTER_CALLS calls). (b) An actor
+             with num_gpus=1 (torch_cluster_udfs.ClusterLLM) builds
+             LLMServer on Llama-3-8B (bf16 from SEED, max_slots 8,
+             precompile) on the agent, serves the 8 prompts submitted
+             together (the counts set to 0 there just before, read just
+             after: ragged launches = graph replays x captured + wrapper)
+             and runs the dense check where the weights are (the one
+             definition, torch_cluster_udfs.dense_check_stats, at
+             CHECK_MARGIN / EXACT_SHARE_FLOOR, flash forward launches); the
+             share of positions equal to the serve phase's tokens is
+             printed, not gated. (c) health.probe_agent answers True while
+             the agent lives; Cluster.shutdown() leaves no agent process
+             (process table and nvidia-smi's compute apps). A failure
+             raises with the agent log's tail.
 6. train   — GPT-2 124M (gpt2-small) at full width and depth, f32 master
              weights from a seeded torch.Generator, bf16 compute:
              the kernel path's gradients against attn_impl="xla" on one
@@ -321,7 +345,8 @@ nonzero and no result line is printed):
 
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; tp_serve: the
-tp engines' runs and the checks' dense forwards; train: phase 6;
+tp engines' runs and the checks' dense forwards; cluster: the agent's serve
+run and dense check, counted in the agent; train: phase 6;
 trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; process:
 the process phase's (a) and (b); dp: phase 9's ranks, all modes; fsdp_tp: phase 10's ranks, all modes, also
 split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16;
@@ -380,6 +405,7 @@ from ray_tpu_torch.ops.ragged_paged_attention import (
     ragged_reference_attention,
 )
 import ray_tpu_torch
+import torch_cluster_udfs as cluster_udfs
 import torch_process_udfs as udfs
 from ray_tpu_torch import serve
 from ray_tpu_torch.core.config import cfg
@@ -466,6 +492,9 @@ DEADLINE_S = 0.2
 DEPLOY_PUT_BYTES = 1 << 30  # the CUDA tensor the deploy phase puts into the store
 DEPLOY_HTTP_TOKENS = 16
 DEPLOY_B_REQUESTS = 16  # deployment B: 2 dense replicas x 8 slots
+CLUSTER_CPU_BYTES = 1 << 30  # the CPU tensor an agent task returns
+CLUSTER_CUDA_NUMEL = 128 << 20  # the CUDA tensor it returns: 256 MiB of bf16
+CLUSTER_CALLS = 200  # no-op actor calls timed one after another
 TRAIN_MODEL = "gpt2-small"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_STEPS = 20
@@ -1273,38 +1302,31 @@ def _dense_check(phase, params, config, prompts, outs, picks=None, labels=None,
     t0 = time.perf_counter()
     before = FLASH_FWD.launches
     picks = picks or [0, len(prompts) - 1]
-    worst, exact, total = 0.0, 0, 0
+    stats = cluster_udfs.dense_check_stats(params, config, prompts, outs, picks, TAIL_GAP)
     # label -> [worst gap, (request, generated position), its row's max logit,
     #           positions over TAIL_GAP]
     groups: dict = {}
-    over_tail = 0
-    with torch.no_grad():
+    if labels is not None:
         for i in picks:
-            seq = prompts[i] + outs[i]
-            tokens = torch.tensor([seq[:-1]], device="cuda")
-            logits = forward(params, tokens, config)[0].float()
-            if not torch.isfinite(logits).all():
-                raise AssertionError("non-finite dense logits")
-            rows = logits[len(prompts[i]) - 1:]
-            chosen = torch.tensor(outs[i], device="cuda")
-            top = rows.max(dim=-1).values
-            gap = top - rows.gather(1, chosen[:, None])[:, 0]
-            hit = rows.argmax(dim=-1) == chosen
-            worst = max(worst, gap.max().item())
-            exact += int(hit.sum())
-            total += len(outs[i])
-            over_tail += int((gap > TAIL_GAP).sum())
-            if labels is not None:
-                g = groups.setdefault(labels[i], [0.0, None, 0.0, 0])
-                if gap.max().item() > g[0]:
-                    at = int(gap.argmax())
-                    g[0], g[1], g[2] = gap[at].item(), (i, at), top[at].item()
-                g[3] += int((gap > TAIL_GAP).sum())
-    launched = FLASH_FWD.launches - before
-    log(phase, f"dense check (margin {margin}, exact share floor {exact_floor}), {len(picks)} "
-        f"requests, {total} generated positions: engine token == dense argmax at {exact} "
-        f"(share {exact / total:.4f}), worst gap {worst:.4f}, positions over {TAIL_GAP}: "
-        f"{over_tail}, flash launches {launched} ({time.perf_counter() - t0:.2f} s)")
+            gap, at, top, over = stats["per"][i]
+            g = groups.setdefault(labels[i], [0.0, None, 0.0, 0])
+            if gap > g[0]:
+                g[0], g[1], g[2] = gap, (i, at), top
+            g[3] += over
+    return _dense_verdict(phase, stats, FLASH_FWD.launches - before, margin, exact_floor,
+                          groups, time.perf_counter() - t0)
+
+
+def _dense_verdict(phase, stats, launched, margin, exact_floor, groups=None, seconds=0.0):
+    """Log a dense check (`torch_cluster_udfs.dense_check_stats`, run here
+    or in a node agent) and hold it: flash forward launched, the worst gap
+    within `margin`, at least `exact_floor` of the positions exact.
+    Returns (exact, total, worst gap)."""
+    worst, exact, total = stats["worst"], stats["exact"], stats["total"]
+    log(phase, f"dense check (margin {margin}, exact share floor {exact_floor}), "
+        f"{len(stats['per'])} requests, {total} generated positions: engine token == dense "
+        f"argmax at {exact} (share {exact / total:.4f}), worst gap {worst:.4f}, positions over "
+        f"{TAIL_GAP}: {stats['over_tail']}, flash launches {launched} ({seconds:.2f} s)")
     if groups:
         log(phase, "worst gap by group (gap, (request, generated position), the row's max dense "
             f"logit, positions over {TAIL_GAP}): "
@@ -2657,6 +2679,148 @@ def phase_observe(server, config, prompts) -> dict:
     if not launches[RAGGED.name]:
         raise AssertionError("the observe path never launched the ragged kernels")
     return dict(launches=launches, profiled=user["kernels"], gauges=gauges)
+
+
+# ------------------------------------------------------------------ cluster
+
+
+def _cuda_pids_left(pid: int, timeout: float = 30.0) -> tuple:
+    """(in the process table, among nvidia-smi's compute apps) for `pid`,
+    waiting up to `timeout` for both to clear."""
+    deadline = time.monotonic() + timeout
+    while True:
+        alive = os.path.exists(f"/proc/{pid}")
+        on_card = pid in udfs.compute_app_pids()
+        if not (alive or on_card) or time.monotonic() > deadline:
+            return alive, on_card
+        time.sleep(0.25)
+
+
+def phase_cluster(card, config, prompts, serve_outs) -> dict:
+    """Cluster mode on the card: this process as the head, one node agent
+    hosting the work on the card (see the module docstring, `cluster`).
+    Returns the agent's launches by kernel and the phase's numbers."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.health import probe_agent
+    from ray_tpu_torch.core.object_store import Tier
+    from ray_tpu_torch.core.scheduler import NodeAffinitySchedulingStrategy
+
+    log("cluster", f"{card}: the driver holds {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, before the cluster")
+    ray_tpu_torch.shutdown()
+    t0 = time.perf_counter()
+    cluster = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0})
+    handle = None
+    out: dict = {}
+    try:
+        handle = cluster.add_node(num_cpus=2, num_gpus=1)
+        cluster.wait_for_nodes(2, timeout=180)
+        out["agent_start_s"] = time.perf_counter() - t0
+        agent = next(n for n in cluster.runtime.scheduler.nodes() if n.is_remote)
+        on = NodeAffinitySchedulingStrategy(agent.node_id)
+        joined = next((ln for ln in handle.logs().splitlines() if " joined " in ln), "")
+        log("cluster", f"{card}: head {cluster.address}, agent pid {handle.pid} at "
+            f"{agent.agent_addr} with {agent.resources.total.get('GPU', 0)} GPU, up "
+            f"{out['agent_start_s']:.2f} s after the spawn (head + agent start-up); the "
+            f"agent's log: {joined!r}")
+
+        # (a) objects across nodes
+        ref = ray_tpu_torch.remote(cluster_udfs.seeded_bytes).options(
+            scheduling_strategy=on).remote(SEED, CLUSTER_CPU_BYTES)
+        mine = cluster_udfs.seeded_bytes(SEED, CLUSTER_CPU_BYTES)
+        ray_tpu_torch.wait([ref], timeout=300)
+        entry = cluster.runtime.object_store.entry(ref.object_id)
+        if entry.tier != Tier.REMOTE:
+            raise AssertionError(f"the 1 GiB result arrived as {entry.tier}, not a placeholder")
+        t = time.perf_counter()
+        got = ray_tpu_torch.get(ref, timeout=300)
+        pull_s = time.perf_counter() - t
+        if got.dtype != torch.uint8 or got.numel() != CLUSTER_CPU_BYTES or not torch.equal(got, mine):
+            raise AssertionError("the 1 GiB CPU tensor pulled from the agent differs")
+        out["pull_gb_s"] = CLUSTER_CPU_BYTES / pull_s / 1e9
+        del got, mine, ref, entry
+        copies0 = ray_tpu_torch.get(ray_tpu_torch.remote(cluster_udfs.wire_stats).options(
+            scheduling_strategy=on).remote(), timeout=120)["cuda_host_copies"]
+        ref = ray_tpu_torch.remote(num_gpus=1)(cluster_udfs.seeded_cuda_bf16).options(
+            scheduling_strategy=on).remote(SEED, CLUSTER_CUDA_NUMEL)
+        ray_tpu_torch.wait([ref], timeout=300)
+        t = time.perf_counter()
+        got = ray_tpu_torch.get(ref, timeout=300)
+        cuda_s = time.perf_counter() - t
+        want = cluster_udfs.seeded_cuda_bf16(SEED, CLUSTER_CUDA_NUMEL)
+        copies = ray_tpu_torch.get(ray_tpu_torch.remote(cluster_udfs.wire_stats).options(
+            scheduling_strategy=on).remote(), timeout=120)["cuda_host_copies"] - copies0
+        if got.device != torch.device("cuda", torch.cuda.current_device()) \
+                or not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"the 256 MiB CUDA tensor landed on {got.device} or differs")
+        if copies != 1:
+            raise AssertionError(f"the agent made {copies} host copies of the CUDA tensor, not 1")
+        out["cuda_pull_gb_s"] = got.nbytes / cuda_s / 1e9
+        del got, want, ref
+        torch.cuda.empty_cache()
+        noop = ray_tpu_torch.remote(cluster_udfs.Noop).options(scheduling_strategy=on).remote()
+        ray_tpu_torch.get(noop.ping.remote(), timeout=120)
+        times = []
+        for _ in range(CLUSTER_CALLS):
+            t = time.perf_counter()
+            ray_tpu_torch.get(noop.ping.remote(), timeout=60)
+            times.append((time.perf_counter() - t) * 1e6)
+        ray_tpu_torch.kill(noop)
+        times.sort()
+        out["call_p50_us"] = statistics.median(times)
+        out["call_p90_us"] = times[int(0.9 * len(times))]
+        log("cluster", f"{card}: (a) 1 GiB CPU tensor pulled in {pull_s:.3f} s = "
+            f"{out['pull_gb_s']:.3f} GB/s, bit-equal; 256 MiB bf16 CUDA tensor on "
+            f"cuda:{torch.cuda.current_device()} in {cuda_s:.3f} s = {out['cuda_pull_gb_s']:.3f} "
+            f"GB/s, bit-equal, {copies} host copy on the agent; no-op actor call round trip p50 "
+            f"{out['call_p50_us']:.1f} us p90 {out['call_p90_us']:.1f} us over {CLUSTER_CALLS}")
+
+        # (b) serving from the agent
+        t = time.perf_counter()
+        llm = ray_tpu_torch.remote(num_cpus=1, num_gpus=1)(cluster_udfs.ClusterLLM).options(
+            scheduling_strategy=on).remote(MODEL, SEED, N_REQUESTS)
+        info = ray_tpu_torch.get(llm.info.remote(), timeout=900)
+        if info["pid"] != handle.pid:
+            raise AssertionError(f"the LLM actor runs in pid {info['pid']}, not the agent's")
+        log("cluster", f"{card}: agent LLMServer({MODEL}) built in {info['build_s']:.2f} s "
+            f"({time.perf_counter() - t:.2f} s from the call), {info['captures']} CUDA graphs, "
+            f"{info['allocated'] / 2**30:.2f} GiB allocated on the agent's {info['device']}")
+        res = ray_tpu_torch.get(llm.serve.remote(prompts, MAX_TOKENS, TAIL_GAP,
+                                                 [0, len(prompts) - 1]), timeout=900)
+        for o in res["outs"]:
+            if len(o) != MAX_TOKENS or not all(0 <= tok < config.vocab_size for tok in o):
+                raise AssertionError(f"bad completion from the agent: {len(o)} tokens")
+        same = sum(a == b for o, s_ in zip(res["outs"], serve_outs) for a, b in zip(o, s_))
+        out["decode_tok_s"] = res["decode_tok_s"]
+        out["launches"] = {k.name: int(res["launches"].get(k.name, 0)) for k in KERNELS}
+        log("cluster", f"{card}: (b) {N_REQUESTS} requests on the agent: wall {res['wall_s']:.3f} s, "
+            f"decode {res['decode_tok_s']:.1f} tok/s; launches counted in the agent "
+            f"{out['launches']}; positions equal to the serve phase's tokens {same} of "
+            f"{N_REQUESTS * MAX_TOKENS} (share {same / (N_REQUESTS * MAX_TOKENS):.4f}, not gated)")
+        _dense_verdict("cluster", res["check"], res["launches"][FLASH_FWD.name], CHECK_MARGIN,
+                       EXACT_SHARE_FLOOR, seconds=res["check_s"])
+        if out["launches"][RAGGED.name] <= 0 or out["launches"][FLASH_FWD.name] <= 0:
+            raise AssertionError(f"the agent's path launched no ragged or flash kernel: "
+                                 f"{out['launches']}")
+        ray_tpu_torch.get(llm.shutdown.remote(), timeout=300)
+        ray_tpu_torch.kill(llm)
+
+        # (c) leaving
+        if not probe_agent(agent):
+            raise AssertionError("probe_agent found the live agent down")
+    except BaseException:
+        if handle is not None:
+            log("cluster", f"agent log's tail:\n{handle.tail()}")
+        raise
+    finally:
+        cluster.shutdown()
+    alive, on_card = _cuda_pids_left(handle.pid)
+    log("cluster", f"{card}: after Cluster.shutdown() the agent pid {handle.pid} is in the process "
+        f"table: {alive}, among the card's compute apps: {on_card}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    if alive or on_card:
+        raise AssertionError(f"the agent outlived Cluster.shutdown() (process {alive}, card {on_card})")
+    return out
 
 
 # ------------------------------------------------------------------ tp_serve
@@ -4551,6 +4715,9 @@ def main() -> int:
     del server
     gc.collect()
     torch.cuda.empty_cache()
+    cluster = phase_cluster(card, config, prompts, outs)
+    gc.collect()
+    torch.cuda.empty_cache()
     train_launches = phase_train()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4580,7 +4747,7 @@ def main() -> int:
         by_path = {"serve": serve_launches[k.name], "spec": spec["launches"][k.name],
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
                    "deploy": deploy["launches"][k.name], "observe": observe["launches"][k.name],
-                   "tp_serve": tp_serve["launches"][k.name],
+                   "tp_serve": tp_serve["launches"][k.name], "cluster": cluster["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
                    "ingest": ingest["launches"][k.name], "process": process["launches"][k.name],
                    "dp": dp["launches"][k.name],

@@ -6,7 +6,10 @@ module paths and names so each piece has an obvious counterpart:
 - the runtime (`api`, `core`): init/shutdown, @remote tasks and actors,
   put/get/wait over a tiered object store (CUDA tensors stay on the card),
   streaming generators and placement groups over the logical nodes of
-  one process, with the process's CUDA devices as the `GPU` resource;
+  one process, with the process's CUDA devices as the `GPU` resource,
+  and cluster mode (`init(head=True)` / `init(address=...)`, node agents
+  started with `python -m ray_tpu_torch start` or `cluster_utils`):
+  remote tasks and actors, chunked object transfer, borrowed refs;
 - `ops`: layer primitives, flash attention and ragged paged attention,
   the two attention functions backed by hand-written CUDA kernels for
   Hopper (sm_90a) with a plain PyTorch version beside each;

@@ -34,6 +34,8 @@ def init(
     labels: Optional[Dict[str, str]] = None,
     head: bool = False,
     address: Optional[str] = None,
+    cluster_token: Optional[str] = None,
+    gcs_port: int = 0,
     _system_config: Optional[Dict[str, Any]] = None,
 ) -> _rt.Runtime:
     """Start the in-process runtime.
@@ -43,8 +45,12 @@ def init(
     With `detect_accelerators` (the default) and no `num_gpus`, each node
     advertises the process's CUDA devices as `GPU`.
 
-    `head=True` / `address=...` (a multi-process cluster) raise
-    NotImplementedError: clusters are not ported yet.
+    `head=True` makes this process a cluster head (its GCS served over RPC
+    on `gcs_port`, 0 = ephemeral); `address="host:port"` joins the head
+    whose GCS listens there, as a node. `cluster_token` authenticates
+    every cluster connection (required off localhost). Node agents start
+    with `python -m ray_tpu_torch start --address ...` or
+    `cluster_utils.Cluster.add_node`.
 
     `_system_config` overrides central config flags for this process
     (`ray_tpu_torch.core.config.cfg`).
@@ -76,6 +82,8 @@ def init(
         labels=labels,
         head=head,
         address=address,
+        cluster_token=cluster_token,
+        gcs_port=gcs_port,
     )
 
 

@@ -163,6 +163,9 @@ class ActorRuntime:
                 except IndexError:
                     self.death_cause = f"bundle index {idx} out of range"
                     return False
+                # a bundle lives on this process's nodes (a remote one would
+                # be ROADMAP A6b, placement groups across nodes)
+                bundles = [b for b in bundles if b.node is None or not b.node.is_remote]
                 if not any(
                     b.reserved is not None and b.reserved.can_ever_fit(self.resources)
                     for b in bundles
@@ -180,6 +183,17 @@ class ActorRuntime:
                 node = next(
                     (n for n in self._scheduler.nodes() if n.node_id == strategy.node_id), None
                 )
+                if node is not None and node.is_remote:
+                    # an actor on another node is a cluster proxy, placed
+                    # before this runs (runtime.create_actor); here it would
+                    # run in this process against that node's view
+                    if not strategy.soft:
+                        self.death_cause = (
+                            f"actors cannot be placed on remote node {strategy.node_id}"
+                        )
+                        return False
+                    strategy = "DEFAULT"  # soft affinity: default local placement
+                    continue
                 if node is not None and not node.resources.can_ever_fit(self.resources):
                     self.death_cause = (
                         f"affinity node cannot ever satisfy {self.resources}"
@@ -196,7 +210,7 @@ class ActorRuntime:
                     continue
             else:
                 nodes = sorted(
-                    (n for n in self._scheduler.nodes() if n.placeable()),
+                    (n for n in self._scheduler.nodes() if not n.is_remote and n.placeable()),
                     key=lambda n: n.utilization(),
                 )
                 feasible = [n for n in nodes if n.resources.can_ever_fit(self.resources)]

@@ -68,6 +68,55 @@ define_flag("shm_min_bytes", 64 * 1024,
 define_flag("spill_dir", "",
             "Directory for spilled objects ('' = evict to LOST + lineage).")
 
+# rpc (core/rpc.py)
+define_flag("rpc_reconnect_attempts", 4,
+            "Max RpcClient connection attempts per call (connect/send-phase "
+            "failures only — a fully-sent frame is never resent).")
+define_flag("rpc_reconnect_backoff_s", 0.1,
+            "Base jittered backoff between RpcClient reconnect attempts "
+            "(doubles per attempt, capped at 2s).")
+
+# the GCS served over RPC (core/gcs_service.py)
+define_flag("gcs_client_retry_s", 3.0,
+            "Bounded window a GcsClient call retries transport errors "
+            "with jittered backoff before raising the typed "
+            "HeadUnavailableError (degraded-mode entry point).")
+define_flag("gcs_client_backoff_s", 0.05,
+            "Base jittered backoff between GcsClient retries during a "
+            "head outage (doubles per attempt, capped at 1s).")
+
+# cluster (core/cluster.py: multi-process / multi-host composition)
+define_flag("node_heartbeat_s", 0.5,
+            "Interval at which cluster nodes report resources to the GCS.")
+define_flag("node_stale_s", 5.0,
+            "A node missing from heartbeats this long is declared dead.")
+define_flag("system_failure_retries", 3,
+            "Automatic resubmits of a task whose executing node died.")
+define_flag("remote_inline_max_bytes", 512 * 1024,
+            "Remote task results at or under this size return by value; "
+            "larger ones stay on the executing node and get() pulls them.")
+define_flag("cluster_bind_host", "127.0.0.1",
+            "Host address cluster services bind to (0.0.0.0 for multi-host; "
+            "set a cluster token when leaving localhost).")
+define_flag("foreign_locate_max_s", 300.0,
+            "get() on a ref from another process gives up (ObjectLostError) "
+            "after polling the object directory this long with no location "
+            "registered. Raise it when cross-driver refs point at tasks "
+            "that legitimately run longer before sealing their result.")
+define_flag("agent_admission_queue", 0,
+            "Length of a node agent's admission queue for tasks its ledger "
+            "cannot admit yet (0 = 4x its CPU count, min 8); overflow "
+            "bounces dispatches back to the owner for rescheduling.")
+define_flag("result_delivery_attempts", 6,
+            "Delivery attempts for a task completion before the agent parks "
+            "the result for the owner's recovery poll.")
+define_flag("parked_result_ttl_s", 600.0,
+            "How long an agent keeps an undeliverable task result parked "
+            "for the owner to re-poll before dropping it.")
+define_flag("pending_task_poll_s", 10.0,
+            "Owner re-polls the executing agent about a dispatched task "
+            "after this long without a completion report.")
+
 # process workers (core/worker_pool.py)
 define_flag("worker_idle_timeout_s", 60.0,
             "Idle process workers are reaped after this many seconds.")

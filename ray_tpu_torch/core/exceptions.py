@@ -149,3 +149,48 @@ class ObjectStoreFullError(RayTpuError):
 
 class PlacementGroupUnschedulableError(RayTpuError):
     pass
+
+
+class HeadUnavailableError(RayTpuError, ConnectionError):
+    """The GCS head is unreachable and the client's bounded retry budget
+    (``gcs_client_retry_s``) is exhausted.
+
+    Subclasses ConnectionError (an OSError) so every ``except (RpcError,
+    OSError)`` degraded-mode catch site — heartbeat loops, watch loops —
+    handles it unchanged, while typed callers can tell "head down" from a
+    one-off transport fault.
+    """
+
+    def __init__(self, message: str = "GCS head unreachable", *, outage_s: float = 0.0):
+        self.outage_s = outage_s
+        super().__init__(message)
+
+    def __reduce__(self):
+        args = self.args[0] if self.args else "GCS head unreachable"
+        return (_rebuild_head_unavailable, (args, self.outage_s))
+
+
+def _rebuild_head_unavailable(message, outage_s):
+    return HeadUnavailableError(message, outage_s=outage_s)
+
+
+class StaleEpochError(RayTpuError):
+    """A GCS write carried a cluster epoch older than the head's current
+    one: the writer is a zombie from before a head restart and must stop
+    driving the cluster.
+
+    Deliberately NOT an OSError: transport-retry wrappers must never
+    retry a fenced write — the fix is to re-adopt the current epoch
+    (live agents) or stand down (zombies).
+    """
+
+    def __init__(self, message: str = "write fenced: stale cluster epoch",
+                 writer_epoch: Optional[int] = None,
+                 head_epoch: Optional[int] = None):
+        self.writer_epoch = writer_epoch
+        self.head_epoch = head_epoch
+        super().__init__(message)
+
+    def __reduce__(self):
+        args = self.args[0] if self.args else "write fenced: stale cluster epoch"
+        return (StaleEpochError, (args, self.writer_epoch, self.head_epoch))

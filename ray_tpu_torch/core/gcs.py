@@ -2,9 +2,10 @@
 
 Port of `ray_tpu/core/gcs.py` for one process: the namespaced KV store,
 the publish/subscribe channels with their bounded history, and the
-named-actor table. The JAX package's durability (periodic snapshots, the
-mutation WAL, the cluster epoch) comes with the head's fault tolerance in
-multi-node clusters.
+named-actor table, and the cluster epoch that the GCS service's fence
+reads (`current_epoch`, `bump_epoch`). The JAX package's durability
+(periodic snapshots, the mutation WAL, `restore`) comes with the head's
+restart: ROADMAP A6b (head restart).
 """
 
 from __future__ import annotations
@@ -20,8 +21,13 @@ logger = logging.getLogger(__name__)
 # Pub/sub channel carrying announced node preemptions: messages are
 # {node_hex, reason, warning_s, deadline}. Train controllers subscribe
 # (emergency checkpoint + restart); in one process nothing publishes on it
-# until `preempt_node` is ported (ROADMAP A6).
+# until `preempt_node` is ported (ROADMAP A6b (preemption and chaos)).
 PREEMPT_CHANNEL = "node_preemption"
+
+# GCS KV namespace for head-identity state: the cluster EPOCH lives here
+# as an ordinary KV value (JAX's layout, so a restored head bumps it).
+HEAD_NS = "_head"
+EPOCH_KEY = "epoch"
 
 # KV namespace for registered profile captures: profile_id -> capture
 # record (meta only; artifact bytes stay in the runtime's ProfileStore)
@@ -130,6 +136,17 @@ class GlobalControlStore:
         self.pubsub = PubSub()
         self._named_actors: Dict[Tuple[str, str], Any] = {}  # guarded-by: _lock
         self._lock = threading.Lock()
+
+    def current_epoch(self) -> int:
+        """The cluster epoch: bumped on every head restore so writes from
+        before the restart are fenceable (`gcs_service._fence`)."""
+        return int(self.kv.get(EPOCH_KEY, namespace=HEAD_NS, default=0))
+
+    def bump_epoch(self) -> int:
+        """Advance the epoch (a KV write like any other)."""
+        epoch = self.current_epoch() + 1
+        self.kv.put(EPOCH_KEY, epoch, namespace=HEAD_NS)
+        return epoch
 
     def register_named_actor(self, name: str, handle: Any, namespace: str = "default") -> None:
         with self._lock:

@@ -14,9 +14,11 @@ Port of `ray_tpu/core/health.py` for one process:
   group of workers sharing one runtime env.
 
 Both run as daemon threads with flag-controlled periods (`config.py`);
-`stop()` joins them. `probe_agent` and the preemption signal handler
-serve a cluster's node agents and raise NotImplementedError naming
-ROADMAP A6.
+`stop()` joins them. `probe_agent` asks a cluster node's agent for its
+`node_info` over RPC (one synchronous liveness probe). The preemption
+signal handler (SIGTERM as an announced preemption with a drain window)
+raises NotImplementedError naming ROADMAP A6b (preemption and chaos); a
+port agent stops gracefully on SIGTERM instead (`cli.py`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,6 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 logger = logging.getLogger(__name__)
 
-_CLUSTER_TODO = "ROADMAP A6 (cluster mode: core/cluster.py, rpc, gcs_service, object_transfer)"
 
 
 class HealthCheckManager:
@@ -114,15 +115,25 @@ class HealthCheckManager:
 
 
 def probe_agent(node) -> bool:
-    """Liveness probe of a cluster node's agent: clusters are not ported."""
-    raise NotImplementedError(f"probe_agent is not ported to ray_tpu_torch yet: {_CLUSTER_TODO}")
+    """Synchronous liveness probe of a cluster node's agent: its
+    `node_info` answered over the agent's RPC address. Local (in-process)
+    nodes are trivially alive."""
+    if not getattr(node, "is_remote", False):
+        return bool(getattr(node, "alive", True))
+    client = getattr(node, "client", None)
+    if client is None or not node.alive:
+        return False
+    try:
+        return bool(client.call("node_info"))
+    except Exception:  # noqa: BLE001 - any transport failure counts as down
+        return False
 
 
 def install_preemption_signal_handler(ctx, warning_s: Optional[float] = None):
     """SIGTERM as a node agent's preemption notice: clusters are not ported."""
     raise NotImplementedError(
         "install_preemption_signal_handler is not ported to ray_tpu_torch yet: "
-        "ROADMAP A6 (chaos and node preemption)"
+        "ROADMAP A6b (preemption and chaos)"
     )
 
 

@@ -42,9 +42,22 @@ maps as a read-only view. The arena's LRU evicts to the spill dir (or to
 LOST). The arena is capped at the free bytes of its directory (writing
 past a full tmpfs kills the process with SIGBUS). When the library
 cannot be built or the arena cannot be mapped, the store runs without
-the tier, as JAX's does, and records why in `arena_error`. The JAX
-package's REMOTE tier (a value in another node's store, borrowed
-references) comes with clusters.
+the tier, as JAX's does, and records why in `arena_error`.
+
+REMOTE (a cluster, `core/cluster.py`): a task's result that stayed in
+the executing node's store is sealed here as a placeholder holding that
+node's address; the first `get` pulls it through the chunked transfer
+(`fetch_object`) and caches it in its own tier, and a pull from a dead
+node drops the entry to LOST (lineage re-executes the task). A ref that
+crossed from another process is BORROWED: its entry records the owner's
+address (`owner_addr`, and `fetch_addr` where the bytes live on a third
+node), `get` pulls from there, and this process registers as a borrower
+at the owner, whose `add_borrow` pins the value until the matching
+`remove_borrow`. A ref with no owner or producer known here polls the
+GCS object directory (`_locate`) for at most `cfg.foreign_locate_max_s`
+before it drops to LOST. A value held for another process (`custodial`:
+a big task result or a parked one) is released only by its owner's
+`free` or the node's teardown, never by a local handle's death.
 """
 
 from __future__ import annotations
@@ -74,6 +87,7 @@ class Tier(enum.Enum):
     DEVICE = "device"      # CUDA tensors, kept on the card, never spilled
     SHM = "shm"            # native arena (core/native_store.py): numpy arrays, Data blocks
     SPILLED = "spilled"    # on disk
+    REMOTE = "remote"      # value lives in another node's store (cluster)
 
 logger = logging.getLogger(__name__)
 
@@ -181,6 +195,13 @@ def _is_device_array(value: Any) -> bool:
     return isinstance(value, torch.Tensor) and value.is_cuda
 
 
+class _RemoteFetchFailed(Exception):
+    """Internal: a REMOTE-tier fetch-through failed (holder unreachable)."""
+
+    def __init__(self, object_id, address):
+        super().__init__(f"fetch of {object_id} from {address} failed")
+
+
 class ObjectState(enum.Enum):
     PENDING = "pending"   # task not finished yet
     READY = "ready"
@@ -193,6 +214,8 @@ class ObjectEntry:
         "object_id", "state", "value", "error", "tier", "nbytes",
         "pin_count", "event", "callbacks", "spill_path", "owner_task",
         "last_access", "lock", "handle_count", "gc_on_seal", "gc_done",
+        "remote_addr", "foreign", "owner_addr", "borrow_failed", "fetch_addr",
+        "custodial",
     )
 
     def __init__(self, object_id: ObjectID):
@@ -220,6 +243,27 @@ class ObjectEntry:
         # last-releasers must not double-run the accounting in
         # _release_value.
         self.gc_done = False
+        # Address of the executing node still holding a copy (cluster):
+        # set by seal_remote, kept across fetch-through so releasing this
+        # entry can free the remote copy too.
+        self.remote_addr: Optional[str] = None
+        # An entry made for a ref that arrived from ANOTHER process
+        # (nothing local will ever seal it): the only entries worth a GCS
+        # object-directory lookup on get().
+        self.foreign = False
+        # Borrowed reference: the address of the OWNING process whose
+        # refcount pins the value. get() pulls from there; releasing this
+        # entry sends an unborrow (never a free).
+        self.owner_addr: Optional[str] = None
+        # The borrow registration exhausted its retries: a later loss is
+        # plausibly the borrow protocol's fault (ObjectLostError's note).
+        self.borrow_failed = False
+        # Where the VALUE lives when that differs from the owner (arg
+        # locality: pull peer-to-peer, borrow at the owner).
+        self.fetch_addr: Optional[str] = None
+        # Held ON THE OWNER'S BEHALF (a big or parked task result): a local
+        # handle's death releases only its borrow, never the value.
+        self.custodial = False
 
 
 class ObjectStore:
@@ -253,6 +297,72 @@ class ObjectStore:
         self._resubmit: Optional[Callable[[Any], None]] = None
         self._reconstruct_lock = threading.Lock()
         self.max_reconstructions = 3
+        # Cluster hooks (set by core.cluster.ClusterContext):
+        # _fetch_remote(object_id, address) pulls a REMOTE-tier value over
+        # the wire; _locate(object_id) asks the GCS object directory where
+        # an object this process has never seen lives; _free_remote and
+        # _unborrow queue a free at the holder and an unborrow at the owner.
+        self._fetch_remote: Optional[Callable[[ObjectID, str], Any]] = None
+        self._locate: Optional[Callable[[ObjectID], Optional[str]]] = None
+        self._free_remote: Optional[Callable[[ObjectID, str], None]] = None
+        self._unborrow: Optional[Callable[[ObjectID, str], None]] = None
+        # owner-side borrow registry: object id -> borrower addresses
+        self._borrowers: Dict[ObjectID, set] = {}  # guarded-by: _lock
+
+    def set_cluster_hooks(self, fetch_remote, locate, free_remote=None,
+                          unborrow=None) -> None:
+        self._fetch_remote = fetch_remote
+        self._locate = locate
+        self._free_remote = free_remote
+        self._unborrow = unborrow
+
+    # ----------------------------------------------------------- borrows
+    # A peer that unpickled one of our refs pins the value here until it
+    # unborrows. Borrows are keyed by the borrowing process's address, so
+    # an unborrow whose borrow registration was lost in transit can never
+    # release a pin that belongs to another live borrower.
+
+    def add_borrow(self, object_id: ObjectID, borrower: str) -> bool:
+        entry = self.entry(object_id)
+        if entry is None:
+            return False  # already gone: the borrower's get() will fail
+        with self._lock:
+            holders = self._borrowers.setdefault(object_id, set())
+            if borrower in holders:
+                return True  # duplicate registration: one pin per borrower
+            holders.add(borrower)
+        self.pin(object_id)
+        return True
+
+    def remove_borrow(self, object_id: ObjectID, borrower: str) -> None:
+        with self._lock:
+            holders = self._borrowers.get(object_id)
+            if holders is None or borrower not in holders:
+                return  # no matching recorded borrow: nothing to release
+            holders.discard(borrower)
+            if not holders:
+                del self._borrowers[object_id]
+        entry = self.entry(object_id)
+        if entry is None:
+            return
+        self.unpin(object_id)
+        with entry.lock:
+            gc_now = (entry.pin_count == 0 and entry.handle_count == 0
+                      and entry.event.is_set())
+        if gc_now:
+            # last borrower left after the owner's handles died: the
+            # deferred GC the pin was blocking runs now
+            self._gc_entry(entry)
+
+    def release_borrows_from(self, borrower: str) -> int:
+        """Drop every borrow a (dead) borrower registered — its unborrows
+        will never arrive. Returns how many were released."""
+        with self._lock:
+            doomed = [oid for oid, holders in self._borrowers.items()
+                      if borrower in holders]
+        for oid in doomed:
+            self.remove_borrow(oid, borrower)
+        return len(doomed)
 
     def set_resubmit(self, fn: Callable[[Any], None]) -> None:
         self._resubmit = fn
@@ -304,6 +414,8 @@ class ObjectStore:
                 entry = ObjectEntry(object_id)
                 self._entries[object_id] = entry
             if owner_task is not None:
+                # never CLEAR recorded lineage: a result push from a node
+                # agent (object_transfer._push_end) creates without an owner
                 entry.owner_task = owner_task
             return entry
 
@@ -416,6 +528,83 @@ class ObjectStore:
         # unrelated puts/gets.
         self._maybe_spill()
 
+    def seal_remote(self, object_id: ObjectID, address: str, nbytes: int = 0) -> None:
+        """Seal an object as a remote placeholder: the value stays in the
+        store of the node at `address`; get() fetches through on first
+        access and caches locally. No-op if the value already arrived (a
+        push raced the location). `nbytes` (when the producer reported it)
+        feeds argument locality before the value is ever pulled."""
+        with self._lock:
+            entry = self._entries.get(object_id)
+            if entry is None:
+                entry = self.create(object_id)
+        with entry.lock, self._lock:
+            if entry.state == ObjectState.READY:
+                return
+            entry.value = address
+            entry.remote_addr = address
+            if nbytes:
+                entry.nbytes = nbytes
+            entry.tier = Tier.REMOTE
+            entry.state = ObjectState.READY
+            entry.gc_done = False
+            entry.error = None
+            entry.last_access = time.monotonic()
+            callbacks = list(entry.callbacks)
+            entry.callbacks.clear()
+        entry.event.set()
+        for cb in callbacks:
+            cb(entry)
+        if entry.gc_on_seal:
+            # every handle died while the task ran remotely: GC now, which
+            # also frees the agent's copy through remote_addr
+            entry.gc_on_seal = False
+            self._gc_entry(entry)
+
+    def _fetch_through(self, entry: ObjectEntry) -> Any:
+        """Pull a REMOTE-tier value and cache it locally. Caller holds
+        entry.lock (only access to THIS object blocks on the wire). On a
+        transport failure the entry drops to LOST so get() can
+        lineage-reconstruct; a device this process lacks raises as is."""
+        from .rpc import DeviceUnavailableError
+
+        address = entry.value
+        try:
+            value = self._fetch_remote(entry.object_id, address)
+        except DeviceUnavailableError:
+            raise
+        except Exception:
+            # a peer-located pull falls back to the owner, which can always
+            # materialize its own object
+            fallback = entry.owner_addr
+            if not (fallback and fallback != address):
+                entry.value = None
+                entry.remote_addr = None  # holder unreachable: nothing to free
+                entry.state = ObjectState.LOST
+                entry.event.set()
+                raise _RemoteFetchFailed(entry.object_id, address)
+            try:
+                value = self._fetch_remote(entry.object_id, fallback)
+            except DeviceUnavailableError:
+                raise
+            except Exception:
+                entry.value = None
+                entry.remote_addr = None
+                entry.state = ObjectState.LOST
+                entry.event.set()
+                raise _RemoteFetchFailed(entry.object_id, fallback)
+        nbytes = _estimate_nbytes(value)
+        with self._lock:
+            entry.value = value
+            entry.nbytes = nbytes
+            if _is_device_array(value):
+                entry.tier = Tier.DEVICE
+                self._device_bytes += nbytes
+            else:
+                entry.tier = Tier.INLINE if nbytes <= self._inline_max else Tier.HOST
+                self._host_bytes += nbytes
+        return value
+
     def seal_error(self, object_id: ObjectID, error: BaseException) -> None:
         with self._lock:
             entry = self._entries.get(object_id)
@@ -471,7 +660,14 @@ class ObjectStore:
             entry = self._entries.get(object_id)
             if entry is None:
                 entry = self.create(object_id)
+                entry.foreign = True  # no local producer registered it
         deadline = None if timeout is None else time.monotonic() + timeout
+        if entry.owner_addr is not None and not entry.event.is_set():
+            # borrowed ref: pull from where the value lives (a peer node
+            # when the dispatcher knew better, else the owner)
+            self.seal_remote(object_id, entry.fetch_addr or entry.owner_addr)
+        if self._locate is not None and entry.foreign and not entry.event.is_set():
+            self._await_location(entry, timeout, deadline)
         reconstructions = 0
         restored = False
         while True:
@@ -492,14 +688,24 @@ class ObjectStore:
                     raise entry.error
                 if state == ObjectState.READY:
                     entry.last_access = time.monotonic()
+                    done = True
                     if entry.tier == Tier.SPILLED:
                         value = self._restore(entry)
                         restored = True
                     elif entry.tier == Tier.SHM:
                         value = self._shm_get(entry)
+                    elif entry.tier == Tier.REMOTE:
+                        try:
+                            value = self._fetch_through(entry)
+                            # fetched bytes count against capacity like a
+                            # disk restore: spill-check after
+                            restored = True
+                        except _RemoteFetchFailed:
+                            # holder died: LOST now; lineage below
+                            state = ObjectState.LOST
+                            done = False
                     else:
                         value = entry.value
-                    done = True
             if done:
                 break
             if state == ObjectState.LOST:
@@ -512,7 +718,13 @@ class ObjectStore:
                 ):
                     reconstructions += 1
                     continue
-                raise ObjectLostError(object_id)
+                raise ObjectLostError(
+                    object_id,
+                    "(The borrow registration to the owner failed after "
+                    "retries; the owner may have released the value because "
+                    "this process's pin never landed.)"
+                    if entry.borrow_failed else "",
+                )
             # PENDING again (a reconstruction won the race): just re-wait.
         self.stats["gets"] += 1
         if restored:
@@ -521,6 +733,44 @@ class ObjectStore:
             # deadlock between two concurrent restores.
             self._maybe_spill()
         return value
+
+    def _await_location(self, entry: ObjectEntry, timeout, deadline) -> None:
+        """A ref that crossed from another process: nothing local will ever
+        seal it — a push may arrive, or the value sits in a remote store
+        registered in the GCS object directory. Poll the directory while
+        waiting (the producer may register after this get() started), at
+        most `cfg.foreign_locate_max_s`: with no location ever registered
+        the entry drops to LOST, so lineage or ObjectLostError runs
+        instead of a wait that never ends."""
+        from .config import cfg
+
+        object_id = entry.object_id
+        poll = 0.02
+        give_up = time.monotonic() + cfg.foreign_locate_max_s
+        while not entry.event.is_set():
+            try:
+                address = self._locate(object_id)
+            except Exception:
+                address = None
+            if address:
+                self.seal_remote(object_id, address)
+                return
+            now = time.monotonic()
+            remaining = None if deadline is None else deadline - now
+            if remaining is not None and remaining <= 0:
+                raise GetTimeoutError(
+                    f"Get timed out after {timeout}s waiting for "
+                    f"{object_id} (no location registered)"
+                )
+            if now >= give_up:
+                with entry.lock:
+                    if not entry.event.is_set():
+                        entry.state = ObjectState.LOST
+                        entry.event.set()
+                return
+            wait_s = poll if remaining is None else min(poll, remaining)
+            entry.event.wait(wait_s)
+            poll = min(poll * 2, 1.0)
 
     def _try_reconstruct(self, entry: ObjectEntry) -> bool:
         """Flip a LOST entry (and its sibling returns) back to PENDING and
@@ -562,12 +812,18 @@ class ObjectStore:
                 entry = self._entries.get(object_id)
                 if entry is None:
                     # Only a re-bound handle (unpickled after the entry was
-                    # fully GC'd) increfs a missing id. There is no producer,
-                    # so surface the loss instead of leaving a PENDING entry
-                    # nothing will ever seal (get() would hang forever).
+                    # fully GC'd, or arriving from ANOTHER process) increfs
+                    # a missing id. In a cluster the object directory may
+                    # know where it lives, so leave it pending+foreign for
+                    # get() to locate; standalone there is no producer, so
+                    # surface the loss instead of a PENDING entry nothing
+                    # will ever seal.
                     entry = self.create(object_id)
-                    entry.state = ObjectState.LOST
-                    entry.event.set()
+                    if self._locate is not None:
+                        entry.foreign = True
+                    else:
+                        entry.state = ObjectState.LOST
+                        entry.event.set()
             with entry.lock:
                 entry.handle_count += 1
                 if entry.handle_count > 1:
@@ -603,7 +859,9 @@ class ObjectStore:
         with entry.lock:
             entry.handle_count = max(0, entry.handle_count - 1)
             if entry.handle_count == 0:
-                if entry.event.is_set():
+                if entry.event.is_set() or entry.owner_addr is not None:
+                    # sealed, OR a borrowed entry never fetched: its
+                    # unborrow must still reach the owner
                     gc_now = True
                 else:
                     entry.gc_on_seal = True
@@ -616,6 +874,16 @@ class ObjectStore:
                 return  # a handle was recreated (incref) since the decref
             if entry.gc_done:
                 return  # a concurrent last-releaser already ran
+            if entry.custodial:
+                # held for the OWNER: the local handle's death releases only
+                # its borrow registration; the owner's free releases the value
+                if entry.owner_addr is not None and self._unborrow is not None:
+                    try:
+                        self._unborrow(entry.object_id, entry.owner_addr)
+                    except Exception:
+                        pass
+                    entry.owner_addr = None
+                return
             entry.gc_done = True
             self._release_value(entry)
             self.stats["gc"] += 1
@@ -662,6 +930,24 @@ class ObjectStore:
                     arena.delete(aid)
         if entry.spill_path and os.path.exists(entry.spill_path):
             os.unlink(entry.spill_path)
+        if entry.owner_addr is not None:
+            # borrowed value: tell the owner we are done (an unborrow, NEVER
+            # a free — the owner and other borrowers may live on)
+            if self._unborrow is not None:
+                try:
+                    self._unborrow(entry.object_id, entry.owner_addr)
+                except Exception:
+                    pass
+            entry.owner_addr = None
+            entry.remote_addr = None  # the owner's copy is not ours to free
+        elif entry.remote_addr is not None and self._free_remote is not None:
+            # we OWN this object and the executing node still holds its
+            # copy: ask it to release (queued, never blocks under locks)
+            try:
+                self._free_remote(entry.object_id, entry.remote_addr)
+            except Exception:
+                pass
+            entry.remote_addr = None
         entry.spill_path = None
         entry.value = None
 

@@ -31,6 +31,11 @@ class ResourceSet:
         # rather than wait on a condition: acquisition spans *multiple*
         # candidate ResourceSets, so no single CV is a correct wake signal.
         self._lock = threading.Lock()
+        # Optional callback fired after every release (outside the lock):
+        # a cluster node agent hangs its admission-queue drain here, so a
+        # LOCAL task or actor freeing this node's ledger also admits queued
+        # remote arrivals (core/cluster.py).
+        self.on_release = None
 
     @property
     def total(self) -> ResourceDict:
@@ -57,6 +62,9 @@ class ResourceSet:
                 self._available[k] = min(
                     self._total.get(k, 0.0), self._available.get(k, 0.0) + v
                 )
+        cb = self.on_release
+        if cb is not None:
+            cb()
 
 
 def detect_gpu_resources() -> ResourceDict:

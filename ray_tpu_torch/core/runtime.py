@@ -17,13 +17,22 @@ restarted without waiting for a call, and the memory monitor kills a
 busy pooled worker when host memory runs short (`health.py`); both start
 with the runtime, and `shutdown()` joins them and stops the pool.
 
+Cluster mode (`core/cluster.py`): `head=True` makes this process a
+cluster head (its GCS served over RPC, `gcs_port`), `address=...` joins
+one as a node; `cluster_token` authenticates every connection. Tasks then
+place on any node (remote ones over RPC), actors may live on node agents
+(a proxy handle here), and an ObjectRef crossing processes carries its
+owner's address so the receiver borrows it (`_rebind_cluster_ref`).
+`shutdown()` leaves the cluster and joins every thread it started.
+
 What the JAX runtime also does and the port does not yet — each raises
 NotImplementedError naming its ROADMAP item where a caller can ask for
-it: cluster mode (`init(head=True)` / `init(address=...)`: the GCS served
-over RPC, remote node agents, object transfer; `profile_capture` then
-fans out to node agents, here one local capture covers every selected
-logical node, as JAX's in-process runtime does), GCS snapshots and the
-WAL, chaos injection, jobs and `preempt_node`.
+it: GCS snapshots, the WAL and a restarted head's reconciliation (A6b,
+head restart), placement-group rescheduling (A6b, placement groups across
+nodes), chaos injection and `preempt_node` (A6b, preemption and chaos),
+jobs (A6b) and `profile_capture`'s fan-out to node agents (A6b,
+federation: here one local capture covers every selected logical node,
+as JAX's in-process runtime does).
 """
 
 from __future__ import annotations
@@ -42,7 +51,8 @@ from .resources import ResourceDict, default_node_resources
 from .scheduler import ClusterScheduler, Node, PlacementGroup, TaskSpec
 from .streaming import ObjectRefGenerator
 
-_CLUSTER_TODO = "ROADMAP A6 (cluster mode: core/cluster.py, rpc, gcs_service, object_transfer)"
+_PG_TODO = "ROADMAP A6b (placement groups across nodes)"
+_PREEMPT_TODO = "ROADMAP A6b (preemption and chaos)"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -88,12 +98,52 @@ class ObjectRef:
         return f"ObjectRef({self.object_id.hex()})"
 
     def __reduce__(self):
+        # In a cluster the ref carries its OWNER's node address, so the
+        # receiving process becomes a registered BORROWER: it pins the
+        # value at the owner until its copy of the ref dies.
+        ctx = getattr(self._runtime, "cluster", None)
+        if ctx is not None:
+            from .object_store import Tier
+
+            entry = self._runtime.object_store.entry(self.object_id)
+            owner = (entry.owner_addr if entry is not None and entry.owner_addr
+                     else ctx.address)  # a borrowed ref chains to its owner
+            # arg locality: when the value lives on ANOTHER node (a REMOTE
+            # placeholder), ship that location so the receiver pulls
+            # peer-to-peer instead of through the owner
+            location = None
+            if entry is not None and entry.tier == Tier.REMOTE and isinstance(entry.value, str):
+                location = entry.value
+            return (_rebind_cluster_ref, (self.object_id.hex(), owner, location))
         return (_rebind_object_ref, (self.object_id.hex(),))
 
 
 def _rebind_object_ref(hex_id: str) -> "ObjectRef":
     rt = get_runtime()
     return ObjectRef(ObjectID(hex_id), rt)
+
+
+def _rebind_cluster_ref(hex_id: str, owner_addr: str,
+                        location: "Optional[str]" = None) -> "ObjectRef":
+    rt = get_runtime()
+    oid = ObjectID(hex_id)
+    ctx = rt.cluster
+    if ctx is not None and owner_addr != ctx.address:
+        store = rt.object_store
+        entry = store.entry(oid)
+        if entry is None:
+            entry = store.create(oid)
+            entry.foreign = True
+        # register the borrow even when a sealed LOCAL copy exists (this
+        # agent holds the task's result): without the pin the owner's last
+        # handle dying would free our copy while this ref lives. One
+        # borrow per (process, object).
+        if entry.owner_addr is None:
+            entry.owner_addr = owner_addr
+            if location and location != ctx.address:
+                entry.fetch_addr = location  # pull from where the bytes ARE
+            ctx.enqueue_borrow(oid, owner_addr)
+    return ObjectRef(oid, rt)
 
 
 class Runtime:
@@ -111,14 +161,13 @@ class Runtime:
         labels: "Optional[Dict[str, str]]" = None,
         head: bool = False,
         address: Optional[str] = None,
+        cluster_token: Optional[str] = None,
+        gcs_port: int = 0,
     ):
         from .config import cfg
 
         if head and address:
             raise ValueError("pass either head=True or address=..., not both")
-        if head or address:
-            raise _not_ported("a multi-process cluster (head=True / address=...)",
-                              _CLUSTER_TODO)
         if object_store_capacity is None:
             object_store_capacity = cfg.object_store_capacity_bytes
         if spill_dir is None:
@@ -166,6 +215,21 @@ class Runtime:
 
         register_runtime_gauges()
         self.profiles = _profiling.ProfileStore()
+        # multi-process cluster membership (core/cluster.py): the head
+        # serves its GCS over RPC; a node joins an existing head. Either way
+        # this process gains a node server and remote dispatch.
+        self.cluster = None
+        if head or address:
+            from .cluster import join_cluster, start_head
+
+            try:
+                if head:
+                    self.cluster = start_head(self, port=gcs_port, token=cluster_token)
+                else:
+                    self.cluster = join_cluster(self, address, token=cluster_token)
+            except BaseException:
+                self.shutdown()
+                raise
 
     # ------------------------------------------------------------------ store
 
@@ -265,6 +329,8 @@ class Runtime:
             from .worker_pool import check_importable
 
             check_importable(func, "a process task's function")
+        local_only = self.cluster is not None and not self._exportable(
+            func, "a task's function", scheduling_strategy)
         task_id = TaskID.of(self.job_id)
         n_static = 0 if streaming else num_returns
         return_ids = [ObjectID.for_task_return(task_id, i) for i in range(n_static)]
@@ -285,6 +351,7 @@ class Runtime:
             streaming=streaming,
             stream_max_backlog=stream_max_backlog,
             locality_hint=locality_hint,
+            local_only=local_only,
         )
         if streaming:
             import weakref
@@ -309,6 +376,26 @@ class Runtime:
             return gen
         refs = [ObjectRef(oid, self) for oid in return_ids]
         return refs[0] if num_returns == 1 else refs
+
+    def _exportable(self, obj, what: str, strategy) -> bool:
+        """Whether a node agent could import `obj` (a task's function or an
+        actor's class: the wire pickles it by reference). One that cannot
+        stays on this process's nodes; pinning it hard to a remote node
+        raises TypeError, naming the rule."""
+        from .scheduler import NodeAffinitySchedulingStrategy
+        from .worker_pool import check_importable
+
+        try:
+            check_importable(obj, what)
+            return True
+        except TypeError as exc:
+            if (isinstance(strategy, NodeAffinitySchedulingStrategy) and not strategy.soft
+                    and any(n.is_remote and n.node_id == strategy.node_id
+                            for n in self.scheduler.nodes())):
+                raise TypeError(
+                    f"{exc} — a node agent imports it by reference, so it cannot be "
+                    f"pinned to remote node {strategy.node_id.hex()[:12]}") from None
+            return False
 
     def cancel(self, ref: ObjectRef) -> bool:
         return self.scheduler.cancel(ref.object_id.task_id())
@@ -345,7 +432,10 @@ class Runtime:
         lifetime: Optional[str] = None,
         executor: str = "thread",
         runtime_env: Any = None,
+        _hosted: bool = False,
     ) -> "ActorHandle":
+        """`_hosted`: a node agent creating an actor for a remote owner
+        (core/cluster.py), which always lives in this process."""
         from . import runtime_env as _renv
 
         if executor not in ("thread", "process"):
@@ -360,6 +450,17 @@ class Runtime:
             from .worker_pool import check_importable
 
             check_importable(cls, "a process actor's class")
+        # cluster placement: NodeAffinity to a remote node, or spillover
+        # when only a remote node can take it — the agent hosts the actor,
+        # this process keeps a proxy (core/cluster.py RemoteActorProxy)
+        if self.cluster is not None and not _hosted:
+            res = dict(resources or {"CPU": 1.0})
+            placed = self.cluster.can_place_actor_remotely(scheduling_strategy, res)
+            if placed is not None and self._exportable(cls, "an actor's class",
+                                                       scheduling_strategy):
+                return self._create_remote_actor(placed, cls, args, kwargs, res, max_restarts,
+                                                 max_concurrency, name, namespace, executor,
+                                                 renv)
         actor_id = ActorID.of(self.job_id)
         handle = ActorHandle(actor_id, self)
         # Reserve the name BEFORE spawning the actor so a duplicate name
@@ -406,6 +507,33 @@ class Runtime:
             self._register_actor_health(actor_id, runtime)
         return handle
 
+    def _create_remote_actor(self, placed, cls, args, kwargs, res, max_restarts,
+                             max_concurrency, name, namespace, executor, renv) -> "ActorHandle":
+        node, pool = placed
+        actor_id, proxy = self.cluster.create_remote_actor(
+            node, cls, args, kwargs, resources=res, max_restarts=max_restarts,
+            max_concurrency=max_concurrency, name=name, namespace=namespace,
+            executor=executor, runtime_env=renv, pool=pool,
+        )
+        handle = ActorHandle(actor_id, self)
+        if name:
+            # reserve the name here too (a duplicate raises without leaking
+            # a live remote actor); proxy.die releases it
+            try:
+                self.gcs.register_named_actor(name, handle, namespace=namespace)
+            except BaseException:
+                self.cluster.kill_remote_actor(proxy)
+                raise
+            proxy.registered_name = name
+            proxy.registered_namespace = namespace
+        return handle
+
+    def _remote_actor_proxy(self, actor_id: ActorID):
+        if self.cluster is None:
+            return None
+        with self.cluster._lock:
+            return self.cluster.remote_actors.get(actor_id)
+
     def _register_actor_health(self, actor_id: ActorID, rt: ActorRuntime) -> None:
         """Probe a process actor's worker, so a killed or crashed worker is
         detected and restarted WITHOUT waiting for the next method call."""
@@ -437,11 +565,23 @@ class Runtime:
             return self._actors[actor_id]
 
     def actor_state(self, actor_id: ActorID) -> ActorState:
+        """State of a local actor or a cluster-hosted one (asked of the
+        hosting agent over RPC)."""
         with self._lock:
             rt = self._actors.get(actor_id)
-        if rt is None:
+        if rt is not None:
+            return rt.state
+        proxy = self._remote_actor_proxy(actor_id)
+        if proxy is None:
             raise KeyError(actor_id)
-        return rt.state
+        if proxy.state == "DEAD":
+            return ActorState.DEAD
+        if proxy.state in ("PENDING", "RESTARTING"):
+            return ActorState(proxy.state)
+        try:
+            return ActorState(proxy.node.client.call("actor_state", actor_id.hex()))
+        except Exception:
+            return ActorState.DEAD
 
     def submit_actor_task(
         self,
@@ -453,6 +593,27 @@ class Runtime:
     ) -> Union[ObjectRef, List[ObjectRef], "ObjectRefGenerator"]:
         from ..util import tracing
 
+        proxy = self._remote_actor_proxy(actor_id)
+        if proxy is not None:
+            if num_returns == "streaming":
+                raise ValueError(
+                    'num_returns="streaming" is not supported on cluster-hosted '
+                    "actors (streams need a live in-process queue)"
+                )
+            r_task_id = TaskID.of(self.job_id)
+            return_ids = [ObjectID.for_task_return(r_task_id, i) for i in range(num_returns)]
+            for oid in return_ids:
+                self.object_store.create(oid)
+            call_span = tracing.tracer().start_span(
+                "actor.call",
+                attrs={"actor": proxy.display_name, "method": method_name,
+                       "task_id": r_task_id.hex(), "remote": True},
+            )
+            self.cluster.submit_remote_actor_call(proxy, method_name, args, kwargs,
+                                                  return_ids, trace_ctx=call_span.context)
+            call_span.end()
+            refs = [ObjectRef(oid, self) for oid in return_ids]
+            return refs[0] if num_returns == 1 else refs
         task_id = TaskID.of(self.job_id)
         streaming = num_returns == "streaming"
         n_static = 0 if streaming else num_returns
@@ -495,6 +656,10 @@ class Runtime:
         }
 
     def kill_actor(self, handle: "ActorHandle", no_restart: bool = True) -> None:
+        proxy = self._remote_actor_proxy(handle._actor_id)
+        if proxy is not None:
+            self.cluster.kill_remote_actor(proxy)
+            return
         rt = self.actor_runtime(handle._actor_id)
         rt.kill(no_restart=no_restart)
         if no_restart and getattr(rt, "registered_name", None):
@@ -504,11 +669,17 @@ class Runtime:
         handle = self.gcs.get_named_actor(name, namespace)
         if handle is not None:
             return handle
+        if self.cluster is not None:
+            # the cluster-wide directory: an actor named by ANY driver on
+            # ANY node resolves to a proxy handle here
+            proxy = self.cluster.lookup_named_actor(name, namespace)
+            if proxy is not None:
+                return ActorHandle(proxy.actor_id, self)
         raise ValueError(f"No actor named {name!r} in namespace {namespace!r}")
 
     def list_actors(self) -> List[Dict[str, Any]]:
         with self._lock:
-            return [
+            out = [
                 {
                     "actor_id": aid.hex(),
                     "name": rt.name,
@@ -517,14 +688,25 @@ class Runtime:
                 }
                 for aid, rt in self._actors.items()
             ]
+        if self.cluster is not None:
+            with self.cluster._lock:
+                proxies = list(self.cluster.remote_actors.items())
+            for aid, proxy in proxies:
+                out.append({
+                    "actor_id": aid.hex(),
+                    "name": proxy.display_name,
+                    "state": proxy.state,
+                    "restarts": proxy.restarts_used,
+                    "node": proxy.node.node_id.hex() if proxy.node else None,
+                })
+        return out
 
     # ------------------------------------------------------------- placement
 
     def create_placement_group(self, bundles, strategy="PACK", name="",
                                max_reschedules=None) -> PlacementGroup:
         if max_reschedules is not None:
-            raise _not_ported("placement-group rescheduling (max_reschedules)",
-                              _CLUSTER_TODO)
+            raise _not_ported("placement-group rescheduling (max_reschedules)", _PG_TODO)
         return self.scheduler.create_placement_group(bundles, strategy, name)
 
     def remove_placement_group(self, pg: PlacementGroup) -> None:
@@ -567,7 +749,7 @@ class Runtime:
         reach it. The logical nodes share this process, so one local
         capture covers every selected node (the non-head entries
         reference the head's artifacts), as in JAX's in-process branch;
-        the fan-out to node agents comes with clusters (ROADMAP A6)."""
+        the fan-out to node agents comes with ROADMAP A6b (federation)."""
         import os as _os
 
         from ..util import profiling as _profiling
@@ -614,13 +796,21 @@ class Runtime:
 
     def preempt_node(self, node: Node, warning_s: Optional[float] = None,
                      reason: str = "preempted") -> None:
-        raise _not_ported("preempt_node", "ROADMAP A6 (chaos and node preemption)")
+        raise _not_ported("preempt_node", _PREEMPT_TODO)
 
     def shutdown(self) -> None:
         """Stop the health manager and the memory monitor (joining their
         threads), kill every actor and join its thread, stop the scheduler
         and join its dispatch and task threads, then stop the worker pool
-        and unmap the object store's arena."""
+        and unmap the object store's arena. A cluster member first leaves
+        the cluster (`ClusterContext.stop`, which joins its threads) and a
+        head stops serving its GCS."""
+        cluster, self.cluster = getattr(self, "cluster", None), None
+        if cluster is not None:
+            cluster.stop()
+            gcs_server = getattr(cluster, "gcs_server", None)
+            if gcs_server is not None:
+                gcs_server.stop()
         self.health.stop()
         self.memory_monitor.stop()
         with self._lock:
@@ -743,10 +933,16 @@ def is_initialized() -> bool:
 
 
 def head_outage_s() -> float:
-    """Seconds the control store's head has been unreachable from this
-    process: always 0.0 in one process, where the store is in memory
-    (JAX's answer without a cluster)."""
-    return 0.0
+    """Seconds the GCS head has been unreachable from this process (0.0 =
+    reachable, no cluster, or no runtime). Control loops key their
+    degraded-mode behavior off this probe."""
+    cluster = getattr(_global_runtime, "cluster", None)
+    if cluster is None:
+        return 0.0
+    try:
+        return cluster.gcs.outage_s()
+    except Exception:  # noqa: BLE001 - a liveness probe must never throw
+        return 0.0
 
 
 def shutdown_runtime() -> None:

@@ -19,10 +19,23 @@ blocks while its consumer lags that many items behind. A task with
 (`worker_pool.execute_process_task`); its thread holds the task's
 resources while the worker runs it.
 
-The JAX package also dispatches to remote node agents over RPC (with a
-two-phase bundle reservation there), reschedules a placement group whose
-bundle host died, drains preempted nodes and queues infeasible demand
-for an autoscaler; those come with clusters and the capacity plane.
+In a cluster (`core/cluster.py`) the scheduler also holds a
+`RemoteNode` per joined node agent: a task placed there goes to the
+`remote_dispatcher` hook, which ships it over RPC, and completes through
+`finish_remote` (or is bounced back by a full agent, `requeue_remote`).
+A dead node's tasks resubmit under `cfg.system_failure_retries`
+(`handle_node_death`), budgeted apart from `max_retries`. The default
+policy prefers a feasible node already holding a task's large remote
+arguments (argument locality). A task whose function a peer could not
+import (`worker_pool.check_importable`: the port pickles by reference) is
+`local_only`: feasible only on this process's nodes.
+
+The JAX package also reserves placement-group bundles at agents (a
+two-phase commit), reschedules a group whose bundle host died, drains
+preempted nodes and queues infeasible demand for an autoscaler: a group
+that would place a bundle on a remote node raises NotImplementedError
+naming ROADMAP A6b (placement groups across nodes), and the rest comes
+with A6b and the capacity plane.
 """
 
 from __future__ import annotations
@@ -48,6 +61,8 @@ from .ids import NodeID, ObjectID, PlacementGroupID, TaskID
 from .resources import ResourceDict, ResourceSet
 
 logger = logging.getLogger("ray_tpu_torch")
+
+PG_ACROSS_NODES_ITEM = "ROADMAP A6b (placement groups across nodes)"
 
 
 # --------------------------------------------------------------------------- spec
@@ -123,8 +138,16 @@ class TaskSpec:
     # (data plane schedules map tasks next to their input block); never a
     # hard filter — a dead or saturated hinted node must not strand work
     locality_hint: Optional[NodeID] = None
+    # a function a peer cannot import (check_importable): this process's
+    # nodes only
+    local_only: bool = False
     # internal
     attempt: int = 0
+    # resubmits caused by node death (budgeted separately from user
+    # max_retries: cfg.system_failure_retries)
+    system_attempts: int = 0
+    # times an agent bounced this dispatch ("busy"): drives requeue backoff
+    bounces: int = 0
     cancelled: bool = False
     submitted_at: float = field(default_factory=time.monotonic)
     # observability (filled by the task runner)
@@ -148,6 +171,8 @@ class TaskSpec:
 
 class Node:
     """A logical host with its own resource pool."""
+
+    is_remote = False
 
     def __init__(self, node_id: NodeID, resources: ResourceDict, is_head: bool = False,
                  labels: Optional[Dict[str, str]] = None):
@@ -173,6 +198,32 @@ class Node:
 
     def __repr__(self):
         return f"Node({self.node_id.hex()[:8]}, head={self.is_head})"
+
+
+class RemoteNode(Node):
+    """A node whose executor lives in another OS process (a joined node
+    agent, core/cluster.py). Tasks dispatched here go over RPC to the
+    agent at `agent_addr`; results arrive by push or stay remote and are
+    pulled on get().
+
+    The resource view is optimistic: this process accounts its own
+    dispatches against the node's registered totals; the agent admits
+    against its own ledger and bounces what it cannot queue."""
+
+    is_remote = True
+
+    def __init__(self, node_id: NodeID, resources: ResourceDict, agent_addr: str,
+                 token: Optional[str] = None, labels: Optional[Dict[str, str]] = None):
+        super().__init__(node_id, resources, is_head=False, labels=labels)
+        self.agent_addr = agent_addr
+        from .rpc import RpcClient
+
+        # execute_task returns "accepted" immediately; the timeout bounds
+        # the dispatch round-trip, not the task's duration
+        self.client = RpcClient(agent_addr, timeout=30.0, retries=0, token=token)
+
+    def __repr__(self):
+        return f"RemoteNode({self.node_id.hex()[:8]}, {self.agent_addr})"
 
 
 # ------------------------------------------------------------------ placement grp
@@ -311,7 +362,11 @@ class ClusterScheduler:
             target=self._dispatch_loop, name="ray_tpu_torch-scheduler", daemon=True
         )
         self._dispatch_thread.start()
-        self.stats = {"dispatched": 0, "retries": 0}
+        self.stats = {"dispatched": 0, "retries": 0, "spillbacks": 0}
+        # Cluster hook (core/cluster.py): callable(spec, node, pool) that
+        # ships a task to a RemoteNode's agent. Never raises — completion
+        # (dispatch failure included) flows back through finish_remote.
+        self.remote_dispatcher: Optional[Callable] = None
         # task execution threads: dedicated per running task (blocking
         # get() can never deadlock) but REUSED across tasks
         self._task_threads = _ReusableThreadPool()
@@ -431,6 +486,12 @@ class ClusterScheduler:
                     f"{strategy} on nodes "
                     f"{[n.resources.total for n in self._nodes.values()]}"
                 )
+            if any(node.is_remote for node in placement):
+                raise NotImplementedError(
+                    f"placement group {list(bundles)} ({strategy}) would reserve a "
+                    f"bundle on a remote node agent: the two-phase reservation at "
+                    f"agents is not ported to ray_tpu_torch yet: {PG_ACROSS_NODES_ITEM}"
+                )
             for bundle, node in zip(pg.bundles, placement):
                 if not node.resources.try_acquire(bundle.resources):
                     # the plan counted every bundle against availability
@@ -545,9 +606,21 @@ class ClusterScheduler:
             with self._lock:
                 self._pending.extendleft(reversed(deferred))
 
+    def _remotable(self, spec: TaskSpec) -> bool:
+        """Whether a node agent may run this task: not a function a peer
+        cannot import, not a streaming task on the process executor (a
+        generator cannot cross the worker pipe either), and only with a
+        cluster attached."""
+        return (
+            not spec.local_only
+            and not (spec.streaming and spec.executor == "process")
+            and self.remote_dispatcher is not None
+        )
+
     def _try_dispatch(self, spec: TaskSpec) -> bool:
         target: Optional[Node] = None
         pool: Optional[ResourceSet] = None
+        remotable = self._remotable(spec)
 
         strategy = spec.scheduling_strategy
         if isinstance(strategy, PlacementGroupSchedulingStrategy):
@@ -563,6 +636,17 @@ class ClusterScheduler:
         elif isinstance(strategy, NodeAffinitySchedulingStrategy):
             with self._lock:
                 node = self._nodes.get(strategy.node_id)
+            if node is not None and node.is_remote and not remotable:
+                if not strategy.soft:
+                    self._fail_returns(
+                        spec,
+                        OutOfResourcesError(
+                            f"Task {spec.name} (local-only or streaming on the process "
+                            f"executor) cannot run on remote node {strategy.node_id}"
+                        ),
+                    )
+                    return True
+                node = None  # soft affinity: fall back to a local node
             if node is None or not node.alive:
                 if not strategy.soft:
                     self._fail_returns(
@@ -628,9 +712,17 @@ class ClusterScheduler:
         self.stats["dispatched"] += 1
         with target._lock:
             target.running_tasks[spec.task_id] = spec
-        self._task_threads.submit(
-            lambda s=spec, t=target, p=pool: self._run_task(s, t, p)
-        )
+        if target.is_remote:
+            # the dispatcher thread covers only the (bounded) dispatch RPC;
+            # completion arrives through finish_remote when the agent
+            # reports task_done
+            self._task_threads.submit(
+                lambda s=spec, t=target, p=pool: self.remote_dispatcher(s, t, p)
+            )
+        else:
+            self._task_threads.submit(
+                lambda s=spec, t=target, p=pool: self._run_task(s, t, p)
+            )
         return True
 
     # Hybrid policy randomizes among this many top candidates so a burst
@@ -638,12 +730,15 @@ class ClusterScheduler:
     HYBRID_TOP_K = 2
 
     def _eligible_nodes(self, spec: TaskSpec) -> List[Node]:
-        """Every placement filter EXCEPT current availability: alive and
-        hard label match — the one definition both _pick_node and the
-        fail-fast infeasibility check must agree on. Soft labels are a
-        PREFERENCE applied over currently-feasible nodes in _pick_node,
-        never a filter here."""
-        nodes = [n for n in self.nodes() if n.placeable()]
+        """Every placement filter EXCEPT current availability: alive,
+        remotable (local-only tasks stay on this process's nodes) and hard
+        label match — the one definition both _pick_node and the fail-fast
+        infeasibility check must agree on. Soft labels are a PREFERENCE
+        applied over currently-feasible nodes in _pick_node, never a
+        filter here."""
+        remotable = self._remotable(spec)
+        nodes = [n for n in self.nodes()
+                 if n.placeable() and (remotable or not n.is_remote)]
         strategy = spec.scheduling_strategy
         if isinstance(strategy, NodeLabelSchedulingStrategy):
             nodes = [
@@ -651,6 +746,25 @@ class ClusterScheduler:
                 if NodeLabelSchedulingStrategy._matches(n.labels, strategy.hard)
             ]
         return nodes
+
+    def _arg_locality(self, spec: TaskSpec, nodes: List[Node]) -> Dict[NodeID, int]:
+        """Bytes of the task's REMOTE-located args per candidate node: the
+        policy pulls toward nodes already holding large dependencies."""
+        from .object_store import Tier
+        from .runtime import ObjectRef
+
+        scores: Dict[NodeID, int] = {}
+        for value in itertools.chain(spec.args, spec.kwargs.values()):
+            if not isinstance(value, ObjectRef):
+                continue
+            entry = self._store.entry(value.object_id)
+            if (entry is None or entry.tier != Tier.REMOTE
+                    or not isinstance(entry.value, str)):
+                continue
+            for node in nodes:
+                if getattr(node, "agent_addr", None) == entry.value:
+                    scores[node.node_id] = scores.get(node.node_id, 0) + max(entry.nbytes, 1)
+        return scores
 
     def _pick_node(self, spec: TaskSpec) -> Optional[Node]:
         import random
@@ -671,8 +785,14 @@ class ClusterScheduler:
             feasible = preferred or feasible
         if strategy == "SPREAD":
             return min(feasible, key=lambda n: n.utilization())
-        # Explicit locality hint (data-plane block affinity): honor it
-        # whenever the hinted node is feasible right now.
+        # Arg locality first: a feasible node already holding the task's
+        # large remote args wins (the pull it saves usually dwarfs any
+        # packing gain).
+        locality = self._arg_locality(spec, feasible)
+        if locality:
+            return max(feasible, key=lambda n: locality.get(n.node_id, 0))
+        # Explicit locality hint next (data-plane block affinity): honor
+        # it whenever the hinted node is feasible right now.
         if spec.locality_hint is not None:
             for n in feasible:
                 if n.node_id == spec.locality_hint:
@@ -749,10 +869,27 @@ class ClusterScheduler:
         self._complete(spec, error, error_tb)
 
     def _complete(self, spec: TaskSpec, error: Optional[BaseException],
-                  error_tb: str = "") -> None:
-        """Completion tail: retry bookkeeping, return sealing on failure,
-        task-done event."""
+                  error_tb: str = "", system_failure: bool = False) -> None:
+        """Completion tail for local and remote execution: retry
+        bookkeeping, return sealing on failure, task-done event."""
         if error is not None:
+            if system_failure:
+                # the executing node died — not the task's fault; budgeted
+                # apart from user retries
+                from .config import cfg
+
+                if spec.system_attempts < cfg.system_failure_retries and not spec.cancelled:
+                    spec.system_attempts += 1
+                    self.stats["retries"] += 1
+                    logger.warning("resubmitting task %s after node failure (%d): %s",
+                                   spec.name, spec.system_attempts, error)
+                    self.submit(spec)
+                    return
+                self._fail_returns(spec, error)
+                spec.end_ts = time.time()
+                self._on_task_done(spec, error)
+                self._wake.set()
+                return
             retriable = spec.attempt < spec.max_retries and (
                 spec.retry_exceptions is True
                 or (isinstance(spec.retry_exceptions, (list, tuple))
@@ -768,6 +905,60 @@ class ClusterScheduler:
         spec.end_ts = time.time()
         self._on_task_done(spec, error)
         self._wake.set()
+
+    def requeue_remote(self, spec: TaskSpec, node: Node, pool: ResourceSet) -> None:
+        """An agent bounced a dispatched task ("busy": its own ledger is
+        full and its admission queue overflowed — another driver is
+        saturating it). Not a failure and not a retry: release the
+        owner-side reservation and resubmit after a backoff that grows per
+        bounce, so a stale view cannot turn into a hot dispatch/bounce
+        loop."""
+        pool.release(spec.resources)
+        with node._lock:
+            node.running_tasks.pop(spec.task_id, None)
+        self.stats["spillbacks"] += 1
+        delay = min(0.2 * (2 ** min(spec.bounces, 4)), 2.0)
+        spec.bounces += 1
+        timer = threading.Timer(delay, lambda: self.submit(spec))
+        timer.daemon = True
+        timer.start()
+
+    def finish_remote(self, spec: TaskSpec, node: Node, pool: ResourceSet,
+                      error: Optional[BaseException] = None, error_tb: str = "",
+                      system_failure: bool = False,
+                      before_complete: Optional[Callable[[], None]] = None) -> None:
+        """Completion of a remotely dispatched task (the agent reported
+        task_done, or its node died): release the reservation on the
+        node's view, run `before_complete` (the cluster seals the returns
+        there, after the release), complete."""
+        pool.release(spec.resources)
+        with node._lock:
+            node.running_tasks.pop(spec.task_id, None)
+        if before_complete is not None:
+            before_complete()
+        self._complete(spec, error, error_tb, system_failure=system_failure)
+
+    def handle_node_death(self, node_hex: str, reason: str,
+                          tasks: Sequence[Tuple[TaskSpec, Node, ResourceSet]]) -> None:
+        """Heartbeat-confirmed node death: drop the node from the view and
+        resubmit every task that was in flight there (`tasks`, the
+        cluster's dispatch records, already claimed so a late task_done
+        reads stale) under the system-failure budget. No placement group
+        holds a bundle there (PG_ACROSS_NODES_ITEM), so none reschedules."""
+        from .worker_pool import WorkerCrashedError
+
+        with self._lock:
+            node = next((n for n in self._nodes.values()
+                         if n.node_id.hex() == node_hex), None)
+        if node is not None:
+            self.remove_node(node.node_id)
+        for spec, on_node, pool in tasks:
+            self.finish_remote(
+                spec, on_node, pool,
+                error=WorkerCrashedError(
+                    f"node {node_hex[:12]} executing task {spec.name} died: {reason}"),
+                system_failure=True,
+            )
 
     def _seal_returns(self, spec: TaskSpec, result: Any) -> None:
         if spec.streaming:

@@ -16,9 +16,9 @@ StreamSplitDataIterator):
   prefetcher thread, so `api.get` overlaps the consumer's compute.
 
 Everything here is orchestration: block bytes stay in the object store
-and pass between tasks by reference. The JAX package's REMOTE tier (a
-block held by another node's agent) comes with clusters (ROADMAP A6);
-here every block is in this process's store.
+and pass between tasks by reference. In a cluster a map task may run on a
+node agent: a large block then stays in that agent's store (the object
+store's REMOTE tier) and is pulled where a reader gets it.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ over target, or the engines' `batch_fill`) clears
 
 Not ported yet: the cluster autoscaler's demand source (`core/capacity`)
 and the freeze of reconciliation under a GCS head outage, which come with
-clusters (ROADMAP A6).
+ROADMAP A6b (capacity; head restart).
 """
 
 from __future__ import annotations

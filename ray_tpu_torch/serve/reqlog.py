@@ -11,8 +11,8 @@ the trace spans, joining the two views.
 The HTTP frontends, the router and both engines mark their phases
 (`serve/llm/engine.py`, `paged_engine.py`); `util/state.py` answers
 `request_timeline` / `list_requests` from this process's ring. The
-federation of each node's tail into the control store comes with clusters
-(ROADMAP A6).
+federation of each node's tail into the control store comes with ROADMAP
+A6b (federation).
 
 Phases are TYPED: every ``mark`` names a phase registered in ``PHASES``,
 so the waterfall renderer and the TTFT decomposition can rely on phase

@@ -14,7 +14,7 @@ deployment's replica set starts the serve SLO monitor when an objective is
 configured (`util/watchdog.ensure_serve_slo_monitor`).
 
 Not ported yet: the degraded mode under a GCS head outage, which comes
-with clusters (ROADMAP A6).
+with ROADMAP A6b (head restart).
 """
 
 from __future__ import annotations

@@ -5,10 +5,10 @@ checkpoint).
 
 Port of `ray_tpu/train/controller.py` for gangs of thread actors in one
 process. JAX's controller also advertises a restarting gang's bundles to
-the capacity plane as pending demand; that source comes with the
-capacity plane and the autoscaler (ROADMAP A6). The preemption pipeline
-below listens on the port's control-store pub/sub, which receives no
-notice in one process until A6 ports `preempt_node`.
+the capacity plane as pending demand; that source comes with ROADMAP A6b
+(capacity). The preemption pipeline below listens on the
+port's control-store pub/sub, which receives no notice until ROADMAP A6b
+(preemption and chaos) ports `preempt_node`.
 
 Preemption pipeline: the controller subscribes to the GCS pubsub's
 PREEMPT_CHANNEL. When a node hosting one of its workers announces
@@ -172,7 +172,7 @@ class TrainController:
         unsubscribe = self._subscribe_preemption()
         # JAX's controller registers the restarting gang's bundles as a
         # capacity-plane demand source here; the capacity plane comes with
-        # the autoscaler (ROADMAP A6)
+        # the autoscaler (ROADMAP A6b (capacity))
         try:
             with tracing.span("train.run", run=self.run_config.name) as run_span:
                 result = self._run_traced(run_span)
@@ -186,7 +186,7 @@ class TrainController:
     def _subscribe_preemption(self) -> Callable[[], None]:
         """Listen for announced node preemptions on the local control
         store's pub/sub (in a cluster, members relay peer announcements
-        into it: ROADMAP A6). No-op when no runtime is initialized (a
+        into it: ROADMAP A6b (preemption and chaos)). No-op when no runtime is initialized (a
         custom group run without one)."""
         from ..core import runtime as rt
 

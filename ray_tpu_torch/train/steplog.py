@@ -14,7 +14,7 @@ deduplicating; ``summarize_steps``, ``skew_matrix``, ``dominant_bucket``
 and ``render_waterfall`` are the derived views. The gang controller
 (`train/controller.py`) ingests each rank's records and feeds the stall
 watchdog's per-rank buckets; the federation into the control plane's
-``_steps`` table waits for clusters (ROADMAP A6).
+``_steps`` table comes with ROADMAP A6b (federation).
 
 Phases are TYPED: every ``mark`` names a phase registered in
 ``STEP_PHASES``; components may register more with

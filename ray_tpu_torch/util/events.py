@@ -3,8 +3,8 @@
 Port of `ray_tpu/util/events.py`: every process keeps an in-memory ring
 PLUS an optional JSONL sink and an optional bounded on-disk segment log
 (`configure_segments`, replayed by `read_segments`). The federation of
-each node's tail into the control plane's `_events` table waits for the
-control plane (ROADMAP A6); `since` is its cursor walk.
+each node's tail into the control plane's `_events` table comes with
+ROADMAP A6b (federation); `since` is its cursor walk.
 
 Events are TYPED: every emit names a ``kind`` registered in
 ``EVENT_KINDS`` (the same catalog as the JAX package's, so the two

@@ -1,7 +1,7 @@
 """In-process log capture: a ring buffer of this process's log lines.
 
 Port of `ray_tpu/util/logs.py` without `cluster_tail`, which reads the
-control plane's node agents (ROADMAP A6). Every captured line carries its
+control plane's node agents (ROADMAP A6b (federation)). Every captured line carries its
 origin: a [node:...] prefix (set once per process) and, inside a
 task/actor execution path, the [task:...]/[actor:...] tag of the
 context-local attribution. Nothing is written to disk unless the user

@@ -6,8 +6,8 @@ runtime's object store and task log), the Prometheus text format, the
 merge of several nodes' expositions under a `node_id` label, and a stdlib
 HTTP endpoint. Without a cluster `/metrics/cluster` serves this process's
 registry labelled with the head node's id ("local" outside a runtime), as
-the JAX package does; the fan-out over node agents comes with clusters
-(ROADMAP A6).
+the JAX package does; the fan-out over node agents comes with ROADMAP
+A6b (federation).
 """
 
 from __future__ import annotations
@@ -341,7 +341,7 @@ def cluster_prometheus_text() -> str:
     """The /metrics/cluster payload without a cluster: this process's
     registry labelled with the head node's id ("local" outside a
     runtime), as JAX's answer without one. The fan-out over node agents
-    comes with clusters (ROADMAP A6)."""
+    comes with ROADMAP A6b (federation)."""
     from ..core import runtime as rt
 
     local_text = registry().prometheus_text()

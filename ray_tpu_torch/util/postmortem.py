@@ -9,7 +9,7 @@ all into one ``.tgz`` whose ``timeline.json`` is the EPISODE
 RECONSTRUCTION: runtime spans and typed events stitched into a single
 wall-clock-aligned Perfetto timeline (slices + instant events +
 cross-lane flow arrows) via the trace_dump merge path. The spans of other
-nodes join the bundle with clusters (ROADMAP A6).
+nodes join the bundle with ROADMAP A6b (federation).
 """
 
 from __future__ import annotations

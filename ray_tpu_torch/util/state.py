@@ -3,12 +3,12 @@ and step forensics, and the chrome-trace timeline.
 
 Port of `ray_tpu/util/state.py` for one process. JAX's queries merge this
 process's rings with every node's federated tail in the control store;
-without a cluster they answer from this process, and so do these (the
-federation comes with clusters, ROADMAP A6). `head_summary` is None (no
+these answer from this process, in a cluster too (the federation comes
+with ROADMAP A6b (federation)). `head_summary` is None (no
 cluster, no durability armed), `cluster_metrics` / `cluster_events` /
 `cluster_logs` answer for the one local node, and `node_stats` carries
 the object store and the profiling status of this process (the node stats
-collector, `core/stats.py`, is ROADMAP A6).
+collector, `core/stats.py`, is ROADMAP A6b (federation)).
 """
 
 from __future__ import annotations
@@ -59,8 +59,8 @@ def list_nodes() -> List[Dict[str, Any]]:
                 "node_id": node.node_id.hex(),
                 "alive": node.alive,
                 "is_head": node.is_head,
-                # one process: nodes never announce a preemption, so no
-                # node is PREEMPTING (ROADMAP A6)
+                # no node announces a preemption yet, so none is
+                # PREEMPTING (ROADMAP A6b (preemption and chaos))
                 "state": "ALIVE" if node.alive else "DEAD",
                 "draining": False,
                 "drain_reason": None,

@@ -13,9 +13,10 @@ Spans land in a per-process ring buffer (capacity
 unsampled context, so a whole request is either fully recorded or free.
 Ending a span derives latency histograms (raytpu_task_queue_seconds,
 raytpu_task_exec_seconds, raytpu_serve_ttft_seconds, ...) in
-`util.metrics`. Export is chrome-trace/Perfetto JSON. The JAX package's
-propagation of the context over the cluster RPC (`inject_context` /
-`extract_context`) comes with multi-node clusters.
+`util.metrics`. Export is chrome-trace/Perfetto JSON. The context also
+crosses the cluster RPC as a `_trace_ctx` kwarg (`core/rpc.py` injects it
+into call frames with `inject_context`, the serving side pops it with
+`extract_context`), so one trace_id spans processes.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ __all__ = [
     "start_span",
     "current_context",
     "use_context",
+    "inject_context",
+    "extract_context",
     "export_chrome_trace",
     "device_annotate",
 ]
@@ -345,6 +348,33 @@ def use_context(ctx: Optional[Dict[str, Any]]) -> Iterator[None]:
         yield
     finally:
         _current.reset(token)
+
+
+# RPC methods that never carry trace context: chunk windows fire dozens
+# of times per transfer (the enclosing transfer.* span already times the
+# whole thing) and heartbeats/polls are pure noise.
+_RPC_SKIP = frozenset({
+    "pull_chunk", "push_chunk", "heartbeat", "ping", "poll_task_done",
+})
+
+
+def inject_context(kwargs: Dict[str, Any], method: str = "") -> Dict[str, Any]:
+    """Client half of the RPC boundary: attach the current span context
+    as a `_trace_ctx` kwarg (only when a sampled span is active — idle
+    control traffic stays zero-overhead)."""
+    ctx = _current.get()
+    if ctx is None or not ctx.get("sampled", True) or method in _RPC_SKIP:
+        return kwargs
+    out = dict(kwargs)
+    out["_trace_ctx"] = ctx
+    return out
+
+
+def extract_context(kwargs: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """Server half: pop the propagated context out of the call kwargs
+    (mutates kwargs so handlers never see the private field)."""
+    ctx = kwargs.pop("_trace_ctx", None)
+    return ctx if isinstance(ctx, dict) and "trace_id" in ctx else None
 
 
 def start_span(name: str, *, parent: Optional[Dict[str, Any]] = None,

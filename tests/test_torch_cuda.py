@@ -1317,3 +1317,40 @@ def test_process_workers_hold_no_cuda_context(cuda):
     finally:
         ray_tpu_torch.shutdown()
     del held
+
+
+@pytest.mark.cuda
+def test_agent_cuda_result_lands_on_the_card_bit_equal(cuda):
+    """A CUDA tensor returned by a task on a node agent lands on this
+    process's card, bit-equal; the agent staged it through the host once
+    (`rpc.stats["cuda_host_copies"]`: one for the one pull) and kept no
+    copy of its own after the owner freed it; no agent outlives its
+    cluster."""
+    import torch_cluster_udfs as C
+    import torch_process_udfs as U
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.scheduler import NodeAffinitySchedulingStrategy
+
+    before = U.live_children()
+    c = Cluster(head_node_args={"num_cpus": 1, "num_gpus": 0})
+    try:
+        handle = c.add_node(num_cpus=2, num_gpus=1)
+        c.wait_for_nodes(2)
+        agent = next(n for n in c.runtime.scheduler.nodes() if n.is_remote)
+        on = NodeAffinitySchedulingStrategy(agent.node_id)
+        copies0 = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(C.wire_stats).options(
+            scheduling_strategy=on).remote(), timeout=120)["cuda_host_copies"]
+        ref = ray_tpu_torch.remote(num_gpus=1)(C.seeded_cuda_bf16).options(
+            scheduling_strategy=on).remote(7, 1 << 22)
+        got = ray_tpu_torch.get(ref, timeout=120)
+        assert got.is_cuda and got.dtype == torch.bfloat16
+        want = C.seeded_cuda_bf16(7, 1 << 22)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        copies = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(C.wire_stats).options(
+            scheduling_strategy=on).remote(), timeout=120)["cuda_host_copies"]
+        assert copies - copies0 == 1, (copies0, copies)
+        assert handle.alive()
+    finally:
+        c.shutdown()
+    assert U.wait_no_children(before) == []

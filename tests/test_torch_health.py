@@ -212,9 +212,17 @@ def test_memory_usage_fraction_reads_meminfo():
 
 
 def test_cluster_probes_raise_naming_a6():
-    with pytest.raises(NotImplementedError, match="A6"):
-        thealth.probe_agent(object())
-    with pytest.raises(NotImplementedError, match="A6"):
+    """probe_agent is ported (cluster mode, ROADMAP A6a): a local node is
+    alive, a remote one whose agent does not answer is not; the SIGTERM
+    preemption handler still raises, naming A6b."""
+    from ray_tpu_torch.core.ids import NodeID
+    from ray_tpu_torch.core.scheduler import Node, RemoteNode
+
+    assert thealth.probe_agent(Node(NodeID.from_random(), {"CPU": 1.0})) is True
+    gone = RemoteNode(NodeID.from_random(), {"CPU": 1.0}, "127.0.0.1:1")
+    gone.client._timeout = 0.5
+    assert thealth.probe_agent(gone) is False
+    with pytest.raises(NotImplementedError, match="A6b"):
         thealth.install_preemption_signal_handler(object())
 
 

@@ -556,9 +556,21 @@ def test_default_init_detects_no_gpu_without_a_card():
 
 
 def test_cluster_and_process_modes_raise_not_implemented():
-    for kwargs in ({"head": True}, {"address": "127.0.0.1:1"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ray_tpu_torch.init(num_cpus=2, **kwargs)
+    # cluster mode is ported (ROADMAP A6a, tests/test_torch_cluster*.py):
+    # both modes at once are refused, and joining a head that does not
+    # answer raises HeadUnavailableError once the client's retry window
+    # closes, leaving no runtime behind
+    from ray_tpu_torch.core.exceptions import HeadUnavailableError
+
+    with pytest.raises(ValueError, match="not both"):
+        ray_tpu_torch.init(num_cpus=2, head=True, address="127.0.0.1:1")
+    with pytest.raises(HeadUnavailableError):
+        ray_tpu_torch.init(num_cpus=2, detect_accelerators=False, address="127.0.0.1:1",
+                           _system_config={"gcs_client_retry_s": 0.3})
+    assert not ray_tpu_torch.is_initialized()
+    from ray_tpu_torch.core.config import cfg
+
+    cfg.reset("gcs_client_retry_s")
     ray_tpu_torch.init(num_cpus=2, detect_accelerators=False)
     try:
         # process executors are ported (ROADMAP A5): a lambda is refused at
@@ -569,7 +581,7 @@ def test_cluster_and_process_modes_raise_not_implemented():
             f.options(executor="process").remote()
         with pytest.raises(ValueError, match="executor='process'"):
             ray_tpu_torch.remote(_Log).options(runtime_env={"env_vars": {"A": "1"}}).remote()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
             ray_tpu_torch.placement_group([{"CPU": 1}], max_reschedules=2)
     finally:
         ray_tpu_torch.shutdown()

@@ -1,0 +1,361 @@
+"""Functions and classes that ray_tpu_torch's node agents import.
+
+    (imported by node agents and by their callers; not run directly)
+
+A cluster ships a task's function and an actor's class to a node agent
+with the standard pickle, by reference (`ray_tpu_torch/core/cluster.py`),
+so they must live in a module the agent can import: this one, at the root
+of the checkout (`cluster_utils.Cluster.add_node` puts the driver's
+`sys.path[0]` on the agent's PYTHONPATH). It imports only the standard
+library and numpy when it loads; what needs the port imports it inside
+the function.
+
+- the CPU tests (`tests/test_torch_cluster.py`,
+  `tests/test_torch_cluster_actors.py`): small functions and actors whose
+  pids, values, errors and restarts the tests compare, and `TinyLLM`, a
+  tiny Llama `LLMServer` hosted on an agent.
+- `chip_smoke.py`'s `cluster` phase: `seeded_bytes` / `seeded_cuda_bf16`
+  (the 1 GiB CPU and 256 MiB CUDA tensors made from a seed on both sides),
+  `Noop` (the call round trip), `wire_stats` and `ClusterLLM`
+  (Llama-3-8B's paged `LLMServer` on the agent's card, its launch counts
+  and the dense check `dense_check_stats`, which `chip_smoke.py`'s own
+  dense check also runs).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+
+# ----------------------------------------------------------------- tasks
+
+
+def pid() -> int:
+    return os.getpid()
+
+
+def hold_pid(seconds: float) -> int:
+    """Hold a CPU for `seconds`, then return this process's pid."""
+    time.sleep(seconds)
+    return os.getpid()
+
+
+def arange_f64(n: int):
+    return np.arange(n, dtype=np.float64)
+
+
+def ones_f32(n: int):
+    return np.ones(n, dtype=np.float32)
+
+
+def total(x) -> float:
+    return float(np.asarray(x).sum())
+
+
+def item(x, i: int) -> float:
+    return float(x[i])
+
+
+def const(value):
+    return value
+
+
+def raise_value_error(message: str):
+    raise ValueError(message)
+
+
+def gen_pid(n: int):
+    for i in range(n):
+        yield (i, os.getpid())
+
+
+def gen_full(n: int, size: int):
+    for i in range(n):
+        yield np.full(size, i, dtype=np.float64)
+
+
+def sum_nested(wrapped) -> float:
+    """`wrapped["ref"]` is an ObjectRef unpickled here: a borrowed
+    reference, fetched from its owner."""
+    import ray_tpu_torch
+
+    return float(ray_tpu_torch.get(wrapped["ref"], timeout=30).sum())
+
+
+def pid_of_arg(arr) -> int:
+    return os.getpid()
+
+
+def flood(log_path: str, hold_s: float) -> int:
+    """Append 'S <ns>' / 'E <ns>' around a hold (O_APPEND atomic writes):
+    the test reads the largest overlap of the intervals."""
+    fd = os.open(log_path, os.O_WRONLY | os.O_APPEND)
+    try:
+        os.write(fd, f"S {time.monotonic_ns()}\n".encode())
+        time.sleep(hold_s)
+        os.write(fd, f"E {time.monotonic_ns()}\n".encode())
+    finally:
+        os.close(fd)
+    return os.getpid()
+
+
+def drip(i: int) -> int:
+    time.sleep(0.15)
+    return i
+
+
+def slow_answer() -> int:
+    time.sleep(1.0)
+    return 41 + 1
+
+
+def agent_stats() -> dict:
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    return dict(get_runtime().cluster.agent_stats)
+
+
+def wire_stats() -> dict:
+    """This process's tensor-reducer counters (`core/rpc.py`)."""
+    from ray_tpu_torch.core import rpc
+
+    return dict(rpc.stats)
+
+
+def seeded_bytes(seed: int, nbytes: int):
+    """A CPU uint8 tensor of `nbytes` bytes from `seed` (numpy's PCG64):
+    the same bytes in every process."""
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, nbytes, dtype=np.uint8))
+
+
+def seeded_cuda_bf16(seed: int, numel: int):
+    """A bf16 tensor on the current CUDA device from `seed` (the device's
+    Philox generator): the same bits on every H100."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(numel, dtype=torch.bfloat16, device="cuda", generator=g)
+
+
+# ---------------------------------------------------------------- actors
+
+
+class Counter:
+    def __init__(self, start: int):
+        self.value = start
+
+    def add(self, n: int) -> int:
+        self.value += n
+        return self.value
+
+    def pid(self) -> int:
+        return os.getpid()
+
+
+class Where:
+    def where(self) -> int:
+        return os.getpid()
+
+
+class Flaky:
+    def boom(self):
+        raise RuntimeError("actor kaboom")
+
+    def slow(self) -> str:
+        time.sleep(5.0)
+        return "done"
+
+
+class Holder:
+    def __init__(self):
+        self.held = None
+
+    def hold(self, wrapped) -> bool:
+        self.held = wrapped["ref"]
+        return True
+
+    def value_sum(self) -> float:
+        import ray_tpu_torch
+
+        return float(ray_tpu_torch.get(self.held, timeout=30).sum())
+
+    def release(self) -> bool:
+        import gc
+
+        self.held = None
+        gc.collect()
+        return True
+
+
+class Survivor:
+    def __init__(self):
+        self.calls = 0
+
+    def bump(self):
+        self.calls += 1
+        return (os.getpid(), self.calls)
+
+
+class Mortal:
+    def ping(self) -> int:
+        return os.getpid()
+
+
+class Slow:
+    def nap(self, seconds: float) -> str:
+        time.sleep(seconds)
+        return "rested"
+
+    def quick(self) -> int:
+        return os.getpid()
+
+
+class Noop:
+    def ping(self) -> None:
+        return None
+
+
+class TinyLLM:
+    """A port `LLMServer` on the CPU of a node agent (`config` a
+    TransformerConfig), on weights passed as a dict of tensors or as
+    {"ref": an ObjectRef to one} (a borrowed reference:
+    the agent pulls it from its owner over the chunked transfer)."""
+
+    def __init__(self, config, params, engine_kwargs: dict):
+        import ray_tpu_torch
+        from ray_tpu_torch.serve.llm import LLMServer, PagedEngineConfig
+
+        if isinstance(params, dict) and "ref" in params:
+            params = ray_tpu_torch.get(params["ref"], timeout=60)
+        self.server = LLMServer(config, params=params,
+                                engine_config=PagedEngineConfig(**engine_kwargs), device="cpu")
+
+    def generate(self, prompts, max_tokens: int):
+        """Greedy tokens of every prompt, submitted together."""
+        streams = [self.server.engine.submit(list(p), max_tokens=max_tokens) for p in prompts]
+        return [s.result(timeout=120) for s in streams]
+
+    def pid(self) -> int:
+        return os.getpid()
+
+    def shutdown(self) -> bool:
+        self.server.shutdown()
+        return True
+
+
+def dense_check_stats(params, config, prompts, outs, picks, tail_gap: float) -> dict:
+    """Teacher-forced dense forward over prompt + generated tokens of the
+    requests `picks`: per position the gap between the dense argmax's
+    logit and the engine token's. Returns worst gap, exact matches,
+    positions, positions over `tail_gap`, and per request its worst gap,
+    where, the row's max logit and its positions over `tail_gap`. The one
+    definition of the dense check: `chip_smoke.py`'s phases and
+    `ClusterLLM` call it."""
+    import torch
+
+    from ray_tpu_torch.models import forward
+
+    device = next(iter(params.values())).device if isinstance(params, dict) else "cuda"
+    worst, exact, total, over_tail, per = 0.0, 0, 0, 0, {}
+    with torch.no_grad():
+        for i in picks:
+            seq = list(prompts[i]) + list(outs[i])
+            tokens = torch.tensor([seq[:-1]], device=device)
+            logits = forward(params, tokens, config)[0].float()
+            if not torch.isfinite(logits).all():
+                raise AssertionError("non-finite dense logits")
+            rows = logits[len(prompts[i]) - 1:]
+            chosen = torch.tensor(outs[i], device=device)
+            top = rows.max(dim=-1).values
+            gap = top - rows.gather(1, chosen[:, None])[:, 0]
+            hit = rows.argmax(dim=-1) == chosen
+            worst = max(worst, gap.max().item())
+            exact += int(hit.sum())
+            total += len(outs[i])
+            over = int((gap > tail_gap).sum())
+            over_tail += over
+            at = int(gap.argmax())
+            per[i] = (gap[at].item(), at, top[at].item(), over)
+    return dict(worst=worst, exact=exact, total=total, over_tail=over_tail, per=per)
+
+
+class ClusterLLM:
+    """`chip_smoke.py`'s cluster phase, hosted on a node agent's card:
+    Llama-3-8B's paged `LLMServer` (bf16 weights from `seed`, every pass
+    captured up front), the serve phase's requests submitted together,
+    and the dense check on this node, where the weights are."""
+
+    def __init__(self, model: str, seed: int, max_slots: int):
+        import torch
+
+        from ray_tpu_torch.models import get_config
+        from ray_tpu_torch.serve.llm import LLMServer, PagedConfig, PagedEngineConfig
+
+        t0 = time.perf_counter()
+        self.config = get_config(model).replace(param_dtype=torch.bfloat16)
+        self.server = LLMServer(
+            self.config, engine_config=PagedEngineConfig(max_slots=max_slots, precompile=True,
+                                                         paged=PagedConfig()),
+            seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+
+    def info(self) -> dict:
+        import torch
+
+        return dict(pid=os.getpid(), build_s=self.build_s,
+                    device=torch.cuda.get_device_name(torch.cuda.current_device()),
+                    allocated=torch.cuda.memory_allocated(),
+                    captures=len(self.server.engine.passes()))
+
+    def serve(self, prompts, max_tokens: int, tail_gap: float, picks) -> dict:
+        """Counts to 0, the requests submitted together (one thread per
+        stream), counts read; then the dense check. Returns the tokens,
+        the decode rate and the launches of the ragged kernel (through its
+        wrapper + graph replays x captured) and of the flash forward (the
+        dense check, through its wrapper)."""
+        import threading
+
+        from ray_tpu_torch.ops import FLASH_FWD, KERNELS, RAGGED
+
+        engine = self.server.engine
+        engine.generate([1] * 64, 2)  # warm: the eager sampler, the pinned allocator
+        for k in KERNELS:
+            k.launches = 0
+        before = engine.stats()
+        stamps = [[] for _ in prompts]
+        t_start = time.perf_counter()
+        streams = [engine.submit(list(p), max_tokens=max_tokens) for p in prompts]
+
+        def consume(i):
+            for token in streams[i]:
+                stamps[i].append((time.perf_counter(), token))
+
+        threads = [threading.Thread(target=consume, args=(i,)) for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t_start
+        after = engine.stats()
+        outs = [[tok for _, tok in st] for st in stamps]
+        ragged = RAGGED.launches + int(after.get(f"launches.{RAGGED.name}", 0)
+                                       - before.get(f"launches.{RAGGED.name}", 0))
+        first = min(st[0][0] for st in stamps)
+        last = max(st[-1][0] for st in stamps)
+        decode = sum(len(st) - 1 for st in stamps) / (last - first)
+        flash_before = FLASH_FWD.launches
+        t0 = time.perf_counter()
+        check = dense_check_stats(engine.params, self.config, prompts, outs, picks, tail_gap)
+        return dict(outs=outs, wall_s=wall, decode_tok_s=decode, check=check,
+                    check_s=time.perf_counter() - t0,
+                    launches={RAGGED.name: ragged, FLASH_FWD.name: FLASH_FWD.launches - flash_before})
+
+    def shutdown(self) -> bool:
+        self.server.shutdown()
+        return True
