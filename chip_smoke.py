@@ -113,9 +113,10 @@ nonzero and no result line is printed):
              and free the replicas' caches.
    observe — Serve's observability plane on the serve phase's engine and
              weights: the 8 requests with the request log and tracing on,
-             then off, alternated 3 + 3 (wall, TTFT p50, decode rate, a
-             profiled repeat's idle share; the median wall ratio on / off
-             held to OBSERVE_WALL_BOUND); each request's
+             then off, alternated 5 + 5 in on, off, off, on order (wall,
+             TTFT p50, decode rate, a profiled repeat's idle share; the
+             median of the 5 adjacent pairs' wall ratios on / off held to
+             OBSERVE_WALL_BOUND); each request's
              state.request_timeline() in order (submitted, admitted,
              prefill chunks, decode blocks at dispatch, first_token and
              finished at emission) with times that never go back, all in
@@ -286,6 +287,39 @@ nonzero and no result line is printed):
              per rank and mode; a rank that hangs past the phase's timeout
              fails it. Two ranks on one card measure correctness and the
              sync's cost over this transport, not scaling.
+   gang    — a training gang hosted by the cluster (A6b) that survives a
+             preemption and a node kill: this process is the head
+             (num_gpus=0), 4 node agents share the card (2 CPUs, 1 GPU and
+             {"gang": 1} each, heartbeat 0.2 s, staleness 2 s, a 15 s
+             preemption window, each armed with RAY_TPU_CHAOS
+             "kill_node=1,name_filter=chaos-kill,max_injections=1"). A
+             STRICT_SPREAD group of 2 bundles {CPU 1, GPU 1, gang 1}
+             (max_reschedules=2) is shared by the attempts of a
+             TrainController over ClusterWorkerGroup(2) (gloo, the
+             process-group timeout 120 s, FailureConfig(max_failures=1)),
+             each rank a process actor on its bundle's agent running
+             torch_cluster_udfs.gang_lm: the dp phase's f32 rank program
+             (GPT-2 124M, the same 8 x 1025 batch, 10 steps, its optimizer),
+             a checkpoint every 2 steps, a 1 s pause after each step so the
+             drills land mid-run. (a) the bundles on two agents, each rank
+             a child of its bundle's agent, the time to form the gang;
+             (b) after two steps, SIGTERM to rank 1's agent: the head's
+             scheduler marks it draining, the controller takes an
+             emergency checkpoint inside the window and restarts the gang
+             off the node once its bundle has moved (num_preempt_restarts
+             1, num_restarts 0), the first resumed step the checkpoint's +
+             1; (c) a task named chaos-kill pinned to rank 0's agent kills
+             it: the group goes RESCHEDULING, then RESERVED on the last
+             spare agent, the gang re-forms and resumes after the latest
+             checkpoint (num_restarts 1); (d) step 0 within 1e-3 of the dp
+             phase's one-process reference, every step (undisturbed and
+             resumed) within 1e-5 of the dp phase's f32 losses, the run
+             FINISHED, K1 and K2 launched by both ranks; (e) no agent and
+             no member left in the process table or among the card's
+             compute apps after Cluster.shutdown(). The time from the
+             signal to the resumed first step, from the kill to RESERVED
+             and to the resumed first step, and the group's state
+             transitions are printed; a failure prints the agents' logs.
 10. fsdp_tp — FSDP and tensor-parallel training over gloo ranks that
              share the card (torch_fsdp_tp_rank.py), each mode against the
              same steps in this process on the whole batch from the same
@@ -348,7 +382,8 @@ paths (serve: phases 4-5; spec; dense; overload; deploy; observe; tp_serve: the
 tp engines' runs and the checks' dense forwards; cluster: the agent's serve
 run and dense check, counted in the agent; train: phase 6;
 trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; process:
-the process phase's (a) and (b); dp: phase 9's ranks, all modes; fsdp_tp: phase 10's ranks, all modes, also
+the process phase's (a) and (b); dp: phase 9's ranks, all modes; gang: the
+gang phase's ranks over its three attempts; fsdp_tp: phase 10's ranks, all modes, also
 split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16;
 a7: phase 11's ranks and ViT, also split by part as a7_launches_by_part;
 each counted from zero just before it, profiled repeats, first calls
@@ -366,6 +401,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -885,6 +921,11 @@ def _device_kernels(fn) -> list:
     return [_ragged_name(e.name) for e in sorted(kernels, key=lambda e: e.time_range.start)]
 
 
+def _device_events(prof) -> list:
+    """A profile's raw Kineto events on the card (kernels and copies)."""
+    return [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+
+
 def _ragged_name(name: str) -> str:
     """`ragged_wgmma<128,true>` from a profiler event's kernel name,
     demangled or mangled."""
@@ -1119,13 +1160,6 @@ def _stats_delta(engine, before: dict) -> dict:
     return {k: v - before.get(k, 0.0) for k, v in engine.stats().items()}
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def _profiled_ragged_kernels(engine, run) -> tuple:
     """The ragged device kernels of one more run of the same requests, by
     name, read from torch.profiler, the engine's own count for that run
@@ -1135,24 +1169,26 @@ def _profiled_ragged_kernels(engine, run) -> tuple:
     run only the accept step sorts)."""
     before = engine.stats()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counted = _stats_delta(engine, before)
     seen: dict = {}
-    busy_us = sort_us = 0.0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        busy_us += _device_us(e)
-        if "sort" in e.key.lower():
-            sort_us += _device_us(e)
-        if "ragged" in e.key:
-            name = _ragged_name(e.key)
-            seen[name] = seen.get(name, 0) + e.count
-    return seen, counted, dict(wall_s=wall, busy_s=busy_us / 1e6, sort_s=sort_us / 1e6)
+    busy_ns = sort_ns = 0
+    # the raw Kineto events, one per kernel or copy (key_averages() first
+    # parses them all into FunctionEvents, seconds for a run's tens of
+    # thousands of graph kernels)
+    for e in _device_events(prof):
+        busy_ns += e.duration_ns()
+        name = e.name()
+        if "sort" in name.lower():
+            sort_ns += e.duration_ns()
+        if "ragged" in name:
+            name = _ragged_name(name)
+            seen[name] = seen.get(name, 0) + 1
+    return seen, counted, dict(wall_s=wall, busy_s=busy_ns / 1e9, sort_s=sort_ns / 1e9)
 
 
 def _hold_ragged_against_profiler(phase, engine, prompts, run=None, times_out=None) -> dict:
@@ -1638,16 +1674,14 @@ def phase_dense(server, config, prompts, serve_outs) -> dict:
     # a profiled repeat: torch.profiler's flash kernels against the engine's count
     before = engine.stats()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tp = time.perf_counter()
         _serve_run(engine, prompts)
         torch.cuda.synchronize()
         pwall = time.perf_counter() - tp
     prof_stats = _stats_delta(engine, before)
-    seen = sum(e.count for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA and "flash_fwd" in e.key)
-    busy = sum(_device_us(e) for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e6
+    seen = sum("flash_fwd" in e.name() for e in _device_events(prof))
+    busy = _busy_s(prof)
     want = int(prof_stats["prefills"]) * config.n_layers
     log("dense", f"profiled repeat: flash forward device kernels from torch.profiler {seen}, "
         f"the engine's count (prefills x layers) {want}; wall {pwall:.4f} s, device busy "
@@ -2275,8 +2309,10 @@ def phase_deploy(server, config, prompts, serve_outs, direct) -> dict:
 
 # --------------------------------------------------------------- observe
 
-OBSERVE_RUNS = 3  # marks on / off runs each, alternated on, off, off, on, on, off
-OBSERVE_WALL_BOUND = 1.05  # median wall with marks over without
+OBSERVE_RUNS = 5  # marks on / off runs each, in on, off, off, on order: 5 adjacent
+# (on, off) pairs, so a drift of the host's speed across the runs moves both runs of a
+# pair, and a run's random ~0.15 s start stall distorts only the pairs it falls in
+OBSERVE_WALL_BOUND = 1.05  # median over the pairs of the wall with marks over without
 OBSERVE_TIGHT_SLO_S = 0.001  # the TTFT objective every request violates
 OBSERVE_LOOSE_SLO_S = 60.0  # the one no request violates
 OBSERVE_CHECK_PERIOD_S = 0.2  # the SLO monitor's check period in the phase
@@ -2348,18 +2384,20 @@ def _idle_share_of_repeat(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA) / 1e9
+    busy = _busy_s(prof)
     return dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall)
 
 
 def _observe_marks_cost(engine, prompts, path) -> None:
     """The serve phase's 8 requests on the serve engine with the request
-    log and tracing on, then off, alternated: per run wall, TTFT p50,
-    decode tok/s and a profiled repeat's idle share; the median wall ratio
-    of on over off is held to OBSERVE_WALL_BOUND."""
+    log and tracing on, then off, OBSERVE_RUNS each in on, off, off, on
+    order: per run wall, TTFT p50, decode tok/s and a profiled repeat's
+    idle share; each adjacent pair's wall ratio of on over off, and their
+    median held to OBSERVE_WALL_BOUND."""
     walls = {True: [], False: []}
-    for on in (True, False, False, True, True, False):
+    runs = []  # (on, wall) in run order
+    for i in range(2 * OBSERVE_RUNS):
+        on = i % 4 in (0, 3)
         _marks_on(on)
         # a full collection between runs, so no run pays for the garbage of
         # the last repeat's ~80 000 profiler records
@@ -2371,16 +2409,21 @@ def _observe_marks_cost(engine, prompts, path) -> None:
         gc.collect()
         times = _idle_share_of_repeat(lambda: _serve_run(engine, prompts))
         walls[on].append(wall)
+        runs.append((on, wall))
         log("observe", f"marks {'on ' if on else 'off'}: wall {wall:.4f} s, TTFT p50 "
             f"{r['ttft_p50_s']:.4f} s, decode {r['decode_tok_s']:.1f} tok/s; profiled repeat: "
             f"wall {times['wall_s']:.4f} s, busy {times['busy_s']:.4f} s, idle share "
             f"{times['idle_share']:.4f}")
     _marks_on(True)
-    ratio = statistics.median(walls[True]) / statistics.median(walls[False])
-    log("observe", f"median wall with marks {statistics.median(walls[True]):.4f} s, without "
-        f"{statistics.median(walls[False]):.4f} s: ratio {ratio:.4f} (bound "
-        f"{OBSERVE_WALL_BOUND}); spread on {min(walls[True]):.4f}-{max(walls[True]):.4f}, "
-        f"off {min(walls[False]):.4f}-{max(walls[False]):.4f}")
+    pairs = [dict(runs[i:i + 2]) for i in range(0, len(runs), 2)]
+    ratios = [p[True] / p[False] for p in pairs]
+    ratio = statistics.median(ratios)
+    log("observe", f"wall ratio with marks over without, by adjacent pair "
+        + ", ".join(f"{r:.4f}" for r in ratios) + f": median {ratio:.4f} (bound "
+        f"{OBSERVE_WALL_BOUND}); median wall with marks {statistics.median(walls[True]):.4f} s, "
+        f"without {statistics.median(walls[False]):.4f} s; spread on "
+        f"{min(walls[True]):.4f}-{max(walls[True]):.4f}, off "
+        f"{min(walls[False]):.4f}-{max(walls[False]):.4f}")
     if ratio > OBSERVE_WALL_BOUND:
         raise AssertionError(f"the marks cost {ratio:.4f} of the wall, over {OBSERVE_WALL_BOUND}")
 
@@ -3505,8 +3548,7 @@ def _data_wait_share(run: str) -> tuple:
 
 
 def _busy_s(prof) -> float:
-    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == DeviceType.CUDA) / 1e9
+    return sum(e.duration_ns() for e in _device_events(prof)) / 1e9
 
 
 def phase_ingest(card: str) -> dict:
@@ -4028,8 +4070,6 @@ def _process_health(card: str) -> dict:
     """(c): SIGKILL the worker of an idle process actor (max_restarts=1); the
     health manager must restart it, with no method call in between, within
     health_check_period_s x health_check_failures + PROCESS_HEALTH_SLACK_S."""
-    import signal
-
     svc = ray_tpu_torch.remote(udfs.Counter).options(executor="process", max_restarts=1).remote(0)
     if ray_tpu_torch.get(svc.incr.remote(), timeout=300) != 1:
         raise AssertionError("process: the drill's actor did not count")
@@ -4157,7 +4197,8 @@ def phase_dp(card: str) -> dict:
             raise AssertionError(f"dp: {mode}: final loss {finals[mode]} is {gap} from f32's, "
                                  f"over {DP_INT8_FINAL_ATOL}")
     log("dp", f"phase {time.perf_counter() - t0:.2f} s ({card})")
-    return dict(launches=launches)
+    return dict(launches=launches, ref=ref, f32=runs[("f32", 0)]["losses"], tokens=tokens,
+                opt_kw=opt_kw)
 
 
 def _dp_mode(mode, runs, ref, launches, config, finals, card) -> None:
@@ -4219,6 +4260,255 @@ def _dp_mode(mode, runs, ref, launches, config, finals, card) -> None:
         log("dp", f"f32+shard against f32: largest relative gap {worst:.3e}")
         if not worst <= DP_SHARD_RTOL:
             raise AssertionError(f"dp: f32+shard departs from f32 by {worst} relative")
+
+
+# ------------------------------------------------------------------- gang
+
+GANG_AGENTS = 4  # node agents sharing the card: 2 for the gang, 1 spare a drill
+GANG_CKPT_EVERY = 2  # steps between the gang's checkpoints
+GANG_WARNING_S = 15.0  # the preemption window a SIGTERM'd agent announces
+GANG_PAUSE_S = 1.0  # each rank's pause after a step: the drills land mid-run
+GANG_TIMEOUT_S = 120  # the gang's process-group timeout (every collective)
+GANG_PHASE_TIMEOUT_S = 300  # the whole phase: a hung gang fails it
+GANG_HEAD_SYSTEM = {"node_stale_s": 2.0, "node_heartbeat_s": 0.2, "pg_reschedule_backoff_s": 0.2}
+GANG_AGENT_SYSTEM = {"node_stale_s": 2.0, "node_heartbeat_s": 0.2,
+                     "preempt_warning_s": GANG_WARNING_S}
+GANG_CHAOS = {"RAY_TPU_CHAOS": "kill_node=1,name_filter=chaos-kill,max_injections=1"}
+
+
+def _pg_states(pg) -> list:
+    from ray_tpu_torch.util.events import events
+
+    return [(e["ts"], e["extra"]["state"])
+            for e in events().list(source="placement_groups", limit=100000)
+            if e.get("extra", {}).get("pg") == pg.id.hex() and e["extra"].get("state")]
+
+
+def _gang_wait(cond, deadline: float, what: str, runner, outcome: dict) -> None:
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"gang: timed out waiting for {what}")
+        if not runner.is_alive() and not cond():
+            result = outcome.get("result")
+            raise AssertionError(
+                f"gang: the controller ended while waiting for {what}: "
+                f"{result.status.value if result else None} {result.error if result else ''}")
+        time.sleep(0.05)
+
+
+def phase_gang(card: str, dp: dict) -> dict:
+    """A training gang hosted by the cluster that survives a preemption and
+    a node kill (see the module docstring, `gang`): this process is the
+    head, GANG_AGENTS node agents share the card, and a TrainController
+    drives ClusterWorkerGroup(2) in a STRICT_SPREAD group shared across
+    its attempts, each rank `torch_cluster_udfs.gang_lm` (the dp phase's
+    f32 rank program, checkpointing every GANG_CKPT_EVERY steps). Returns
+    the ranks' launches by kernel."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.scheduler import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.train import (ClusterWorkerGroup, FailureConfig, RunConfig, ScalingConfig,
+                                     TrainController)
+    from ray_tpu_torch.util.events import events
+
+    ray_tpu_torch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("gang", f"{card}: this process holds {torch.cuda.memory_allocated()} bytes allocated, "
+        f"{torch.cuda.memory_reserved()} reserved, before the cluster")
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + GANG_PHASE_TIMEOUT_S
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    cluster = Cluster(head_node_args={"num_cpus": 1, "num_gpus": 0,
+                                      "_system_config": GANG_HEAD_SYSTEM})
+    handles, groups, member_pids = [], [], set()
+    try:
+        for _ in range(GANG_AGENTS):
+            handles.append(cluster.add_node(num_cpus=2, num_gpus=1, resources={"gang": 1},
+                                            system_config=GANG_AGENT_SYSTEM, env=GANG_CHAOS))
+        cluster.wait_for_nodes(1 + GANG_AGENTS, timeout=180)
+        agents_s = time.perf_counter() - t0
+        pid_of = {rec["node_id"]: rec["pid"] for rec in cluster.runtime.cluster.nodes()
+                  if not rec["is_head"]}
+        events().clear()
+        pg = ray_tpu_torch.placement_group([{"CPU": 1, "GPU": 1, "gang": 1}] * 2,
+                                           strategy="STRICT_SPREAD", max_reschedules=2,
+                                           name="chip-smoke-gang")
+        if not pg.ready(timeout=60):
+            raise AssertionError("gang: the placement group never reserved")
+        log("gang", f"{card}: {GANG_AGENTS} agents up {agents_s:.2f} s after the spawn; the group "
+            f"reserved bundles on agents {[pid_of[b.node.node_id.hex()] for b in pg.bundles]}")
+        made = []
+
+        def factory():
+            groups.append(ClusterWorkerGroup(
+                DP_RANKS, resources_per_worker={"CPU": 1, "GPU": 1, "gang": 1},
+                run_name="chip-smoke-gang", pg=pg, pg_wait_s=120, backend="gloo",
+                timeout_s=GANG_TIMEOUT_S))
+            made.append(time.monotonic())
+            return groups[-1]
+
+        config = dict(model=TRAIN_MODEL, tokens=dp["tokens"], steps=DP_STEPS, lr=TRAIN_LR,
+                      seed=SEED, device="cuda", ckpt_dir=ckpt_dir, ckpt_every=GANG_CKPT_EVERY,
+                      step_pause_s=GANG_PAUSE_S, **dp["opt_kw"])
+        controller = TrainController(
+            cluster_udfs.gang_lm, ScalingConfig(num_workers=DP_RANKS),
+            RunConfig(name="chip-smoke-gang", failure=FailureConfig(max_failures=1)), config,
+            group_factory=factory, restart_backoff_s=0.5)
+        outcome = {}
+        runner = threading.Thread(target=lambda: outcome.update(result=controller.run()),
+                                  name="chip-smoke-gang", daemon=True)
+        hist = controller.metrics_history
+        runner.start()
+
+        # (a) the gang
+        _gang_wait(lambda: len(hist) >= 1, deadline, "the first step", runner, outcome)
+        form_s = time.monotonic() - made[0]
+        first = groups[0]
+        where = first.where()
+        member_pids.update(w["pid"] for w in where)
+        hosts = [b.node.node_id.hex() for b in pg.bundles]
+        if len(set(hosts)) != DP_RANKS:
+            raise AssertionError(f"gang: the bundles share a node: {hosts}")
+        for rank, (host, w) in enumerate(zip(hosts, where)):
+            if w["ppid"] != pid_of[host]:
+                raise AssertionError(f"gang: rank {rank} runs in pid {w['pid']} under "
+                                     f"{w['ppid']}, not under its bundle's agent {pid_of[host]}")
+        log("gang", f"{card}: (a) gang formed {form_s:.2f} s after the group was built: rank "
+            f"pids {[w['pid'] for w in where]}, children of agents "
+            f"{[w['ppid'] for w in where]} (bundle hosts)")
+
+        # (b) an announced preemption of rank 1's host
+        _gang_wait(lambda: len(hist) >= 2, deadline, "two reported steps", runner, outcome)
+        victim = pg.bundles[1].node
+        victim_pid = pid_of[victim.node_id.hex()]
+        t_sig = time.monotonic()
+        os.kill(victim_pid, signal.SIGTERM)
+        _gang_wait(lambda: victim.draining, deadline, "the head to mark the node draining",
+                   runner, outcome)
+        drained_s = time.monotonic() - t_sig
+        _gang_wait(lambda: len(groups) >= 2, deadline, "the gang's restart", runner, outcome)
+        if controller.num_preempt_restarts != 1 or controller.num_restarts != 0:
+            raise AssertionError(f"gang: after the preemption {controller.num_preempt_restarts} "
+                                 f"preempt restarts and {controller.num_restarts} restarts")
+        resume_b = controller.train_config["resume_from_step"]
+        emergency = [e["extra"]["step"] for e in events().list(kind="ckpt.saved", limit=100000)
+                     if e["extra"].get("emergency")]
+        if resume_b is None or resume_b not in emergency:
+            raise AssertionError(f"gang: the restart resumes from {resume_b}, not an emergency "
+                                 f"checkpoint {emergency}")
+        n_b = len(hist)
+        _gang_wait(lambda: len(hist) > n_b, deadline, "the resumed first step", runner, outcome)
+        resumed_b = hist[n_b]
+        resumed_b_s = time.monotonic() - t_sig
+        if resumed_b["step"] != resume_b + 1 or resumed_b["start"] != resume_b + 1:
+            raise AssertionError(f"gang: the first resumed step is {resumed_b['step']}, want "
+                                 f"the emergency checkpoint's {resume_b} + 1")
+        if victim.node_id.hex() in [b.node.node_id.hex() for b in pg.bundles]:
+            raise AssertionError("gang: the restarted gang sits on the preempted node")
+        states_b = [st for _, st in _pg_states(pg)]
+        member_pids.update(w["pid"] for w in groups[1].where())
+        log("gang", f"{card}: (b) SIGTERM to agent {victim_pid} (rank 1's host): draining in the "
+            f"head's scheduler after {drained_s:.3f} s, window {GANG_WARNING_S} s; emergency "
+            f"checkpoint at step {resume_b}; first resumed step {resumed_b['step']} "
+            f"{resumed_b_s:.2f} s after the signal; group states {states_b}")
+
+        # (c) an unannounced loss of rank 0's host
+        _gang_wait(lambda: len(hist) > n_b + 1, deadline, "a second resumed step", runner, outcome)
+        doomed = pg.bundles[0].node
+        doomed_pid = pid_of[doomed.node_id.hex()]
+        spare = set(pid_of) - {victim.node_id.hex(), doomed.node_id.hex(),
+                               pg.bundles[1].node.node_id.hex()}
+        t_kill = time.monotonic()
+        ray_tpu_torch.remote(cluster_udfs.const).options(
+            name="chaos-kill", num_cpus=0,
+            scheduling_strategy=NodeAffinitySchedulingStrategy(doomed.node_id)).remote("x")
+        _gang_wait(lambda: any(st == "RESCHEDULING" for _, st in _pg_states(pg)[len(states_b):]),
+                   deadline, "the group to reschedule", runner, outcome)
+        _gang_wait(lambda: pg.state == "RESERVED" and pg.bundles[0].node is not None
+                   and pg.bundles[0].node.node_id.hex() in spare, deadline,
+                   "the group to re-reserve on the spare agent", runner, outcome)
+        reserved_s = time.monotonic() - t_kill
+        _gang_wait(lambda: len(groups) >= 3, deadline, "the gang's second restart", runner, outcome)
+        resume_c = controller.train_config["resume_from_step"]
+        n_c = len(hist)
+        _gang_wait(lambda: len(hist) > n_c, deadline, "the second resumed first step", runner, outcome)
+        resumed_c_s = time.monotonic() - t_kill
+        if hist[n_c]["step"] != resume_c + 1:
+            raise AssertionError(f"gang: after the kill the first step is {hist[n_c]['step']}, "
+                                 f"want the latest checkpoint's {resume_c} + 1")
+        member_pids.update(w["pid"] for w in groups[2].where())
+        log("gang", f"{card}: (c) chaos kill_node on agent {doomed_pid} (rank 0's host): group "
+            f"RESERVED on the spare agent {pid_of[pg.bundles[0].node.node_id.hex()]} "
+            f"{reserved_s:.2f} s after the kill, first resumed step {hist[n_c]['step']} (latest "
+            f"checkpoint {resume_c}) {resumed_c_s:.2f} s after it; group states "
+            f"{[st for _, st in _pg_states(pg)]}")
+
+        # (d) what holds across the drills
+        runner.join(max(1.0, deadline - time.monotonic()))
+        if runner.is_alive():
+            raise AssertionError(f"gang: the run did not finish in {GANG_PHASE_TIMEOUT_S} s")
+        result = outcome["result"]
+        if result.status.value != "FINISHED" or result.error is not None:
+            raise AssertionError(f"gang: the run ended {result.status.value}: {result.error}")
+        if (result.num_preempt_restarts, result.num_restarts) != (1, 1):
+            raise AssertionError(f"gang: {result.num_preempt_restarts} preempt restarts and "
+                                 f"{result.num_restarts} restarts, want 1 and 1")
+        ref, f32 = dp["ref"], dp["f32"]
+        gap0 = abs(hist[0]["loss"] - ref[0]) / abs(ref[0])
+        if hist[0]["step"] != 0 or not gap0 <= DP_FIRST_LOSS_RTOL:
+            raise AssertionError(f"gang: step 0 loss {hist[0]['loss']} vs one-process {ref[0]}")
+        worst = {"undisturbed": 0.0, "resumed": 0.0}
+        for i, m in enumerate(hist):
+            gap = abs(m["loss"] - f32[m["step"]]) / abs(f32[m["step"]])
+            key = "undisturbed" if i < n_b else "resumed"
+            worst[key] = max(worst[key], gap)
+        if not max(worst.values()) <= DP_SHARD_RTOL:
+            raise AssertionError(f"gang: losses depart from the dp phase's f32 run: {worst}")
+        if hist[-1]["step"] != DP_STEPS - 1:
+            raise AssertionError(f"gang: the run ended at step {hist[-1]['step']}")
+        launches = {k.name: 0 for k in KERNELS}
+        per_rank = [[0, 0, 0] for _ in range(DP_RANKS)]
+        last_of = {}
+        for i, m in enumerate(hist):
+            last_of[(m["start"], i < n_b, i < n_c)] = m["launches"]
+        for counts in last_of.values():
+            for r, row in enumerate(counts):
+                for j, n in enumerate(row):
+                    per_rank[r][j] += n
+        for j, k in enumerate((FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ)):
+            launches[k.name] = sum(per_rank[r][j] for r in range(DP_RANKS))
+        if any(n <= 0 for row in per_rank for n in row):
+            raise AssertionError(f"gang: a rank launched no K1 or K2: {per_rank}")
+        steps_s = [m["step_s"] for m in hist[1:]]
+        log("gang", f"{card}: (d) {len(hist)} rank-0 steps over 3 attempts, FINISHED with 1 "
+            f"preempt restart and 1 restart; step 0 loss {hist[0]['loss']:.6f} vs one-process "
+            f"{ref[0]:.6f} (gap {gap0:.3e}); largest relative gap to the dp phase's f32 losses "
+            f"undisturbed {worst['undisturbed']:.3e}, resumed {worst['resumed']:.3e}; step median "
+            f"{statistics.median(steps_s) * 1e3:.2f} ms (device-synchronised, pause excluded); "
+            f"launches by rank (K1, K2 dkv, K2 dq) {per_rank}")
+    except BaseException:
+        for h in handles:
+            log("gang", f"agent pid {h.pid} log's tail:\n{h.tail()}")
+        raise
+    finally:
+        for g in groups:
+            g.shutdown()
+        cluster.shutdown()
+        cfg.reset()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # (e) leaving
+    left = {}
+    for pid in [h.pid for h in handles] + sorted(member_pids):
+        alive, on_card = _cuda_pids_left(pid)
+        if alive or on_card:
+            left[pid] = (alive, on_card)
+    log("gang", f"{card}: after Cluster.shutdown() agents {[h.pid for h in handles]} and members "
+        f"{sorted(member_pids)}: left in the process table or among the card's compute apps: "
+        f"{left or 'none'}; phase {time.perf_counter() - t0:.1f} s")
+    if left:
+        raise AssertionError(f"gang: processes outlived Cluster.shutdown(): {left}")
+    return dict(launches=launches)
 
 
 FSDP_TP_STEPS = 4
@@ -4732,6 +5022,9 @@ def main() -> int:
     dp = phase_dp(card)
     gc.collect()
     torch.cuda.empty_cache()
+    gang = phase_gang(card, dp)
+    gc.collect()
+    torch.cuda.empty_cache()
     fsdp_tp = phase_fsdp_tp(card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4750,7 +5043,7 @@ def main() -> int:
                    "tp_serve": tp_serve["launches"][k.name], "cluster": cluster["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
                    "ingest": ingest["launches"][k.name], "process": process["launches"][k.name],
-                   "dp": dp["launches"][k.name],
+                   "dp": dp["launches"][k.name], "gang": gang["launches"][k.name],
                    "fsdp_tp": fsdp_tp["launches"][k.name], "a7": a7["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],

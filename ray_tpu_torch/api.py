@@ -297,8 +297,10 @@ def placement_group(
     max_reschedules: Optional[int] = None,
 ) -> PlacementGroup:
     """Reserve a gang of bundles, all or nothing (PACK, SPREAD,
-    STRICT_PACK, STRICT_SPREAD). `max_reschedules` (rescheduling after a
-    bundle host dies) raises NotImplementedError: it comes with clusters."""
+    STRICT_PACK, STRICT_SPREAD), on this process's nodes or on node
+    agents. `max_reschedules` bounds the re-reservations after a bundle's
+    host dies (None: `cfg.pg_reschedule_budget`; 0: the first death fails
+    the group)."""
     return _runtime().create_placement_group(
         bundles, strategy, name, max_reschedules=max_reschedules
     )

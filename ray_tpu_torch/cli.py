@@ -6,9 +6,11 @@ host:port`), with `--num-cpus`, `--num-gpus`, `--resources`, `--labels`
 and `--token`. A node's `GPU` resource is `torch.cuda.device_count()`
 unless `--num-gpus` says otherwise. The process blocks until SIGTERM,
 SIGINT or a `shutdown_node` RPC, then leaves the cluster gracefully (its
-node entry deregistered). JAX's SIGTERM means an announced preemption
-with a drain window: ROADMAP A6b (preemption and chaos); `--snapshot-path`
-and `--restore` come with ROADMAP A6b (head restart). Every other
+node entry deregistered). SIGTERM is a preemption notice, as in JAX: the
+node announces PREEMPTING, drains for `preempt_warning_s` and then leaves
+gracefully (`health.install_preemption_signal_handler`); a second SIGTERM
+changes nothing. `--snapshot-path` and `--restore` come with ROADMAP A6b
+(head restart). Every other
 subcommand of the JAX CLI raises NotImplementedError naming ROADMAP A8.
 """
 
@@ -17,7 +19,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import signal
 import sys
 import time
 
@@ -73,8 +74,11 @@ def _cmd_start(args) -> int:
         print(f"node {ctx.node_id.hex()[:12]} joined {args.address}, agent at {ctx.address} "
               f"({imported_s:.2f} s to start and import, {time.monotonic() - t0:.2f} s to "
               f"init and join)", flush=True)
-    # SIGTERM stops the node gracefully: leave the cluster, deregister
-    signal.signal(signal.SIGTERM, lambda signum, frame: ctx.shutdown_requested.set())
+    # SIGTERM = an announced preemption: announce and drain for the
+    # warning window, then leave gracefully
+    from .core.health import install_preemption_signal_handler
+
+    install_preemption_signal_handler(ctx)
     try:
         while not ctx.shutdown_requested.wait(0.5):
             pass

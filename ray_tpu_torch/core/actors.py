@@ -6,8 +6,10 @@ mailbox queue, executed in order (or on a pool of `max_concurrency`
 threads). The actor's resources are held for its lifetime (leased from a
 node or a placement-group bundle). FSM: PENDING → ALIVE → RESTARTING →
 DEAD; a restartable death re-runs the constructor up to `max_restarts`
-times. Method exceptions do NOT kill the actor; only kill() and a
-constructor that raises do. When an incarnation stops (killed, restarted
+times. A bundle actor whose host died restarts into its bundle once the
+group has re-reserved it (on a local node here; on an agent through
+`core/cluster.py`). Method exceptions do NOT kill the actor; only kill()
+and a constructor that raises do. When an incarnation stops (killed, restarted
 or shut down), its instance's `__ray_shutdown__()` runs, if it has one.
 
 Constructor arguments reach a thread actor's instance by reference: a
@@ -104,6 +106,7 @@ class ActorRuntime:
         registered_namespace: str = "default",
         executor: str = "thread",
         runtime_env: Optional[Dict[str, Any]] = None,
+        placement_pool: Optional[ResourceSet] = None,
     ):
         self.actor_id = actor_id
         self.cls = cls
@@ -125,6 +128,9 @@ class ActorRuntime:
         # is a restartable actor death)
         self.executor = executor
         self.runtime_env = runtime_env  # normalized; process actors only
+        # a node agent hosting a bundle actor for a remote owner: the
+        # bundle's reserved pool on this node (core/cluster.py)
+        self.placement_pool = placement_pool
         self._worker = None  # WorkerProcess when executor == "process"
         self._worker_lock = threading.Lock()  # serializes the worker's pipe
         self._incarnation = 0  # bumped on every (re)start; see _RestartSignal
@@ -155,7 +161,19 @@ class ActorRuntime:
             with self._lock:
                 if self.state == ActorState.DEAD:
                     return False
-            if isinstance(strategy, PlacementGroupSchedulingStrategy):
+            if self.placement_pool is not None:
+                # hosted for a remote owner in a bundle reserved here:
+                # lease straight from its pool
+                if not self.placement_pool.can_ever_fit(self.resources):
+                    self.death_cause = f"reserved bundle cannot ever satisfy {self.resources}"
+                    return False
+                if self.placement_pool.try_acquire(self.resources):
+                    self._node, self._pool = self._scheduler.head_node(), self.placement_pool
+                    return True
+                if self.placement_pool.closed:
+                    self.death_cause = "its placement-group bundle was released"
+                    return False
+            elif isinstance(strategy, PlacementGroupSchedulingStrategy):
                 pg = strategy.placement_group
                 idx = strategy.placement_group_bundle_index
                 try:
@@ -163,19 +181,29 @@ class ActorRuntime:
                 except IndexError:
                     self.death_cause = f"bundle index {idx} out of range"
                     return False
-                # a bundle lives on this process's nodes (a remote one would
-                # be ROADMAP A6b, placement groups across nodes)
+                if pg.state == "FAILED":
+                    self.death_cause = f"placement group failed: {pg.failure_reason}"
+                    return False
+                # a remote bundle is the cluster's (can_place_actor_remotely,
+                # before this runs); a dead host's bundle waits for the
+                # group's reschedule, which repoints it (a restart lands
+                # in the re-reserved bundle)
+                had_remote = any(b.node is not None and b.node.is_remote for b in bundles)
                 bundles = [b for b in bundles if b.node is None or not b.node.is_remote]
-                if not any(
+                if pg.state != "RESCHEDULING" and not any(
                     b.reserved is not None and b.reserved.can_ever_fit(self.resources)
                     for b in bundles
                 ):
                     self.death_cause = (
-                        f"no bundle in placement group can ever satisfy "
+                        f"no local bundle in placement group can ever satisfy "
                         f"{self.resources}"
+                        + (" (its remote bundles were unusable too: dead host or "
+                           "released lease)" if had_remote else "")
                     )
                     return False
                 for bundle in bundles:
+                    if bundle.node is not None and not bundle.node.alive:
+                        continue
                     if bundle.reserved is not None and bundle.reserved.try_acquire(self.resources):
                         self._node, self._pool = bundle.node, bundle.reserved
                         return True
@@ -347,6 +375,12 @@ class ActorRuntime:
             elif call.method_name == "__ray_pid__" and self._worker is None:
                 result = os.getpid()
             else:
+                # chaos's boundary for actor calls (tasks inject in the
+                # scheduler): serve replicas are actors, so resilience
+                # drills arm name_filter=".call" or a deployment's name
+                from . import chaos
+
+                chaos.maybe_inject(f"actor:{self.name}.{call.method_name}", node=self._node)
                 args = tuple(
                     a.resolve() if getattr(a, "__ray_tpu_lazy__", False) else a
                     for a in call.args

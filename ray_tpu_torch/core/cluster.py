@@ -54,13 +54,30 @@ What differs from JAX, and why:
   its integer protocol 1, so a JAX node dialing a port head fails at
   JAX's own check and a port node refuses a JAX head, naming both.
 
+Placement groups span agents: the owner reserves each remote bundle at
+its agent in a second phase (`reserve_bundle`, against the agent's own
+ledger; a refusal rolls the whole group back), tasks and actors aimed at
+a remote bundle lease from the agent's reserved pool, and a released
+bundle returns exactly what is unused at once and the rest as its
+holders finish. A bundle host's death reschedules the group
+(`scheduler.handle_node_death`); a bundle actor with restarts left waits
+for the re-reservation and restarts on the bundle's new host. The
+owner's view of each group's state goes to the GCS table `PG_NS`.
+
+Announced preemption: `begin_preemption` (SIGTERM to an agent, or chaos
+`preempt_node` on it) publishes the notice on the GCS pub/sub and in the
+node table, drains the node, and after the warning window either shuts
+it down gracefully or exits like a reclaimed host. Every member's watch
+loop drains a peer that announced and relays the notice into its own
+pub/sub, where train controllers listen. Chaos also fires at an agent's
+task execution (`kill_node` there takes the whole agent down).
+
 Left to ROADMAP A6b, each raising NotImplementedError where a caller can
-ask for it: placement-group reservation at agents and rescheduling
-(placement groups across nodes), announced preemption and chaos, the
-federation of events / request marks / step marks and the node stats
-snapshot (`core/stats.py`; the heartbeat runs without it), the node
-logs / events / spans / metrics / profile handlers and their fan-out,
-and the reconciliation after a head restart (head restart).
+ask for it: the federation of events / request marks / step marks and
+the node stats snapshot (`core/stats.py`; the heartbeat runs without
+it), the node logs / events / spans / metrics / profile handlers and
+their fan-out (federation), and the reconciliation after a head restart
+(head restart).
 """
 
 from __future__ import annotations
@@ -78,9 +95,11 @@ from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
 from .exceptions import ActorDiedError
-from .gcs_service import GcsClient
+from .gcs import PREEMPT_CHANNEL
+from .gcs_service import PG_NS, GcsClient
 from .ids import ActorID, NodeID, ObjectID
 from .object_transfer import ObjectTransferServer, fetch_object
+from .resources import ResourceSet
 from .rpc import RpcClient, RpcError, dumps
 from .scheduler import (
     NodeAffinitySchedulingStrategy,
@@ -103,7 +122,6 @@ ACTOR_NS = "_cluster_actors"  # GCS KV: "<namespace>/<name>" -> {node_hex, actor
 PORT_PROTOCOL = "torch-1"
 JAX_PROTOCOL = 1
 
-A6B_PREEMPTION = "ROADMAP A6b (preemption and chaos)"
 A6B_FEDERATION = "ROADMAP A6b (federation)"
 
 
@@ -479,6 +497,8 @@ class ClusterContext:
             "actor_task_done": self._actor_task_done,
             "poll_task_done": self._poll_task_done,
             "stream_item": self._stream_item,
+            "reserve_bundle": self._reserve_bundle,
+            "release_bundle": self._release_bundle,
         }.items():
             self.server.register(name, fn)
         self.address = self.server.address
@@ -502,6 +522,20 @@ class ClusterContext:
         self.agent_stats = {"admitted": 0, "queued": 0, "bounced": 0, "parked": 0}
         # ANY release of this node's ledger may unblock queued admissions
         self._local_node.resources.on_release = self._drain_admission
+        # placement-group bundles other members reserved on this node:
+        # (pg hex, bundle index) -> the reserved pool, drawn from this
+        # node's ledger; tasks and actors dispatched into a bundle lease
+        # from its pool. _bundle_owner names the reserving node.
+        self._hosted_bundles: Dict[Tuple[str, int], Any] = {}  # guarded-by: _lock
+        self._bundle_owner: Dict[Tuple[str, int], str] = {}  # guarded-by: _lock
+        # this node's announced preemption (a one-shot latch), the timer
+        # of its window, and the pub/sub cursor of peers' notices
+        self._preempting = False  # guarded-by: _lock
+        self._preempt_timer: Optional[threading.Timer] = None
+        self._preempt_since = 0.0
+        # this node's table entry, kept here so begin_preemption updates
+        # it without a read of the GCS
+        self._info: Dict[str, Any] = {}  # guarded-by: _lock
         # remote actors this process OWNS (proxies), and the in-flight
         # actor calls awaiting an actor_task_done reply
         self.remote_actors: Dict[ActorID, RemoteActorProxy] = {}  # guarded-by: _lock
@@ -531,11 +565,14 @@ class ClusterContext:
             unborrow=self._enqueue_unborrow,
         )
         runtime.scheduler.remote_dispatcher = self._dispatch
+        runtime.scheduler.remote_bundle_reserver = self._reserve_remote_bundles
+        runtime.scheduler.remote_bundle_releaser = self._release_remote_bundles
+        runtime.scheduler.pg_state_sink = self._record_pg_state
         try:
             self._register()
         except BaseException:
             self._local_node.resources.on_release = None
-            runtime.scheduler.remote_dispatcher = None
+            self._unhook_scheduler()
             store.set_cluster_hooks(None, None)
             self.gcs.close()
             self.server.stop()
@@ -602,6 +639,8 @@ class ClusterContext:
             "joined_at": time.time(),
             "epoch": self.gcs.epoch,
         }
+        with self._lock:
+            self._info = info
         self.gcs.kv_put(self.node_id.hex(), info, namespace=NODE_NS)
         logger.info("node %s joined cluster at %s (gcs %s)",
                     self.node_id.hex()[:12], self.address, self.gcs_address)
@@ -631,6 +670,7 @@ class ClusterContext:
             try:
                 self._heartbeat()
                 self._refresh_nodes()
+                self._poll_preemptions()
             except (RpcError, OSError) as exc:
                 # GCS unreachable: keep trying — a transient blip must not
                 # tear the node down
@@ -664,6 +704,11 @@ class ClusterContext:
             if known is not None:
                 known.client.close()
             self.runtime.scheduler.add_node(node)
+            if info.get("preempting"):
+                # found after its announcement: never place anything there
+                self.runtime.scheduler.mark_node_draining(
+                    node_hex, info.get("preempt_reason", "preempting"),
+                    info.get("preempt_deadline", 0.0))
             from ..util.events import emit
 
             what = "rediscovered" if known is not None else "discovered"
@@ -706,6 +751,9 @@ class ClusterContext:
                       if rec.node.node_id.hex() == node_hex]
             for hex_, _ in doomed:
                 del self._pending[hex_]
+        # placement groups with bundles there go RESCHEDULING here, BEFORE
+        # the actor restarts below, so a bundle actor's restart finds its
+        # group rescheduling and waits for the re-reservation
         self.runtime.scheduler.handle_node_death(
             node_hex, reason, [(rec.spec, rec.node, rec.pool) for _, rec in doomed])
         # remote actors hosted there: restart elsewhere when budgeted
@@ -726,6 +774,92 @@ class ClusterContext:
         released = self.runtime.object_store.release_borrows_from(node.agent_addr)
         if released:
             logger.info("released %d borrows held by dead node %s", released, node_hex[:12])
+        # and the bundles its owner reserved HERE go back to the ledger
+        freed = self._release_bundles_owned_by(node_hex)
+        if freed:
+            logger.info("released %d PG bundles reserved by dead node %s", freed, node_hex[:12])
+
+    # ------------------------------------------------------------ preemption
+
+    def begin_preemption(self, reason: str, warning_s: Optional[float] = None,
+                         fate: str = "shutdown") -> None:
+        """THIS node received a notice of its death (SIGTERM, chaos
+        preempt_node). Announce it through the GCS pub/sub and the node
+        table, stop placing onto this node, and after the warning window
+        either ask for a graceful shutdown (fate "shutdown", the SIGTERM
+        handler) or exit like a reclaimed host (fate "exit", chaos). A
+        second notice neither shortens nor doubles the drill."""
+        from .config import cfg
+
+        if warning_s is None:
+            warning_s = cfg.preempt_warning_s
+        with self._lock:
+            if self._preempting:
+                return
+            self._preempting = True
+        deadline = time.time() + warning_s
+        msg = {"node_hex": self.node_id.hex(), "reason": reason,
+               "warning_s": warning_s, "deadline": deadline}
+        # announce FIRST: peers must stop placing here before we vanish
+        try:
+            self.gcs.publish(PREEMPT_CHANNEL, msg)
+        except (RpcError, OSError):
+            pass  # cut off from the GCS: drain locally anyway
+        with self._lock:
+            self._info.update({"preempting": True, "preempt_reason": reason,
+                               "preempt_deadline": deadline})
+            info = dict(self._info)
+        try:
+            self.gcs.kv_put(self.node_id.hex(), info, namespace=NODE_NS)
+        except (RpcError, OSError):
+            pass
+        # this process's own view and its subscribers (train controllers)
+        self.runtime.scheduler.mark_node_draining(self.node_id.hex(), reason, deadline)
+        self.runtime.gcs.pubsub.publish(PREEMPT_CHANNEL, msg)
+        from ..util.events import emit
+
+        emit("WARNING", "cluster",
+             f"node {self.node_id.hex()[:12]} preempting: {reason} "
+             f"({warning_s:.1f}s warning, fate={fate})",
+             kind="preempt.announced", node=self.node_id.hex(),
+             deadline=deadline, warning_s=warning_s)
+        logger.warning("preemption notice (%s): %s, warning %.1fs", fate, reason, warning_s)
+
+        def expire() -> None:
+            if fate == "exit":
+                # the host is reclaimed: abrupt death, found by heartbeats
+                os._exit(137)
+            self.shutdown_requested.set()
+
+        timer = threading.Timer(warning_s, expire)
+        timer.daemon = True
+        self._preempt_timer = timer
+        timer.start()
+
+    def _poll_preemptions(self) -> None:
+        """The watch loop's arm for peers' notices: read them from the
+        head's pub/sub history, drain those nodes in this process's view
+        and relay each notice into the local pub/sub, so local
+        subscribers (train controllers) hear cluster-wide preemptions. A
+        node's own notice is never relayed back to it, and a node already
+        drained is not relayed twice."""
+        msgs = self.gcs.poll(PREEMPT_CHANNEL, self._preempt_since)
+        for ts, msg in msgs:
+            self._preempt_since = max(self._preempt_since, ts)
+            node_hex = (msg or {}).get("node_hex")
+            if not node_hex or node_hex == self.node_id.hex():
+                continue  # our own: begin_preemption published it locally
+            with self._lock:
+                node = self._remote_nodes.get(node_hex)
+            if node is not None and node.draining:
+                continue
+            if node is not None:
+                self.runtime.scheduler.mark_node_draining(
+                    node_hex, msg.get("reason", "preempted"), msg.get("deadline", 0.0))
+            # relay even when the node table has not caught up yet; the
+            # head's pub/sub IS the GCS's, where the notice already landed
+            if not self.is_head:
+                self.runtime.gcs.pubsub.publish(PREEMPT_CHANNEL, msg)
 
     def nodes(self) -> List[Dict[str, Any]]:
         """Cluster membership as recorded in the GCS node table."""
@@ -781,6 +915,15 @@ class ClusterContext:
                                      parent=spec.trace_ctx, lane=lane, attrs=span_attrs)
         dispatch_span = tracing.tracer().start_span(
             "task.dispatch", parent=spec.trace_ctx, lane=lane, attrs=span_attrs, start_ts=now)
+        # a task aimed at a placement-group bundle leases from the agent's
+        # reserved bundle pool, not its ledger
+        bundle_key = None
+        strategy = spec.scheduling_strategy
+        if isinstance(strategy, PlacementGroupSchedulingStrategy):
+            pg = strategy.placement_group
+            idx = next((b.index for b in pg.bundles if b.reserved is pool), None)
+            if idx is not None:
+                bundle_key = (pg.id.hex(), idx)
         try:
             blob = dumps({
                 "task_hex": task_hex,
@@ -791,6 +934,7 @@ class ClusterContext:
                 "num_returns": spec.num_returns,
                 "return_oids": [oid.hex() for oid in spec.return_ids],
                 "resources": dict(spec.resources),
+                "bundle": bundle_key,
                 "runtime_env": spec.runtime_env,
                 "executor": spec.executor,
                 "streaming": spec.streaming,
@@ -1017,21 +1161,148 @@ class ClusterContext:
                 for oid in gone.return_ids:
                     self.runtime.object_store.seal_error(oid, err)
 
+    # ------------------------------------------ placement-group bundles
+
+    def _reserve_remote_bundles(self, pg_hex: str, bundles) -> Optional[str]:
+        """Phase 2 of the reservation, owner side: prepare each remote
+        bundle at its agent, in order; on a refusal release the ones
+        already granted (and the refused one: a grant that timed out may
+        have landed after all) and report, so the scheduler replans."""
+        prepared = []
+        for bundle in bundles:
+            try:
+                reply = bundle.node.client.call("reserve_bundle", pg_hex, bundle.index,
+                                                dict(bundle.resources), self.node_id.hex())
+            except (RpcError, OSError) as exc:
+                reply = f"unreachable: {exc!r}"
+            if reply != "ok":
+                self._release_remote_bundles(pg_hex, prepared + [bundle])
+                return (f"agent {bundle.node.node_id.hex()[:12]} refused bundle "
+                        f"{bundle.index}: {reply}")
+            prepared.append(bundle)
+        return None
+
+    def _release_remote_bundles(self, pg_hex: str, bundles) -> None:
+        """Release bundles at their agents (a rollback or a removal);
+        best-effort: a dead agent's ledger dies with it."""
+        for bundle in bundles:
+            try:
+                bundle.node.client.call("release_bundle", pg_hex, bundle.index)
+            except (RpcError, OSError):
+                pass
+
+    def _reserve_bundle(self, pg_hex: str, index: int, resources: Dict[str, float],
+                        owner_hex: str) -> str:
+        """Agent side: grant a bundle against THIS node's ledger. Tasks
+        and actors dispatched into the bundle lease from the reserved
+        pool; its releases drain the admission queue like the ledger's."""
+        if not self._local_node.resources.try_acquire(resources):
+            return "busy"
+        pool = ResourceSet(resources)
+        pool.on_release = self._drain_admission
+        with self._lock:
+            self._hosted_bundles[(pg_hex, index)] = pool
+            self._bundle_owner[(pg_hex, index)] = owner_hex
+        return "ok"
+
+    def _release_bundle(self, pg_hex: str, index: int) -> bool:
+        """Agent side: detach a bundle with exact accounting. Its unused
+        slice returns to the ledger now; what running tasks and actors
+        still hold flows back as they release (`reconcile`). The pool is
+        closed, so no restart or new lease draws from capacity the ledger
+        has taken back."""
+        with self._lock:
+            pool = self._hosted_bundles.pop((pg_hex, index), None)
+            self._bundle_owner.pop((pg_hex, index), None)
+        if pool is None:
+            return False
+        pool.closed = True
+        ledger = self._local_node.resources
+        returned = pool.available()
+        state = {"returned": dict(returned)}
+        reconcile_lock = threading.Lock()
+
+        def reconcile() -> None:
+            # a holder released into the closed pool: forward the delta
+            with reconcile_lock:
+                avail = pool.available()
+                delta = {k: avail.get(k, 0.0) - state["returned"].get(k, 0.0) for k in pool.total}
+                pos = {k: v for k, v in delta.items() if v > 1e-9}
+                for k, v in pos.items():
+                    state["returned"][k] = state["returned"].get(k, 0.0) + v
+            if pos:
+                ledger.release(pos)
+
+        pool.on_release = reconcile
+        if returned:
+            ledger.release(returned)
+        return True
+
+    def _release_bundles_owned_by(self, node_hex: str) -> int:
+        """A node died: every bundle it reserved here returns to the
+        ledger (its owner can never release them now)."""
+        with self._lock:
+            doomed = [key for key, owner in self._bundle_owner.items() if owner == node_hex]
+        for key in doomed:
+            self._release_bundle(*key)
+        return len(doomed)
+
+    def _record_pg_state(self, pg) -> None:
+        """The scheduler's state sink: this owner's view of a group, in the
+        cluster-wide GCS table. Best-effort: the owner's group is the
+        truth, the table is for observers."""
+        try:
+            if pg.state == "REMOVED":
+                self.gcs.kv_delete(pg.id.hex(), namespace=PG_NS)
+                return
+            self.gcs.kv_put(pg.id.hex(), {
+                "pg_id": pg.id.hex(),
+                "name": pg.name,
+                "strategy": pg.strategy.value,
+                "state": pg.state,
+                "owner": self.node_id.hex(),
+                "bundles": [{"index": b.index, "resources": dict(b.resources),
+                             "node": b.node.node_id.hex() if b.node is not None else None}
+                            for b in pg.bundles],
+                "reschedules_used": pg.reschedules_used,
+                "death_history": list(pg.death_history),
+                "failure_reason": pg.failure_reason,
+                "updated_at": time.time(),
+            }, namespace=PG_NS)
+        except (RpcError, OSError):
+            pass
+
     # -------------------------------------------------------- remote actors
 
     def can_place_actor_remotely(self, strategy, resources):
         """Owner-side placement decision. None (stay local) or (node,
-        pool): explicit NodeAffinity to a live remote node, or
-        default-strategy spillover when no local node has room now (a
-        remote one does) or ever could."""
+        pool, bundle): explicit NodeAffinity to a live remote node; a
+        placement-group bundle reserved on a remote node (the actor leases
+        from the bundle's pool on both sides; `bundle` is its (pg hex,
+        index)); or default-strategy spillover when no local node has room
+        now (a remote one does) or ever could."""
         if isinstance(strategy, NodeAffinitySchedulingStrategy):
             with self._lock:
                 node = self._remote_nodes.get(strategy.node_id.hex())
             if node is not None and node.alive:
-                return (node, node.resources)
+                return (node, node.resources, None)
             return None
         if isinstance(strategy, PlacementGroupSchedulingStrategy):
-            return None  # bundles live on this process's nodes (A6b)
+            pg = strategy.placement_group
+            idx = strategy.placement_group_bundle_index
+            try:
+                bundles = pg.bundles if idx < 0 else [pg.bundles[idx]]
+            except IndexError:
+                return None  # the local path reports it
+            # a LOCAL bundle that could ever host the actor wins
+            if any(b.node is not None and not b.node.is_remote and b.reserved is not None
+                   and b.reserved.can_ever_fit(resources) for b in bundles):
+                return None
+            for b in bundles:
+                if (b.node is not None and b.node.is_remote and b.node.alive
+                        and b.reserved is not None and b.reserved.can_ever_fit(resources)):
+                    return (b.node, b.reserved, (pg.id.hex(), b.index))
+            return None
         if not isinstance(strategy, str) or strategy not in ("DEFAULT", "SPREAD"):
             return None
 
@@ -1047,7 +1318,7 @@ class ClusterContext:
         now = [n for n in remotes if fits_now(n)]
         if now:
             node = min(now, key=lambda n: n.utilization())
-            return (node, node.resources)
+            return (node, node.resources, None)
         # nobody has room: wait locally if a local node ever could, else
         # queue on the least-utilized feasible remote
         if any(n.resources.can_ever_fit(resources) for n in local):
@@ -1056,7 +1327,7 @@ class ClusterContext:
         if not feasible:
             return None
         node = min(feasible, key=lambda n: n.utilization())
-        return (node, node.resources)
+        return (node, node.resources, None)
 
     @staticmethod
     def _actor_blob(actor_hex, c, *, resources, max_restarts) -> bytes:
@@ -1068,6 +1339,7 @@ class ClusterContext:
             "args": c["args"],
             "kwargs": c["kwargs"],
             "resources": resources,
+            "bundle": c.get("bundle"),
             "max_restarts": max_restarts,
             "max_concurrency": c["max_concurrency"],
             "executor": c["executor"],
@@ -1077,16 +1349,19 @@ class ClusterContext:
 
     def create_remote_actor(self, node: RemoteNode, cls, args, kwargs, *, resources,
                             max_restarts, max_concurrency, name, namespace, executor,
-                            runtime_env, pool=None) -> Tuple[ActorID, RemoteActorProxy]:
+                            runtime_env, pool=None, bundle=None) -> Tuple[ActorID, RemoteActorProxy]:
         """Host an actor on a node agent. Returns at once with a PENDING
-        proxy; method calls buffer until the agent confirms."""
+        proxy; method calls buffer until the agent confirms. `pool` is the
+        owner-side reservation's source (the node's view, or a bundle's
+        reserved pool) and `bundle` the (pg hex, index) the agent leases
+        from."""
         actor_id = ActorID.of(self.runtime.job_id)
         proxy = RemoteActorProxy(self, actor_id, name or getattr(cls, "__name__", "Actor"))
         creation = {
             "cls": cls, "args": args, "kwargs": kwargs,
             "resources": dict(resources or {}), "max_restarts": max_restarts,
             "max_concurrency": max_concurrency, "name": name, "namespace": namespace,
-            "executor": executor, "runtime_env": runtime_env,
+            "executor": executor, "runtime_env": runtime_env, "bundle": bundle,
         }
         if max_restarts != 0:
             # only restart-budgeted actors pin their creation payload
@@ -1157,8 +1432,15 @@ class ClusterContext:
             return  # killed before this thread ran
         resources = dict(c["resources"])
         node = pool = None
+        if c.get("bundle") is not None:
+            # a bundle actor follows its bundle: wait for the group to
+            # re-reserve it, then restart on the bundle's host
+            node, pool, err = self._await_rescheduled_bundle(proxy, tuple(c["bundle"]), resources)
+            if node is None:
+                proxy.die(f"{why}; {err}")
+                return
         deadline = time.monotonic() + 30.0
-        while time.monotonic() < deadline and not self._stop.is_set():
+        while node is None and time.monotonic() < deadline and not self._stop.is_set():
             with proxy._lock:
                 if proxy.state != "RESTARTING":
                     return  # killed while we searched
@@ -1170,9 +1452,8 @@ class ClusterContext:
                 if cand.resources.try_acquire(resources):
                     node, pool = cand, cand.resources
                     break
-            if node is not None:
-                break
-            time.sleep(0.2)
+            if node is None:
+                time.sleep(0.2)
         if node is None:
             proxy.die(f"{why}; no surviving node can host a restart")
             return
@@ -1201,6 +1482,37 @@ class ClusterContext:
                 node.client.call("kill_actor", proxy.actor_id.hex())
             except (RpcError, OSError):
                 pass
+
+    def _await_rescheduled_bundle(self, proxy: RemoteActorProxy,
+                                  bundle_key: Tuple[str, int], resources: Dict[str, float]):
+        """A restarting bundle actor's new host: wait for its group to
+        re-reserve the bundle, then lease the actor's resources from the
+        re-reserved pool. (node, pool, None), or (None, None, reason)."""
+        from .config import cfg
+
+        pg_hex, idx = bundle_key
+        pg = self.runtime.scheduler.get_placement_group(pg_hex)
+        if pg is None:
+            return None, None, "its placement group is gone"
+        if not pg.wait_reserved(timeout=cfg.pg_reschedule_wait_s):
+            return None, None, (f"placement group {pg_hex[:12]} did not re-reserve "
+                                f"({pg.state}: {pg.failure_reason or 'timed out'})")
+        try:
+            bundle = pg.bundles[idx]
+        except IndexError:
+            return None, None, f"bundle {idx} does not exist"
+        node, pool = bundle.node, bundle.reserved
+        if node is None or not node.is_remote or not node.alive or pool is None:
+            return None, None, f"bundle {idx} host is not a live agent"
+        deadline = time.monotonic() + 30.0
+        while not pool.try_acquire(resources):
+            with proxy._lock:
+                if proxy.state != "RESTARTING":
+                    return None, None, "killed while waiting for the bundle"
+            if time.monotonic() > deadline:
+                return None, None, f"bundle {idx} pool never freed capacity for the restart"
+            time.sleep(0.02)
+        return node, pool, None
 
     def submit_remote_actor_call(self, proxy: RemoteActorProxy, method: str,
                                  args, kwargs, return_ids, trace_ctx=None) -> None:
@@ -1248,6 +1560,13 @@ class ClusterContext:
 
     def _agent_create_actor(self, blob: bytes) -> str:
         msg = pickle.loads(blob)
+        placement_pool = None
+        bundle = msg.get("bundle")
+        if bundle is not None:
+            with self._lock:
+                placement_pool = self._hosted_bundles.get(tuple(bundle))
+            if placement_pool is None:
+                return f"no bundle {bundle} reserved here"
         handle = self.runtime.create_actor(
             msg["cls"], tuple(msg["args"]), dict(msg["kwargs"]),
             resources=msg["resources"],
@@ -1255,6 +1574,7 @@ class ClusterContext:
             max_concurrency=msg["max_concurrency"],
             executor=msg["executor"],
             runtime_env=msg["runtime_env"],
+            placement_pool=placement_pool,
             _hosted=True,
         )
         with self._lock:
@@ -1385,12 +1705,33 @@ class ClusterContext:
         self.agent_stats["queued"] += 1
         return "accepted"
 
+    def _admit_pool(self, msg: Dict[str, Any]):
+        """The pool a task leases from: its bundle's reserved pool when it
+        was dispatched into one, else this node's ledger. None when the
+        named bundle is gone (its group was removed meanwhile)."""
+        bundle = msg.get("bundle")
+        if bundle is None:
+            return self._local_node.resources
+        with self._lock:
+            return self._hosted_bundles.get(tuple(bundle))
+
     def _try_admit(self, msg: Dict[str, Any]) -> bool:
-        """Acquire the task's resources on this node's ledger and start it
-        on a pooled thread. False = the ledger is full right now."""
+        """Acquire the task's resources on its admission pool and start it
+        on a pooled thread. False = the pool is full right now."""
+        pool = self._admit_pool(msg)
+        if pool is None:
+            # the bundle is gone: fail the task back to its owner
+            self._task_pool().submit(lambda m=msg: self._reply_error(
+                m, WorkerCrashedError(
+                    f"placement-group bundle {m['bundle']} is no longer reserved on node "
+                    f"{self.node_id.hex()[:12]}"), ""))
+            return True
         res = msg.get("resources") or {}
-        if not self._local_node.resources.try_acquire(res):
+        if not pool.try_acquire(res):
             return False
+        # the release goes back to the pool that granted the lease, even
+        # when the bundle is released meanwhile (its reconcile forwards it)
+        msg["_pool"] = pool
         self._task_pool().submit(lambda m=msg: self._run_agent_task(m))
         return True
 
@@ -1416,8 +1757,9 @@ class ClusterContext:
             with _logs.attribution(f"task:{msg['task_hex'][:8]}"):
                 self._run_agent_task_body(msg)
         finally:
-            # the release drains the admission queue (on_release)
-            self._local_node.resources.release(msg.get("resources") or {})
+            # into the pool the lease came from: its on_release drains the
+            # admission queue (the ledger) or reconciles a released bundle
+            msg["_pool"].release(msg.get("resources") or {})
 
     def _run_agent_task_body(self, msg: Dict[str, Any]) -> None:
         from . import runtime_env as _renv
@@ -1431,6 +1773,17 @@ class ClusterContext:
             lane=f"node:{self.node_id.hex()[:8]}",
             attrs={"task": msg["name"], "task_id": task_hex, "remote": True},
         )
+        try:
+            # the scheduler's chaos boundary, for remote tasks: kill_node
+            # here takes the whole agent down
+            from . import chaos
+
+            with tracing.use_context(exec_span.context):
+                chaos.maybe_inject(msg["name"])
+        except BaseException as exc:  # noqa: BLE001 - ferried to the owner
+            exec_span.end(status="ERROR", error=repr(exc))
+            self._reply_error(msg, exc, traceback.format_exc())
+            return
         if msg.get("streaming"):
             with tracing.use_context(exec_span.context):
                 self._run_agent_streaming(msg)
@@ -1781,10 +2134,6 @@ class ClusterContext:
 
     # ------------------------------------------------------------------ misc
 
-    def begin_preemption(self, reason: str, warning_s: Optional[float] = None,
-                         fate: str = "shutdown") -> None:
-        raise _a6b("announced preemption of a node (begin_preemption)", A6B_PREEMPTION)
-
     def fanout_nodes(self, method: str, *args, placeholder=None):
         raise _a6b("calls fanned out to every node agent (fanout_nodes)", A6B_FEDERATION)
 
@@ -1804,13 +2153,23 @@ class ClusterContext:
         self.shutdown_requested.set()
         return "ok"
 
+    def _unhook_scheduler(self) -> None:
+        sched = self.runtime.scheduler
+        sched.remote_dispatcher = None
+        sched.remote_bundle_reserver = None
+        sched.remote_bundle_releaser = None
+        sched.pg_state_sink = None
+
     def stop(self) -> None:
         """Leave the cluster: stop the loops and every proxy, deregister,
         close the clients and the server, and join every thread this
         context started."""
         self._stop.set()
         self._local_node.resources.on_release = None
-        self.runtime.scheduler.remote_dispatcher = None
+        self._unhook_scheduler()
+        timer = self._preempt_timer
+        if timer is not None:
+            timer.cancel()
         with self._lock:
             proxies = list(self.remote_actors.values())
             self.remote_actors.clear()

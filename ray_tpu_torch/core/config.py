@@ -116,6 +116,18 @@ define_flag("parked_result_ttl_s", 600.0,
 define_flag("pending_task_poll_s", 10.0,
             "Owner re-polls the executing agent about a dispatched task "
             "after this long without a completion report.")
+define_flag("pg_reschedule_budget", 5,
+            "Re-reservation attempts for a placement group whose bundle "
+            "host died before the group is marked FAILED.")
+define_flag("pg_reschedule_backoff_s", 0.5,
+            "Base backoff between placement-group reschedule attempts "
+            "(doubles per attempt, capped at 8s).")
+define_flag("pg_reschedule_wait_s", 60.0,
+            "How long dependents (bundle-actor restarts, gang re-mesh) "
+            "wait for a RESCHEDULING placement group to re-reserve.")
+define_flag("preempt_warning_s", 10.0,
+            "Warning window a SIGTERM-preempted node agent announces "
+            "before it shuts down (cloud maintenance/spot semantics).")
 
 # process workers (core/worker_pool.py)
 define_flag("worker_idle_timeout_s", 60.0,

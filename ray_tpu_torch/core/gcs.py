@@ -20,8 +20,9 @@ logger = logging.getLogger(__name__)
 
 # Pub/sub channel carrying announced node preemptions: messages are
 # {node_hex, reason, warning_s, deadline}. Train controllers subscribe
-# (emergency checkpoint + restart); in one process nothing publishes on it
-# until `preempt_node` is ported (ROADMAP A6b (preemption and chaos)).
+# (emergency checkpoint + restart); `Runtime.preempt_node` publishes for a
+# logical node, `ClusterContext.begin_preemption` for a node agent, and
+# every cluster member relays its peers' notices here.
 PREEMPT_CHANNEL = "node_preemption"
 
 # GCS KV namespace for head-identity state: the cluster EPOCH lives here

@@ -40,6 +40,7 @@ from .gcs import GlobalControlStore
 from .rpc import RpcAuthError, RpcClient, RpcError, RpcServer
 
 FUNC_NS = "_funcs"  # GCS KV namespace of exported functions
+PG_NS = "_pgs"  # GCS KV namespace: pg id hex -> the owner's record of its state
 
 
 class _ResourceSync:
@@ -337,6 +338,12 @@ class GcsClient:
     def cluster_view(self) -> Dict[str, Any]:
         """Aggregated live-node resource view."""
         return self._call("cluster_view")
+
+    # ----------------------------------------------------- placement groups
+
+    def pg_state(self, pg_hex: str) -> Optional[Dict[str, Any]]:
+        """One placement group's recorded state, or None."""
+        return self.kv_get(pg_hex, namespace=PG_NS)
 
     # ----------------------------------------------------- function export
 

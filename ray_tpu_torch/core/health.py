@@ -15,10 +15,11 @@ Port of `ray_tpu/core/health.py` for one process:
 
 Both run as daemon threads with flag-controlled periods (`config.py`);
 `stop()` joins them. `probe_agent` asks a cluster node's agent for its
-`node_info` over RPC (one synchronous liveness probe). The preemption
-signal handler (SIGTERM as an announced preemption with a drain window)
-raises NotImplementedError naming ROADMAP A6b (preemption and chaos); a
-port agent stops gracefully on SIGTERM instead (`cli.py`).
+`node_info` over RPC (one synchronous liveness probe).
+`install_preemption_signal_handler` makes SIGTERM a node agent's
+preemption notice (`ClusterContext.begin_preemption`: announce, drain for
+the warning window, then shut down gracefully); `cli.py`'s `start`
+installs it.
 """
 
 from __future__ import annotations
@@ -130,11 +131,19 @@ def probe_agent(node) -> bool:
 
 
 def install_preemption_signal_handler(ctx, warning_s: Optional[float] = None):
-    """SIGTERM as a node agent's preemption notice: clusters are not ported."""
-    raise NotImplementedError(
-        "install_preemption_signal_handler is not ported to ray_tpu_torch yet: "
-        "ROADMAP A6b (preemption and chaos)"
-    )
+    """Make SIGTERM a preemption notice: cloud providers deliver spot and
+    maintenance preemptions as SIGTERM with a grace window, so a node agent
+    that receives it announces PREEMPTING (`ctx.begin_preemption`: pub/sub,
+    node table, local drain) and shuts down gracefully when the window
+    closes. Returns the previous handler. Main thread only (the signal
+    module's rule): the CLI's agent loop installs it."""
+    import signal
+
+    def _on_sigterm(signum, frame):  # noqa: ARG001 - the signal signature
+        ctx.begin_preemption("SIGTERM (preemption notice)", warning_s=warning_s,
+                             fate="shutdown")
+
+    return signal.signal(signal.SIGTERM, _on_sigterm)
 
 
 def read_memory_usage_fraction() -> float:

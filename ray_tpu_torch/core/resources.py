@@ -36,6 +36,10 @@ class ResourceSet:
         # LOCAL task or actor freeing this node's ledger also admits queued
         # remote arrivals (core/cluster.py).
         self.on_release = None
+        # A closed pool admits nothing new (a released placement-group
+        # bundle: running work may still release into it, but restarts and
+        # new leases must not draw from capacity the ledger took back).
+        self.closed = False
 
     @property
     def total(self) -> ResourceDict:
@@ -50,6 +54,8 @@ class ResourceSet:
 
     def try_acquire(self, request: ResourceDict) -> bool:
         with self._lock:
+            if self.closed:
+                return False
             if all(self._available.get(k, 0.0) + _EPS >= v for k, v in request.items()):
                 for k, v in request.items():
                     self._available[k] = self._available.get(k, 0.0) - v

@@ -26,8 +26,10 @@ rebuilds on the receiver's default device; a receiver without CUDA
 raises `DeviceUnavailableError`, naming its node. The process plane's
 pipes keep their own rule (`worker_pool.dumps`: no CUDA tensor at all).
 
-JAX's chaos hook on every call (`chaos.rpc_action`) comes with ROADMAP
-A6b (preemption and chaos).
+Every call passes chaos's RPC hook first (`chaos.rpc_action`): an armed
+`rpc_delay_s`, `rpc_drop_prob` or `rpc_error_prob` delays the attempt,
+severs the persistent connection, or fails it before the frame is sent
+(so the retry policy may resend it), as in JAX.
 """
 
 from __future__ import annotations
@@ -408,6 +410,7 @@ class RpcClient:
         """Invoke a remote method; handler exceptions re-raise here,
         transport failures reconnect under the bounded policy (class
         docstring) then raise RpcError."""
+        from . import chaos
         from ..util import tracing
 
         payload = dumps((method, args, tracing.inject_context(kwargs, method)))
@@ -419,6 +422,14 @@ class RpcClient:
             fresh = False
             reply_bytes = [0]
             try:
+                act = chaos.rpc_action(method)
+                if act is not None:
+                    if act["delay"]:
+                        time.sleep(act["delay"])
+                    if act["drop"]:
+                        self.close()  # sever: the attempt reconnects
+                    if act["fail"]:
+                        raise RpcError(f"chaos: injected rpc transport error on {method!r}")
                 with self._lock:
                     if self._sock is None:
                         self._sock = self._connect()

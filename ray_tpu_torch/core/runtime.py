@@ -25,14 +25,20 @@ place on any node (remote ones over RPC), actors may live on node agents
 owner's address so the receiver borrows it (`_rebind_cluster_ref`).
 `shutdown()` leaves the cluster and joins every thread it started.
 
+Placement groups take `max_reschedules` (their rescheduling budget after
+a bundle host's death). Announced preemption: `preempt_node(node)` drains
+a logical node, announces it on the control store's pub/sub and kills it
+after the warning window (its actors restart elsewhere when budgeted,
+its groups reschedule); chaos's `preempt_node` mode pulls the same
+trigger (`_chaos_preempt`), or a cluster member's `begin_preemption`
+when the whole process is the target. `RAY_TPU_CHAOS` is read at init.
+
 What the JAX runtime also does and the port does not yet — each raises
 NotImplementedError naming its ROADMAP item where a caller can ask for
 it: GCS snapshots, the WAL and a restarted head's reconciliation (A6b,
-head restart), placement-group rescheduling (A6b, placement groups across
-nodes), chaos injection and `preempt_node` (A6b, preemption and chaos),
-jobs (A6b) and `profile_capture`'s fan-out to node agents (A6b,
-federation: here one local capture covers every selected logical node,
-as JAX's in-process runtime does).
+head restart), jobs (A6b) and `profile_capture`'s fan-out to node agents
+(A6b, federation: here one local capture covers every selected logical
+node, as JAX's in-process runtime does).
 """
 
 from __future__ import annotations
@@ -51,12 +57,6 @@ from .resources import ResourceDict, default_node_resources
 from .scheduler import ClusterScheduler, Node, PlacementGroup, TaskSpec
 from .streaming import ObjectRefGenerator
 
-_PG_TODO = "ROADMAP A6b (placement groups across nodes)"
-_PREEMPT_TODO = "ROADMAP A6b (preemption and chaos)"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to ray_tpu_torch yet: {item}")
 
 
 class ObjectRef:
@@ -215,6 +215,12 @@ class Runtime:
 
         register_runtime_gauges()
         self.profiles = _profiling.ProfileStore()
+        # announced preemption: chaos (preempt_node) and an agent's SIGTERM
+        # pull the trigger; this runtime drains, announces and kills
+        from . import chaos as _chaos
+
+        self._preempt_timers: List[threading.Timer] = []  # guarded-by: _lock
+        _chaos.set_preemption_hook(self._chaos_preempt)
         # multi-process cluster membership (core/cluster.py): the head
         # serves its GCS over RPC; a node joins an existing head. Either way
         # this process gains a node server and remote dispatch.
@@ -432,10 +438,13 @@ class Runtime:
         lifetime: Optional[str] = None,
         executor: str = "thread",
         runtime_env: Any = None,
+        placement_pool: Any = None,
         _hosted: bool = False,
     ) -> "ActorHandle":
         """`_hosted`: a node agent creating an actor for a remote owner
-        (core/cluster.py), which always lives in this process."""
+        (core/cluster.py), which always lives in this process;
+        `placement_pool` is then the reserved pool of the bundle the owner
+        placed it in."""
         from . import runtime_env as _renv
 
         if executor not in ("thread", "process"):
@@ -453,7 +462,7 @@ class Runtime:
         # cluster placement: NodeAffinity to a remote node, or spillover
         # when only a remote node can take it — the agent hosts the actor,
         # this process keeps a proxy (core/cluster.py RemoteActorProxy)
-        if self.cluster is not None and not _hosted:
+        if self.cluster is not None and not _hosted and placement_pool is None:
             res = dict(resources or {"CPU": 1.0})
             placed = self.cluster.can_place_actor_remotely(scheduling_strategy, res)
             if placed is not None and self._exportable(cls, "an actor's class",
@@ -496,6 +505,7 @@ class Runtime:
                 registered_namespace=namespace,
                 executor=executor,
                 runtime_env=renv,
+                placement_pool=placement_pool,
             )
         except BaseException:
             if name:
@@ -509,11 +519,11 @@ class Runtime:
 
     def _create_remote_actor(self, placed, cls, args, kwargs, res, max_restarts,
                              max_concurrency, name, namespace, executor, renv) -> "ActorHandle":
-        node, pool = placed
+        node, pool, bundle = placed
         actor_id, proxy = self.cluster.create_remote_actor(
             node, cls, args, kwargs, resources=res, max_restarts=max_restarts,
             max_concurrency=max_concurrency, name=name, namespace=namespace,
-            executor=executor, runtime_env=renv, pool=pool,
+            executor=executor, runtime_env=renv, pool=pool, bundle=bundle,
         )
         handle = ActorHandle(actor_id, self)
         if name:
@@ -705,9 +715,8 @@ class Runtime:
 
     def create_placement_group(self, bundles, strategy="PACK", name="",
                                max_reschedules=None) -> PlacementGroup:
-        if max_reschedules is not None:
-            raise _not_ported("placement-group rescheduling (max_reschedules)", _PG_TODO)
-        return self.scheduler.create_placement_group(bundles, strategy, name)
+        return self.scheduler.create_placement_group(
+            bundles, strategy, name, max_reschedules=max_reschedules)
 
     def remove_placement_group(self, pg: PlacementGroup) -> None:
         self.scheduler.remove_placement_group(pg)
@@ -794,9 +803,74 @@ class Runtime:
         self.gcs.kv.put(profile_id, record, namespace=PROFILE_NS)
         return record
 
+    # ------------------------------------------------------------- preemption
+
+    def _chaos_preempt(self, node, warning_s: float, reason: str) -> None:
+        """Chaos's preempt_node trigger. `node` is the logical node the
+        matching task ran on; None (or a remote node's view) means the
+        injection fired at an agent boundary, and the whole PROCESS is the
+        target."""
+        if node is None or getattr(node, "is_remote", False):
+            if self.cluster is not None:
+                # a cluster member: announce through the head's GCS, drain,
+                # and exit after the window (a spot host's fate)
+                self.cluster.begin_preemption(reason, warning_s, fate="exit")
+                return
+            node = self.scheduler.head_node()
+        self.preempt_node(node, warning_s=warning_s, reason=reason)
+
     def preempt_node(self, node: Node, warning_s: Optional[float] = None,
                      reason: str = "preempted") -> None:
-        raise _not_ported("preempt_node", _PREEMPT_TODO)
+        """Put a logical node of this process into PREEMPTING: placement
+        stops at once, the notice goes out on the control store's pub/sub
+        (PREEMPT_CHANNEL) for train controllers, and after `warning_s` the
+        node dies, so running work gets the window to checkpoint."""
+        from .config import cfg
+        from .gcs import PREEMPT_CHANNEL
+
+        if warning_s is None:
+            warning_s = cfg.preempt_warning_s
+        deadline = time.time() + warning_s
+        marked = self.scheduler.mark_node_draining(node.node_id.hex(), reason, deadline)
+        if marked is None or not node.alive:
+            return  # unknown or already gone
+        from ..util.events import emit
+
+        emit("WARNING", "cluster",
+             f"node {node.node_id.hex()[:12]} preempting: {reason} ({warning_s:.1f}s warning)",
+             kind="preempt.announced", node=node.node_id.hex(),
+             deadline=deadline, warning_s=warning_s)
+        self.gcs.pubsub.publish(PREEMPT_CHANNEL, {
+            "node_hex": node.node_id.hex(), "reason": reason,
+            "warning_s": warning_s, "deadline": deadline,
+        })
+        timer = threading.Timer(warning_s, self._kill_local_node, args=(node, reason))
+        timer.daemon = True
+        with self._lock:
+            self._preempt_timers.append(timer)
+        timer.start()
+
+    def _kill_local_node(self, node: Node, reason: str) -> None:
+        """The warning window closed: the preempted node is gone. Its
+        actors die (restarting elsewhere when budgeted: the node is out of
+        every placement path already) and its placement groups
+        reschedule."""
+        if not node.alive:
+            return
+        from ..util.events import emit
+
+        node_hex = node.node_id.hex()
+        emit("WARNING", "cluster",
+             f"preempted node {node_hex[:12]} died after its warning window",
+             kind="node.preempt_expired", node=node_hex, reason=reason)
+        emit("ERROR", "cluster", f"node {node_hex[:12]} is dead (preempted: {reason})",
+             kind="node.dead", node=node_hex, reason=reason)
+        self.scheduler.remove_node(node.node_id)
+        with self._lock:
+            doomed = [ar for ar in self._actors.values() if ar._node is node]
+        for ar in doomed:
+            ar.kill(no_restart=False, reason=f"node {node_hex[:12]} preempted: {reason}")
+        self.scheduler.handle_node_death(node_hex, f"preempted: {reason}")
 
     def shutdown(self) -> None:
         """Stop the health manager and the memory monitor (joining their
@@ -805,6 +879,13 @@ class Runtime:
         and unmap the object store's arena. A cluster member first leaves
         the cluster (`ClusterContext.stop`, which joins its threads) and a
         head stops serving its GCS."""
+        from . import chaos as _chaos
+
+        _chaos.set_preemption_hook(None)
+        with self._lock:
+            timers, self._preempt_timers = getattr(self, "_preempt_timers", []), []
+        for timer in timers:
+            timer.cancel()
         cluster, self.cluster = getattr(self, "cluster", None), None
         if cluster is not None:
             cluster.stop()
@@ -910,6 +991,11 @@ def init_runtime(**kwargs) -> Runtime:
     global _global_runtime
     with _global_lock:
         if _global_runtime is None:
+            # RAY_TPU_CHAOS arms at process start, so a spawned node agent
+            # carries e.g. a kill_node injection before any task arrives
+            from . import chaos
+
+            chaos.load_from_env()
             _global_runtime = Runtime(**kwargs)
         return _global_runtime
 

@@ -30,12 +30,20 @@ arguments (argument locality). A task whose function a peer could not
 import (`worker_pool.check_importable`: the port pickles by reference) is
 `local_only`: feasible only on this process's nodes.
 
-The JAX package also reserves placement-group bundles at agents (a
-two-phase commit), reschedules a group whose bundle host died, drains
-preempted nodes and queues infeasible demand for an autoscaler: a group
-that would place a bundle on a remote node raises NotImplementedError
-naming ROADMAP A6b (placement groups across nodes), and the rest comes
-with A6b and the capacity plane.
+Placement groups reach node agents through a two-phase commit: phase 1
+acquires every bundle on this process's view of its node under the lock,
+phase 2 asks each remote bundle's agent to reserve against its own
+ledger (`remote_bundle_reserver`); a refusal rolls the group back and
+replans. A group moves PENDING -> RESERVED; a bundle host's death moves
+it to RESCHEDULING, and a rescheduler thread re-runs the commit for the
+dead bundles on surviving nodes (logical or agents) under a budget
+(`max_reschedules`, default `cfg.pg_reschedule_budget`) with backoff:
+back to RESERVED, or FAILED with the death history once the budget is
+spent. Tasks aimed at a RESCHEDULING group stay queued. A node that
+announced its preemption is draining: task, actor and bundle placement
+skip it. JAX's scheduler also queues demand no node can meet for an
+autoscaler (`pending_demand`, `fail_unprovisionable`), which comes with
+ROADMAP A6b (capacity).
 """
 
 from __future__ import annotations
@@ -62,7 +70,6 @@ from .resources import ResourceDict, ResourceSet
 
 logger = logging.getLogger("ray_tpu_torch")
 
-PG_ACROSS_NODES_ITEM = "ROADMAP A6b (placement groups across nodes)"
 
 
 # --------------------------------------------------------------------------- spec
@@ -183,10 +190,16 @@ class Node:
         self.labels = labels or {}
         self.running_tasks: Dict[TaskID, TaskSpec] = {}
         self._lock = threading.Lock()
+        # PREEMPTING (draining): the node announced its death (SIGTERM,
+        # chaos preempt_node). It stays alive through the warning window,
+        # so running work may finish or checkpoint, but placement skips it.
+        self.draining = False
+        self.drain_reason = ""
+        self.drain_deadline = 0.0  # wall-clock time the node expects to die
 
     def placeable(self) -> bool:
         """Eligible to receive NEW tasks/actors/bundles."""
-        return self.alive
+        return self.alive and not self.draining
 
     def utilization(self) -> float:
         total = self.resources.total
@@ -245,19 +258,49 @@ class Bundle:
 
 
 class PlacementGroup:
-    """A gang reservation of resource bundles across nodes, reserved
-    atomically under the scheduler lock (all-or-nothing,
-    strategy-constrained spread). States: RESERVED, then REMOVED."""
+    """A gang reservation of resource bundles across nodes, all or
+    nothing, strategy-constrained.
+
+    States: PENDING -> RESERVED. A bundle host's death moves the group to
+    RESCHEDULING: the owner re-reserves the dead bundles on surviving (or
+    newly joined) nodes, under a budget of attempts over the group's
+    lifetime with backoff. Success returns to RESERVED (queued tasks
+    resume; budgeted bundle actors restart into the re-reserved bundles);
+    a spent budget lands in FAILED, and every task aimed at the group
+    fails with the death history. `remove` ends in REMOVED."""
 
     def __init__(self, pg_id: PlacementGroupID, bundles: List[Bundle],
-                 strategy: PlacementStrategy, name: str = ""):
+                 strategy: PlacementStrategy, name: str = "",
+                 max_reschedules: Optional[int] = None):
         self.id = pg_id
         self.bundles = bundles
         self.strategy = strategy
         self.name = name
         self.created = threading.Event()
         self.removed = False
-        self.state = "PENDING"  # RESERVED | REMOVED
+        self.state = "PENDING"  # RESERVED | RESCHEDULING | FAILED | REMOVED
+        # None: cfg.pg_reschedule_budget when a reschedule starts
+        self.max_reschedules = max_reschedules
+        self.reschedules_used = 0
+        self.death_history: List[Dict[str, Any]] = []
+        self.failure_reason = ""
+        self._reserved_event = threading.Event()
+        self._rescheduler_running = False  # guarded-by: the scheduler's _lock
+
+    def wait_reserved(self, timeout: Optional[float] = None) -> bool:
+        """Block until the group holds a live reservation (True) or is
+        FAILED or REMOVED (False). Bundle-actor restarts and a gang's
+        re-mesh park here while a reschedule runs."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            if self.state == "RESERVED":
+                return True
+            if self.state in ("FAILED", "REMOVED") or self.removed:
+                return False
+            remaining = None if deadline is None else deadline - time.monotonic()
+            if remaining is not None and remaining <= 0:
+                return self.state == "RESERVED"
+            self._reserved_event.wait(timeout=0.5 if remaining is None else min(remaining, 0.5))
 
     def ready(self, timeout: Optional[float] = None) -> bool:
         return self.created.wait(timeout)
@@ -367,6 +410,14 @@ class ClusterScheduler:
         # ships a task to a RemoteNode's agent. Never raises — completion
         # (dispatch failure included) flows back through finish_remote.
         self.remote_dispatcher: Optional[Callable] = None
+        # Cluster hooks for the two-phase reservation at agents:
+        # reserver(pg_hex, bundles) -> None or an error string (it rolls
+        # back its own partial progress); releaser(pg_hex, bundles),
+        # best-effort; pg_state_sink(pg) records the group's state in the
+        # GCS placement-group table
+        self.remote_bundle_reserver: Optional[Callable] = None
+        self.remote_bundle_releaser: Optional[Callable] = None
+        self.pg_state_sink: Optional[Callable] = None
         # task execution threads: dedicated per running task (blocking
         # get() can never deadlock) but REUSED across tasks
         self._task_threads = _ReusableThreadPool()
@@ -389,6 +440,46 @@ class ClusterScheduler:
     def nodes(self) -> List[Node]:
         with self._lock:
             return list(self._nodes.values())
+
+    def mark_node_draining(self, node_hex: str, reason: str,
+                           deadline: float = 0.0) -> Optional[Node]:
+        """Flip a node to PREEMPTING (draining): placement skips it from
+        now on and queued work re-plans onto the other nodes. Returns the
+        node, or None when it is unknown (dead or departed)."""
+        with self._lock:
+            node = next((n for n in self._nodes.values() if n.node_id.hex() == node_hex), None)
+            if node is None or node.draining:
+                return node
+            node.draining = True
+            node.drain_reason = reason
+            node.drain_deadline = deadline
+        from ..util.events import emit
+        from ..util.metrics import get_or_create_counter
+
+        emit("WARNING", "cluster",
+             f"node {node_hex[:12]} PREEMPTING: new placements stop ({reason})",
+             kind="preempt.drain", node=node_hex, deadline=deadline)
+        get_or_create_counter(
+            "raytpu_node_preemptions_total",
+            "Nodes that entered the PREEMPTING/draining state.",
+        ).inc()
+        self._wake.set()  # queued tasks re-plan around it
+        return node
+
+    def resident_bundles(self, node_hex: str) -> List[List[ResourceDict]]:
+        """The bundles of live placement groups reserved on `node_hex`,
+        one list per group."""
+        with self._lock:
+            pgs = list(self._placement_groups.values())
+        out: List[List[ResourceDict]] = []
+        for pg in pgs:
+            if pg.removed or pg.state in ("FAILED", "REMOVED"):
+                continue
+            on_node = [dict(b.resources) for b in pg.bundles
+                       if b.node is not None and b.node.node_id.hex() == node_hex]
+            if on_node:
+                out.append(on_node)
+        return out
 
     def head_node(self) -> Node:
         with self._lock:
@@ -467,50 +558,69 @@ class ClusterScheduler:
 
     def create_placement_group(
         self, bundles: Sequence[ResourceDict], strategy: str = "PACK", name: str = "",
+        max_reschedules: Optional[int] = None,
     ) -> PlacementGroup:
-        """Reserve a gang of bundles, all or nothing, under the scheduler
-        lock."""
+        """Reserve a gang of bundles, cluster-wide, all or nothing.
+
+        A two-phase commit across node agents: phase 1 acquires each
+        bundle on this process's view of its node under the scheduler
+        lock; phase 2 asks every REMOTE bundle's agent to reserve against
+        its own ledger (`remote_bundle_reserver`). An agent's refusal
+        (another owner got there first) rolls the whole group back and
+        replans, so the reservation stays all-or-nothing between owners
+        that cannot see each other's dispatches."""
         strat = PlacementStrategy(strategy)
-        pg = PlacementGroup(
-            PlacementGroupID.from_random(),
-            [Bundle(i, dict(r)) for i, r in enumerate(bundles)],
-            strat,
-            name,
-        )
-        acquired: List[Tuple[Node, ResourceDict]] = []
-        with self._lock:
-            placement = self._plan_placement_locked(pg)
-            if placement is None:
-                raise PlacementGroupUnschedulableError(
-                    f"Cannot fit bundles {list(bundles)} with strategy "
-                    f"{strategy} on nodes "
-                    f"{[n.resources.total for n in self._nodes.values()]}"
-                )
-            if any(node.is_remote for node in placement):
-                raise NotImplementedError(
-                    f"placement group {list(bundles)} ({strategy}) would reserve a "
-                    f"bundle on a remote node agent: the two-phase reservation at "
-                    f"agents is not ported to ray_tpu_torch yet: {PG_ACROSS_NODES_ITEM}"
-                )
-            for bundle, node in zip(pg.bundles, placement):
-                if not node.resources.try_acquire(bundle.resources):
-                    # the plan counted every bundle against availability
-                    # under this lock, so this only happens if a task
-                    # thread acquired concurrently: roll back
-                    for prev_node, prev_res in acquired:
-                        prev_node.resources.release(prev_res)
+        last_err = f"Cannot fit bundles {list(bundles)} with strategy {strategy}"
+        for _attempt in range(3):
+            pg = PlacementGroup(
+                PlacementGroupID.from_random(),
+                [Bundle(i, dict(r)) for i, r in enumerate(bundles)],
+                strat,
+                name,
+                max_reschedules=max_reschedules,
+            )
+            acquired: List[Tuple[Node, ResourceDict]] = []
+            with self._lock:
+                placement = self._plan_placement_locked(pg)
+                if placement is None:
                     raise PlacementGroupUnschedulableError(
-                        f"Cannot fit bundles {list(bundles)}: concurrent "
-                        f"reservation lost"
+                        f"Cannot fit bundles {list(bundles)} with strategy "
+                        f"{strategy} on nodes "
+                        f"{[n.resources.total for n in self._nodes.values() if n.placeable()]}"
                     )
-                acquired.append((node, bundle.resources))
-                bundle.node = node
-                bundle.reserved = ResourceSet(bundle.resources)
-            self._placement_groups[pg.id] = pg
-        pg.state = "RESERVED"
-        pg.created.set()
-        self._wake.set()
-        return pg
+                lost = False
+                for bundle, node in zip(pg.bundles, placement):
+                    if not node.resources.try_acquire(bundle.resources):
+                        # the plan counted every bundle under this lock, so
+                        # only a concurrent task acquisition gets here
+                        for prev_node, prev_res in acquired:
+                            prev_node.resources.release(prev_res)
+                        acquired.clear()
+                        lost = True
+                        break
+                    acquired.append((node, bundle.resources))
+                    bundle.node = node
+                    bundle.reserved = ResourceSet(bundle.resources)
+            if lost:
+                last_err = "concurrent reservation lost"
+                continue
+            # phase 2, outside the lock (RPCs): prepare the remote bundles
+            # at their agents; the hook reserves in order and rolls back
+            # its own partial progress on a refusal
+            remote = [b for b in pg.bundles if b.node is not None and b.node.is_remote]
+            if remote and self.remote_bundle_reserver is not None:
+                err = self.remote_bundle_reserver(pg.id.hex(), remote)
+                if err is not None:
+                    with self._lock:
+                        for node, res in acquired:
+                            node.resources.release(res)
+                    last_err = err
+                    continue
+            with self._lock:
+                self._placement_groups[pg.id] = pg
+            self._pg_transition(pg, "RESERVED", "initial reservation")
+            return pg
+        raise PlacementGroupUnschedulableError(last_err)
 
     def _plan_placement_locked(self, pg: PlacementGroup) -> Optional[List[Node]]:  # holds-lock: _lock
         nodes = [n for n in self._nodes.values() if n.placeable()]
@@ -573,8 +683,193 @@ class ClusterScheduler:
             for bundle in pg.bundles:
                 if bundle.node is not None and bundle.node.alive:
                     bundle.node.resources.release(bundle.resources)
-        pg.state = "REMOVED"
+        remote = [b for b in pg.bundles
+                  if b.node is not None and b.node.is_remote and b.node.alive]
+        if remote and self.remote_bundle_releaser is not None:
+            self.remote_bundle_releaser(pg.id.hex(), remote)
+        self._pg_transition(pg, "REMOVED")
+
+    # ------------------------------------------------ placement-group states
+
+    def get_placement_group(self, pg_hex: str) -> Optional[PlacementGroup]:
+        with self._lock:
+            return self._placement_groups.get(PlacementGroupID(pg_hex))
+
+    def placement_groups(self) -> List[PlacementGroup]:
+        with self._lock:
+            return list(self._placement_groups.values())
+
+    def _pg_transition(self, pg: PlacementGroup, state: str,
+                       reason: str = "", **extra: Any) -> None:
+        """Every state change of a group goes through here: the state, the
+        event, the counter, the GCS table's record and a dispatch wake
+        (queued tasks aimed at the group look at it again)."""
+        pg.state = state
+        if state == "RESCHEDULING":
+            pg._reserved_event.clear()
+        else:
+            pg._reserved_event.set()
+        if state == "RESERVED":
+            pg.created.set()
+        from ..util.events import emit
+        from ..util.metrics import get_or_create_counter
+
+        severity = "WARNING" if state in ("RESCHEDULING", "FAILED") else "INFO"
+        emit(severity, "placement_groups",
+             f"placement group {pg.id.hex()[:12]} -> {state}"
+             + (f" ({reason})" if reason else ""),
+             kind="pg.transition", pg=pg.id.hex(), state=state, **extra)
+        get_or_create_counter(
+            "raytpu_pg_state_transitions_total",
+            "Placement-group FSM transitions by target state.",
+            ("state",),
+        ).inc(tags={"state": state})
+        if self.pg_state_sink is not None:
+            try:
+                self.pg_state_sink(pg)
+            except Exception:  # noqa: BLE001 - observability must not wedge the FSM
+                logger.exception("placement-group state sink failed")
         self._wake.set()
+
+    def _kick_reschedule(self, pg: PlacementGroup, reason: str,
+                         bundle_indexes: List[int]) -> None:
+        """Record the death and make sure exactly one rescheduler thread
+        drives the group's recovery."""
+        pg.death_history.append({
+            "ts": time.time(),
+            "bundles": list(bundle_indexes),
+            "reason": reason,
+        })
+        with self._lock:
+            if pg.removed or pg.state in ("FAILED", "REMOVED"):
+                return
+            if pg._rescheduler_running:
+                return  # the running thread finds the dead bundles each attempt
+            pg._rescheduler_running = True
+        self._pg_transition(pg, "RESCHEDULING", reason, bundles=list(bundle_indexes))
+        threading.Thread(
+            target=self._reschedule_pg, args=(pg,), daemon=True,
+            name=f"ray_tpu_torch-pg-reschedule-{pg.id.hex()[:8]}",
+        ).start()
+
+    def _reschedule_pg(self, pg: PlacementGroup) -> None:
+        """The rescheduler thread: budgeted re-reservation with backoff.
+        Attempts count over the group's lifetime, so a flapping group
+        cannot thrash forever."""
+        from .config import cfg
+
+        budget = pg.max_reschedules if pg.max_reschedules is not None else cfg.pg_reschedule_budget
+        backoff = max(cfg.pg_reschedule_backoff_s, 0.05)
+        attempt = 0
+        try:
+            while True:
+                if pg.removed or pg.state in ("FAILED", "REMOVED") or self._shutdown:
+                    return
+                if pg.reschedules_used >= budget:
+                    self._fail_pg(pg, budget)
+                    return
+                pg.reschedules_used += 1
+                attempt += 1
+                err = self._try_reschedule_once(pg)
+                if err is None:
+                    self._pg_transition(pg, "RESERVED",
+                                        f"re-reserved after {attempt} attempt(s)",
+                                        reschedules_used=pg.reschedules_used)
+                    return
+                from ..util.events import emit
+
+                emit("WARNING", "placement_groups",
+                     f"placement group {pg.id.hex()[:12]} reschedule attempt {attempt} "
+                     f"failed: {err}", kind="pg.reschedule_failed", pg=pg.id.hex())
+                logger.warning("PG %s reschedule attempt %d failed: %s",
+                               pg.id.hex()[:12], attempt, err)
+                if pg.reschedules_used >= budget:
+                    self._fail_pg(pg, budget)
+                    return
+                time.sleep(min(backoff * (2 ** (attempt - 1)), 8.0))
+        finally:
+            with self._lock:
+                pg._rescheduler_running = False
+            # a death that landed between the final transition and the
+            # flag's clearing found the thread "running" and was skipped:
+            # kick again so it is never lost
+            if not pg.removed and pg.state == "RESERVED":
+                late = [b.index for b in pg.bundles if b.node is not None and not b.node.alive]
+                if late:
+                    self._kick_reschedule(pg, "bundle host died during rescheduling", late)
+
+    def _try_reschedule_once(self, pg: PlacementGroup) -> Optional[str]:
+        """One re-reservation round for every dead bundle: plan and
+        acquire under the lock, probe and commit at the agents outside
+        it, repoint the bundles only when every grant landed. None on
+        success, else the reason to retry."""
+        from .health import probe_agent
+
+        acquired: List[Tuple[Node, ResourceDict]] = []
+        replacements: List[Tuple[Bundle, Node]] = []
+
+        def rollback() -> None:  # holds-lock: _lock
+            for node, res in acquired:
+                node.resources.release(res)
+
+        with self._lock:
+            dead = [b for b in pg.bundles if b.node is None or not b.node.alive]
+            if not dead:
+                return None  # healed concurrently
+            alive = [n for n in self._nodes.values() if n.placeable()]
+            held = {b.node.node_id for b in pg.bundles if b.node is not None and b.node.alive}
+            pack_node: Optional[Node] = (
+                next((b.node for b in pg.bundles if b.node is not None and b.node.alive), None)
+                if pg.strategy == PlacementStrategy.STRICT_PACK else None
+            )
+            for bundle in dead:
+                if pg.strategy == PlacementStrategy.STRICT_SPREAD:
+                    candidates = [n for n in alive if n.node_id not in held]
+                elif pg.strategy == PlacementStrategy.STRICT_PACK:
+                    candidates = [pack_node] if pack_node is not None else alive
+                else:
+                    candidates = list(alive)
+                chosen = None
+                for node in sorted(candidates, key=lambda n: n.utilization()):
+                    if node.resources.try_acquire(bundle.resources):
+                        chosen = node
+                        break
+                if chosen is None:
+                    rollback()
+                    return (f"no surviving node can host bundle {bundle.index} "
+                            f"({bundle.resources}) under {pg.strategy.value}")
+                acquired.append((chosen, dict(bundle.resources)))
+                replacements.append((bundle, chosen))
+                held.add(chosen.node_id)
+                if pack_node is None:
+                    pack_node = chosen
+        # outside the lock: probe the remote candidates (a death may not
+        # have aged out of the heartbeats yet), then phase 2 at the agents
+        remote = [(b, n) for b, n in replacements if n.is_remote]
+        for _, node in remote:
+            if not probe_agent(node):
+                with self._lock:
+                    rollback()
+                return f"candidate node {node.node_id.hex()[:12]} is unresponsive"
+        if remote and self.remote_bundle_reserver is not None:
+            shims = [Bundle(b.index, dict(b.resources), node=node) for b, node in remote]
+            err = self.remote_bundle_reserver(pg.id.hex(), shims)
+            if err is not None:
+                with self._lock:
+                    rollback()
+                return err
+        with self._lock:
+            for bundle, node in replacements:
+                bundle.node = node
+                bundle.reserved = ResourceSet(bundle.resources)
+        return None
+
+    def _fail_pg(self, pg: PlacementGroup, budget: int) -> None:
+        history = "; ".join(f"bundles {h['bundles']} lost ({h['reason']})"
+                            for h in pg.death_history)
+        pg.failure_reason = (f"rescheduling budget exhausted ({budget} attempt(s)); "
+                             f"death history: {history or 'none'}")
+        self._pg_transition(pg, "FAILED", pg.failure_reason)
 
     # ----------------------------------------------------------- dispatch loop
 
@@ -627,12 +922,35 @@ class ClusterScheduler:
             pg = strategy.placement_group
             idx = strategy.placement_group_bundle_index
             bundles = pg.bundles if idx < 0 else [pg.bundles[idx]]
+            live = []
             for bundle in bundles:
+                if bundle.node is not None and not bundle.node.alive:
+                    continue  # its host died: never dispatch into a void
+                if bundle.node is not None and bundle.node.is_remote and not remotable:
+                    continue
+                live.append(bundle)
                 if bundle.reserved is not None and bundle.reserved.try_acquire(spec.resources):
                     target, pool = bundle.node, bundle.reserved
                     break
             if target is None:
-                return False  # stays queued until a bundle frees up
+                if pg.state == "FAILED":
+                    # the rescheduling budget is spent: fail with the
+                    # death history instead of queueing forever
+                    self._fail_returns(
+                        spec,
+                        OutOfResourcesError(
+                            f"Task {spec.name}: placement group {pg.id.hex()[:12]} "
+                            f"failed: {pg.failure_reason}"),
+                    )
+                    return True
+                dead = [b for b in bundles if b.node is not None and not b.node.alive]
+                if not live and dead and pg.state == "RESERVED":
+                    # a host death seen here before any death notice reached
+                    # the group (a direct remove_node): start the reschedule
+                    self._kick_reschedule(pg, "bundle host observed dead at dispatch",
+                                          [b.index for b in dead])
+                # RESCHEDULING, or a bundle is busy: stay queued
+                return False
         elif isinstance(strategy, NodeAffinitySchedulingStrategy):
             with self._lock:
                 node = self._nodes.get(strategy.node_id)
@@ -838,6 +1156,9 @@ class ClusterScheduler:
             # emitted inside it carry the task attribution
             with tracing.use_context(exec_span.context), \
                     _logs.attribution(f"task:{spec.task_id.hex()[:8]}"):
+                from . import chaos
+
+                chaos.maybe_inject(spec.name, node=node)
                 if spec.executor == "process":
                     # a pooled worker process; SHM-tier args ship as
                     # zero-copy arena descriptors
@@ -939,12 +1260,13 @@ class ClusterScheduler:
         self._complete(spec, error, error_tb, system_failure=system_failure)
 
     def handle_node_death(self, node_hex: str, reason: str,
-                          tasks: Sequence[Tuple[TaskSpec, Node, ResourceSet]]) -> None:
-        """Heartbeat-confirmed node death: drop the node from the view and
-        resubmit every task that was in flight there (`tasks`, the
-        cluster's dispatch records, already claimed so a late task_done
-        reads stale) under the system-failure budget. No placement group
-        holds a bundle there (PG_ACROSS_NODES_ITEM), so none reschedules."""
+                          tasks: Sequence[Tuple[TaskSpec, Node, ResourceSet]] = ()) -> None:
+        """A node's death (heartbeat-confirmed, or a logical node's
+        preemption window closing): drop the node from the view, resubmit
+        every task that was in flight there (`tasks`, the cluster's
+        dispatch records, already claimed so a late task_done reads stale)
+        under the system-failure budget, and move every placement group
+        with a bundle there to RESCHEDULING."""
         from .worker_pool import WorkerCrashedError
 
         with self._lock:
@@ -959,6 +1281,13 @@ class ClusterScheduler:
                     f"node {node_hex[:12]} executing task {spec.name} died: {reason}"),
                 system_failure=True,
             )
+        with self._lock:
+            pgs = list(self._placement_groups.values())
+        for pg in pgs:
+            dead = [b.index for b in pg.bundles
+                    if b.node is not None and b.node.node_id.hex() == node_hex]
+            if dead:
+                self._kick_reschedule(pg, f"node {node_hex[:12]} died: {reason}", dead)
 
     def _seal_returns(self, spec: TaskSpec, result: Any) -> None:
         if spec.streaming:

@@ -2,8 +2,8 @@
 job (or, for TP serving, over this process's devices), sharding rules,
 collectives, the explicit FSDP / TP / EP collectives that stand in for
 GSPMD (`spmd.py`) and the pipeline schedules over pp (`pipeline.py`)
-(port of `ray_tpu.parallel`; `dcn.py` comes with ROADMAP A6b (gangs,
-jobs and DCN))."""
+(port of `ray_tpu.parallel`; `dcn.py` comes with ROADMAP A6b (jobs and
+DCN))."""
 
 from .collectives import (  # noqa: F401
     CollectiveGroup,

@@ -37,6 +37,8 @@ from ..core.exceptions import (
     RequestTimeoutError,
     unwrap_error,
 )
+from ..core.chaos import ChaosInjectedError
+from ..core.rpc import RpcError
 from ..core.streaming import ObjectRefGenerator
 from . import reqlog
 
@@ -56,7 +58,9 @@ _RETRYABLE = (
     ActorDiedError,
     ActorUnavailableError,
     ReplicaDrainingError,
+    RpcError,
     ConnectionError,
+    ChaosInjectedError,
 )
 
 

@@ -2,10 +2,12 @@
 on one device or over a mesh's ranks: dp, fsdp, tp), `LMTrainer`,
 checkpoints, the step log, the train configs, and the gang control plane
 (`Trainer`, `TrainController`, `WorkerGroup` over the port's thread
-actors, `MultihostWorkerGroup` over one process per rank, the per-rank
-session)."""
+actors, `MultihostWorkerGroup` over one process per rank, `ClusterWorkerGroup`
+over process actors in a placement group's bundles on node agents, the
+per-rank session)."""
 
 from . import steplog  # noqa: F401
+from .cluster_gang import ClusterWorkerGroup  # noqa: F401
 from .checkpoint import (  # noqa: F401
     CheckpointManager,
     read_global,

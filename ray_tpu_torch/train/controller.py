@@ -3,12 +3,14 @@ train/v2/_internal/execution/controller/controller.py:91 — poll workers,
 aggregate reports, apply the failure policy, restart the gang from the last
 checkpoint).
 
-Port of `ray_tpu/train/controller.py` for gangs of thread actors in one
-process. JAX's controller also advertises a restarting gang's bundles to
-the capacity plane as pending demand; that source comes with ROADMAP A6b
-(capacity). The preemption pipeline below listens on the
-port's control-store pub/sub, which receives no notice until ROADMAP A6b
-(preemption and chaos) ports `preempt_node`.
+Port of `ray_tpu/train/controller.py`. It drives a gang of thread
+actors (`WorkerGroup`), of processes (`MultihostWorkerGroup`) or of
+process actors on cluster agents (`ClusterWorkerGroup`). JAX's controller
+also advertises a restarting gang's bundles to the capacity plane as
+pending demand; that source comes with ROADMAP A6b (capacity). The
+preemption pipeline below listens on this process's control-store
+pub/sub, where `Runtime.preempt_node` announces a logical node and every
+cluster member relays the notices of node agents (`core/cluster.py`).
 
 Preemption pipeline: the controller subscribes to the GCS pubsub's
 PREEMPT_CHANNEL. When a node hosting one of its workers announces
@@ -185,8 +187,8 @@ class TrainController:
 
     def _subscribe_preemption(self) -> Callable[[], None]:
         """Listen for announced node preemptions on the local control
-        store's pub/sub (in a cluster, members relay peer announcements
-        into it: ROADMAP A6b (preemption and chaos)). No-op when no runtime is initialized (a
+        store's pub/sub (in a cluster, members relay their peers'
+        announcements into it). No-op when no runtime is initialized (a
         custom group run without one)."""
         from ..core import runtime as rt
 

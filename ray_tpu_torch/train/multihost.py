@@ -70,6 +70,16 @@ class _FileSession(Session):
             f.flush()
 
 
+def _free_port() -> int:
+    """A TCP port free on this host right now (the caller races anyone who
+    binds it before the rendezvous does)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def default_backend(num_processes: int) -> str:
     """NCCL when every rank of one host can have its own CUDA device,
     gloo otherwise (CPU ranks, or ranks that share a card)."""

@@ -59,16 +59,40 @@ def list_nodes() -> List[Dict[str, Any]]:
                 "node_id": node.node_id.hex(),
                 "alive": node.alive,
                 "is_head": node.is_head,
-                # no node announces a preemption yet, so none is
-                # PREEMPTING (ROADMAP A6b (preemption and chaos))
-                "state": "ALIVE" if node.alive else "DEAD",
-                "draining": False,
-                "drain_reason": None,
-                "drain_deadline": None,
+                # ALIVE | PREEMPTING | DEAD: a PREEMPTING node announced its
+                # death and takes no new placements
+                "state": ("PREEMPTING" if node.alive and node.draining
+                          else ("ALIVE" if node.alive else "DEAD")),
+                "draining": bool(node.draining),
+                "drain_reason": node.drain_reason,
+                "drain_deadline": node.drain_deadline,
                 "resources_total": dict(node.resources.total),
                 "resources_available": dict(node.resources.available()),
             }
         )
+    return out
+
+
+def list_placement_groups() -> List[Dict[str, Any]]:
+    """The placement groups this process owns, with their state machine's
+    fields: state (PENDING, RESERVED, RESCHEDULING, FAILED), the budget
+    used, the death history and each bundle's node. In a cluster the same
+    records sit in the GCS table `PG_NS` (`GcsClient.pg_state`)."""
+    out = []
+    for pg in _runtime().scheduler.placement_groups():
+        out.append({
+            "pg_id": pg.id.hex(),
+            "name": pg.name,
+            "strategy": pg.strategy.value,
+            "state": pg.state,
+            "max_reschedules": pg.max_reschedules,
+            "reschedules_used": pg.reschedules_used,
+            "death_history": list(pg.death_history),
+            "failure_reason": pg.failure_reason,
+            "bundles": [{"index": b.index, "resources": dict(b.resources),
+                         "node": b.node.node_id.hex() if b.node is not None else None}
+                        for b in pg.bundles],
+        })
     return out
 
 

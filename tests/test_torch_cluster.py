@@ -351,7 +351,7 @@ class TestSharedCluster:
 
         with pytest.raises(NotImplementedError, match="A8"):
             main(["status"])
-        with pytest.raises(NotImplementedError, match="A6b"):
+        with pytest.raises(NotImplementedError, match=r"A6b \(head restart\)"):
             main(["start", "--head", "--snapshot-path", "/nonexistent"])
 
     def test_jax_node_refuses_port_head(self, shared):

@@ -27,6 +27,7 @@ in another order change that step.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -1354,3 +1355,60 @@ def test_agent_cuda_result_lands_on_the_card_bit_equal(cuda):
     finally:
         c.shutdown()
     assert U.wait_no_children(before) == []
+
+
+@pytest.mark.cuda
+def test_cluster_gang_on_two_agents_matches_one_process(cuda):
+    """A 2-member ClusterWorkerGroup whose members are process actors on two
+    node agents sharing the card (gloo) takes 3 steps of a narrow GPT-2
+    (d_model 256, 4 heads of 64, 2 layers, f32 compute,
+    `torch_cluster_udfs.gang_lm`): both members launch K1 and K2 (dkv, dq)
+    every step, and each member's losses equal the same steps run in this
+    process on the whole batch within 1e-5 relative (chip_smoke.py's
+    DP_SHARD_RTOL); no agent or member outlives the cluster."""
+    import torch_cluster_udfs as C
+    import torch_process_udfs as U
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.train import ClusterWorkerGroup
+
+    tokens = np.random.default_rng(0).integers(0, 4096, (4, 257), dtype=np.int32)
+    config = dict(model="gpt2-small", tokens=tokens, steps=3, lr=1e-3, total_steps=3,
+                  warmup_steps=1, seed=0, device="cuda",
+                  model_overrides={"vocab_size": 4096, "d_model": 256, "n_heads": 4,
+                                   "d_ff": 1024, "n_layers": 2, "dtype": "float32"})
+    one = C.gang_lm(dict(config))  # one process, the whole batch (builds the kernels)
+    before = U.live_children()
+    c = Cluster(head_node_args={"num_cpus": 1, "num_gpus": 0})
+    group = None
+    reports = []
+    try:
+        for _ in range(2):
+            c.add_node(num_cpus=2, num_gpus=1, resources={"gang": 1})
+        c.wait_for_nodes(3, timeout=180)
+        group = ClusterWorkerGroup(2, resources_per_worker={"CPU": 1, "GPU": 1, "gang": 1},
+                                   run_name="card-gang", backend="gloo", timeout_s=120)
+        group.start()
+        assert len({b.node.node_id.hex() for b in group.pg.bundles}) == 2
+        refs = group.run_async(C.gang_lm, config)
+        cursors = [0, 0]
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            polls = group.poll(cursors)
+            for i, p in enumerate(polls):
+                assert not p["error"], p["error"]
+                reports.extend(p["reports"])
+                cursors[i] += len(p["reports"])
+            if all(p["done"] for p in polls):
+                break
+            time.sleep(0.1)
+        results = group.finish(refs, timeout=120)
+    finally:
+        if group is not None:
+            group.shutdown()
+        c.shutdown()
+    assert U.wait_no_children(before, timeout=30) == []
+    for losses in results:
+        np.testing.assert_allclose(losses, one, rtol=1e-5, atol=0)
+    last = [m for m, _, rank, _ in reports if rank == 0][-1]["launches"]
+    n_layers = config["model_overrides"]["n_layers"]
+    assert last == [[n_layers * 3] * 3] * 2, last

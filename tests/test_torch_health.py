@@ -213,8 +213,9 @@ def test_memory_usage_fraction_reads_meminfo():
 
 def test_cluster_probes_raise_naming_a6():
     """probe_agent is ported (cluster mode, ROADMAP A6a): a local node is
-    alive, a remote one whose agent does not answer is not; the SIGTERM
-    preemption handler still raises, naming A6b."""
+    alive, a remote one whose agent does not answer is not. The SIGTERM
+    preemption handler is ported (ROADMAP A6b, part 3): SIGTERM calls the
+    context's begin_preemption with JAX's reason, window and fate."""
     from ray_tpu_torch.core.ids import NodeID
     from ray_tpu_torch.core.scheduler import Node, RemoteNode
 
@@ -222,8 +223,23 @@ def test_cluster_probes_raise_naming_a6():
     gone = RemoteNode(NodeID.from_random(), {"CPU": 1.0}, "127.0.0.1:1")
     gone.client._timeout = 0.5
     assert thealth.probe_agent(gone) is False
-    with pytest.raises(NotImplementedError, match="A6b"):
-        thealth.install_preemption_signal_handler(object())
+    calls = {"torch": [], "jax": []}
+
+    class _Ctx:
+        def __init__(self, name):
+            self.name = name
+
+        def begin_preemption(self, reason, warning_s=None, fate=None):
+            calls[self.name].append((reason, warning_s, fate))
+
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        for name, mod in (("torch", thealth), ("jax", jhealth)):
+            mod.install_preemption_signal_handler(_Ctx(name), warning_s=3.0)
+            signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    assert calls["torch"] == calls["jax"] == [("SIGTERM (preemption notice)", 3.0, "shutdown")]
 
 
 def test_flags_match_jax():

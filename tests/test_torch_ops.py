@@ -347,6 +347,7 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.core.rpc, ray_tpu_torch.core.gcs_service\n"
         "import ray_tpu_torch.core.object_transfer, ray_tpu_torch.core.cluster\n"
         "import ray_tpu_torch.cluster_utils, ray_tpu_torch.cli, torch_cluster_udfs\n"
+        "import ray_tpu_torch.core.chaos, ray_tpu_torch.train.cluster_gang\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -581,8 +581,13 @@ def test_cluster_and_process_modes_raise_not_implemented():
             f.options(executor="process").remote()
         with pytest.raises(ValueError, match="executor='process'"):
             ray_tpu_torch.remote(_Log).options(runtime_env={"env_vars": {"A": "1"}}).remote()
-        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-            ray_tpu_torch.placement_group([{"CPU": 1}], max_reschedules=2)
+        # placement-group rescheduling is ported (ROADMAP A6b, part 2):
+        # max_reschedules builds a group that carries its budget
+        pg = ray_tpu_torch.placement_group([{"CPU": 1}], max_reschedules=2)
+        assert pg.ready(timeout=TIMEOUT)
+        assert (pg.state, pg.max_reschedules, pg.reschedules_used) == ("RESERVED", 2, 0)
+        ray_tpu_torch.remove_placement_group(pg)
+        assert pg.state == "REMOVED"
     finally:
         ray_tpu_torch.shutdown()
 

@@ -20,6 +20,12 @@ the function.
   (Llama-3-8B's paged `LLMServer` on the agent's card, its launch counts
   and the dense check `dense_check_stats`, which `chip_smoke.py`'s own
   dense check also runs).
+- the cluster-hosted gangs (`train.ClusterWorkerGroup`): `gang_steps`, a
+  toy checkpoint-aware loop (`tests/test_torch_cluster_pg.py`'s re-mesh
+  drill), and `gang_lm`, data-parallel `LMTrainer` steps with checkpoints
+  and an emergency checkpoint on a preemption notice
+  (`tests/test_torch_cluster_pg.py`'s gang against JAX's dp=2 run,
+  `tests/test_torch_cuda.py`'s card gang, `chip_smoke.py`'s `gang` phase).
 """
 
 from __future__ import annotations
@@ -116,6 +122,20 @@ def agent_stats() -> dict:
     from ray_tpu_torch.core.runtime import get_runtime
 
     return dict(get_runtime().cluster.agent_stats)
+
+
+def ledger_available() -> dict:
+    """This node's own view of its free resources (its ledger)."""
+    from ray_tpu_torch.core.runtime import get_runtime
+
+    return get_runtime().scheduler.head_node().resources.available()
+
+
+class Member:
+    """A bundle actor that reports where it runs."""
+
+    def where(self) -> int:
+        return os.getpid()
 
 
 def wire_stats() -> dict:
@@ -359,3 +379,115 @@ class ClusterLLM:
     def shutdown(self) -> bool:
         self.server.shutdown()
         return True
+
+
+# ------------------------------------------------------------ train gangs
+
+
+def gang_steps(config: dict) -> int:
+    """A toy loop of the gang's control plane (no collectives): a falling
+    loss per step, each step a checkpoint, resumed after
+    `config["resume_from_step"]` (the controller's latest checkpoint).
+    Returns the first step this attempt ran."""
+    from ray_tpu_torch.train import report
+
+    resume = config.get("resume_from_step")
+    start = resume + 1 if resume is not None else 0
+    for step in range(start, config["total_steps"]):
+        time.sleep(config["step_s"])
+        report({"loss": 1.0 / (step + 1.0), "step": step}, checkpoint_step=step)
+    return start
+
+
+def gang_lm(config: dict) -> list:
+    """One rank of a data-parallel language-model gang: `LMTrainer(
+    mesh_spec=MeshSpec(dp=world))` on `config["device"]` (`model_overrides`
+    replace fields of the named config, a dtype by its torch name), the same global
+    batch `config["tokens"]` every step (this rank's rows), so the batch at
+    step s depends on s and the seed alone. The state starts from
+    `config["init"]` (numpy, e.g. JAX's initial state) or from the seed.
+
+    With `ckpt_dir`, the state is saved after every `ckpt_every`-th step
+    and when the controller asks for an emergency checkpoint; the ranks
+    decide together (one all-reduce a step carries the flags and every
+    rank's kernel launches), so they save the same step. A resumed attempt
+    restores the step after `resume_from_step`. After an emergency
+    checkpoint under a preemption notice the loop stops. Each step
+    reports its index, its loss, its seconds (ended by a device
+    synchronisation), the attempt's first step and the launches of K1 /
+    K2 (dkv, dq) by rank, then sleeps `step_pause_s` (a drill's pacing,
+    outside the step). Outside a gang (no session) it runs the same steps
+    in one process. Returns the losses of this attempt."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import get_config
+    from ray_tpu_torch.ops import FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import (CheckpointConfig, LMTrainer, default_optimizer,
+                                     train_state_from_numpy)
+    from ray_tpu_torch.train.session import _local
+
+    session = getattr(_local, "session", None)  # None: one process, outside a gang
+
+    torch.set_num_threads(config.get("threads", torch.get_num_threads()))
+    distributed = dist.is_available() and dist.is_initialized()
+    rank = dist.get_rank() if distributed else 0
+    world = dist.get_world_size() if distributed else 1
+    kernels = (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ)
+    for k in kernels:
+        k.launches = 0
+    model = get_config(config["model"]).replace(**{
+        k: getattr(torch, v) if k.endswith("dtype") else v
+        for k, v in config.get("model_overrides", {}).items()})
+    opt = default_optimizer(config["lr"], total_steps=config["total_steps"],
+                            **{k: config[k] for k in ("warmup_steps",) if k in config})
+    ckpt_dir = config.get("ckpt_dir")
+    trainer = LMTrainer(
+        model, mesh_spec=MeshSpec(dp=world), optimizer=opt, seed=config.get("seed", 0),
+        total_steps=config["total_steps"], device=config["device"],
+        dp_allreduce_dtype="f32", dp_shard_update=False,
+        checkpoint_config=(CheckpointConfig(checkpoint_dir=ckpt_dir, checkpoint_every=0,
+                                            async_save=False) if ckpt_dir else None))
+    if config.get("init") is not None:
+        trainer.state = train_state_from_numpy(config["init"], model, mesh=trainer.mesh)
+    resume = config.get("resume_from_step")
+    start = 0
+    if resume is not None:
+        start = trainer.restore(resume + 1)
+    batch = trainer._place({"tokens": torch.from_numpy(np.asarray(config["tokens"]))})
+    batch = {"tokens": batch["tokens"].to(trainer.device)}
+    cuda = trainer.device.type == "cuda"
+    # the per-step all-reduce's device: gloo reduces CPU tensors, NCCL CUDA ones
+    flag_device = trainer.device if distributed and dist.get_backend() == "nccl" else "cpu"
+    every = config.get("ckpt_every", 0)
+    losses = []
+    for step in range(start, config["steps"]):
+        t = time.perf_counter()
+        trainer.state, metrics = trainer.step_fn(trainer.state, batch)
+        loss = metrics["loss"].item()  # reads the device: the step is done
+        if cuda:
+            torch.cuda.synchronize(trainer.device)
+        step_s = time.perf_counter() - t
+        losses.append(loss)
+        votes = torch.zeros(2 + 3 * world, dtype=torch.int64)
+        votes[0] = int(bool(ckpt_dir) and ((every and (step + 1) % every == 0)
+                                           or (session is not None and session.should_checkpoint())))
+        votes[1] = int(session is not None and session.is_preempted())
+        votes[2 + 3 * rank: 5 + 3 * rank] = torch.tensor([k.launches for k in kernels])
+        if distributed:
+            votes = votes.to(flag_device)
+            dist.all_reduce(votes, op=dist.ReduceOp.MAX)
+            votes = votes.cpu()
+        saved = None
+        if votes[0]:
+            trainer.save_checkpoint()
+            saved = step
+        launches = votes[2:].view(world, 3).tolist()
+        if session is not None:
+            session.report({"step": step, "loss": loss, "step_s": step_s, "rank": rank,
+                            "start": start, "launches": launches}, checkpoint_step=saved)
+        if votes[1] and saved is not None:
+            break  # the emergency checkpoint is down: leave the window to the restart
+        time.sleep(config.get("step_pause_s", 0.0))
+    return losses
