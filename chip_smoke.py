@@ -77,7 +77,9 @@ nonzero and no result line is printed):
              torch.profiler's; every request passes the dense check; one
              decode-graph replay equals eager decode_step bitwise.
    overload — a PagedLLMEngine (4 slots, a pool the 4 long lanes nearly
-             fill, graphs captured up front) on the same weights: 4
+             fill, graphs captured up front) at Llama-3-8B's width and
+             OVERLOAD_LAYERS (8) layers, bf16 weights from SEED (a depth
+             cut for the script's time limit): 4
              priority-0 lanes (512-token prompts, 256 new tokens) decode
              when 2 priority-1 requests arrive and preempt lanes, which park
              and resume (preemptions, pages, resumes, stalls, the priority-1
@@ -157,10 +159,12 @@ nonzero and no result line is printed):
              and copy-on-write copies equal, verify passes replayed, then
              copy_page over the shards' pools (each stripe equal).
    cluster — cluster mode (A6a) once the serve server is freed (the
-             driver's allocated bytes logged): this process becomes a
-             cluster head (init(head=True, num_gpus=0)) and
-             cluster_utils.Cluster.add_node(num_cpus=2, num_gpus=1) spawns
-             one node agent on the card (start-up seconds). (a) A task
+             allocated bytes of this process logged): `python -m ray_tpu_torch
+             start --head --num-gpus 0 --snapshot-path <tmp>/gcs.snap` and
+             one agent `start --address ... --num-gpus 1` on the card, both
+             in JAX's head-drill environment (heartbeat 0.2 s, staleness
+             2.5 s, a snapshot every 0.5 s), and this process joins with no
+             GPU (start-up seconds). (a) A task
              pinned to the agent returns a 1 GiB CPU tensor made from SEED,
              pulled here in 4 MiB windows and held bit-equal against this
              process's own (pull GB/s); a second returns a 256 MiB bf16
@@ -177,9 +181,50 @@ nonzero and no result line is printed):
              CHECK_MARGIN / EXACT_SHARE_FLOOR, flash forward launches); the
              share of positions equal to the serve phase's tokens is
              printed, not gated. (c) health.probe_agent answers True while
-             the agent lives; Cluster.shutdown() leaves no agent process
-             (process table and nvidia-smi's compute apps). A failure
-             raises with the agent log's tail.
+             the agent lives. The members and the actor stay up for
+             head_restart; a failure prints the members' logs and stops
+             them.
+   head_restart — Llama-3-8B serving from a node agent through two deaths
+             of the head (ROADMAP A6b parts 1-2; JAX's drill,
+             bench_cluster.py run_head_outage), on the cluster phase's
+             members and its agent's ClusterLLM actor (built once: the
+             engine and its graphs are the cluster phase's). A serve loop
+             calls serve_once with the serve
+             phase's prompts in turn (each call a greedy request and its
+             dense check, which launches K1), a KV writer
+             (GcsClient(retry_window_s=90)) puts a key every 50 ms, and a
+             zombie client stays pinned to the first epoch. (a) SIGKILL to
+             the head while a call is in flight, then `--restore` on the
+             same port with RAY_TPU_CHAOS="kill_head=1,delay_s=5,
+             max_injections=1"; (b) that head dies by chaos (rc 137)
+             during traffic, and a third head restores without chaos. Then
+             the agent's first capture, a 1 s state.profile(nodes=[agent])
+             fanned out from here while the serve loop runs, must hold K5
+             and K1 device kernels of the agent, and the agent must stay in
+             the head's view throughout (the profiler's stop holds its
+             process, heartbeats included, for seconds: it announces the
+             quiet) with serve calls finishing after it. Fails
+             unless: the agent's and the actor's pid never change, serve
+             calls finished inside each outage, no call raised, every
+             call's tokens equal the first call's of its prompt, the first
+             round's dense check holds (CHECK_MARGIN / EXACT_SHARE_FLOOR)
+             and every call's worst gap is within CHECK_MARGIN, no
+             acknowledged write is lost and the writer saw no error, the
+             zombie gets StaleEpochError, the epoch went up by exactly 2,
+             the head's _requests table holds the agent's marks of a
+             request served during an outage each once and
+             state.request_timeline returns them on the agent's node,
+             cluster_prometheus_text() has samples of the agent's node,
+             the node table's CUDA block is within 1 % of the actor's
+             allocated bytes, the agent's federation lag drains to 0, and
+             no head, agent or card process is left once the members are
+             stopped (this process leaves, then the agent and the head by
+             their shutdown_node RPC). Printed: per restart
+             the head's start, recovery_ready_s (death to the first write
+             the restored head acknowledged), wal_records_applied and the
+             snapshot's and WAL's bytes; serve calls and median decode
+             tok/s before, during and between the outages; the launches
+             counted in the agent; the phase's time.
 6. train   — GPT-2 124M (gpt2-small) at full width and depth, f32 master
              weights from a seeded torch.Generator, bf16 compute:
              the kernel path's gradients against attn_impl="xla" on one
@@ -380,7 +425,9 @@ nonzero and no result line is printed):
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; tp_serve: the
 tp engines' runs and the checks' dense forwards; cluster: the agent's serve
-run and dense check, counted in the agent; train: phase 6;
+run and dense check, counted in the agent; head_restart: the agent's serve
+calls and dense checks through both head deaths, counted in the agent;
+train: phase 6;
 trainer: phase 7's 20-step run; ingest: phase 8's gang-fed fit; process:
 the process phase's (a) and (b); dp: phase 9's ranks, all modes; gang: the
 gang phase's ranks over its three attempts; fsdp_tp: phase 10's ranks, all modes, also
@@ -520,6 +567,11 @@ PREFIX_TOKENS = 512  # the spec phase's shared prefix: 8 pages of 64
 DRAFT_LAYERS, DRAFT_WINDOW = 2, 64  # the draft model: a 2-layer cut of the target
 DENSE_MAX_SEQ = 1024  # the dense engine's cache per slot: the serve prompts + 32 new fit
 OVERLOAD_SLOTS = 4
+# the overload drills at Llama-3-8B's width and a quarter of its depth: the
+# phase's timings (priority-1 TTFT, sheds, deadlines, preemption) ride the
+# pool's pages and the lanes' tokens, not the layers, and a full-depth run
+# (139 s on a slow host) held the script near its time limit
+OVERLOAD_LAYERS = 8
 OVERLOAD_LOW_TOKENS, OVERLOAD_HIGH_TOKENS = 256, 32
 # 4 lanes of 512 + 256 tokens hold 12 pages of 64 each at the end: 48 of the
 # 50 allocatable; a resumed lane's chunk-aligned re-prefill needs at most 12
@@ -1791,22 +1843,25 @@ def _overload_pair(engine, lows, highs, label, finished, path) -> dict:
     return runs
 
 
-def phase_overload(server, config) -> dict:
-    """Overload handling of the paged engine on the serve phase's weights:
-    lane preemption (against the same run with preemption off), then the
+def phase_overload(config) -> dict:
+    """Overload handling of the paged engine at Llama-3-8B's width and
+    OVERLOAD_LAYERS layers (bf16 weights from SEED): lane preemption
+    (against the same run with preemption off), then the
     queue-bound burst, a tenant over its quota and 0.2 s deadlines behind
     long lanes, then the preemption pair on a second engine with 1 block
     in flight (a marked victim parks once its in-flight blocks drain).
     Returns each kernel's launches on this path (the unprofiled runs,
     drills and dense checks)."""
     t0 = time.perf_counter()
-    params = server.engine.params
+    config = config.replace(n_layers=OVERLOAD_LAYERS)
+    params = init_params(config, SEED, device="cuda")
     engine = PagedLLMEngine(config, params, PagedEngineConfig(
         max_slots=OVERLOAD_SLOTS, precompile=True,
         paged=PagedConfig(num_pages=OVERLOAD_PAGES)), device="cuda")
     pc = engine.paged
     passes = engine.passes()
-    log("overload", f"engine: {OVERLOAD_SLOTS} slots, {pc.num_pages - 1} allocatable pages of "
+    log("overload", f"engine: {MODEL}'s width at {config.n_layers} layers, {OVERLOAD_SLOTS} "
+        f"slots, {pc.num_pages - 1} allocatable pages of "
         f"{pc.page_size}, queue bound {engine.config.max_queued_requests or 8 * OVERLOAD_SLOTS}; "
         f"{len(passes)} CUDA graphs captured in {engine.capture_s:.3f} s; after capture "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -2739,11 +2794,102 @@ def _cuda_pids_left(pid: int, timeout: float = 30.0) -> tuple:
         time.sleep(0.25)
 
 
-def phase_cluster(card, config, prompts, serve_outs) -> dict:
-    """Cluster mode on the card: this process as the head, one node agent
-    hosting the work on the card (see the module docstring, `cluster`).
-    Returns the agent's launches by kernel and the phase's numbers."""
-    from ray_tpu_torch.cluster_utils import Cluster
+class _Members:
+    """The cluster phase's cluster, which the head_restart phase goes on
+    with: a CLI head that persists its GCS (snapshots at <tmp>/gcs.snap,
+    the WAL beside them), one CLI agent with the card, both in JAX's drill
+    environment (HEAD_DRILL_ENV), and this process joined with no GPU."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.t0_wall = time.time()
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+        self.snap = os.path.join(self.tmp, "gcs.snap")
+        self.address = f"127.0.0.1:{_free_port()}"
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, **HEAD_DRILL_ENV)
+        env.pop("RAY_TPU_CHAOS", None)
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (self.root, env.get("PYTHONPATH")) if p)
+        self.env = env
+        self.head_cmd = [sys.executable, "-m", "ray_tpu_torch", "start", "--head", "--num-cpus",
+                         "1", "--num-gpus", "0", "--port", self.address.rsplit(":", 1)[1],
+                         "--snapshot-path", self.snap]
+        self.logs = {name: os.path.join(self.tmp, f"{name}.log")
+                     for name in ("head0", "head1", "head2", "agent")}
+        self.head_log = "head0"  # the current head's
+        self.procs: dict = {}
+        self.saved = {k: getattr(cfg, k) for k in ("node_heartbeat_s", "node_stale_s")}
+        self.joined = False
+
+    def spawn(self, cmd, name, extra=None):
+        with open(self.logs[name], "w") as f:
+            return subprocess.Popen(cmd, env=dict(self.env, **(extra or {})), stdout=f,
+                                    stderr=subprocess.STDOUT, text=True, cwd=self.root)
+
+    def start(self):
+        """Head, agent, this process joined; returns the agent's node."""
+        cfg.set(node_heartbeat_s=0.2, node_stale_s=2.5)  # the drill's, in this process too
+        self.procs["head"] = self.spawn(self.head_cmd, "head0")
+        _wait_log(self.logs["head0"], "head up", self.procs["head"])
+        self.procs["agent"] = self.spawn(
+            [sys.executable, "-m", "ray_tpu_torch", "start", "--address", self.address,
+             "--num-cpus", "2", "--num-gpus", "1"], "agent")
+        _wait_log(self.logs["agent"], " joined ", self.procs["agent"])
+        self.up_s = time.perf_counter() - self.t0
+        ray_tpu_torch.init(address=self.address, num_cpus=1, num_gpus=0)
+        self.joined = True
+        deadline = time.monotonic() + 60
+        while True:
+            agent = next((n for n in get_runtime().scheduler.nodes()
+                          if n.is_remote and n.resources.total.get("GPU", 0) >= 1), None)
+            if agent is not None:
+                return agent
+            if time.monotonic() > deadline:
+                raise AssertionError("this process never saw the agent's GPU")
+            time.sleep(0.1)
+
+    def restart_head(self, chaos: bool) -> float:
+        """Restore the head on the same port (armed with chaos's kill_head
+        when `chaos`); returns when its log says it is up."""
+        name = "head1" if chaos else "head2"
+        self.head_log = name
+        extra = ({"RAY_TPU_CHAOS": f"kill_head=1,delay_s={HEAD_CHAOS_DELAY_S},max_injections=1"}
+                 if chaos else None)
+        self.procs["head"] = self.spawn(self.head_cmd + ["--restore"], name, extra)
+        return _wait_log(self.logs[name], "head up", self.procs["head"])
+
+    def dump(self, phase: str) -> None:
+        """Every member's log tail, this process's membership events and the
+        nodes' captured logs: a failure's diagnostics."""
+        for name, path in self.logs.items():
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(phase, f"{name} log's tail:\n{f.read()[-3000:]}")
+        _head_drill_diagnostics(self.t0_wall, self.joined)
+
+    def stop(self) -> dict:
+        """This process leaves, then the agent and the head (the head writes
+        its final snapshot); returns, by member, (in the process table,
+        among the card's compute apps) once they are gone."""
+        if self.joined:
+            ray_tpu_torch.shutdown()
+            self.joined = False
+        if "agent" in self.procs:
+            _stop_member(self.procs["agent"], self.logs["agent"])
+        if "head" in self.procs:
+            _stop_member(self.procs["head"], self.logs[self.head_log])
+        cfg.set(**self.saved)
+        left = {name: _cuda_pids_left(proc.pid) for name, proc in self.procs.items()}
+        shutil.rmtree(self.tmp, ignore_errors=True)
+        return left
+
+
+def phase_cluster(card, config, prompts, serve_outs=None) -> tuple:
+    """Cluster mode on the card: a CLI head, one node agent hosting the
+    work on the card, this process a member (see the module docstring,
+    `cluster`). Returns the phase's numbers (the agent's launches by
+    kernel among them), the live members, the agent's LLM actor and the
+    agent's node, which the head_restart phase goes on with."""
     from ray_tpu_torch.core.health import probe_agent
     from ray_tpu_torch.core.object_store import Tier
     from ray_tpu_torch.core.scheduler import NodeAffinitySchedulingStrategy
@@ -2752,27 +2898,26 @@ def phase_cluster(card, config, prompts, serve_outs) -> dict:
         f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, before the cluster")
     ray_tpu_torch.shutdown()
     t0 = time.perf_counter()
-    cluster = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0})
-    handle = None
+    members = _Members()
     out: dict = {}
     try:
-        handle = cluster.add_node(num_cpus=2, num_gpus=1)
-        cluster.wait_for_nodes(2, timeout=180)
-        out["agent_start_s"] = time.perf_counter() - t0
-        agent = next(n for n in cluster.runtime.scheduler.nodes() if n.is_remote)
+        agent = members.start()
+        agent_pid = members.procs["agent"].pid
+        out["agent_start_s"] = members.up_s
         on = NodeAffinitySchedulingStrategy(agent.node_id)
-        joined = next((ln for ln in handle.logs().splitlines() if " joined " in ln), "")
-        log("cluster", f"{card}: head {cluster.address}, agent pid {handle.pid} at "
-            f"{agent.agent_addr} with {agent.resources.total.get('GPU', 0)} GPU, up "
-            f"{out['agent_start_s']:.2f} s after the spawn (head + agent start-up); the "
-            f"agent's log: {joined!r}")
+        with open(members.logs["agent"]) as f:
+            joined = next((ln.strip() for ln in f if " joined " in ln), "")
+        log("cluster", f"{card}: head pid {members.procs['head'].pid} at {members.address} "
+            f"(snapshots at {members.snap}), agent pid {agent_pid} at {agent.agent_addr} with "
+            f"{agent.resources.total.get('GPU', 0)} GPU, up {out['agent_start_s']:.2f} s after the "
+            f"head's spawn (head + agent start-up); the agent's log: {joined!r}")
 
         # (a) objects across nodes
         ref = ray_tpu_torch.remote(cluster_udfs.seeded_bytes).options(
             scheduling_strategy=on).remote(SEED, CLUSTER_CPU_BYTES)
         mine = cluster_udfs.seeded_bytes(SEED, CLUSTER_CPU_BYTES)
         ray_tpu_torch.wait([ref], timeout=300)
-        entry = cluster.runtime.object_store.entry(ref.object_id)
+        entry = get_runtime().object_store.entry(ref.object_id)
         if entry.tier != Tier.REMOTE:
             raise AssertionError(f"the 1 GiB result arrived as {entry.tier}, not a placeholder")
         t = time.perf_counter()
@@ -2823,7 +2968,7 @@ def phase_cluster(card, config, prompts, serve_outs) -> dict:
         llm = ray_tpu_torch.remote(num_cpus=1, num_gpus=1)(cluster_udfs.ClusterLLM).options(
             scheduling_strategy=on).remote(MODEL, SEED, N_REQUESTS)
         info = ray_tpu_torch.get(llm.info.remote(), timeout=900)
-        if info["pid"] != handle.pid:
+        if info["pid"] != agent_pid:
             raise AssertionError(f"the LLM actor runs in pid {info['pid']}, not the agent's")
         log("cluster", f"{card}: agent LLMServer({MODEL}) built in {info['build_s']:.2f} s "
             f"({time.perf_counter() - t:.2f} s from the call), {info['captures']} CUDA graphs, "
@@ -2833,36 +2978,448 @@ def phase_cluster(card, config, prompts, serve_outs) -> dict:
         for o in res["outs"]:
             if len(o) != MAX_TOKENS or not all(0 <= tok < config.vocab_size for tok in o):
                 raise AssertionError(f"bad completion from the agent: {len(o)} tokens")
-        same = sum(a == b for o, s_ in zip(res["outs"], serve_outs) for a, b in zip(o, s_))
         out["decode_tok_s"] = res["decode_tok_s"]
         out["launches"] = {k.name: int(res["launches"].get(k.name, 0)) for k in KERNELS}
+        same = ""
+        if serve_outs is not None:
+            n = sum(a == b for o, s_ in zip(res["outs"], serve_outs) for a, b in zip(o, s_))
+            same = (f"; positions equal to the serve phase's tokens {n} of "
+                    f"{N_REQUESTS * MAX_TOKENS} (share {n / (N_REQUESTS * MAX_TOKENS):.4f}, "
+                    f"not gated)")
         log("cluster", f"{card}: (b) {N_REQUESTS} requests on the agent: wall {res['wall_s']:.3f} s, "
             f"decode {res['decode_tok_s']:.1f} tok/s; launches counted in the agent "
-            f"{out['launches']}; positions equal to the serve phase's tokens {same} of "
-            f"{N_REQUESTS * MAX_TOKENS} (share {same / (N_REQUESTS * MAX_TOKENS):.4f}, not gated)")
+            f"{out['launches']}{same}")
         _dense_verdict("cluster", res["check"], res["launches"][FLASH_FWD.name], CHECK_MARGIN,
                        EXACT_SHARE_FLOOR, seconds=res["check_s"])
         if out["launches"][RAGGED.name] <= 0 or out["launches"][FLASH_FWD.name] <= 0:
             raise AssertionError(f"the agent's path launched no ragged or flash kernel: "
                                  f"{out['launches']}")
-        ray_tpu_torch.get(llm.shutdown.remote(), timeout=300)
-        ray_tpu_torch.kill(llm)
 
-        # (c) leaving
+        # (c) the agent answers its probe; the members stay for head_restart
         if not probe_agent(agent):
             raise AssertionError("probe_agent found the live agent down")
     except BaseException:
-        if handle is not None:
-            log("cluster", f"agent log's tail:\n{handle.tail()}")
+        members.dump("cluster")
+        members.stop()
+        raise
+    log("cluster", f"{card}: phase {time.perf_counter() - t0:.1f} s (the members stay up for "
+        f"head_restart)")
+    return out, members, llm, agent
+
+
+# ------------------------------------------------------------- head_restart
+
+HEAD_DRILL_ENV = {"RAY_TPU_NODE_HEARTBEAT_S": "0.2", "RAY_TPU_NODE_STALE_S": "2.5",
+                  "RAY_TPU_GCS_SNAPSHOT_INTERVAL_S": "0.5"}  # JAX's drill (bench_cluster.py)
+HEAD_CHAOS_DELAY_S = 5.0  # the restored head dies by chaos this long after it arms
+# the agent's profile capture under traffic after the second restore: its
+# stop holds the agent ~8 s a second of window (PERF.md, Head restart)
+HEAD_CAPTURE_S = 1.0
+HEAD_STALE_S = float(HEAD_DRILL_ENV["RAY_TPU_NODE_STALE_S"])
+HEAD_MEMORY_TOL = 0.01  # the node table's CUDA memory against the actor's own reading
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _wait_log(path: str, needle: str, proc, timeout: float = 180.0) -> float:
+    """Wait until `needle` shows in the log at `path`; returns when."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with open(path) as f:
+            if needle in f.read():
+                return time.perf_counter()
+        if proc.poll() is not None:
+            break
+        time.sleep(0.05)
+    with open(path) as f:
+        raise AssertionError(f"never saw {needle!r} (rc {proc.poll()}) in {path}:\n{f.read()[-4000:]}")
+
+
+def _stop_member(proc, log_path: str) -> None:
+    """Ask a CLI member to leave (the shutdown_node RPC at the node address
+    its log names: the head writes a final snapshot), then wait for it;
+    kill it if it does not leave."""
+    from ray_tpu_torch.core.rpc import RpcClient
+
+    if proc.poll() is not None:
+        return
+    with open(log_path) as f:
+        address = next((ln.split("agent at ", 1)[1].split()[0] for ln in f
+                        if "agent at " in ln), None)
+    if address is None:
+        proc.kill()
+        proc.wait(timeout=30)
+    else:
+        client = RpcClient(address, timeout=10.0, retries=0)
+        try:
+            client.call("shutdown_node")
+        except Exception:  # noqa: BLE001 - killed below if it does not leave
+            pass
+        finally:
+            client.close()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _agent_kernels(record: dict, agent_hex: str) -> dict:
+    """K5's and K1's device kernels in the agent's part of a capture."""
+    from ray_tpu_torch.util import profiling
+
+    meta = record["nodes"][agent_hex]
+    artifacts = {name.split("/", 1)[1]: data for name, data in
+                 get_runtime().profiles.artifacts_for(record["profile_id"],
+                                                      node_hex=agent_hex).items()}
+    events = profiling.load_device_trace_events(artifacts, started_at=meta["started_at"],
+                                                max_events=10**7)
+    out = {RAGGED.name: 0, FLASH_FWD.name: 0}
+    for e in events:
+        if e["cat"] != "device":
+            continue
+        if "ragged" in e["name"] and "combine" not in e["name"]:
+            out[RAGGED.name] += 1
+        elif "flash_fwd" in e["name"]:
+            out[FLASH_FWD.name] += 1
+    return out
+
+
+def _head_drill_diagnostics(t0_wall: float, joined: bool) -> None:
+    """On a failed drill: this process's membership events and the
+    agent's captured log tail (its node_logs RPC), times from the phase's
+    start."""
+    from ray_tpu_torch.util.events import events
+
+    kinds = ("head.unreachable", "head.reconnected", "node.dead", "node.discovered",
+             "node.purged", "gcs.restored", "head.reconciled")
+    lines = [f"{e['ts'] - t0_wall:8.3f} {e['kind']} {e['message']}"
+             for e in events().list(limit=2000) if e.get("kind") in kinds and e["ts"] >= t0_wall]
+    log("head_restart", "this process's membership events:\n" + "\n".join(lines[-80:]))
+    if not joined:
+        return
+    try:
+        tails = get_runtime().cluster.fanout_nodes("node_logs", 150,
+                                                   placeholder=lambda e: [repr(e)])
+        for node_hex, tail in tails.items():
+            log("head_restart", f"node {node_hex[:12]}'s captured log:\n" + "\n".join(tail[-150:]))
+    except Exception as exc:  # noqa: BLE001 - diagnostics of a failure already raising
+        log("head_restart", f"the nodes' logs: {exc!r}")
+
+
+def phase_head_restart(card, prompts, members, llm, agent) -> dict:
+    """Llama-3-8B serving from the cluster phase's node agent through two
+    deaths of the head (see the module docstring, `head_restart`); stops
+    the members at its end. Returns the agent's launches by kernel and the
+    phase's numbers."""
+    from ray_tpu_torch.core.cluster import NODE_NS, REQLOG_NS
+    from ray_tpu_torch.core.exceptions import StaleEpochError
+    from ray_tpu_torch.core.gcs_service import GcsClient
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.metrics import cluster_prometheus_text
+
+    t0 = time.perf_counter()
+    agent_hex = agent.node_id.hex()
+    out: dict = {"restarts": []}
+    calls: list = []  # (t_done, index, result) of every serve call, in order
+    errors: list = []  # (where, exception)
+    acks: list = []  # (t_ack, i) of every acknowledged write
+    stop = threading.Event()
+    in_flight = threading.Event()
+    try:
+        first = GcsClient(members.address, retry_window_s=30.0)
+        epoch0 = first.adopt_epoch()
+        zombie = GcsClient(members.address, retry_window_s=30.0)
+        zombie.pin_epoch(zombie.adopt_epoch())
+        ray_tpu_torch.get(llm.reset_counts.remote(), timeout=60)
+
+        def serve_loop():
+            i = 0
+            while not stop.is_set():
+                in_flight.set()
+                try:
+                    res = ray_tpu_torch.get(llm.serve_once.remote(
+                        prompts[i % len(prompts)], MAX_TOKENS, TAIL_GAP), timeout=300)
+                    calls.append((time.perf_counter(), i, res))
+                except BaseException as exc:  # noqa: BLE001 - the phase's verdict
+                    errors.append(("serve", exc))
+                    time.sleep(0.5)
+                finally:
+                    in_flight.clear()
+                i += 1
+
+        def writer():
+            c = GcsClient(members.address, retry_window_s=90.0)
+            c.adopt_epoch()
+            i = 0
+            while not stop.is_set():
+                try:
+                    if c.kv_put(f"w{i}", {"i": i}, namespace="drill"):
+                        acks.append((time.perf_counter(), i))
+                except BaseException as exc:  # noqa: BLE001 - the phase's verdict
+                    errors.append(("writer", exc))
+                i += 1
+                time.sleep(0.05)
+            c.close()
+
+        threads = [threading.Thread(target=serve_loop, name="head-serve", daemon=True),
+                   threading.Thread(target=writer, name="head-writer", daemon=True)]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 300
+        while len(calls) < len(prompts) + 2:  # a whole round, and more, before the kill
+            if errors or time.monotonic() > deadline:
+                raise AssertionError(f"the serve loop before the outages: {errors}")
+            time.sleep(0.05)
+
+        def restart(label, death_t, chaos):
+            """Restore the head on the same port; returns the restart's
+            record once the restored head acknowledged a write."""
+            rec = {"label": label, "snapshot_bytes": os.path.getsize(members.snap)
+                   if os.path.exists(members.snap) else 0,
+                   "wal_bytes": os.path.getsize(members.snap + ".wal")
+                   if os.path.exists(members.snap + ".wal") else 0}
+            rec["up_t"] = members.restart_head(chaos)
+            deadline = time.monotonic() + 90
+            while not any(t_ack > death_t for t_ack, _ in list(acks)):
+                if errors or time.monotonic() > deadline:
+                    raise AssertionError(f"no write acknowledged after the restart: {errors}")
+                time.sleep(0.02)
+            rec["recovery_ready_s"] = min(t_ack for t_ack, _ in acks if t_ack > death_t) - death_t
+            rec["head_up_s"] = rec["up_t"] - death_t
+            probe = GcsClient(members.address, retry_window_s=30.0)
+            head = probe.head_info()
+            probe.close()
+            rec["epoch"] = head["epoch"]
+            rec["wal_records_applied"] = head["restore"].get("wal_records_applied")
+            rec["wal_quarantined_bytes"] = head["restore"].get("wal_quarantined_bytes")
+            return rec
+
+        # (a) SIGKILL while a serve call is in flight
+        in_flight.wait(60)
+        n_before = len(calls)
+        death_a = time.perf_counter()
+        members.procs["head"].send_signal(signal.SIGKILL)
+        members.procs["head"].wait(timeout=60)
+        rec_a = restart("(a) SIGKILL", death_a, chaos=True)
+        rec_a.update(death_t=death_a, calls_before=n_before)
+        out["restarts"].append(rec_a)
+        # (b) the restored head dies by chaos (kill_head) during traffic
+        members.procs["head"].wait(timeout=HEAD_CHAOS_DELAY_S + 120)
+        death_b = time.perf_counter()
+        if members.procs["head"].returncode != 137:
+            raise AssertionError(f"the chaos-armed head exited {members.procs['head'].returncode}, not 137")
+        rec_b = restart("(b) chaos kill_head", death_b, chaos=False)
+        rec_b.update(death_t=death_b, calls_before=len([c for c in calls if c[0] < death_b]))
+        out["restarts"].append(rec_b)
+        n_after = len(calls)
+        deadline = time.monotonic() + 120
+        while len(calls) < n_after + 2:  # traffic after the second restore too
+            if errors or time.monotonic() > deadline:
+                raise AssertionError(f"the serve loop after the restores: {errors}")
+            time.sleep(0.05)
+
+        # the agent's first capture, fanned out from here while the serve
+        # loop runs: the profiler's stop holds the agent's process (its
+        # heartbeats stop), and the agent must stay live meanwhile; the
+        # head's view of the agent's report age is sampled throughout
+        ages: list = []
+        sampling = threading.Event()
+
+        def sample_age():
+            c = GcsClient(members.address, retry_window_s=30.0)
+            while not sampling.is_set():
+                node = c.cluster_view()["nodes"].get(agent_hex)
+                ages.append(node["age_s"] if node else None)
+                sampling.wait(0.1)
+            c.close()
+
+        sampler = threading.Thread(target=sample_age, name="head-age", daemon=True)
+        sampler.start()
+        t = time.perf_counter()
+        n_at_capture = len(calls)
+        record = state.profile(nodes=[agent_hex[:12]], duration_s=HEAD_CAPTURE_S)
+        capture_s = time.perf_counter() - t
+        sampling.set()
+        sampler.join(timeout=60)
+        meta = record["nodes"].get(agent_hex, {})
+        if meta.get("device") != "ok":
+            raise AssertionError(f"the agent's capture did not trace the card: {meta}")
+        captured = _agent_kernels(record, agent_hex)
+        if None in ages:
+            raise AssertionError(f"the agent left the head's view during its capture: ages {ages}")
+        from ray_tpu_torch.util.events import events
+
+        if any(e.get("kind") == "node.dead" and e.get("node") == agent_hex
+               for e in events().list(limit=5000)):
+            raise AssertionError("this process declared the agent dead during the drill")
+        deadline = time.monotonic() + 120
+        while len(calls) < n_at_capture + 2:  # traffic after the capture too
+            if errors or time.monotonic() > deadline:
+                raise AssertionError(f"the serve loop after the capture: {errors}")
+            time.sleep(0.05)
+        out["capture"] = dict(kernels=captured, bytes=meta.get("bytes"), pid=meta.get("pid"),
+                              seconds=capture_s, max_age_s=max(ages),
+                              calls=len(calls) - n_at_capture)
+
+        stop.set()
+        for th in threads:
+            th.join(timeout=360)
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("the serve loop or the writer did not stop")
+        stopped_ts = time.time()
+
+        # verdicts on the traffic
+        if errors:
+            raise AssertionError(f"calls raised during the drill: {errors[:5]}")
+        first_tokens = {}
+        for _, i, res in calls:
+            first_tokens.setdefault(i % len(prompts), res["tokens"])
+        bad = [(i, p) for _, i, res in calls
+               for p in [next((k for k, (a, b) in enumerate(zip(res["tokens"],
+                                                              first_tokens[i % len(prompts)]))
+                               if a != b), None)]
+               if res["tokens"] != first_tokens[i % len(prompts)]]
+        if bad:
+            raise AssertionError(f"calls whose tokens differ from the first call's of their "
+                                 f"prompt (call, first position): {bad[:10]}")
+        pids = {res["pid"] for _, _, res in calls}
+        if pids != {members.procs["agent"].pid}:
+            raise AssertionError(f"the actor ran in {pids}, not only the agent {members.procs['agent'].pid}")
+        joint = dict(worst=0.0, exact=0, total=0, over_tail=0, per={})
+        for _, i, res in calls[:len(prompts)]:
+            ck = res["check"]
+            joint["worst"] = max(joint["worst"], ck["worst"])
+            for key in ("exact", "total", "over_tail"):
+                joint[key] += ck[key]
+            joint["per"][i] = ck["per"][0]
+        worst_all = max(res["check"]["worst"] for _, _, res in calls)
+        if worst_all > CHECK_MARGIN:
+            raise AssertionError(f"a call's engine token scores {worst_all:.4f} below the dense argmax")
+        kernel_stats = ray_tpu_torch.get(llm.stats.remote(), timeout=120)
+        out["launches"] = {k.name: int(kernel_stats["launches"].get(k.name, 0)) for k in KERNELS}
+        _dense_verdict("head_restart", joint, out["launches"][FLASH_FWD.name], CHECK_MARGIN,
+                       EXACT_SHARE_FLOOR,
+                       seconds=sum(res["check_s"] for _, _, res in calls[:len(prompts)]))
+        windows = [("before (a)", 0.0, death_a), ("outage (a)", death_a, rec_a["up_t"]),
+                   ("between", rec_a["up_t"], death_b), ("outage (b)", death_b, rec_b["up_t"]),
+                   ("after (b)", rec_b["up_t"], float("inf"))]
+        out["windows"] = {}
+        for label, lo, hi in windows:
+            inside = [res for t_done, _, res in calls if lo <= t_done < hi]
+            out["windows"][label] = dict(
+                calls=len(inside),
+                decode_tok_s=(statistics.median(r["decode_tok_s"] for r in inside)
+                              if inside else 0.0))
+        for label in ("outage (a)", "outage (b)"):
+            if out["windows"][label]["calls"] <= 0:
+                raise AssertionError(f"no serve call finished inside {label}")
+        if out["launches"][RAGGED.name] <= 0 or out["launches"][FLASH_FWD.name] <= 0:
+            raise AssertionError(f"the agent's path launched no ragged or flash kernel: "
+                                 f"{out['launches']}")
+        if not all(captured.values()):
+            raise AssertionError(f"the agent's capture holds no K5 or K1 launch: {captured}")
+
+        # the writes, the epoch, the zombie
+        probe = GcsClient(members.address, retry_window_s=30.0)
+        missing = [i for _, i in acks if probe.kv_get(f"w{i}", namespace="drill") is None]
+        if missing:
+            raise AssertionError(f"acknowledged writes lost: {missing[:10]} of {len(acks)}")
+        epoch = probe.head_info()["epoch"]
+        if epoch != epoch0 + 2:
+            raise AssertionError(f"the epoch went from {epoch0} to {epoch}, not up by 2")
+        try:
+            zombie.kv_put("zombie-write", 1, namespace="drill")
+            raise AssertionError("the zombie writer pinned to the first epoch was not fenced")
+        except StaleEpochError:
+            pass
+
+        # federation after the second restore
+        outage_rids = [res["rid"] for t_done, _, res in calls
+                       if death_a <= t_done < rec_a["up_t"] or death_b <= t_done < rec_b["up_t"]]
+        rid = outage_rids[-1]
+        deadline = time.monotonic() + 30
+        while True:
+            table = probe.kv_get(agent_hex, namespace=REQLOG_NS) or []
+            mine = [m for m in table if m.get("rid") == rid]
+            info_rec = probe.kv_get(agent_hex, namespace=NODE_NS) or {}
+            lag = info_rec.get("federation_lag") or {}
+            if (mine and lag and not any(lag.values())
+                    and (info_rec.get("stats") or {}).get("ts", 0) > stopped_ts):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the agent's federation did not drain: lag {lag}, "
+                                     f"{len(mine)} marks of {rid}")
+            time.sleep(0.1)
+        phases = [m["phase"] for m in mine]
+        seqs = [m["seq"] for m in mine]
+        if len(seqs) != len(set(seqs)) or any(
+                phases.count(p) != 1 for p in ("engine.submitted", "engine.first_token",
+                                               "engine.finished")):
+            raise AssertionError(f"the _requests table's marks of {rid}: {phases} seqs {seqs}")
+        timeline = state.request_timeline(rid)
+        if [m["phase"] for m in timeline] != phases or {m["node"] for m in timeline} != {agent_hex}:
+            raise AssertionError(f"request_timeline({rid}) from this process: "
+                                 f"{[(m['phase'], m['node'][:12]) for m in timeline]}")
+        prom = cluster_prometheus_text()
+        agent_samples = sum(f'node_id="{agent_hex}"' in ln for ln in prom.splitlines())
+        if not agent_samples:
+            raise AssertionError("cluster_prometheus_text() has no sample of the agent's node")
+        cuda_rec = (info_rec["stats"].get("cuda") or [{}])[0]
+        held = ray_tpu_torch.get(llm.stats.remote(), timeout=60)["allocated"]
+        table_bytes = cuda_rec.get("memory_allocated_bytes", 0)
+        if abs(table_bytes - held) > HEAD_MEMORY_TOL * held:
+            raise AssertionError(f"the node table's CUDA memory {table_bytes} is not within "
+                                 f"{HEAD_MEMORY_TOL:.0%} of the actor's {held}")
+        probe.close()
+        first.close()
+        zombie.close()
+        log("head_restart", f"{card}: federation after the second restore: request {rid} "
+            f"(served during an outage) has {phases} in the head's _requests table, each mark "
+            f"once (seqs {seqs}); request_timeline from this process: the same marks on the agent's "
+            f"node; {agent_samples} Prometheus samples labelled with the agent's node; the node "
+            f"table's CUDA block {cuda_rec.get('kind')}: {table_bytes / 2**30:.3f} GiB allocated "
+            f"against the actor's {held / 2**30:.3f} GiB; federation lag {lag}; the agent's "
+            f"first capture, under the serve loop ({HEAD_CAPTURE_S} s window): returned in "
+            f"{out['capture']['seconds']:.2f} s, {out['capture']['bytes']} bytes, pid "
+            f"{out['capture']['pid']}, {captured}; the agent live in the head's view throughout, "
+            f"its report age there up to {out['capture']['max_age_s']:.3f} s (node_stale_s "
+            f"{HEAD_STALE_S}); {out['capture']['calls']} serve calls finished from its start "
+            f"to the drill's end")
+        for rec in out["restarts"]:
+            log("head_restart", f"{card}: restart {rec['label']}: head up {rec['head_up_s']:.3f} s "
+                f"after the death, recovery_ready_s {rec['recovery_ready_s']:.3f} (death to the "
+                f"first write the restored head acknowledged), epoch {rec['epoch']}, "
+                f"wal_records_applied {rec['wal_records_applied']}, quarantined "
+                f"{rec['wal_quarantined_bytes']} bytes; at the restart the snapshot held "
+                f"{rec['snapshot_bytes']} bytes and the WAL {rec['wal_bytes']}")
+        log("head_restart", f"{card}: serve calls and median decode tok/s by window: "
+            + "; ".join(f"{k} {v['calls']} calls {v['decode_tok_s']:.1f} tok/s"
+                        for k, v in out["windows"].items())
+            + f"; {len(calls)} calls, {len(acks)} writes acknowledged, none lost; epoch "
+            f"{epoch0} -> {epoch}; the zombie fenced (StaleEpochError); launches counted in the "
+            f"agent {out['launches']}")
+        ray_tpu_torch.get(llm.shutdown.remote(), timeout=300)
+        ray_tpu_torch.kill(llm)
+        llm = None
+    except BaseException:
+        stop.set()
+        members.dump("head_restart")
         raise
     finally:
-        cluster.shutdown()
-    alive, on_card = _cuda_pids_left(handle.pid)
-    log("cluster", f"{card}: after Cluster.shutdown() the agent pid {handle.pid} is in the process "
-        f"table: {alive}, among the card's compute apps: {on_card}; phase "
-        f"{time.perf_counter() - t0:.1f} s")
-    if alive or on_card:
-        raise AssertionError(f"the agent outlived Cluster.shutdown() (process {alive}, card {on_card})")
+        stop.set()
+        left = members.stop()
+    out["seconds"] = time.perf_counter() - t0
+    log("head_restart", f"{card}: after the drill (in the process table, among the card's "
+        f"compute apps): {left}; phase {out['seconds']:.1f} s")
+    if any(a or b for a, b in left.values()):
+        raise AssertionError(f"a member outlived the drill: {left}")
     return out
 
 
@@ -4996,7 +5553,7 @@ def main() -> int:
             serve_launches[k.name] += k.launches - before[k.name]
         spec = phase_spec(server, config, prompts, outs)
         dense_launches = phase_dense(server, config, prompts, outs)
-        overload = phase_overload(server, config)
+        overload = phase_overload(config)
         deploy = phase_deploy(server, config, prompts, outs, direct)
         observe = phase_observe(server, config, prompts)
         tp_serve = phase_tp_serve(server, config, prompts, outs)
@@ -5005,7 +5562,9 @@ def main() -> int:
     del server
     gc.collect()
     torch.cuda.empty_cache()
-    cluster = phase_cluster(card, config, prompts, outs)
+    cluster, members, llm, agent = phase_cluster(card, config, prompts, outs)
+    head_restart = phase_head_restart(card, prompts, members, llm, agent)
+    del llm, agent, members
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = phase_train()
@@ -5041,6 +5600,7 @@ def main() -> int:
                    "dense": dense_launches[k.name], "overload": overload["launches"][k.name],
                    "deploy": deploy["launches"][k.name], "observe": observe["launches"][k.name],
                    "tp_serve": tp_serve["launches"][k.name], "cluster": cluster["launches"][k.name],
+                   "head_restart": head_restart["launches"][k.name],
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
                    "ingest": ingest["launches"][k.name], "process": process["launches"][k.name],
                    "dp": dp["launches"][k.name], "gang": gang["launches"][k.name],

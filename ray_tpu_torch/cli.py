@@ -9,9 +9,11 @@ SIGINT or a `shutdown_node` RPC, then leaves the cluster gracefully (its
 node entry deregistered). SIGTERM is a preemption notice, as in JAX: the
 node announces PREEMPTING, drains for `preempt_warning_s` and then leaves
 gracefully (`health.install_preemption_signal_handler`); a second SIGTERM
-changes nothing. `--snapshot-path` and `--restore` come with ROADMAP A6b
-(head restart). Every other
-subcommand of the JAX CLI raises NotImplementedError naming ROADMAP A8.
+changes nothing. `--snapshot-path P` makes the head persist its GCS
+tables (snapshots at P, the WAL at P.wal); `--restore` (with `--head`)
+requires one of them and brings the head back from it on the same port,
+so surviving agents re-register. Every other subcommand of the JAX CLI
+raises NotImplementedError naming ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -50,10 +52,22 @@ def _cmd_start(args) -> int:
     if bool(args.head) == bool(args.address):
         print("pass exactly one of --head or --address", file=sys.stderr)
         return 2
-    if args.snapshot_path or args.restore:
-        raise NotImplementedError(
-            "--snapshot-path / --restore (GCS snapshots and a restored head) are not "
-            "ported to ray_tpu_torch yet: ROADMAP A6b (head restart)")
+    if args.snapshot_path:
+        from .core.config import cfg
+
+        cfg.set(gcs_snapshot_path=args.snapshot_path)
+    if args.restore:
+        from .core.config import cfg
+
+        path = cfg.gcs_snapshot_path
+        if not args.head:
+            print("--restore only applies to --head", file=sys.stderr)
+            return 2
+        if not path or not (os.path.exists(path) or os.path.exists(path + ".wal")):
+            # the WAL alone is restorable: a head that died before its
+            # first snapshot still replays every acknowledged write
+            print(f"--restore: no snapshot or WAL at {path!r}", file=sys.stderr)
+            return 2
     rt = ray_tpu_torch.init(
         num_cpus=args.num_cpus,
         # None: the detected CUDA devices (torch.cuda.device_count())
@@ -114,9 +128,11 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--token", default=None,
                     help="cluster auth token (required off-localhost)")
     st.add_argument("--snapshot-path", default=None,
-                    help="GCS snapshot file (ROADMAP A6b: raises)")
+                    help="GCS snapshot file: the head persists its tables "
+                         "here (same as RAY_TPU_GCS_SNAPSHOT_PATH)")
     st.add_argument("--restore", action="store_true",
-                    help="replay the snapshot at --snapshot-path (ROADMAP A6b: raises)")
+                    help="with --head: require + replay the snapshot at "
+                         "--snapshot-path so surviving agents re-register")
     for name in OTHER_COMMANDS:
         sp = sub.add_parser(name, help=f"JAX's `{name}` ({A8_ITEM}: raises)")
         sp.add_argument("rest", nargs=argparse.REMAINDER)

@@ -27,8 +27,11 @@ only pulls the trigger.
 The RPC knobs (`rpc_error_prob`, `rpc_delay_s`, `rpc_drop_prob`) act in
 `RpcClient.call` before the frame is sent (`rpc_action`).
 
-`kill_head` kills the head from its GCS snapshot loop, which comes with
-ROADMAP A6b (head restart): arming it raises NotImplementedError.
+`kill_head=1` is the head's drill: the head process dies (`os._exit(137)`,
+no final snapshot) from its GCS snapshot loop once `delay_s` has passed
+since chaos was armed (`maybe_kill_head`), never from `maybe_inject`, so
+no task can take the head down. The WAL, `--restore` and the
+reconciliation after it are what must survive it.
 """
 
 from __future__ import annotations
@@ -40,9 +43,6 @@ import time
 from typing import Optional
 
 import numpy as np
-
-HEAD_RESTART_ITEM = "ROADMAP A6b (head restart)"
-
 
 class ChaosInjectedError(RuntimeError):
     """Raised by the chaos layer in place of running the task body."""
@@ -56,7 +56,8 @@ class ChaosConfig:
     name_filter: Optional[str] = None  # substring match on the task's name
     seed: int = 0
     kill_node: bool = False  # a matching task kills THIS process (node death)
-    # the head chaos drill: refused in the port (HEAD_RESTART_ITEM)
+    # kill_head=1 kills the HEAD process (os._exit) from its snapshot loop
+    # once `delay_s` has passed since chaos was armed (maybe_kill_head)
     kill_head: bool = False
     # RPC-layer injection (RpcClient.call): transport errors, added
     # latency and connection drops
@@ -75,6 +76,7 @@ class _ChaosState:
         self.injected = 0
         self.rng = np.random.default_rng(0)
         self.lock = threading.Lock()
+        self.armed_ts = 0.0  # monotonic time of the last set_chaos()
         # callable(node, warning_s, reason) installed by the runtime: node
         # is the scheduler's logical Node when known (task and actor
         # boundaries), None for "this whole process" (the agent boundary)
@@ -98,10 +100,6 @@ def set_chaos(
     preempt_warning_s: float = 5.0,
     kill_head: bool = False,
 ) -> None:
-    if kill_head:
-        raise NotImplementedError(
-            "chaos kill_head (the head dies from its GCS snapshot loop) is not ported to "
-            f"ray_tpu_torch yet: {HEAD_RESTART_ITEM}")
     with _state.lock:
         _state.config = ChaosConfig(
             failure_prob, delay_s, max_injections, name_filter, seed,
@@ -109,6 +107,7 @@ def set_chaos(
             rpc_drop_prob, preempt_node, preempt_warning_s,
         )
         _state.injected = 0
+        _state.armed_ts = time.monotonic()
         _state.rng = np.random.default_rng(seed)
 
 
@@ -237,6 +236,28 @@ def maybe_inject(task_name: str, node=None) -> None:
         raise ChaosInjectedError(
             f"chaos: injected failure in task {task_name!r} (#{fail_ordinal})"
         )
+
+
+def maybe_kill_head() -> None:
+    """Called from the HEAD's snapshot loop. With `kill_head` armed and
+    `delay_s` passed since arming, the head dies at once (os._exit(137):
+    no cleanup, no final snapshot). Counts against max_injections, so a
+    restarted head that reads the same RAY_TPU_CHAOS does not die again
+    unless armed anew."""
+    config = _state.config
+    if config is None or not config.kill_head:
+        return
+    with _state.lock:
+        if 0 <= config.max_injections <= _state.injected:
+            return
+        if time.monotonic() - _state.armed_ts < config.delay_s:
+            return
+        _state.injected += 1
+    from ..util.events import emit
+
+    emit("WARNING", "chaos", "chaos injected kill_head: head dies now",
+         kind="chaos.injected", mode="kill_head")
+    os._exit(137)
 
 
 def rpc_action(method: str) -> Optional[dict]:

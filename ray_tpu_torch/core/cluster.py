@@ -72,16 +72,33 @@ loop drains a peer that announced and relays the notice into its own
 pub/sub, where train controllers listen. Chaos also fires at an agent's
 task execution (`kill_node` there takes the whole agent down).
 
-Left to ROADMAP A6b, each raising NotImplementedError where a caller can
-ask for it: the federation of events / request marks / step marks and
-the node stats snapshot (`core/stats.py`; the heartbeat runs without
-it), the node logs / events / spans / metrics / profile handlers and
-their fan-out (federation), and the reconciliation after a head restart
-(head restart).
+Head restart: a member whose GCS client sees the head come back
+(`_on_head_state` "reconnected") declares no peer dead by absence for
+`node_stale_s`, re-adopts the head's epoch (a bump is how it learns of a
+restart), registers again and flushes its federation at once
+(`_after_head_reconnect`). After a bump the window widens to the restored
+head's reconcile grace (`head_reconcile_grace_s`, 3 x `node_stale_s` by
+default): a restarted head's view starts empty, and a survivor may
+re-report seconds after this member. The restored head's reconciliation lives in `runtime.py`.
+
+Federation: every `node_stats_period_s` the heartbeat piggybacks the
+node's stats snapshot (`core/stats.py`) and its buffered-federation depth
+into its node-table entry, and ships its new flight-recorder events,
+request marks and step marks into the GCS tables `_events`, `_requests`
+and `_steps` (one key per node, a single writer; a cursor that walks
+oldest-first and advances only after a successful put; a flush after a
+reconnect drops by seq what already landed; each table capped per node).
+The node server answers `node_logs`, `node_events`, `node_spans`,
+`metrics_snapshot`, `node_stats` and `profile_capture`, which
+`fanout_nodes` calls on every live agent. A node running a profile
+capture stays live in the view for the capture's hold (`quiet`, beyond
+JAX): torch.profiler's stop holds the whole process while it processes
+the trace, so its heartbeats stop meanwhile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import pickle
@@ -92,10 +109,10 @@ import time
 import traceback
 import uuid
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from .exceptions import ActorDiedError
-from .gcs import PREEMPT_CHANNEL
+from .gcs import EVENT_NS, PREEMPT_CHANNEL, REQLOG_NS, STEPLOG_NS
 from .gcs_service import PG_NS, GcsClient
 from .ids import ActorID, NodeID, ObjectID
 from .object_transfer import ObjectTransferServer, fetch_object
@@ -122,11 +139,15 @@ ACTOR_NS = "_cluster_actors"  # GCS KV: "<namespace>/<name>" -> {node_hex, actor
 PORT_PROTOCOL = "torch-1"
 JAX_PROTOCOL = 1
 
-A6B_FEDERATION = "ROADMAP A6b (federation)"
 
+def _loaded_steplog():
+    """The training-forensics recorder IFF the train package is already
+    loaded in this process: a process that never imported it has no step
+    marks to federate, and importing it here would stall the stats thread
+    the head's heartbeat rides on."""
+    import sys
 
-def _a6b(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to ray_tpu_torch yet: {item}")
+    return sys.modules.get("ray_tpu_torch.train.steplog")
 
 
 class _RemoteActorCall:
@@ -499,6 +520,12 @@ class ClusterContext:
             "stream_item": self._stream_item,
             "reserve_bundle": self._reserve_bundle,
             "release_bundle": self._release_bundle,
+            "node_logs": self._node_logs,
+            "node_events": self._node_events,
+            "node_spans": self._node_spans,
+            "metrics_snapshot": self._metrics_snapshot,
+            "node_stats": self._node_stats,
+            "profile_capture": self._profile_capture,
         }.items():
             self.server.register(name, fn)
         self.address = self.server.address
@@ -536,6 +563,13 @@ class ClusterContext:
         # this node's table entry, kept here so begin_preemption updates
         # it without a read of the GCS
         self._info: Dict[str, Any] = {}  # guarded-by: _lock
+        # the stats piggyback's gate, and the federation cursors: the last
+        # local event / reqlog mark / steplog mark seq shipped into the
+        # GCS tables (advanced only after a successful put)
+        self._last_stats_ts = 0.0  # guarded-by: _lock
+        self._events_cursor = 0
+        self._reqlog_cursor = 0
+        self._steplog_cursor = 0
         # remote actors this process OWNS (proxies), and the in-flight
         # actor calls awaiting an actor_task_done reply
         self.remote_actors: Dict[ActorID, RemoteActorProxy] = {}  # guarded-by: _lock
@@ -556,6 +590,9 @@ class ClusterContext:
         # after the head reconnects, suppress death-by-absence until this
         # monotonic deadline: peers need stale_s to reappear in its view
         self._view_trust_after = 0.0
+        # while a profile capture holds this process, each report asks the
+        # head to keep the node live until this monotonic deadline
+        self._quiet_until = 0.0
         self.gcs.on_head_state(self._on_head_state)
 
         store.set_cluster_hooks(
@@ -646,21 +683,174 @@ class ClusterContext:
                     self.node_id.hex()[:12], self.address, self.gcs_address)
 
     def _on_head_state(self, state: str, outage_s: float) -> None:
-        """GcsClient outage-transition hook. On reconnect, push the
-        liveness trust window out: a head's view needs stale_s to fill
-        again. Re-registering with a RESTARTED head (a bumped epoch) is
-        ROADMAP A6b (head restart)."""
-        if state != "reconnected":
+        """GcsClient outage-transition hook (one call per transition, from
+        whichever thread hit it). On reconnect the head may be a RESTARTED
+        process with restored tables and a bumped epoch: push the liveness
+        trust window out, then re-adopt and re-announce on a thread of its
+        own (this fires inside an RPC call path and must not block it)."""
+        if state != "reconnected" or self._stop.is_set():
             return
         from .config import cfg
 
-        self._view_trust_after = time.monotonic() + float(cfg.node_stale_s)
+        self._view_trust_after = max(self._view_trust_after,
+                                     time.monotonic() + float(cfg.node_stale_s))
+        self._spawn(self._after_head_reconnect, (outage_s,), "ray_tpu_torch-head-reconnect")
+
+    def _after_head_reconnect(self, outage_s: float) -> None:
+        """Re-announce to a possibly restarted head: re-adopt its epoch,
+        register again (node entry + heartbeat), and open the stats gate,
+        so the federation cursors (held for the whole outage: they advance
+        only after a successful put) flush at once."""
+        try:
+            old_epoch = self.gcs.epoch
+            new_epoch = self.gcs.adopt_epoch()
+            if old_epoch is not None and new_epoch != old_epoch:
+                # a restarted head: trust no absence for its reconcile grace,
+                # not JAX's node_stale_s: its view starts empty, a survivor
+                # still in its client's reconnect backoff may re-report
+                # seconds after this member, and the head itself waits that
+                # long before purging a node that never returned
+                from .config import head_reconcile_grace
+
+                self._view_trust_after = max(self._view_trust_after,
+                                             time.monotonic() + head_reconcile_grace())
+            with self._lock:
+                self._last_stats_ts = 0.0  # flush the buffered federation now
+            self._register()
+            if old_epoch is not None and new_epoch != old_epoch:
+                from ..util.events import emit
+
+                emit("INFO", "cluster",
+                     f"node {self.node_id.hex()[:12]} re-registered with restarted head "
+                     f"(epoch {old_epoch} -> {new_epoch}, outage {outage_s:.2f}s)",
+                     kind="node.discovered", node=self.node_id.hex(),
+                     epoch=new_epoch, outage_s=round(outage_s, 3))
+        except (RpcError, OSError) as exc:
+            # the head dropped again mid-recovery: the next reconnect (or
+            # the watch loop's heartbeat) retries
+            logger.warning("re-registration after head reconnect failed: %r", exc)
 
     def _heartbeat(self) -> None:
-        """Report this node's available resources. JAX also piggybacks a
-        stats snapshot and the federation here: ROADMAP A6b (federation)."""
         self.gcs.report_resources(
-            self.node_id.hex(), dict(self._local_node.resources.available()))
+            self.node_id.hex(), dict(self._local_node.resources.available()),
+            max(0.0, self._quiet_until - time.monotonic()))
+        self._report_stats()
+
+    @contextlib.contextmanager
+    def quiet(self, seconds: float) -> Iterator[None]:
+        """Keep this node live in the cluster view for `seconds` without
+        heartbeats, for the block's length (beyond JAX): a profile
+        capture's stop holds the whole process while it processes the
+        trace (`profiling.CAPTURE_HOLD_S`), and peers must not declare it
+        dead meanwhile. The first heartbeat after the block ends the
+        window."""
+        self._quiet_until = time.monotonic() + seconds
+        try:
+            try:
+                self.gcs.report_resources(
+                    self.node_id.hex(), dict(self._local_node.resources.available()), seconds)
+            except (RpcError, OSError) as exc:
+                logger.warning("could not announce %.0f s of quiet to the head: %r", seconds, exc)
+            yield
+        finally:
+            self._quiet_until = 0.0
+
+    def _report_stats(self) -> None:
+        """Telemetry piggyback on the heartbeat: every node_stats_period_s,
+        publish this node's stats snapshot (and its federation depth) into
+        its GCS node-table entry, then ship the federation batches. Rides
+        the heartbeat's failure envelope: a GCS blip skips a period."""
+        from .config import cfg
+
+        period = cfg.node_stats_period_s
+        if period <= 0:
+            return
+        collector = getattr(self.runtime, "node_stats", None)
+        if collector is None:
+            return
+        now = time.monotonic()
+        # check-and-set at once: the reconnect thread calls this path too,
+        # and two threads through the gate would ship one batch twice
+        with self._lock:
+            if now - self._last_stats_ts < period or not self._info:
+                return
+            self._last_stats_ts = now
+        snap = collector.snapshot()
+        lag = self._federation_lag()
+        with self._lock:
+            self._info["stats"] = snap
+            self._info["federation_lag"] = lag
+            info = dict(self._info)
+        self.gcs.kv_put(self.node_id.hex(), info, namespace=NODE_NS)
+        self._federate_events()
+        self._federate_requests()
+        self._federate_steps()
+
+    def _federation_lag(self) -> Dict[str, int]:
+        """How many local events / reqlog marks / steplog marks have not
+        shipped to the head yet: grows for the length of a head outage
+        and drains to 0 after the reconnect."""
+        from ..serve import reqlog
+        from ..util.events import events
+
+        lag = {"events": max(0, events().stats()["seq"] - self._events_cursor)}
+        if reqlog.enabled():
+            lag["requests"] = max(0, reqlog.log().stats()["seq"] - self._reqlog_cursor)
+        steplog = _loaded_steplog()
+        if steplog is not None and steplog.enabled():
+            lag["steps"] = max(0, steplog.log().stats()["seq"] - self._steplog_cursor)
+        return lag
+
+    def _federate(self, namespace: str, batch: List[Dict[str, Any]], cap: int) -> int:
+        """Append `batch` (oldest first) to this node's key of a federated
+        table and return the seq the cursor moves to. The key has one
+        writer (this node), so the read-modify-write is safe; marks the
+        table already holds (a put that landed but whose reply was lost to
+        an outage) are dropped by seq; the table keeps the newest `cap`."""
+        my_hex = self.node_id.hex()
+        tail = self.gcs.kv_get(my_hex, namespace=namespace) or []
+        shipped = {m.get("seq") for m in tail}
+        fresh = [m for m in batch if m["seq"] not in shipped]
+        if fresh:
+            tail.extend(m if m.get("node") else dict(m, node=my_hex) for m in fresh)
+            if len(tail) > cap:
+                del tail[: len(tail) - cap]
+            self.gcs.kv_put(my_hex, tail, namespace=namespace)
+        return batch[-1]["seq"]
+
+    def _federate_events(self) -> None:
+        """Ship this node's new flight-recorder events into `_events`."""
+        from ..util.events import events
+        from .config import cfg
+
+        batch = events().since(self._events_cursor, max_n=cfg.events_federate_batch)
+        if batch:
+            self._events_cursor = self._federate(EVENT_NS, batch, cfg.events_table_cap)
+
+    def _federate_requests(self) -> None:
+        """Ship this node's new request marks into `_requests`, so the head
+        answers `state.request_timeline(id)` for a request whose router hop
+        and engine hop ran on different nodes."""
+        from ..serve import reqlog
+        from .config import cfg
+
+        if not reqlog.enabled():
+            return
+        batch = reqlog.log().since(self._reqlog_cursor, max_n=cfg.reqlog_federate_batch)
+        if batch:
+            self._reqlog_cursor = self._federate(REQLOG_NS, batch, cfg.reqlog_table_cap)
+
+    def _federate_steps(self) -> None:
+        """Ship this node's new step marks into `_steps`, so the head
+        answers `state.step_timeline(run)` across every rank of a gang."""
+        from .config import cfg
+
+        steplog = _loaded_steplog()
+        if steplog is None or not steplog.enabled():
+            return
+        batch = steplog.log().since(self._steplog_cursor, max_n=cfg.steplog_federate_batch)
+        if batch:
+            self._steplog_cursor = self._federate(STEPLOG_NS, batch, cfg.steplog_table_cap)
 
     def _watch_loop(self) -> None:
         from .config import cfg
@@ -2135,7 +2325,66 @@ class ClusterContext:
     # ------------------------------------------------------------------ misc
 
     def fanout_nodes(self, method: str, *args, placeholder=None):
-        raise _a6b("calls fanned out to every node agent (fanout_nodes)", A6B_FEDERATION)
+        """Call `method(*args)` on every live remote node's agent: {node_hex:
+        result}; a node that fails or does not answer maps to
+        `placeholder(exc)` (None without one), never dropped."""
+        out: Dict[str, Any] = {}
+        with self._lock:
+            nodes = list(self._remote_nodes.values())
+        for node in nodes:
+            if not node.alive:
+                continue
+            try:
+                out[node.node_id.hex()] = node.client.call(method, *args)
+            except Exception as exc:  # noqa: BLE001 - a partial view is fine
+                out[node.node_id.hex()] = placeholder(exc) if placeholder is not None else None
+        return out
+
+    def _node_logs(self, n: int = 200) -> List[str]:
+        """This node's captured log tail (util/logs)."""
+        from ..util import logs as _logs
+
+        return _logs.tail(int(n))
+
+    def _node_events(self, since_seq: int = 0, limit: int = 500) -> List[Dict[str, Any]]:
+        """This node's structured event tail (util/events)."""
+        from ..util.events import events
+
+        return events().list(since_seq=int(since_seq), limit=int(limit))
+
+    def _node_spans(self, trace_id: Optional[str] = None,
+                    limit: int = 10_000) -> List[Dict[str, Any]]:
+        """This node's completed trace spans (util/tracing), which the
+        state API stitches into one trace by trace_id."""
+        from ..util.tracing import tracer
+
+        return tracer().spans(trace_id, int(limit))
+
+    def _metrics_snapshot(self) -> str:
+        """This node's Prometheus exposition, which the head merges under
+        per-sample node_id labels (/metrics/cluster)."""
+        from ..util.metrics import registry
+
+        return registry().prometheus_text()
+
+    def _node_stats(self) -> Dict[str, Any]:
+        """This node's live stats snapshot (core/stats.py)."""
+        collector = getattr(self.runtime, "node_stats", None)
+        return collector.snapshot() if collector is not None else {}
+
+    def _profile_capture(self, spec: Dict[str, Any]) -> Dict[str, Any]:
+        """The agent's arm of a capture's fan-out: a time-boxed device
+        trace + host profile HERE, its bounded artifacts returned in the
+        reply, with the node kept live meanwhile (`quiet`); a degraded
+        capture comes back in the meta, never as an exception."""
+        from ..util import profiling
+        from .config import cfg
+
+        duration_s = spec.get("duration_s") or cfg.profile_default_duration_s
+        with self.quiet(float(duration_s) + profiling.CAPTURE_HOLD_S):
+            return profiling.capture_local_profile(
+                duration_s, device=bool(spec.get("device", True)),
+                host=bool(spec.get("host", True)), profile_id=spec.get("profile_id", ""))
 
     def _node_info(self) -> Dict[str, Any]:
         return {

@@ -76,6 +76,30 @@ define_flag("rpc_reconnect_backoff_s", 0.1,
             "Base jittered backoff between RpcClient reconnect attempts "
             "(doubles per attempt, capped at 2s).")
 
+# GCS persistence (core/gcs.py snapshots and WAL, core/runtime.py restore)
+define_flag("gcs_snapshot_path", "",
+            "File path for periodic GCS table snapshots ('' = disabled).")
+define_flag("gcs_snapshot_interval_s", 5.0,
+            "Seconds between GCS snapshots when snapshotting is enabled.")
+define_flag("gcs_wal", True,
+            "Journal every GCS mutation to <gcs_snapshot_path>.wal so "
+            "--restore replays acknowledged writes made after the last "
+            "snapshot (snapshots compact the journal; needs a snapshot "
+            "path).")
+define_flag("gcs_wal_fsync", False,
+            "fsync the GCS WAL after every record: survives host power "
+            "loss, not just head-process death, at a per-write cost.")
+define_flag("head_outage_grace_s", 30.0,
+            "After head.unreachable, the serve router keeps dispatching "
+            "on cached replica membership and the controller suppresses "
+            "probe-driven replica kills for this long; past it the "
+            "outage is treated as real capacity loss.")
+define_flag("head_reconcile_grace_s", 0.0,
+            "How long a restored head waits for surviving agents to "
+            "re-announce before purging never-returned nodes and "
+            "declaring their restored actors/bundles dead "
+            "(0 = 3x node_stale_s).")
+
 # the GCS served over RPC (core/gcs_service.py)
 define_flag("gcs_client_retry_s", 3.0,
             "Bounded window a GcsClient call retries transport errors "
@@ -181,6 +205,13 @@ define_flag("serve_request_log_marks", 4096,
 define_flag("serve_request_log_requests", 1024,
             "Per-process cap on request SUMMARIES the recorder indexes "
             "(oldest request evicted first).")
+define_flag("reqlog_federate_batch", 256,
+            "Max request marks a node ships into the GCS _requests "
+            "table per stats-piggyback period (cursor walk, never "
+            "skips).")
+define_flag("reqlog_table_cap", 2000,
+            "Per-node cap on request marks retained in the GCS "
+            "_requests table (the cluster-wide queryable tail).")
 
 # multi-tenant serve (weighted-fair admission / quotas / preemption)
 define_flag("serve_tenant_default_weight", 1.0,
@@ -224,6 +255,11 @@ define_flag("train_ckpt_keep", 2,
             "Session (pickle) checkpoints retained per trial dir when "
             "RunConfig.checkpoint.session_keep is unset.")
 
+# telemetry plane (core/stats.py)
+define_flag("node_stats_period_s", 2.0,
+            "Interval at which a cluster node piggybacks its stats "
+            "snapshot into the GCS node table (0 = disabled).")
+
 # training stall watchdog (util/watchdog.py StallWatchdog)
 define_flag("train_stall_window_s", 30.0,
             "Training stall watchdog: no worker report for this long "
@@ -266,6 +302,12 @@ define_flag("train_step_log_marks", 4096,
 define_flag("train_step_log_steps", 1024,
             "Per-process cap on step SUMMARIES the recorder indexes "
             "(oldest sampled step evicted first).")
+define_flag("steplog_federate_batch", 256,
+            "Max step marks a node ships into the GCS _steps table "
+            "per stats-piggyback period (cursor walk, never skips).")
+define_flag("steplog_table_cap", 2000,
+            "Per-node cap on step marks retained in the GCS _steps "
+            "table (the cluster-wide queryable tail).")
 define_flag("steplog_dp_bandwidth_gbs", 100.0,
             "Assumed interconnect bandwidth (GB/s) used to ESTIMATE "
             "the dp_sync share of device step time on sampled steps "
@@ -278,6 +320,13 @@ define_flag("events_segment_bytes", 1 << 20,
 define_flag("events_segments_keep", 8,
             "Rotated event segments retained per node before the oldest "
             "is pruned.")
+define_flag("events_federate_batch", 256,
+            "Max events a node ships into the GCS _events table per "
+            "stats-piggyback period (the cursor never skips; a burst "
+            "just takes more periods to drain).")
+define_flag("events_table_cap", 2000,
+            "Per-node cap on events retained in the GCS _events table "
+            "(the cluster-wide queryable tail).")
 
 # profiling plane (util/profiling.py: captures and cost accounting)
 define_flag("profile_default_duration_s", 2.0,
@@ -350,3 +399,8 @@ class RayTpuConfig:
 
 
 cfg = RayTpuConfig()
+
+
+def head_reconcile_grace() -> float:
+    """`head_reconcile_grace_s` resolved: 0 means 3x `node_stale_s`."""
+    return float(cfg.head_reconcile_grace_s) or 3.0 * float(cfg.node_stale_s)

@@ -21,10 +21,9 @@ remote lookup returns existence.
   pickles it by reference with the standard pickle and refuses one that
   a peer could not import (`worker_pool.check_importable`: a lambda, a
   nested function, `__main__`) with TypeError.
-
-The head's persistence (the WAL and snapshots behind `head_info`'s
-durability fields, which read None here) comes with ROADMAP A6b (head
-restart).
+- **Durability health**: `head_info` reports the epoch, the WAL's
+  stats, the last snapshot's time and the last restore's counts
+  (`core/gcs.py`), which `state.head_summary()` surfaces.
 """
 
 from __future__ import annotations
@@ -50,21 +49,31 @@ class _ResourceSync:
 
     def __init__(self, stale_s: float = 10.0):
         self._views: dict = {}  # node_id -> (monotonic_ts, resources)
+        self._quiet_until: dict = {}  # node_id -> monotonic deadline
         self.stale_s = stale_s
 
-    def report(self, node_id: str, resources: dict) -> None:
+    def report(self, node_id: str, resources: dict, quiet_s: float = 0.0) -> None:
+        """`quiet_s` > 0 (beyond JAX): the node may not report again for
+        that long (a profile capture holds its process), and its view
+        stays live until then; a report without it ends the window."""
         # monotonic: wall-clock steps (NTP) must not flip liveness
-        self._views[node_id] = (time.monotonic(), dict(resources))
+        now = time.monotonic()
+        self._views[node_id] = (now, dict(resources))
+        if quiet_s > 0:
+            self._quiet_until[node_id] = now + float(quiet_s)
+        else:
+            self._quiet_until.pop(node_id, None)
 
     def cluster_view(self) -> dict:
         now = time.monotonic()
         total: dict = {}
         nodes = {}
         for node_id, (ts, res) in list(self._views.items()):
-            if now - ts > self.stale_s:
+            if now - ts > self.stale_s and now > self._quiet_until.get(node_id, 0.0):
                 # evict: under node-id churn the dead set would otherwise
                 # grow (and be rescanned) forever
                 self._views.pop(node_id, None)
+                self._quiet_until.pop(node_id, None)
                 continue
             nodes[node_id] = {"age_s": round(now - ts, 3), "resources": res}
             for k, v in res.items():
@@ -101,13 +110,13 @@ def serve_gcs(gcs: GlobalControlStore, host: str = "127.0.0.1", port: int = 0,
     started = time.time()
 
     def head_info() -> Dict[str, Any]:
-        """Head identity: the epoch agents adopt. The durability fields
-        are None until the head persists (ROADMAP A6b (head restart))."""
+        """Head identity + durability health: the epoch agents adopt, the
+        WAL's size and seq, the snapshot's age, the last restore."""
         return {
             "epoch": gcs.current_epoch(),
-            "wal": None,
-            "last_snapshot_ts": None,
-            "restore": {},
+            "wal": gcs.wal_stats(),
+            "last_snapshot_ts": gcs.last_snapshot_ts,
+            "restore": dict(gcs.last_restore),
             "started_ts": started,
             "ts": time.time(),
         }
@@ -238,7 +247,7 @@ class GcsClient:
     # --------------------------------------------------------------- epoch
 
     def head_info(self) -> Dict[str, Any]:
-        """Head identity (epoch, start time)."""
+        """Head identity + durability health (epoch, WAL, snapshot age)."""
         return self._call("head_info")
 
     def adopt_epoch(self) -> int:
@@ -330,10 +339,15 @@ class GcsClient:
 
     # ------------------------------------------------------- resource sync
 
-    def report_resources(self, node_id: str, resources: Dict[str, float]) -> None:
+    def report_resources(self, node_id: str, resources: Dict[str, float],
+                         quiet_s: float = 0.0) -> None:
         """Broadcast this node's available resources; call periodically —
-        stale views age out at the head."""
-        self._fenced("report_resources", node_id, resources)
+        stale views age out at the head. `quiet_s` > 0 keeps the view live
+        that long without another report (a port head only)."""
+        if quiet_s > 0:
+            self._fenced("report_resources", node_id, resources, quiet_s)
+        else:
+            self._fenced("report_resources", node_id, resources)
 
     def cluster_view(self) -> Dict[str, Any]:
         """Aggregated live-node resource view."""

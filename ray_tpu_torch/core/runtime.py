@@ -33,12 +33,17 @@ its groups reschedule); chaos's `preempt_node` mode pulls the same
 trigger (`_chaos_preempt`), or a cluster member's `begin_preemption`
 when the whole process is the target. `RAY_TPU_CHAOS` is read at init.
 
-What the JAX runtime also does and the port does not yet — each raises
-NotImplementedError naming its ROADMAP item where a caller can ask for
-it: GCS snapshots, the WAL and a restarted head's reconciliation (A6b,
-head restart), jobs (A6b) and `profile_capture`'s fan-out to node agents
-(A6b, federation: here one local capture covers every selected logical
-node, as JAX's in-process runtime does).
+GCS durability (`cfg.gcs_snapshot_path`, the CLI's `--snapshot-path`):
+the head restores its newest snapshot plus the WAL (or the WAL alone)
+BEFORE it serves its GCS, bumps the cluster epoch, snapshots every
+`gcs_snapshot_interval_s` (where chaos's `kill_head` fires), and after a
+restore waits one grace window for the restored nodes to re-announce,
+then purges the ones that never did through the same paths a node's
+death takes (`_reconcile_after_restore`). The node stats collector
+(`core/stats.py`) rides the heartbeat; `profile_capture` fans out to the
+selected node agents. Jobs, whose records JAX's snapshot also carries,
+are ROADMAP A6b (jobs and DCN): the port's snapshot holds none, and its
+restore accepts a snapshot without them.
 """
 
 from __future__ import annotations
@@ -208,13 +213,31 @@ class Runtime:
 
         _logs.install()
         _logs.set_node_id(self.scheduler.head_node().node_id.hex())
-        # runtime gauges (scrape-time sampling) and the registry of
-        # profile captures (filled by profile_capture below)
+        # telemetry plane: the node's stats collector and its gauges
+        # (core/stats.py); the cluster heartbeat piggybacks the snapshot
+        # into the GCS node table. Then the runtime gauges (scrape-time
+        # sampling) and the registry of profile captures.
+        from . import stats as _stats
         from ..util import profiling as _profiling
         from ..util.metrics import register_runtime_gauges
 
+        self.node_stats = _stats.NodeStatsCollector(self)
+        _stats.register_node_gauges()
         register_runtime_gauges()
         self.profiles = _profiling.ProfileStore()
+        # GCS durability: restore (newest snapshot + WAL replay) BEFORE the
+        # head serves its GCS over RPC, so joining agents only ever see the
+        # recovered tables and the epoch after the restart
+        self._snapshot_stop = threading.Event()
+        self._snapshot_path = cfg.gcs_snapshot_path or None
+        self._wal_path = (self._snapshot_path + ".wal"
+                          if self._snapshot_path and cfg.gcs_wal else None)
+        self._gcs_restored = False
+        self._restored_nodes: set = set()
+        self._reconcile_state: Dict[str, Any] = {}
+        self._persist_threads: List[threading.Thread] = []
+        if self._snapshot_path:
+            self._start_durability(cfg)
         # announced preemption: chaos (preempt_node) and an agent's SIGTERM
         # pull the trigger; this runtime drains, announces and kills
         from . import chaos as _chaos
@@ -236,6 +259,170 @@ class Runtime:
             except BaseException:
                 self.shutdown()
                 raise
+        # reconciliation: the restored tables name nodes, actors and
+        # placement groups that may not have survived the outage
+        if self._gcs_restored and head and self.cluster is not None:
+            self._spawn_persist(self._reconcile_after_restore, "gcs-reconcile")
+
+    # ------------------------------------------------------------ persistence
+
+    def _spawn_persist(self, target, name: str, *args) -> None:
+        th = threading.Thread(target=target, args=args, daemon=True, name=name)
+        self._persist_threads.append(th)
+        th.start()
+
+    def _start_durability(self, cfg) -> None:
+        """Restore what the snapshot path holds, attach the WAL, bump the
+        epoch after a restore, and start the snapshot loop."""
+        import os as _os
+
+        if _os.path.exists(self._snapshot_path):
+            self._restore_gcs(self._snapshot_path, self._wal_path)
+        elif self._wal_path and _os.path.exists(self._wal_path):
+            # died before the first snapshot committed: the journal alone
+            # holds everything that was acknowledged
+            try:
+                self.gcs.replay_wal(self._wal_path, -1)
+                self._gcs_restored = True
+            except Exception:  # noqa: BLE001 - a bad WAL must not brick init
+                import logging
+
+                logging.getLogger(__name__).exception(
+                    "gcs WAL %s is unreadable; starting fresh", self._wal_path)
+        if self._wal_path:
+            self.gcs.attach_wal(self._wal_path, fsync=cfg.gcs_wal_fsync)
+        if self._gcs_restored:
+            from .cluster import NODE_NS
+            from ..util.events import emit
+
+            # fence every writer from before the crash: the bump is
+            # journaled, so it survives the NEXT crash too. The restored
+            # node table is read first: reconciliation compares it with
+            # who re-announces.
+            self._restored_nodes = set(self.gcs.kv.keys(namespace=NODE_NS))
+            new_epoch = self.gcs.bump_epoch()
+            emit("INFO", "gcs", f"cluster epoch bumped to {new_epoch} after restore",
+                 kind="gcs.restored", phase="epoch_bump", epoch=new_epoch,
+                 restored_nodes=len(self._restored_nodes))
+        self._spawn_persist(self._snapshot_loop, "gcs-snapshot",
+                            cfg.gcs_snapshot_interval_s)
+
+    def _snapshot_gcs(self) -> None:
+        """One snapshot of the durable tables. JAX's `extra` carries the
+        job records; the port has no jobs yet (ROADMAP A6b (jobs and
+        DCN)), so it carries none."""
+        self.gcs.snapshot(self._snapshot_path, extra={})
+
+    def _restore_gcs(self, path: str, wal_path: Optional[str] = None) -> None:
+        """Load the snapshot and replay the WAL past it. An unreadable
+        snapshot is logged and the head starts fresh, as JAX's does."""
+        try:
+            self.gcs.restore(path, wal_path=wal_path)
+        except Exception:  # noqa: BLE001 - a bad snapshot must not brick init
+            import logging
+
+            logging.getLogger(__name__).exception(
+                "gcs snapshot %s is unreadable; starting fresh", path)
+            return
+        self._gcs_restored = True
+        from ..util.events import emit
+
+        emit("INFO", "gcs", f"restored GCS snapshot from {path}", kind="gcs.restored",
+             wal_records_applied=self.gcs.last_restore.get("wal_records_applied", 0))
+
+    def _snapshot_loop(self, interval: float) -> None:
+        from . import chaos as _chaos
+
+        while not self._snapshot_stop.wait(interval):
+            if getattr(self.cluster, "is_head", False):
+                # the head's chaos drill dies HERE, between snapshots, so
+                # the WAL (not the snapshot) carries the latest writes
+                _chaos.maybe_kill_head()
+            try:
+                self._snapshot_gcs()
+            except Exception:  # noqa: BLE001 - persistence must not kill the runtime
+                import logging
+
+                logging.getLogger(__name__).exception("gcs snapshot failed")
+
+    def _reconcile_after_restore(self) -> None:
+        """Head-only convergence after a restore. The restored tables are a
+        snapshot of the PAST: some nodes, actors and placement groups they
+        name died during the outage. Wait one grace window for survivors
+        to re-announce (registration and heartbeats refill the live view),
+        then purge whatever never returned, through the node-death paths
+        a heartbeat timeout takes: the named actors it hosted are
+        released, the placement groups it owned fail. Survivors are never
+        restarted."""
+        from .cluster import ACTOR_NS, NODE_NS
+        from .config import head_reconcile_grace
+        from .gcs_service import PG_NS
+        from ..util.events import emit
+
+        grace = head_reconcile_grace()
+        self._reconcile_state = {"phase": "waiting", "grace_s": grace,
+                                 "restored_nodes": len(self._restored_nodes)}
+        if self._snapshot_stop.wait(grace):
+            return  # shut down before the window closed
+        my_hex = self.scheduler.head_node().node_id.hex()
+        syncer = getattr(getattr(self.cluster, "gcs_server", None), "syncer", None)
+        live = set()
+        if syncer is not None:
+            try:
+                live = set(syncer.cluster_view().get("nodes", {}))
+            except Exception:  # noqa: BLE001 - a view read must not abort reconcile
+                pass
+        purged = []
+        for node_hex in sorted(self._restored_nodes):
+            if node_hex == my_hex or node_hex in live:
+                continue
+            self.gcs.kv.delete(node_hex, namespace=NODE_NS)
+            purged.append(node_hex)
+            emit("WARNING", "cluster",
+                 f"node {node_hex[:12]} never re-announced within {grace:.0f}s of "
+                 f"head restart; purged", kind="node.purged", node=node_hex, grace_s=grace)
+        purged_set = set(purged)
+        actors_purged = 0
+        pgs_failed = 0
+        if purged_set:
+            # named actors hosted on purged nodes died with them: release
+            # the names so get_if_exists / options(name=...) reclaim them
+            for key in list(self.gcs.kv.keys(namespace=ACTOR_NS)):
+                rec = self.gcs.kv.get(key, namespace=ACTOR_NS) or {}
+                if rec.get("node_hex") not in purged_set:
+                    continue
+                self.gcs.kv.delete(key, namespace=ACTOR_NS)
+                ns, _, name = key.partition("/")
+                if name:
+                    self.gcs.unregister_named_actor(name, ns)
+                actors_purged += 1
+            # placement groups OWNED by a purged node: the owner's state
+            # machine died with it, so mark them failed
+            for key in list(self.gcs.kv.keys(namespace=PG_NS)):
+                rec = self.gcs.kv.get(key, namespace=PG_NS) or {}
+                if rec.get("owner") not in purged_set:
+                    continue
+                if rec.get("state") in ("FAILED", "REMOVED"):
+                    continue
+                rec = dict(rec, state="FAILED",
+                           failure_reason="owner node lost during head outage")
+                self.gcs.kv.put(key, rec, namespace=PG_NS)
+                pgs_failed += 1
+        self._reconcile_state = {
+            "phase": "done", "grace_s": grace,
+            "restored_nodes": len(self._restored_nodes),
+            "survivors": len(self._restored_nodes) - len(purged)
+            - (1 if my_hex in self._restored_nodes else 0),
+            "nodes_purged": len(purged),
+            "actors_purged": actors_purged,
+            "pgs_failed": pgs_failed,
+            "completed_ts": time.time(),
+        }
+        emit("INFO", "gcs",
+             f"head reconciliation complete: {len(purged)} node(s) purged, "
+             f"{actors_purged} actor record(s) released, {pgs_failed} placement group(s) failed",
+             kind="head.reconciled",
+             **{k: v for k, v in self._reconcile_state.items() if k != "phase"})
 
     # ------------------------------------------------------------------ store
 
@@ -751,14 +938,17 @@ class Runtime:
         device: bool = True,
         host: bool = True,
     ) -> Dict[str, Any]:
-        """A time-boxed device trace + host sampling profile over the
-        selected logical nodes (hex prefixes; None = every alive node),
-        registered in the profile store and the control store's
-        `_profiles` table so `state.list_profiles()` and `trace_dump`
-        reach it. The logical nodes share this process, so one local
-        capture covers every selected node (the non-head entries
-        reference the head's artifacts), as in JAX's in-process branch;
-        the fan-out to node agents comes with ROADMAP A6b (federation)."""
+        """Coordinated capture: a time-boxed device trace + host sampling
+        profile over the selected nodes (hex prefixes; None = every alive
+        node), run CONCURRENTLY so the windows overlap, the artifacts
+        collected back here and the capture registered in the profile
+        store and the control store's `_profiles` table, so
+        `state.list_profiles()` and `trace_dump` reach it. In a cluster
+        each selected node agent captures itself (the `profile_capture`
+        RPC); an agent that fails or does not answer gets a meta naming
+        the error. Without a cluster the logical nodes share this
+        process, so one local capture covers every selected node (the
+        non-head entries reference the head's artifacts)."""
         import os as _os
 
         from ..util import profiling as _profiling
@@ -768,28 +958,39 @@ class Runtime:
         if duration_s is None:
             duration_s = cfg.profile_default_duration_s
         profile_id = _os.urandom(6).hex()
+        spec = {"profile_id": profile_id, "duration_s": duration_s,
+                "device": device, "host": host}
 
         def selected(node_hex: str) -> bool:
             return not nodes or any(node_hex.startswith(p) for p in nodes)
 
         started_at = time.time()
-        head_hex = self.scheduler.head_node().node_id.hex()
-        chosen = [n.node_id.hex() for n in self.scheduler.nodes()
-                  if n.alive and selected(n.node_id.hex())]
-        if not chosen:
-            raise ValueError(f"no alive node matches the capture selector {nodes!r}")
-        local = _profiling.capture_local_profile(
-            duration_s, device=device, host=host, profile_id=profile_id)
-        artifact_hex = head_hex if head_hex in chosen else chosen[0]
-        blobs: Dict[Tuple[str, str], bytes] = {
-            (artifact_hex, name): data for name, data in local["artifacts"].items()}
         node_metas: Dict[str, Dict[str, Any]] = {}
-        for node_hex in chosen:
-            meta = dict(local["meta"])
-            if node_hex != artifact_hex:
-                meta["artifacts_at"] = artifact_hex
-                meta["artifact_names"] = []
-            node_metas[node_hex] = meta
+        blobs: Dict[Tuple[str, str], bytes] = {}
+        ctx = self.cluster
+        if ctx is None:
+            head_hex = self.scheduler.head_node().node_id.hex()
+            chosen = [n.node_id.hex() for n in self.scheduler.nodes()
+                      if n.alive and selected(n.node_id.hex())]
+            if not chosen:
+                raise ValueError(f"no alive node matches the capture selector {nodes!r}")
+            local = _profiling.capture_local_profile(
+                duration_s, device=device, host=host, profile_id=profile_id)
+            artifact_hex = head_hex if head_hex in chosen else chosen[0]
+            for name, data in local["artifacts"].items():
+                blobs[(artifact_hex, name)] = data
+            for node_hex in chosen:
+                meta = dict(local["meta"])
+                if node_hex != artifact_hex:
+                    meta["artifacts_at"] = artifact_hex
+                    meta["artifact_names"] = []
+                node_metas[node_hex] = meta
+        else:
+            results = self._fan_out_capture(ctx, spec, selected, nodes)
+            for node_hex, res in results.items():
+                node_metas[node_hex] = res.get("meta", {})
+                for name, data in (res.get("artifacts") or {}).items():
+                    blobs[(node_hex, name)] = data
         record = {
             "profile_id": profile_id,
             "started_at": started_at,
@@ -800,8 +1001,75 @@ class Runtime:
             "total_bytes": sum(len(b) for b in blobs.values()),
         }
         self.profiles.add(record, blobs)
-        self.gcs.kv.put(profile_id, record, namespace=PROFILE_NS)
+        # register the record (meta only) so other processes see the capture
+        try:
+            if ctx is not None:
+                ctx.gcs.kv_put(profile_id, record, namespace=PROFILE_NS)
+            else:
+                self.gcs.kv.put(profile_id, record, namespace=PROFILE_NS)
+        except Exception:  # noqa: BLE001 - registration is observability
+            pass
         return record
+
+    @staticmethod
+    def _fan_out_capture(ctx, spec: Dict[str, Any], selected, nodes) -> Dict[str, Dict[str, Any]]:
+        """Run the capture on this node (when selected) and on every
+        selected node agent at once: {node_hex: {"meta", "artifacts"}}.
+        Each remote capture gets a client of its own with a timeout past
+        the window (the shared agent client's would cut it, and it must
+        not block dispatches)."""
+        from ..util import profiling as _profiling
+        from .rpc import RpcClient
+
+        duration_s = spec["duration_s"]
+        local_hex = ctx.node_id.hex()
+        results: Dict[str, Dict[str, Any]] = {}
+        lock = threading.Lock()
+
+        def put(node_hex: str, res: Dict[str, Any]) -> None:
+            with lock:
+                results[node_hex] = res
+
+        # a node's capture may hold its process past the window while the
+        # profiler's stop processes the trace: it stays live meanwhile
+        # (ClusterContext.quiet), and its reply is awaited as long
+        hold_s = duration_s + _profiling.CAPTURE_HOLD_S
+
+        def run_local() -> None:
+            with ctx.quiet(hold_s):
+                put(local_hex, _profiling.capture_local_profile(
+                    duration_s, device=spec["device"], host=spec["host"],
+                    profile_id=spec["profile_id"]))
+
+        def run_remote(node_hex: str, addr: str) -> None:
+            client = RpcClient(addr, timeout=hold_s, retries=0, token=ctx.token)
+            try:
+                put(node_hex, client.call("profile_capture", spec))
+            except Exception as exc:  # noqa: BLE001 - a partial capture is fine
+                put(node_hex, {"meta": {"error": repr(exc)}, "artifacts": {}})
+            finally:
+                client.close()
+
+        workers: List[threading.Thread] = []
+        if selected(local_hex):
+            workers.append(threading.Thread(target=run_local, daemon=True,
+                                            name="ray_tpu_torch-profile-local"))
+        for info in ctx.nodes():
+            node_hex = info.get("node_id")
+            if (not node_hex or node_hex == local_hex or not selected(node_hex)
+                    or not info.get("address")):
+                continue
+            workers.append(threading.Thread(target=run_remote, args=(node_hex, info["address"]),
+                                            daemon=True,
+                                            name=f"ray_tpu_torch-profile-{node_hex[:8]}"))
+        if not workers:
+            raise ValueError(f"no cluster node matches the capture selector {nodes!r}")
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=hold_s + 30.0)
+        with lock:
+            return dict(results)
 
     # ------------------------------------------------------------- preemption
 
@@ -878,7 +1146,9 @@ class Runtime:
         and join its dispatch and task threads, then stop the worker pool
         and unmap the object store's arena. A cluster member first leaves
         the cluster (`ClusterContext.stop`, which joins its threads) and a
-        head stops serving its GCS."""
+        head stops serving its GCS; a persisting head stops its snapshot
+        and reconcile threads, writes a final snapshot and closes the
+        WAL."""
         from . import chaos as _chaos
 
         _chaos.set_preemption_hook(None)
@@ -894,6 +1164,15 @@ class Runtime:
                 gcs_server.stop()
         self.health.stop()
         self.memory_monitor.stop()
+        self._snapshot_stop.set()
+        for th in self._persist_threads:
+            th.join(timeout=10.0)
+        if self._snapshot_path:
+            try:
+                self._snapshot_gcs()  # the final snapshot: durable state survives
+            except Exception:  # noqa: BLE001 - shutdown goes on
+                pass
+        self.gcs.detach_wal()
         with self._lock:
             actors = list(self._actors.values())
         for rt in actors:

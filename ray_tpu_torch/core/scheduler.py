@@ -1251,10 +1251,18 @@ class ClusterScheduler:
         """Completion of a remotely dispatched task (the agent reported
         task_done, or its node died): release the reservation on the
         node's view, run `before_complete` (the cluster seals the returns
-        there, after the release), complete."""
+        there, after the release), complete. A success records its
+        task-done event BEFORE the returns seal, so a caller woken by a
+        value always finds the task in the event log (the data plane reads
+        where a block's task ran from it)."""
         pool.release(spec.resources)
         with node._lock:
             node.running_tasks.pop(spec.task_id, None)
+        if error is None:
+            self._complete(spec, None)
+            if before_complete is not None:
+                before_complete()
+            return
         if before_complete is not None:
             before_complete()
         self._complete(spec, error, error_tb, system_failure=system_failure)

@@ -79,6 +79,7 @@ from .datasource import (
     RangeSource,
     TextSource,
     TFRecordSource,
+    portable,
 )
 from .executor import (
     BlockPrefetcher,
@@ -201,6 +202,10 @@ class _BlockUDFActor:
 # ----------------------------------------------------------------- execution
 
 
+def _run_read_task(task):
+    return task()
+
+
 def _stream_submit(
     items: Iterator[Callable[[], Any]], submit: Callable, window: int
 ) -> Iterator[Any]:
@@ -286,10 +291,12 @@ def _plan_iter(ops: List[_Op], ctx: DataContext, stats: StreamStats) -> Iterator
             ).remote()
         )
     else:
-        read_remote = api.remote(lambda task: task())
+        # a portable read task may run on any node; a closure stays here
+        read_anywhere = api.remote(_run_read_task)
+        read_here = api.remote(lambda task: task())
         stream = budgeted_submit(
             iter(ops[0].source.read_tasks()),
-            lambda t: read_remote.remote(t),
+            lambda t: (read_anywhere if portable(t) else read_here).remote(t),
             stats=stats,
             count_window=ctx.prefetch_blocks,
             byte_budget=ctx.target_inflight_bytes,

@@ -3,11 +3,16 @@
 Copy of `ray_tpu/data/datasource.py` (numpy and the standard library;
 pyarrow and PIL are imported only inside the parquet and image readers):
 each source is a list of zero-argument callables, so reads run as
-parallel runtime tasks.
+parallel runtime tasks. The range and numpy sources make their read tasks
+partials of module-level functions (`portable`), so in a cluster their
+reads run on node agents too (the port ships a task by reference); a
+closure's read (the items source, the file sources) stays on the submitting
+node.
 """
 
 from __future__ import annotations
 
+import functools
 import glob as _glob
 import os
 from typing import Any, Callable, List, Optional, Sequence
@@ -17,6 +22,21 @@ import numpy as np
 from .block import Block, block_from_items
 
 ReadTask = Callable[[], Block]
+
+
+def portable(task: ReadTask) -> bool:
+    """Whether a node agent can import `task` by reference: a partial of a
+    module-level function of this package."""
+    return (isinstance(task, functools.partial)
+            and getattr(task.func, "__module__", "").startswith("ray_tpu_torch."))
+
+
+def _range_block(lo: int, hi: int) -> Block:
+    return {"item": np.arange(lo, hi)}
+
+
+def _same_block(block: Block) -> Block:
+    return block
 
 
 class Datasource:
@@ -42,10 +62,8 @@ class RangeSource(Datasource):
     def read_tasks(self) -> List[ReadTask]:
         edges = np.linspace(0, self.n, self.num_blocks + 1, dtype=np.int64)
 
-        def make(lo: int, hi: int) -> ReadTask:
-            return lambda: {"item": np.arange(lo, hi)}
-
-        return [make(int(lo), int(hi)) for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
+        return [functools.partial(_range_block, int(lo), int(hi))
+                for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
 
     def estimated_num_rows(self) -> Optional[int]:
         return self.n
@@ -69,6 +87,8 @@ class ItemsSource(Datasource):
             rows = [self.items[i] for i in idx]
             return lambda: block_from_items(rows)
 
+        # a closure: the items may be anything, and only this process is
+        # sure to hold what they reference
         return [make(c) for c in chunks if len(c)]
 
     def estimated_num_rows(self) -> Optional[int]:
@@ -85,11 +105,8 @@ class NumpySource(Datasource):
         n = len(next(iter(self.arrays.values())))
         edges = np.linspace(0, n, self.num_blocks + 1, dtype=np.int64)
 
-        def make(lo: int, hi: int) -> ReadTask:
-            chunk = {k: v[lo:hi] for k, v in self.arrays.items()}
-            return lambda: chunk
-
-        return [make(int(lo), int(hi)) for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
+        return [functools.partial(_same_block, {k: v[int(lo):int(hi)] for k, v in self.arrays.items()})
+                for lo, hi in zip(edges[:-1], edges[1:]) if hi > lo]
 
     def estimated_num_rows(self) -> Optional[int]:
         return len(next(iter(self.arrays.values())))

@@ -21,9 +21,12 @@ one replica past the live count when a demand signal (ongoing per replica
 over target, or the engines' `batch_fill`) clears
 `autoscale_pressure_floor`.
 
-Not ported yet: the cluster autoscaler's demand source (`core/capacity`)
-and the freeze of reconciliation under a GCS head outage, which come with
-ROADMAP A6b (capacity; head restart).
+Under a GCS head outage the loop freezes for `head_outage_grace_s`
+(replica calls still flow, direct to the node agents; scaling needs the
+head), emitting `serve.degraded` on freezing and on resuming, and clears
+the probes issued before the freeze so resuming prunes nothing on stale
+probes. Not ported yet: the cluster autoscaler's demand source
+(`core/capacity`), ROADMAP A6b (capacity).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from .. import api
 from ..core.actors import ActorState
 from ..core.exceptions import ReplicaDrainingError, RequestTimeoutError
 from .deployment import Application, Deployment
-from .router import _counter, _rkey, DeploymentHandle, ReplicaSet
+from .router import _counter, _head_outage_s, _rkey, DeploymentHandle, ReplicaSet
 
 logger = logging.getLogger(__name__)
 
@@ -300,7 +303,40 @@ class ServeController:
             self._thread.start()
 
     def _loop(self) -> None:
+        frozen_since = 0.0
         while not self._stop.wait(self._interval):
+            outage = _head_outage_s()
+            if outage > 0.0:
+                # head outage: replica CALLS still flow (direct to node
+                # agents), but scaling needs the head. Freeze for the grace
+                # window instead of churning replicas on a blind control
+                # plane; past it, resume and let HeadUnavailableError surface
+                from ..core.config import cfg as _cfg
+
+                if outage <= float(_cfg.head_outage_grace_s):
+                    if not frozen_since:
+                        frozen_since = time.monotonic()
+                        from ..util.events import emit
+
+                        emit("WARNING", "serve",
+                             "serve controller frozen: head unreachable; serving on cached "
+                             "replica membership", kind="serve.degraded",
+                             outage_s=round(outage, 2))
+                    continue
+            if frozen_since:
+                # probes issued before the freeze are all overdue by now:
+                # clearing them prevents a mass prune on unfreeze
+                with self._lock:
+                    states = list(self._states.values())
+                for state in states:
+                    state.probe_refs.clear()
+                    state.last_probe.clear()
+                from ..util.events import emit
+
+                emit("INFO", "serve",
+                     f"serve controller resumed after {time.monotonic() - frozen_since:.1f}s "
+                     f"frozen", kind="serve.degraded", resumed=True)
+                frozen_since = 0.0
             with self._lock:
                 states = list(self._states.values())
                 condemned = list(self._condemned)

@@ -9,10 +9,10 @@ bounded per-request summary index; the shared request id also lands on
 the trace spans, joining the two views.
 
 The HTTP frontends, the router and both engines mark their phases
-(`serve/llm/engine.py`, `paged_engine.py`); `util/state.py` answers
-`request_timeline` / `list_requests` from this process's ring. The
-federation of each node's tail into the control store comes with ROADMAP
-A6b (federation).
+(`serve/llm/engine.py`, `paged_engine.py`). The cluster heartbeat
+federates each node's tail into the GCS ``_requests`` table
+(core/cluster.py, the same piggyback as the flight recorder), so
+`util/state.py` answers `request_timeline` / `list_requests` cluster-wide.
 
 Phases are TYPED: every ``mark`` names a phase registered in ``PHASES``,
 so the waterfall renderer and the TTFT decomposition can rely on phase

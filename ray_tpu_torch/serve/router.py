@@ -13,8 +13,12 @@ mid-stream, skipping the prefix already delivered. Registering a
 deployment's replica set starts the serve SLO monitor when an objective is
 configured (`util/watchdog.ensure_serve_slo_monitor`).
 
-Not ported yet: the degraded mode under a GCS head outage, which comes
-with ROADMAP A6b (head restart).
+Degraded mode under a GCS head outage: replica calls go direct to the
+node agents, so dispatch works without the head; an EMPTY membership
+computed while the head is unreachable is control-plane blindness, not
+replica death, so the router keeps its cached replicas for
+`head_outage_grace_s`, and counts what it dispatched meanwhile
+(`raytpu_serve_degraded_dispatch_total`).
 """
 
 from __future__ import annotations
@@ -75,6 +79,15 @@ def _counter(name: str, doc: str):
     from ..util.metrics import get_or_create_counter
 
     return get_or_create_counter(name, doc)
+
+
+def _head_outage_s() -> float:
+    """Seconds the GCS head has been unreachable from this process (0.0 =
+    reachable, or no cluster): the serve data plane's degraded-mode
+    probe."""
+    from ..core.runtime import head_outage_s
+
+    return head_outage_s()
 
 
 def _retryable(err: BaseException) -> bool:
@@ -160,7 +173,19 @@ class ReplicaSet:
     _key = staticmethod(_rkey)
 
     def set_replicas(self, replicas: List[Any]) -> None:
+        from ..core.config import cfg
+
         with self._lock:
+            if not replicas and self._replicas:
+                # an EMPTY membership computed while the head is down is
+                # blindness, not death: keep dispatching on the cached
+                # handles for the grace window; past it, believe it
+                outage = _head_outage_s()
+                if 0.0 < outage <= float(cfg.head_outage_grace_s):
+                    logger.warning(
+                        "deployment %r: ignoring empty replica membership during head "
+                        "outage (%.1fs); serving on cached replicas", self.name, outage)
+                    return
             self._replicas = list(replicas)
             # draining replicas keep their ongoing entries: the controller
             # watches them hit zero before killing the actor
@@ -263,6 +288,13 @@ class ReplicaSet:
                 mru.insert(0, ck)
                 del mru[2:]  # at most 2 replicas per model keep affinity
             self._ongoing[self._key(chosen)] += 1
+        if _head_outage_s() > 0.0:
+            # dispatched on cached membership while the head is down
+            _counter(
+                "raytpu_serve_degraded_dispatch_total",
+                "Requests dispatched while the GCS head was unreachable "
+                "(served on cached replica membership).",
+            ).inc()
         return chosen
 
     def release(self, replica: Any) -> None:

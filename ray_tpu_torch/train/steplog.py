@@ -13,8 +13,9 @@ report plane (the reserved metrics key ``_steplog``) into the ring,
 deduplicating; ``summarize_steps``, ``skew_matrix``, ``dominant_bucket``
 and ``render_waterfall`` are the derived views. The gang controller
 (`train/controller.py`) ingests each rank's records and feeds the stall
-watchdog's per-rank buckets; the federation into the control plane's
-``_steps`` table comes with ROADMAP A6b (federation).
+watchdog's per-rank buckets; the cluster heartbeat federates the ring's
+tail into the GCS ``_steps`` table (core/cluster.py), so the head
+answers ``state.step_timeline(run)`` across a gang's nodes.
 
 Phases are TYPED: every ``mark`` names a phase registered in
 ``STEP_PHASES``; components may register more with

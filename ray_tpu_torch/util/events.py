@@ -2,9 +2,10 @@
 
 Port of `ray_tpu/util/events.py`: every process keeps an in-memory ring
 PLUS an optional JSONL sink and an optional bounded on-disk segment log
-(`configure_segments`, replayed by `read_segments`). The federation of
-each node's tail into the control plane's `_events` table comes with
-ROADMAP A6b (federation); `since` is its cursor walk.
+(`configure_segments`, replayed by `read_segments`). The cluster
+heartbeat federates each node's tail into the GCS ``_events`` table
+(core/cluster.py; `since` is the cursor walk), so the head answers
+``state.events()`` for the whole cluster.
 
 Events are TYPED: every emit names a ``kind`` registered in
 ``EVENT_KINDS`` (the same catalog as the JAX package's, so the two

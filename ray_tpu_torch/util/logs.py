@@ -1,7 +1,9 @@
 """In-process log capture: a ring buffer of this process's log lines.
 
-Port of `ray_tpu/util/logs.py` without `cluster_tail`, which reads the
-control plane's node agents (ROADMAP A6b (federation)). Every captured line carries its
+Port of `ray_tpu/util/logs.py`: one process per node means one logging
+stream per node; a ring-buffer Handler captures the tail, the node agent
+serves it over its RPC server (`node_logs`), and `cluster_tail`
+aggregates the tails over the cluster. Every captured line carries its
 origin: a [node:...] prefix (set once per process) and, inside a
 task/actor execution path, the [task:...]/[actor:...] tag of the
 context-local attribution. Nothing is written to disk unless the user
@@ -14,7 +16,7 @@ import contextvars
 import logging
 import threading
 from collections import deque
-from typing import Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 # -------------------------------------------------------------- attribution
 #
@@ -110,3 +112,15 @@ def install(capacity: int = 5000) -> RingBufferHandler:
 def tail(n: int = 200) -> List[str]:
     """Last n captured lines of THIS process."""
     return _handler.tail(n) if _handler is not None else []
+
+
+def cluster_tail(runtime, n: int = 200) -> Dict[str, List[str]]:
+    """Log tails for every cluster node, keyed by node id hex: this
+    process's buffer plus each agent's over the node_logs RPC (an agent
+    that does not answer names itself in a placeholder line)."""
+    ctx = getattr(runtime, "cluster", None)
+    if ctx is None:
+        return {"local": tail(n)}
+    out = ctx.fanout_nodes("node_logs", n, placeholder=lambda e: [f"<unreachable: {e!r}>"])
+    out[ctx.node_id.hex()] = tail(n)
+    return out

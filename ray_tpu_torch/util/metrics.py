@@ -4,10 +4,10 @@ Port of `ray_tpu/util/metrics.py`: one registry per process, callback
 gauges sampled at scrape time (`register_runtime_gauges` samples the
 runtime's object store and task log), the Prometheus text format, the
 merge of several nodes' expositions under a `node_id` label, and a stdlib
-HTTP endpoint. Without a cluster `/metrics/cluster` serves this process's
-registry labelled with the head node's id ("local" outside a runtime), as
-the JAX package does; the fan-out over node agents comes with ROADMAP
-A6b (federation).
+HTTP endpoint. `/metrics/cluster` (`cluster_prometheus_text`) federates
+this process's registry with every reachable node agent's, pulled over
+the `metrics_snapshot` RPC; without a cluster it serves this process's
+registry labelled with the head node's id ("local" outside a runtime).
 """
 
 from __future__ import annotations
@@ -338,17 +338,27 @@ def merge_cluster_expositions(parts: Dict[str, str],
 
 
 def cluster_prometheus_text() -> str:
-    """The /metrics/cluster payload without a cluster: this process's
+    """The federated /metrics/cluster payload: this process's registry
+    plus every reachable node agent's (over the `metrics_snapshot` RPC),
+    merged with per-sample node_id labels. Without a cluster, the local
     registry labelled with the head node's id ("local" outside a
-    runtime), as JAX's answer without one. The fan-out over node agents
-    comes with ROADMAP A6b (federation)."""
+    runtime)."""
     from ..core import runtime as rt
 
     local_text = registry().prometheus_text()
     if not rt.is_initialized():
         return merge_cluster_expositions({"local": local_text})
-    local_hex = rt.get_runtime().scheduler.head_node().node_id.hex()
-    return merge_cluster_expositions({local_hex: local_text})
+    runtime = rt.get_runtime()
+    ctx = getattr(runtime, "cluster", None)
+    if ctx is None:
+        local_hex = runtime.scheduler.head_node().node_id.hex()
+        return merge_cluster_expositions({local_hex: local_text})
+    parts: Dict[str, str] = {ctx.node_id.hex(): local_text}
+    for node_hex, text in ctx.fanout_nodes("metrics_snapshot",
+                                           placeholder=lambda e: None).items():
+        if text:
+            parts[node_hex] = text
+    return merge_cluster_expositions(parts)
 
 
 def start_metrics_server(host: str = "127.0.0.1", port: int = 0) -> int:

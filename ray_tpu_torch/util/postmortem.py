@@ -1,15 +1,16 @@
 """Postmortem bundles: one archive that explains an episode.
 
-Port of `ray_tpu/util/postmortem.py` for one process. The process holds
-every observability plane — the flight-recorder event tail
-(util/events), the span buffer (util/tracing; engine.request spans carry
-each request's id), the /metrics/cluster exposition, this process's
-stats snapshot, and profile capture metas. ``build_bundle`` snapshots them
+Port of `ray_tpu/util/postmortem.py`. The calling process reaches every
+observability plane — the flight-recorder event tail (util/events and
+the GCS ``_events`` table), the span buffers (util/tracing, this
+process's and each node agent's over the ``node_spans`` RPC;
+engine.request spans carry each request's id), the federated
+/metrics/cluster exposition, per-node stats snapshots, and profile
+capture metas. ``build_bundle`` snapshots them
 all into one ``.tgz`` whose ``timeline.json`` is the EPISODE
 RECONSTRUCTION: runtime spans and typed events stitched into a single
 wall-clock-aligned Perfetto timeline (slices + instant events +
-cross-lane flow arrows) via the trace_dump merge path. The spans of other
-nodes join the bundle with ROADMAP A6b (federation).
+cross-lane flow arrows) via the trace_dump merge path.
 """
 
 from __future__ import annotations
@@ -26,15 +27,25 @@ __all__ = ["build_bundle", "collect_planes", "load_bundle", "reconstruct_timelin
 
 
 def _all_spans() -> List[Dict[str, Any]]:
-    """Every completed span of this process's ring."""
+    """Every completed span we can reach: the local ring plus each cluster
+    node's (the same stitch trace_dump does for full exports)."""
+    from ..core import runtime as _rt
     from .tracing import tracer
 
-    return sorted(tracer().spans(), key=lambda s: s["start_ts"])
+    spans = {s["span_id"]: s for s in tracer().spans()}
+    if _rt.is_initialized():
+        ctx = getattr(_rt.get_runtime(), "cluster", None)
+        if ctx is not None:
+            fanned = ctx.fanout_nodes("node_spans", None, 10_000, placeholder=lambda e: [])
+            for node_spans in fanned.values():
+                for s in node_spans or []:
+                    spans.setdefault(s["span_id"], s)
+    return sorted(spans.values(), key=lambda s: s["start_ts"])
 
 
 def collect_planes(note: str = "") -> Dict[str, Any]:
     """Gather the bundle pieces from the live runtime. Every plane is
-    best-effort — a postmortem of a half-dead process must still build
+    best-effort — a postmortem of a half-dead cluster must still build
     from whatever still answers."""
     from . import state
 

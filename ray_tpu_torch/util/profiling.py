@@ -13,7 +13,8 @@ jax.profiler and XLA's cost model:
    (`HostProfiler`), collected as bounded artifact bytes. Kineto's CUPTI
    records every kernel of the process, whatever thread launched it; host
    ops of other threads may be missing. The profiler may drop records of
-   CUDA-graph kernels but never adds any. JAX's profiler server
+   CUDA-graph kernels but never adds any. Its stop holds the GIL while it
+   processes the trace (`CAPTURE_HOLD_S`). JAX's profiler server
    (`jax.profiler.start_server`) has no torch counterpart:
    `start_profiler_server` raises NotImplementedError and
    `profiler_server_port()` is None.
@@ -251,6 +252,15 @@ class HostProfiler:
 
 
 # --------------------------------------------------------- local capture
+
+# How long past its window a capture may hold this process: the
+# profiler's stop processes the trace with the GIL held, so no other
+# thread runs meanwhile (11-16 s for a 2 s window over Llama-3-8B's
+# decode, ~300k device events, on an H100 host:
+# chip_probes/profiler_first_start.py). A cluster node stays live in the
+# view for the window plus this (ClusterContext.quiet), and a fan-out
+# waits as long for a node's reply.
+CAPTURE_HOLD_S = 120.0
 
 # latch naming the capture currently running in this process (None = idle)
 _capture_lock = threading.Lock()

@@ -1,14 +1,16 @@
 """State API: list/summarize the runtime's state, profiles, traces, request
 and step forensics, and the chrome-trace timeline.
 
-Port of `ray_tpu/util/state.py` for one process. JAX's queries merge this
-process's rings with every node's federated tail in the control store;
-these answer from this process, in a cluster too (the federation comes
-with ROADMAP A6b (federation)). `head_summary` is None (no
-cluster, no durability armed), `cluster_metrics` / `cluster_events` /
-`cluster_logs` answer for the one local node, and `node_stats` carries
-the object store and the profiling status of this process (the node stats
-collector, `core/stats.py`, is ROADMAP A6b (federation)).
+Port of `ray_tpu/util/state.py`. The queries merge this process's rings
+with every node's federated tail in the control store (the `_events`,
+`_requests` and `_steps` tables the cluster heartbeat fills,
+`core/cluster.py`), and the span, log, event and metrics queries fan out
+to every node agent (`ClusterContext.fanout_nodes`). `node_stats` carries
+this process's collector (`core/stats.py`) and every member's snapshot
+from the GCS node table; `head_summary` reports the head's durability
+(epoch, WAL, snapshot, restore, reconciliation) and each node's
+buffered-federation depth. The capacity autoscaler is not ported
+(`autoscaler` reads None).
 """
 
 from __future__ import annotations
@@ -97,17 +99,22 @@ def list_placement_groups() -> List[Dict[str, Any]]:
 
 
 def node_stats() -> Dict[str, Dict[str, Any]]:
-    """This process's snapshot, keyed by the head node's id hex: the
-    object store's usage and the profiling status."""
-    from . import profiling
-
+    """Per-node telemetry snapshots, keyed by node id hex: this process's
+    collector live, plus every cluster member's latest
+    heartbeat-piggybacked snapshot from the GCS node table."""
     runtime = _runtime()
     local_hex = runtime.scheduler.head_node().node_id.hex()
-    return {local_hex: {
-        "ts": time.time(),
-        "object_store": runtime.object_store.usage(),
-        "profiling": profiling.node_snapshot(),
-    }}
+    out: Dict[str, Dict[str, Any]] = {}
+    collector = getattr(runtime, "node_stats", None)
+    if collector is not None:
+        out[local_hex] = collector.snapshot()
+    ctx = getattr(runtime, "cluster", None)
+    if ctx is not None:
+        for info in ctx.nodes():
+            stats = info.get("stats")
+            if stats and info.get("node_id") not in out:
+                out[info["node_id"]] = stats
+    return out
 
 
 def summary() -> Dict[str, Any]:
@@ -126,23 +133,60 @@ def summary() -> Dict[str, Any]:
 
 
 def head_summary() -> Optional[Dict[str, Any]]:
-    """Head fault-tolerance health. None: one process, no cluster and no
-    durability armed (JAX's answer in the same case)."""
-    _runtime()
-    return None
+    """Head fault-tolerance health: cluster epoch, WAL size and seq, last
+    snapshot time, restore / reconcile provenance, plus each node's
+    buffered-federation depth (how many events / marks wait to ship:
+    grows during a head outage, drains after reconnect). None when
+    nothing durability-related is on (no WAL, no cluster)."""
+    runtime = _runtime()
+    ctx = getattr(runtime, "cluster", None)
+    out: Dict[str, Any]
+    if ctx is None or getattr(ctx, "is_head", False):
+        gcs = runtime.gcs
+        out = {
+            "epoch": gcs.current_epoch(),
+            "wal": gcs.wal_stats(),
+            "last_snapshot_ts": gcs.last_snapshot_ts,
+            "restore": dict(gcs.last_restore),
+            "reconcile": dict(getattr(runtime, "_reconcile_state", {})),
+        }
+        if ctx is None and out["wal"] is None and not out["epoch"]:
+            return None  # one process, no durability armed
+    else:
+        try:
+            out = ctx.gcs.head_info()
+        except Exception:  # noqa: BLE001 - degraded mode is a valid answer
+            return {"unreachable_s": round(ctx.gcs.outage_s(), 2)}
+    if ctx is not None:
+        lag = {}
+        for info in ctx.nodes():
+            depth = info.get("federation_lag")
+            if depth:
+                lag[info["node_id"]] = depth
+        if lag:
+            out["federation_lag"] = lag
+        out["head_outage_s"] = round(ctx.gcs.outage_s(), 2)
+    return out
 
 
 def cluster_metrics(raw: bool = False):
     """Cluster metrics. Default: ONE merged Prometheus exposition where
     every sample carries a `node_id` label (what /metrics/cluster serves).
-    `raw=True`: the unmerged per-node expositions keyed by node id hex —
-    here the one local node's."""
+    `raw=True`: the unmerged per-node expositions keyed by node id hex."""
     from .metrics import cluster_prometheus_text, registry
 
     if not raw:
         return cluster_prometheus_text()
-    local_hex = _runtime().scheduler.head_node().node_id.hex()
-    return {local_hex: registry().prometheus_text()}
+    runtime = _runtime()
+    ctx = getattr(runtime, "cluster", None)
+    local_hex = runtime.scheduler.head_node().node_id.hex()
+    parts = {local_hex: registry().prometheus_text()}
+    if ctx is not None:
+        for node_hex, text in ctx.fanout_nodes("metrics_snapshot",
+                                               placeholder=lambda e: None).items():
+            if text:
+                parts[node_hex] = text
+    return parts
 
 
 def _fmt_bytes(n: float) -> str:
@@ -307,11 +351,29 @@ def list_traces(limit: int = 100) -> List[Dict[str, Any]]:
     return tracer().list_traces(limit=limit)
 
 
+def _node_spans(spans: Dict[str, Dict[str, Any]], trace_id: Optional[str]) -> None:
+    """Add every cluster node's completed spans (of `trace_id`, or all)
+    to `spans`, keyed by span id (the node_spans RPC)."""
+    if not _rt.is_initialized():
+        return
+    ctx = getattr(_rt.get_runtime(), "cluster", None)
+    if ctx is None:
+        return
+    fanned = ctx.fanout_nodes("node_spans", trace_id, 10_000, placeholder=lambda e: [])
+    for node_spans in fanned.values():
+        for s in node_spans or []:
+            spans.setdefault(s["span_id"], s)
+
+
 def get_trace(trace_id: str) -> List[Dict[str, Any]]:
-    """Every span of one trace, sorted by start time."""
+    """Every span of one trace, stitched cluster-wide: the local ring plus
+    each node agent's (node_spans RPC), sorted by start time. A remote
+    task's spans live on the agent that ran it."""
     from .tracing import tracer
 
-    return sorted(tracer().spans(trace_id), key=lambda s: s["start_ts"])
+    spans = {s["span_id"]: s for s in tracer().spans(trace_id)}
+    _node_spans(spans, trace_id)
+    return sorted(spans.values(), key=lambda s: s["start_ts"])
 
 
 def trace_dump(path: Optional[str] = None,
@@ -328,7 +390,9 @@ def trace_dump(path: Optional[str] = None,
     if trace_id is not None:
         spans = get_trace(trace_id)
     else:
-        spans = sorted(tracer().spans(), key=lambda s: s["start_ts"])
+        by_id = {s["span_id"]: s for s in tracer().spans()}
+        _node_spans(by_id, None)
+        spans = sorted(by_id.values(), key=lambda s: s["start_ts"])
     extra = _device_trace_events(profile_id) if profile_id else None
     return export_chrome_trace(spans, path, extra_events=extra)
 
@@ -390,15 +454,24 @@ def events(limit: int = 1000, *, kind: Optional[str] = None,
            node: Optional[str] = None, since: float = 0.0,
            severity: Optional[str] = None,
            source: Optional[str] = None) -> List[Dict[str, Any]]:
-    """The flight-recorder tail, sorted by wall time: this process's
-    event ring. Filters: `kind` (registered event kind), `node` (id hex
-    prefix), `since` (wall ts), `severity` (case-insensitive), `source`."""
+    """The cluster-wide flight-recorder tail, sorted by wall time: this
+    process's event ring merged with every node's federated tail from the
+    GCS `_events` table. Filters: `kind` (registered event kind), `node`
+    (id hex prefix), `since` (wall ts), `severity` (case-insensitive),
+    `source`. Deduped by (node, seq): the head's own events appear both
+    locally and in the table."""
+    from ..core.gcs import EVENT_NS
     from .events import events as _events
     from .events import normalize_severity
 
+    merged: Dict[Any, Dict[str, Any]] = {}
+    for e in _events().list(limit=10_000):
+        merged[(e.get("node"), e["seq"])] = e
+    for e in _federated(EVENT_NS):
+        merged.setdefault((e.get("node"), e.get("seq")), e)
     sev = normalize_severity(severity) if severity is not None else None
     out = [
-        e for e in _events().list(limit=10_000)
+        e for e in merged.values()
         if e.get("ts", 0.0) >= since
         and (kind is None or e.get("kind") == kind)
         and (node is None or str(e.get("node") or "").startswith(node))
@@ -409,37 +482,68 @@ def events(limit: int = 1000, *, kind: Optional[str] = None,
     return out[-limit:] if limit else out
 
 
-def _request_marks() -> List[Dict[str, Any]]:
-    """Every request-forensics mark of this process's reqlog ring, sorted
-    by wall time."""
+def _federated(namespace: str) -> List[Dict[str, Any]]:
+    """Every record of one federated table (`_events`, `_requests`,
+    `_steps`), all nodes' keys in turn: through the GCS client in a
+    cluster, from this process's control store without one. Empty when
+    the head does not answer: the local ring still does."""
+    if not _rt.is_initialized():
+        return []
+    runtime = _rt.get_runtime()
+    ctx = getattr(runtime, "cluster", None)
+    out: List[Dict[str, Any]] = []
+    try:
+        if ctx is not None:
+            for key in ctx.gcs.kv_keys(namespace=namespace):
+                out.extend(ctx.gcs.kv_get(key, namespace=namespace) or [])
+        else:
+            kv = runtime.gcs.kv
+            for key in kv.keys(namespace=namespace):
+                out.extend(kv.get(key, namespace=namespace) or [])
+    except Exception:  # noqa: BLE001 - the local ring still answers
+        pass
+    return out
+
+
+def _federated_request_marks() -> List[Dict[str, Any]]:
+    """Every request-forensics mark visible from this process: the local
+    reqlog ring merged with every node's federated tail in the GCS
+    `_requests` table. Deduped by (node, seq), sorted by wall time."""
+    from ..core.gcs import REQLOG_NS
     from ..serve import reqlog
 
-    out = list(reqlog.log().since(0, max_n=1_000_000))
+    merged: Dict[Any, Dict[str, Any]] = {}
+    for m in reqlog.log().since(0, max_n=1_000_000):
+        merged[(m.get("node"), m.get("seq"))] = m
+    for m in _federated(REQLOG_NS):
+        merged.setdefault((m.get("node"), m.get("seq")), m)
+    out = list(merged.values())
     out.sort(key=lambda m: (m.get("ts", 0.0), m.get("seq", 0)))
     return out
 
 
 def request_timeline(request_id: str) -> List[Dict[str, Any]]:
-    """Every recorded mark of ONE request in causal (wall-clock) order:
-    the router's marks interleaved with the engine's on the shared
+    """Every recorded mark of ONE request, cluster-wide, in causal
+    (wall-clock) order: the router's marks from the caller's node
+    interleaved with the engine's from the replica's node on the shared
     request id. Render with `serve.reqlog.render_waterfall(marks)`."""
-    return [m for m in _request_marks() if m.get("rid") == request_id]
+    return [m for m in _federated_request_marks() if m.get("rid") == request_id]
 
 
 def list_requests(tenant: Optional[str] = None, slow_only: bool = False,
                   limit: int = 200) -> List[Dict[str, Any]]:
-    """Request summaries (newest last): request id, tenant, first/last
-    phase, terminal outcome, TTFT and its decomposition buckets.
+    """Cluster-wide request summaries (newest last): request id, tenant,
+    first/last phase, terminal outcome, TTFT and its decomposition buckets.
     `slow_only` keeps requests whose TTFT exceeded the serve objective or
     that timed out — the on-call's worklist."""
     from ..core.config import cfg
     from ..serve import reqlog
 
     merged: Dict[str, Dict[str, Any]] = {
-        s["request_id"]: s for s in reqlog.summarize_marks(_request_marks())
+        s["request_id"]: s for s in reqlog.summarize_marks(_federated_request_marks())
     }
-    # the summary index survives mark-ring eviction: it wins over a
-    # summary rebuilt from a truncated ring
+    # the local summary index survives mark-ring eviction: it wins over a
+    # summary rebuilt from a truncated federated tail
     for s in reqlog.log().requests(limit=1_000_000):
         merged[s["request_id"]] = s
     out = list(merged.values())
@@ -456,27 +560,37 @@ def list_requests(tenant: Optional[str] = None, slow_only: bool = False,
     return out[-limit:] if limit else out
 
 
-def _step_marks() -> List[Dict[str, Any]]:
-    """Every training-forensics step mark of this process's steplog ring,
-    deduped by (run, rank, step, phase) and sorted by wall time."""
+def _federated_step_marks() -> List[Dict[str, Any]]:
+    """Every training-forensics step mark visible from this process: the
+    local steplog ring merged with every node's federated tail in the GCS
+    `_steps` table. Deduped by the SEMANTIC key (run, rank, step, phase):
+    one sampled step's mark can reach the table both through its worker
+    node's own federation and through the controller's re-ring after
+    ingest. Sorted by wall time."""
+    from ..core.gcs import STEPLOG_NS
     from ..train import steplog
+
+    def _key(m: Dict[str, Any]) -> Any:
+        return (m.get("run"), m.get("rank"), m.get("step"), m.get("phase"))
 
     merged: Dict[Any, Dict[str, Any]] = {}
     for m in steplog.log().since(0, max_n=1_000_000):
-        merged[(m.get("run"), m.get("rank"), m.get("step"), m.get("phase"))] = m
+        merged[_key(m)] = m
+    for m in _federated(STEPLOG_NS):
+        merged.setdefault(_key(m), m)
     out = list(merged.values())
     out.sort(key=lambda m: (m.get("ts", 0.0), m.get("seq", 0)))
     return out
 
 
 def step_timeline(run: str, rank: Optional[int] = None) -> List[Dict[str, Any]]:
-    """Per-rank step-phase summaries of ONE training run (sampled steps
-    only), ordered by (step, rank). Each summary's buckets sum to its
+    """Per-rank step-phase summaries of ONE training run, cluster-wide
+    (sampled steps only), ordered by (step, rank). Each summary's buckets sum to its
     step wall time — render with `train.steplog.render_waterfall`."""
     from ..train import steplog
 
     out = [
-        s for s in steplog.summarize_steps(_step_marks())
+        s for s in steplog.summarize_steps(_federated_step_marks())
         if s.get("run") == run and (rank is None or s.get("rank") == rank)
     ]
     out.sort(key=lambda s: (s.get("step", 0), s.get("rank", 0)))
@@ -485,14 +599,15 @@ def step_timeline(run: str, rank: Optional[int] = None) -> List[Dict[str, Any]]:
 
 def list_steps(run: Optional[str] = None,
                limit: int = 200) -> List[Dict[str, Any]]:
-    """Sampled-step summaries (newest last): run, rank, step, wall
-    seconds, phase buckets. The summary index survives mark-ring
-    eviction, so it wins over a summary rebuilt from the ring."""
+    """Cluster-wide sampled-step summaries (newest last): run, rank, step,
+    wall seconds, phase buckets. The local summary index survives
+    mark-ring eviction, so it wins over a summary rebuilt from a truncated
+    federated tail."""
     from ..train import steplog
 
     merged: Dict[Any, Dict[str, Any]] = {
         (s.get("run"), s.get("rank"), s.get("step")): s
-        for s in steplog.summarize_steps(_step_marks())
+        for s in steplog.summarize_steps(_federated_step_marks())
     }
     for s in steplog.log().steps(run=run, limit=1_000_000):
         merged[(s.get("run"), s.get("rank"), s.get("step"))] = s
@@ -539,14 +654,23 @@ def postmortem(output: str, note: str = "") -> Dict[str, Any]:
 
 
 def cluster_events(limit: int = 500) -> Dict[str, List[Dict[str, Any]]]:
-    """Event tails for every node: here the one local node's."""
-    _runtime()
-    return {"local": list_events(limit=limit)}
+    """Event tails for every cluster node, keyed by node id hex (an agent
+    that does not answer gets one ERROR placeholder naming it)."""
+    rt = _runtime()
+    ctx = getattr(rt, "cluster", None)
+    if ctx is None:
+        return {"local": list_events(limit=limit)}
+    out = ctx.fanout_nodes(
+        "node_events", 0, limit,
+        placeholder=lambda e: [{"severity": "ERROR", "source": "state",
+                                "message": f"unreachable: {e!r}"}],
+    )
+    out[ctx.node_id.hex()] = list_events(limit=limit)
+    return out
 
 
 def cluster_logs(tail: int = 200) -> Dict[str, List[str]]:
-    """Log tails for every node: here the one local node's."""
+    """Log tails for every cluster node, keyed by node id hex."""
     from . import logs
 
-    _runtime()
-    return {"local": logs.tail(tail)}
+    return logs.cluster_tail(_runtime(), tail)

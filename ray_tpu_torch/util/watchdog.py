@@ -3,8 +3,9 @@ serve SLO burn.
 
 Port of `ray_tpu/util/watchdog.py` for one process (host-only Python,
 copied: the port imports nothing of the JAX package). The monitor's
-background loop skips a check while the control store's head is
-unreachable; in one process it never is (`core.runtime.head_outage_s`).
+background loop skips a check while the GCS head is unreachable
+(`core.runtime.head_outage_s`): an outage stalls the samples' federation,
+and a window computed then would burn SLOs on missing data.
 
 Two detectors, both fed by signals earlier PRs already emit:
 

@@ -2,8 +2,8 @@
 of `tests/test_chaos.py` run on the port, the two RPC-chaos cases and the
 200-request chaos drill of `tests/test_serve_resilience.py`, the
 `RAY_TPU_CHAOS` grammar parsed by both packages into equal configs, and
-the refusal of `kill_head` (the head's drill comes with ROADMAP A6b,
-head restart).
+`kill_head` armed as JAX arms it (`tests/test_torch_head_restart.py`
+drills the head's death).
 """
 
 import dataclasses
@@ -266,11 +266,46 @@ def test_env_grammar_matches_jax(monkeypatch, raw):
 
 
 def test_kill_head_is_refused(monkeypatch):
-    """kill_head fires from the head's GCS snapshot loop, which is not
-    ported: arming it raises, from set_chaos and from the environment."""
-    with pytest.raises(NotImplementedError, match=r"A6b \(head restart\)"):
-        chaos.set_chaos(kill_head=True, delay_s=1.0)
-    monkeypatch.setenv("RAY_TPU_CHAOS", "kill_head=1,delay_s=2")
-    with pytest.raises(NotImplementedError, match=r"A6b \(head restart\)"):
+    """kill_head is no longer refused: arming it gives JAX's config, from
+    set_chaos and from the environment."""
+    from ray_tpu.core import chaos as jchaos
+
+    try:
+        chaos.set_chaos(kill_head=True, delay_s=1.0, max_injections=1)
+        jchaos.set_chaos(kill_head=True, delay_s=1.0, max_injections=1)
+        assert dataclasses.asdict(chaos._state.config) == dataclasses.asdict(jchaos._state.config)
+        chaos.clear_chaos()
+        jchaos.clear_chaos()
+        monkeypatch.setenv("RAY_TPU_CHAOS", "kill_head=1,delay_s=2,max_injections=1")
         chaos.load_from_env()
-    assert chaos._state.config is None
+        jchaos.load_from_env()
+        assert chaos._state.config.kill_head and chaos._state.config.delay_s == 2.0
+        assert dataclasses.asdict(chaos._state.config) == dataclasses.asdict(jchaos._state.config)
+    finally:
+        jchaos.clear_chaos()
+        chaos.clear_chaos()
+
+
+def test_maybe_kill_head_waits_for_its_delay_and_fires_once(monkeypatch):
+    """maybe_kill_head does nothing before `delay_s` has passed since
+    arming, then exits the process with 137 exactly once (max_injections),
+    as JAX's does; os._exit is patched to raise here."""
+    exits = []
+
+    def fake_exit(code):
+        exits.append(code)
+        raise SystemExit(code)
+
+    monkeypatch.setattr(chaos.os, "_exit", fake_exit)
+    try:
+        chaos.set_chaos(kill_head=True, delay_s=60.0, max_injections=1)
+        chaos.maybe_kill_head()
+        assert exits == []
+        chaos._state.armed_ts -= 61.0
+        with pytest.raises(SystemExit):
+            chaos.maybe_kill_head()
+        chaos.maybe_kill_head()  # the budget is spent
+        assert exits == [137]
+        chaos.maybe_inject("any-task")  # tasks never fire kill_head
+    finally:
+        chaos.clear_chaos()

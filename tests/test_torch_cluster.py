@@ -340,9 +340,10 @@ class TestSharedCluster:
         with pytest.raises(TypeError, match="module level"):
             local.options(scheduling_strategy=_on(_remote_nodes(shared)[0])).remote()
 
-    def test_probe_agent_and_cli(self, shared):
+    def test_probe_agent_and_cli(self, shared, capsys):
         """health.probe_agent answers over the agent's RPC address; the CLI's
-        other subcommands raise naming ROADMAP A8."""
+        other subcommands raise naming ROADMAP A8, and `--restore` without
+        `--head` is refused with JAX's message."""
         from ray_tpu_torch.core.health import probe_agent
 
         assert all(probe_agent(n) for n in _remote_nodes(shared))
@@ -351,8 +352,8 @@ class TestSharedCluster:
 
         with pytest.raises(NotImplementedError, match="A8"):
             main(["status"])
-        with pytest.raises(NotImplementedError, match=r"A6b \(head restart\)"):
-            main(["start", "--head", "--snapshot-path", "/nonexistent"])
+        assert main(["start", "--address", shared.address, "--restore"]) == 2
+        assert "--restore only applies to --head" in capsys.readouterr().err
 
     def test_jax_node_refuses_port_head(self, shared):
         """A JAX node dialing a port head fails at JAX's own protocol check:

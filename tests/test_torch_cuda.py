@@ -1358,6 +1358,70 @@ def test_agent_cuda_result_lands_on_the_card_bit_equal(cuda):
 
 
 @pytest.mark.cuda
+def test_agent_stats_report_the_card_without_a_context_in_a_cpu_agent(cuda):
+    """The stats snapshot an agent piggybacks into the GCS node table
+    (`core/stats.py`) reports its card's allocated bytes (an actor holding
+    256 MiB there; within 1 % of the actor's own reading) under the card's
+    name, and a CPU-only agent's snapshot has an empty CUDA block and no
+    CUDA context: sampling never creates one (torch.cuda is not
+    initialised there, nor does nvidia-smi list it)."""
+    import torch_cluster_udfs as C
+    import torch_process_udfs as U
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.cluster import NODE_NS
+    from ray_tpu_torch.core.scheduler import NodeAffinitySchedulingStrategy
+
+    before = U.live_children()
+    sysconf = {"node_heartbeat_s": 0.2, "node_stats_period_s": 0.2}
+    c = Cluster(head_node_args={"num_cpus": 1, "num_gpus": 0, "_system_config": sysconf})
+    try:
+        gpu = c.add_node(num_cpus=1, num_gpus=1, system_config=sysconf)
+        cpu = c.add_node(num_cpus=1, num_gpus=0, system_config=sysconf)
+        c.wait_for_nodes(3)
+        nodes = {n.agent_addr: n for n in c.runtime.scheduler.nodes() if n.is_remote}
+        by_pid = {rec["pid"]: rec["node_id"] for rec in c.runtime.cluster.nodes()}
+        gpu_hex, cpu_hex = by_pid[gpu.pid], by_pid[cpu.pid]
+        gpu_node = next(n for n in nodes.values() if n.node_id.hex() == gpu_hex)
+        cpu_node = next(n for n in nodes.values() if n.node_id.hex() == cpu_hex)
+        holder = ray_tpu_torch.remote(num_gpus=1)(C.CudaHolder).options(
+            scheduling_strategy=NodeAffinitySchedulingStrategy(gpu_node.node_id)).remote(64 << 20)
+        held = ray_tpu_torch.get(holder.allocated.remote(), timeout=120)
+        assert held >= 256 << 20
+        gcs = c.runtime.cluster.gcs
+        since = time.time()
+
+        def fresh(node_hex, ready):
+            """The node's first stats snapshot taken after `since` that
+            `ready` accepts (each agent publishes on its own period)."""
+            deadline = time.monotonic() + 30
+            while True:
+                snap = (gcs.kv_get(node_hex, namespace=NODE_NS) or {}).get("stats") or {}
+                if snap.get("ts", 0) > since and ready(snap):
+                    return snap
+                assert time.monotonic() < deadline, snap
+                time.sleep(0.1)
+
+        snap = fresh(gpu_hex, lambda s: s.get("cuda"))
+        (dev,) = snap["cuda"]
+        assert dev["kind"] == torch.cuda.get_device_name(0)
+        assert abs(dev["memory_allocated_bytes"] - held) <= 0.01 * held, (dev, held)
+        assert dev["memory_total_bytes"] == torch.cuda.get_device_properties(0).total_memory
+        assert 0 < dev["duty"] < 1
+        cpu_snap = fresh(cpu_hex, lambda s: True)
+        assert cpu_snap["cuda"] == []
+        pid, has_torch, has_cuda = ray_tpu_torch.get(ray_tpu_torch.remote(num_cpus=1)(
+            U.cuda_state).options(scheduling_strategy=NodeAffinitySchedulingStrategy(
+                cpu_node.node_id)).remote(), timeout=120)
+        assert pid == cpu.pid and has_torch and not has_cuda
+        assert cpu.pid not in U.compute_app_pids()
+        ray_tpu_torch.kill(holder)
+    finally:
+        c.shutdown()
+    assert U.wait_no_children(before) == []
+
+
+@pytest.mark.cuda
 def test_cluster_gang_on_two_agents_matches_one_process(cuda):
     """A 2-member ClusterWorkerGroup whose members are process actors on two
     node agents sharing the card (gloo) takes 3 steps of a narrow GPT-2

@@ -20,6 +20,15 @@ the function.
   (Llama-3-8B's paged `LLMServer` on the agent's card, its launch counts
   and the dense check `dense_check_stats`, which `chip_smoke.py`'s own
   dense check also runs).
+- federation (`tests/test_torch_federation.py`): `mark_request` and
+  `mark_steps` record request and step marks on an agent, `agent_capture`
+  keeps an agent busy while a capture runs.
+- data on the cluster (`tests/test_torch_data_cluster.py`):
+  `square_and_log`, `AddOffset`, `double_items`, `add_one_items`.
+- `chip_smoke.py`'s `head_restart` phase: `ClusterLLM.serve_once` (one
+  greedy request through the agent's engine and its dense check),
+  `reset_counts` and `stats` (the launches since the reset and the card's
+  allocated bytes).
 - the cluster-hosted gangs (`train.ClusterWorkerGroup`): `gang_steps`, a
   toy checkpoint-aware loop (`tests/test_torch_cluster_pg.py`'s re-mesh
   drill), and `gang_lm`, data-parallel `LMTrainer` steps with checkpoints
@@ -162,6 +171,73 @@ def seeded_cuda_bf16(seed: int, numel: int):
     return torch.randn(numel, dtype=torch.bfloat16, device="cuda", generator=g)
 
 
+def mark_request(rid: str) -> int:
+    """An engine hop's marks of request `rid` on this node (submitted,
+    first token with its TTFT buckets, finished); returns the pid."""
+    from ray_tpu_torch.serve import reqlog
+
+    reqlog.mark(rid, "engine.submitted", tenant="fed")
+    reqlog.mark(rid, "engine.first_token", tenant="fed", ttft_s=0.5, queue_wait_s=0.25,
+                preempt_wait_s=0.0, prefill_compute_s=0.25)
+    reqlog.mark(rid, "engine.finished", tenant="fed")
+    return os.getpid()
+
+
+def mark_steps(run: str, steps: int) -> int:
+    """Sampled-step marks of rank 1 of `run` on this node; returns the pid."""
+    from ray_tpu_torch.train import steplog
+
+    for step in range(steps):
+        steplog.mark("data_wait", 0.25, run=run, rank=1, step=step)
+        steplog.mark("fwd_bwd_compute", 0.01, run=run, rank=1, step=step)
+        steplog.mark("other", 0.001, run=run, rank=1, step=step)
+    return os.getpid()
+
+
+def busy_matmuls(seconds: float) -> int:
+    """Keep this node's CPU busy with small matrix products for
+    `seconds` (a capture's workload); returns how many ran."""
+    import torch
+
+    x = torch.randn(128, 128)
+    n = 0
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        x = torch.tanh(x @ x.T / 128.0)
+        n += 1
+    return n
+
+
+def square_and_log(block, log_path: str):
+    """A map udf that appends this process's pid to `log_path` and holds
+    briefly, so blocks overlap across nodes."""
+    fd = os.open(log_path, os.O_WRONLY | os.O_APPEND)
+    try:
+        os.write(fd, f"{os.getpid()}\n".encode())
+    finally:
+        os.close(fd)
+    time.sleep(0.15)
+    return {"item": block["item"] ** 2}
+
+
+def double_items(block):
+    return {"item": block["item"] * 2}
+
+
+def add_one_items(block):
+    return {"item": block["item"] + 1}
+
+
+class AddOffset:
+    """A stateful map udf (ActorPoolStrategy)."""
+
+    def __init__(self, offset):
+        self.offset = offset
+
+    def __call__(self, block):
+        return {"item": block["item"] + self.offset}
+
+
 # ---------------------------------------------------------------- actors
 
 
@@ -233,6 +309,22 @@ class Slow:
 
     def quick(self) -> int:
         return os.getpid()
+
+
+class CudaHolder:
+    """Holds `numel` f32 elements on this node's card (the stats
+    snapshot's CUDA block reads them)."""
+
+    def __init__(self, numel: int):
+        import torch
+
+        self.held = torch.ones(numel, device="cuda")
+
+    def allocated(self) -> int:
+        import torch
+
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
 
 
 class Noop:
@@ -375,6 +467,48 @@ class ClusterLLM:
         return dict(outs=outs, wall_s=wall, decode_tok_s=decode, check=check,
                     check_s=time.perf_counter() - t0,
                     launches={RAGGED.name: ragged, FLASH_FWD.name: FLASH_FWD.launches - flash_before})
+
+    def reset_counts(self) -> None:
+        """Set the kernels' launch counts to 0 (and take the engine's graph
+        launches as the baseline) before a run `stats()` reads."""
+        from ray_tpu_torch.ops import KERNELS
+
+        for k in KERNELS:
+            k.launches = 0
+        self._base = self.server.engine.stats()
+
+    def serve_once(self, prompt, max_tokens: int, tail_gap: float) -> dict:
+        """One greedy request through the engine, then the dense check of
+        its tokens: the tokens, the request's id (its reqlog marks'
+        `rid`), this process's pid, the wall and decode rate, the check's
+        stats (`dense_check_stats`) and seconds."""
+        t0 = time.perf_counter()
+        stream = self.server.engine.submit(list(prompt), max_tokens=max_tokens)
+        stamps = [(time.perf_counter(), tok) for tok in stream]
+        wall = time.perf_counter() - t0
+        tokens = [tok for _, tok in stamps]
+        decode = ((len(stamps) - 1) / (stamps[-1][0] - stamps[0][0])
+                  if len(stamps) > 1 and stamps[-1][0] > stamps[0][0] else 0.0)
+        t1 = time.perf_counter()
+        check = dense_check_stats(self.server.engine.params, self.config, [prompt], [tokens],
+                                  [0], tail_gap)
+        return dict(tokens=tokens, rid=stream.request_id, pid=os.getpid(), wall_s=wall,
+                    decode_tok_s=decode, check=check, check_s=time.perf_counter() - t1)
+
+    def stats(self) -> dict:
+        """Launches since `reset_counts()` (ragged: through its wrapper +
+        graph replays x captured; flash forward: through its wrapper) and
+        the card's allocated bytes."""
+        import torch
+
+        from ray_tpu_torch.ops import KERNELS, RAGGED
+
+        after = self.server.engine.stats()
+        base = getattr(self, "_base", {})
+        key = f"launches.{RAGGED.name}"
+        launches = {k.name: k.launches for k in KERNELS}
+        launches[RAGGED.name] += int(after.get(key, 0) - base.get(key, 0))
+        return dict(launches=launches, allocated=torch.cuda.memory_allocated())
 
     def shutdown(self) -> bool:
         self.server.shutdown()
