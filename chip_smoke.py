@@ -172,19 +172,19 @@ nonzero and no result line is printed):
              after one host copy on the agent; a no-op actor's call round
              trip (p50 / p90 us over CLUSTER_CALLS calls). (b) An actor
              with num_gpus=1 (torch_cluster_udfs.ClusterLLM) builds
-             LLMServer on Llama-3-8B (bf16 from SEED, max_slots 8,
-             precompile) on the agent, serves the 8 prompts submitted
-             together (the counts set to 0 there just before, read just
-             after: ragged launches = graph replays x captured + wrapper)
-             and runs the dense check where the weights are (the one
-             definition, torch_cluster_udfs.dense_check_stats, at
-             CHECK_MARGIN / EXACT_SHARE_FLOOR, flash forward launches); the
-             share of positions equal to the serve phase's tokens is
-             printed, not gated. (c) health.probe_agent answers True while
+             LLMServer at Llama-3-8B's width and CLUSTER_LAYERS (8) of its
+             32 layers (bf16 from SEED, max_slots 8, precompile; a depth
+             cut for the script's time limit) on the agent,
+             serves the 8 prompts submitted together (the counts set to 0
+             there just before, read just after: ragged launches = graph
+             replays x captured + wrapper) and runs the dense check where
+             the weights are (the one definition,
+             torch_cluster_udfs.dense_check_stats, at CHECK_MARGIN /
+             EXACT_SHARE_FLOOR, flash forward launches). (c) health.probe_agent answers True while
              the agent lives. The members and the actor stay up for
              head_restart; a failure prints the members' logs and stops
              them.
-   head_restart — Llama-3-8B serving from a node agent through two deaths
+   head_restart — Llama-3-8B (8 layers) serving from a node agent through two deaths
              of the head (ROADMAP A6b parts 1-2; JAX's drill,
              bench_cluster.py run_head_outage), on the cluster phase's
              members and its agent's ClusterLLM actor (built once: the
@@ -309,7 +309,9 @@ nonzero and no result line is printed):
              memory in use grows by less than 256 MiB while the workers
              start; the flash forward kernel must launch in (a) and (b).
 
-9. dp      — data-parallel GPT-2 124M across processes: a TrainController
+9. dp      — data-parallel GPT-2 124M across processes (its width at DP_LAYERS,
+             6 of its 12 layers: a depth cut for the script's
+             time limit; the gang phase runs the same): a TrainController
              drives a MultihostWorkerGroup of 2 processes on the one card
              over gloo (NCCL refuses two ranks on one device); each rank
              runs LMTrainer(mesh_spec=MeshSpec(dp=2)) fed by
@@ -328,7 +330,7 @@ nonzero and no result line is printed):
              f32 + sharded update within 1e-5 of f32 at every step, each
              int8 run's final loss within DP_INT8_FINAL_ATOL of f32's, every
              stage-1 residual at most half its block's step, the bytes
-             equal to dp_sync_bytes, 12 x 10 launches of each flash kernel
+             equal to dp_sync_bytes, 6 x 10 launches of each flash kernel
              per rank and mode; a rank that hangs past the phase's timeout
              fails it. Two ranks on one card measure correctness and the
              sync's cost over this transport, not scaling.
@@ -421,6 +423,51 @@ nonzero and no result line is printed):
              launch of each flash kernel a layer. The kernels phase holds
              the flash forward and backward at causal=False at ViT's shape
              and at a ring block's.
+   capacity — cluster mode's capacity plane, jobs, launcher and DCN on
+             GPT-2 124M at full width and depth: (a) JAX's spot-fleet
+             capstone with real work: a CapacityAutoscaler over a
+             SpotNodeProvider(FakeNodeProvider) with JAX's node types
+             spot-train {CPU 1, trainer 1} and spot-serve {CPU 2,
+             serve_slot 2}; a deployment of 2 paged bf16 LLMServer
+             replicas (resources_per_replica {CPU 1, serve_slot 1}) and a
+             TrainController gang of 2 thread ranks ({CPU 1, trainer 1},
+             max_failures 0), each rank training on batches made from the
+             seed, its rank and the step, rank 0 checkpointing the model
+             and optimizer state through train.report(checkpoint=...) every
+             CAP_CKPT_EVERY steps; a client calls the deployment one request
+             at a time; once rank 0 reported step CAP_PREEMPT_AT,
+             preempt_after reclaims a node hosting a gang bundle with a
+             CAP_WARNING_S warning. JAX's checks (the fleet exists by demand,
+             scale-ups for pg and task; preempt.announced <=
+             autoscaler.replace (replace, spot-train, spot) <= node.dead;
+             FINISHED with one preemption restart and no failure restart;
+             only typed errors; 2 replicas live; goodput sums to the wall
+             within 5 %; the autoscaler's series in /metrics), and the
+             port's: every call's tokens equal its prompt's first, each
+             resumed rank's restored state equals the checkpoint bit for
+             bit, finite losses. (b) init(head=True, num_gpus=0) with a
+             LocalProcessNodeProvider and node types gpu1 {CPU 1, GPU 1},
+             cpu2 {CPU 2}: a num_gpus=1 task brings up a gpu1 agent that
+             runs the flash forward kernel (held against the plain
+             version), a num_cpus=2 task a cpu2 agent that advertises no GPU
+             and holds no CUDA context (nvidia-smi's compute apps); 2
+             scale-ups, then both agents reaped once idle, no agent
+             process left. (c) DCN inside (b)'s cluster: GPT-2 124M's f32
+             train state on the card replicated to the gpu1 agent
+             (replicate_async must return in 50 ms), then at once 2
+             optimizer steps in place: fetch_replica on the agent returns
+             the state at the call bit for bit (leaf digests); an int8
+             replica's wire bytes under 0.45 of the raw and every float
+             leaf's largest error under 0.005 of its largest magnitude,
+             the other leaves exact (JAX's bounds); the push's GB/s and a
+             step's time with and without the pushes in flight printed.
+             (d) launcher.ClusterLauncher brings up a head (num_gpus 0)
+             and a worker (num_gpus 1) from a JSON config with a token and a
+             launch tag; jobs.JobManager runs torch_capacity_job.py, which
+             joins the cluster and runs the flash forward kernel on the
+             worker (SUCCEEDED, its log holds the result), and stops a
+             sleeping job (STOPPED); after `down` no process carries the
+             tag.
 
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; tp_serve: the
@@ -433,6 +480,9 @@ the process phase's (a) and (b); dp: phase 9's ranks, all modes; gang: the
 gang phase's ranks over its three attempts; fsdp_tp: phase 10's ranks, all modes, also
 split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16;
 a7: phase 11's ranks and ViT, also split by part as a7_launches_by_part;
+capacity: (a)'s replicas (engine replays + wrapper launches) and ranks,
+(b)'s and (d)'s flash forward in the agent and the job's worker (counted
+there and returned), (c)'s train steps;
 each counted from zero just before it, profiled repeats, first calls
 and references left out), its error against the plain version and its
 times; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -583,6 +633,7 @@ DEPLOY_B_REQUESTS = 16  # deployment B: 2 dense replicas x 8 slots
 CLUSTER_CPU_BYTES = 1 << 30  # the CPU tensor an agent task returns
 CLUSTER_CUDA_NUMEL = 128 << 20  # the CUDA tensor it returns: 256 MiB of bf16
 CLUSTER_CALLS = 200  # no-op actor calls timed one after another
+CLUSTER_LAYERS = 8  # the agent's Llama-3-8B: its width, 8 of 32 layers (a depth cut)
 TRAIN_MODEL = "gpt2-small"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_STEPS = 20
@@ -2884,7 +2935,7 @@ class _Members:
         return left
 
 
-def phase_cluster(card, config, prompts, serve_outs=None) -> tuple:
+def phase_cluster(card, config, prompts) -> tuple:
     """Cluster mode on the card: a CLI head, one node agent hosting the
     work on the card, this process a member (see the module docstring,
     `cluster`). Returns the phase's numbers (the agent's launches by
@@ -2966,11 +3017,12 @@ def phase_cluster(card, config, prompts, serve_outs=None) -> tuple:
         # (b) serving from the agent
         t = time.perf_counter()
         llm = ray_tpu_torch.remote(num_cpus=1, num_gpus=1)(cluster_udfs.ClusterLLM).options(
-            scheduling_strategy=on).remote(MODEL, SEED, N_REQUESTS)
+            scheduling_strategy=on).remote(MODEL, SEED, N_REQUESTS, CLUSTER_LAYERS)
         info = ray_tpu_torch.get(llm.info.remote(), timeout=900)
         if info["pid"] != agent_pid:
             raise AssertionError(f"the LLM actor runs in pid {info['pid']}, not the agent's")
-        log("cluster", f"{card}: agent LLMServer({MODEL}) built in {info['build_s']:.2f} s "
+        log("cluster", f"{card}: agent LLMServer({MODEL}, {CLUSTER_LAYERS} layers) built in "
+            f"{info['build_s']:.2f} s "
             f"({time.perf_counter() - t:.2f} s from the call), {info['captures']} CUDA graphs, "
             f"{info['allocated'] / 2**30:.2f} GiB allocated on the agent's {info['device']}")
         res = ray_tpu_torch.get(llm.serve.remote(prompts, MAX_TOKENS, TAIL_GAP,
@@ -2980,15 +3032,9 @@ def phase_cluster(card, config, prompts, serve_outs=None) -> tuple:
                 raise AssertionError(f"bad completion from the agent: {len(o)} tokens")
         out["decode_tok_s"] = res["decode_tok_s"]
         out["launches"] = {k.name: int(res["launches"].get(k.name, 0)) for k in KERNELS}
-        same = ""
-        if serve_outs is not None:
-            n = sum(a == b for o, s_ in zip(res["outs"], serve_outs) for a, b in zip(o, s_))
-            same = (f"; positions equal to the serve phase's tokens {n} of "
-                    f"{N_REQUESTS * MAX_TOKENS} (share {n / (N_REQUESTS * MAX_TOKENS):.4f}, "
-                    f"not gated)")
         log("cluster", f"{card}: (b) {N_REQUESTS} requests on the agent: wall {res['wall_s']:.3f} s, "
             f"decode {res['decode_tok_s']:.1f} tok/s; launches counted in the agent "
-            f"{out['launches']}{same}")
+            f"{out['launches']}")
         _dense_verdict("cluster", res["check"], res["launches"][FLASH_FWD.name], CHECK_MARGIN,
                        EXACT_SHARE_FLOOR, seconds=res["check_s"])
         if out["launches"][RAGGED.name] <= 0 or out["launches"][FLASH_FWD.name] <= 0:
@@ -4661,6 +4707,7 @@ def _process_health(card: str) -> dict:
 
 DP_RANKS = 2  # two processes on the one card, over gloo (NCCL refuses two ranks on a device)
 DP_STEPS = 10
+DP_LAYERS = 6  # GPT-2 124M's width at 6 of its 12 layers, dp's and the gang's (a depth cut)
 DP_MODES = ("f32", "int8", "f32+shard", "int8+shard")
 DP_TIMEOUT_S = 240  # every collective of the gang, and its start-up
 DP_PHASE_TIMEOUT_S = 420  # the whole gang run: a hung rank fails the phase
@@ -4673,7 +4720,7 @@ DP_EF_BOUND = 1.0 + 2.0 ** -16
 
 
 def phase_dp(card: str) -> dict:
-    """Data-parallel GPT-2 124M over two processes on the card: a
+    """Data-parallel GPT-2 124M (DP_LAYERS of its layers) over two processes on the card: a
     TrainController drives a MultihostWorkerGroup of DP_RANKS gloo ranks,
     each running LMTrainer(mesh_spec=MeshSpec(dp=2)) fed by
     lm_batch_iterator(sharding=) (torch_dp_rank.dp_rank) in every sync
@@ -4683,7 +4730,7 @@ def phase_dp(card: str) -> dict:
     from ray_tpu_torch.train.multihost import MultihostWorkerGroup
 
     t0 = time.perf_counter()
-    config = get_config(TRAIN_MODEL)
+    config = get_config(TRAIN_MODEL).replace(n_layers=DP_LAYERS)
     rng = np.random.default_rng(SEED + 3)
     tokens = rng.integers(0, config.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), dtype=np.int32)
     opt_kw = dict(warmup_steps=2, total_steps=DP_STEPS)
@@ -4707,8 +4754,8 @@ def phase_dp(card: str) -> dict:
                                            backend="gloo", timeout_s=DP_TIMEOUT_S))
         return groups[-1]
 
-    rank_config = dict(model=TRAIN_MODEL, tokens=tokens, steps=DP_STEPS, modes=DP_MODES,
-                       lr=TRAIN_LR, seed=SEED, **opt_kw)
+    rank_config = dict(model=TRAIN_MODEL, model_overrides={"n_layers": DP_LAYERS}, tokens=tokens,
+                       steps=DP_STEPS, modes=DP_MODES, lr=TRAIN_LR, seed=SEED, **opt_kw)
     import torch_dp_rank
 
     controller = TrainController(
@@ -4904,7 +4951,8 @@ def phase_gang(card: str, dp: dict) -> dict:
             made.append(time.monotonic())
             return groups[-1]
 
-        config = dict(model=TRAIN_MODEL, tokens=dp["tokens"], steps=DP_STEPS, lr=TRAIN_LR,
+        config = dict(model=TRAIN_MODEL, model_overrides={"n_layers": DP_LAYERS},
+                      tokens=dp["tokens"], steps=DP_STEPS, lr=TRAIN_LR,
                       seed=SEED, device="cuda", ckpt_dir=ckpt_dir, ckpt_every=GANG_CKPT_EVERY,
                       step_pause_s=GANG_PAUSE_S, **dp["opt_kw"])
         controller = TrainController(
@@ -5531,6 +5579,545 @@ def phase_a7(card: str) -> dict:
            for p, rs in by_part.items()}, "v": vit_launches})
 
 
+# --------------------------------------------------------------- capacity
+
+CAP_WARNING_S = 3.0  # the spot reclaim's warning window (JAX's capstone)
+CAP_TRAIN_STEPS = 16  # each rank's steps over the run
+CAP_CKPT_EVERY = 6  # steps between rank 0's checkpoints (plus the emergency one)
+CAP_PREEMPT_AT = 3  # rank 0's reported step that arms the reclaim
+CAP_SERVE_SLOTS = 4
+CAP_SERVE_PROMPTS = 4  # the client cycles through these prompts
+CAP_SERVE_TOKENS = 16
+CAP_FLASH_SHAPE = (TRAIN_BATCH, 12, TRAIN_SEQ, 64)  # GPT-2 124M's attention in training
+CAP_DCN_REL = 0.005  # an int8 replica's largest error over its leaf's largest magnitude (JAX)
+CAP_DCN_WIRE = 0.45  # the int8 wire bytes over the raw bytes (JAX)
+CAP_LAUNCH_DRAIN = {"RAY_TPU_PREEMPT_WARNING_S": "1.0"}  # launched nodes: SIGTERM drains 1 s
+CAP_TIMEOUT_S = 300
+_CAP_RANKS: list = []  # each attempt's rank outcomes (the ranks are threads of this process)
+
+
+def _cap_rank(config: dict):
+    """One rank of part (a)'s gang (a thread actor of this process): GPT-2
+    124M's train step on batches made from the seed, the rank and the step,
+    rank 0 checkpointing the model and optimizer state through
+    train.report(checkpoint=...) every CAP_CKPT_EVERY steps and on the
+    controller's emergency request; a resumed attempt restores the
+    checkpoint and checks the restored state against it bit for bit. The
+    loop is JAX's capstone's: rank 0 leaves after its emergency
+    checkpoint, the others when the run is preempted."""
+    from ray_tpu_torch import train
+
+    rank = train.get_context().world_rank
+    model = get_config(TRAIN_MODEL)
+    opt = default_optimizer(TRAIN_LR, warmup_steps=2, total_steps=CAP_TRAIN_STEPS)
+    state = create_train_state(model, opt, SEED, device="cuda")
+    leaves = lambda s: (tree_leaves(s.params) + tree_leaves(s.opt_state.mu)  # noqa: E731
+                        + tree_leaves(s.opt_state.nu))
+    ckpt = train.get_checkpoint()
+    start, restored = 0, None
+    if ckpt is not None:
+        with torch.no_grad():
+            for t, a in zip(leaves(state), ckpt["leaves"]):
+                t.copy_(torch.from_numpy(a))
+        state.step, state.opt_state.count = ckpt["state_step"], ckpt["count"]
+        restored = all(torch.equal(t.cpu(), torch.from_numpy(a))
+                       for t, a in zip(leaves(state), ckpt["leaves"]))
+        start = ckpt["step"] + 1
+    step_fn = make_train_step(model, opt, device="cuda")
+    gen = torch.Generator(device="cuda")
+    out = dict(rank=rank, start=start, restored=restored, losses=[], left="done")
+    _CAP_RANKS.append(out)
+
+    def snapshot(step):
+        return {"step": step, "state_step": state.step, "count": state.opt_state.count,
+                "leaves": [t.detach().cpu().numpy() for t in leaves(state)]}
+
+    for step in range(start, CAP_TRAIN_STEPS):
+        gen.manual_seed(SEED + 7919 * (rank + 1) + step)
+        tokens = torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen,
+                               device="cuda")
+        state, m = step_fn(state, {"tokens": tokens})
+        out["losses"].append(m["loss"].item())
+        if rank != 0:
+            if train.is_preempted():
+                out["left"] = "preempted"
+                return out
+            continue
+        metrics = {"step": step, "loss": out["losses"][-1]}
+        if train.should_checkpoint() or (step + 1) % CAP_CKPT_EVERY == 0:
+            train.report(metrics, checkpoint=snapshot(step), checkpoint_step=step)
+        elif train.is_preempted():
+            out["left"] = "preempted"
+            return out
+        else:
+            train.report(metrics)
+    return out
+
+
+def _cap_fleet(card: str, tmp: str) -> dict:
+    """Part (a): JAX's spot-fleet capstone with GPT-2 124M's serving and
+    training on the card. Returns the kernels' launches."""
+    from ray_tpu_torch.core.capacity import (CapacityAutoscaler, FakeNodeProvider, NodeType,
+                                             SpotNodeProvider)
+    from ray_tpu_torch.core.exceptions import RayTpuError
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, RunStatus, ScalingConfig,
+                                     TrainController)
+    from ray_tpu_torch.util import state as st
+    from ray_tpu_torch.util.events import events
+    from ray_tpu_torch.util.metrics import registry
+
+    t0 = time.perf_counter()
+    rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0)
+    scaler = None
+    launches = {k.name: 0 for k in KERNELS}
+    try:
+        events().clear()
+        provider = SpotNodeProvider(FakeNodeProvider(rt.scheduler), warning_s=CAP_WARNING_S)
+        scaler = CapacityAutoscaler(
+            rt.scheduler, provider,
+            [NodeType("spot-train", {"CPU": 1.0, "trainer": 1.0}, capacity_class="spot"),
+             NodeType("spot-serve", {"CPU": 2.0, "serve_slot": 2.0}, capacity_class="spot")],
+            poll_interval_s=0.05, idle_timeout_s=600.0, runtime=rt)
+        scaler.start()
+        for k in KERNELS:
+            k.launches = 0
+        config = get_config(TRAIN_MODEL).replace(param_dtype=torch.bfloat16)
+        params = init_params(config, SEED, device="cuda")
+        dep = serve.deployment(LLMServer, name="fleet-llm", num_replicas=2,
+                               max_ongoing_requests=2 * CAP_SERVE_SLOTS,
+                               resources_per_replica={"CPU": 1.0, "serve_slot": 1.0})
+        handle = serve.run(dep.bind(config, params, PagedEngineConfig(max_slots=CAP_SERVE_SLOTS),
+                                    SEED, 1, device="cuda"), name="fleet-llm")
+        rng = np.random.default_rng(SEED + 21)
+        prompts = [rng.integers(0, config.vocab_size, int(n)).tolist()
+                   for n in rng.integers(16, 200, CAP_SERVE_PROMPTS)]
+        first = ray_tpu_torch.get(handle.generate.remote(
+            {"prompt_tokens": prompts[0], "max_tokens": CAP_SERVE_TOKENS}), timeout=300)
+        serve_s = time.perf_counter() - t0
+        _CAP_RANKS.clear()
+        controller = TrainController(
+            _cap_rank, ScalingConfig(num_workers=2,
+                                     resources_per_worker={"CPU": 1.0, "trainer": 1.0}),
+            RunConfig(name="spot-fleet", storage_path=os.path.join(tmp, "trial"),
+                      failure=FailureConfig(max_failures=0)),
+            train_config={}, restart_backoff_s=0.0)
+        box = {}
+        runner = threading.Thread(target=lambda: box.update(result=controller.run()),
+                                  daemon=True)
+        runner.start()
+        calls, errors, stop = [], [], threading.Event()
+        seen = {0: first["tokens"]}
+
+        def client():
+            i = 1
+            while not stop.is_set():
+                p = i % CAP_SERVE_PROMPTS
+                try:
+                    out = ray_tpu_torch.get(handle.generate.remote(
+                        {"prompt_tokens": prompts[p], "max_tokens": CAP_SERVE_TOKENS}), timeout=60)
+                    calls.append((p, out["tokens"]))
+                except Exception as exc:  # noqa: BLE001 - each must be a typed error (below)
+                    errors.append(exc)
+                i += 1
+
+        caller = threading.Thread(target=client, daemon=True)
+        caller.start()
+        deadline = time.monotonic() + CAP_TIMEOUT_S
+        while (not any(m.get("step", -1) >= CAP_PREEMPT_AT for m in controller.metrics_history)
+               and time.monotonic() < deadline and runner.is_alive()):
+            time.sleep(0.05)
+        if not controller.metrics_history:
+            raise AssertionError(f"capacity (a): the gang never reported ({box})")
+        ups_before = scaler.stats["scale_ups"]
+        victim = next(n for n in rt.scheduler.nodes()
+                      if n.labels.get("node_type") == "spot-train"
+                      and rt.scheduler.resident_bundles(n.node_id.hex()))
+        preempt_at = time.perf_counter()
+        provider.preempt_after(victim, 0.01, warning_s=CAP_WARNING_S)
+        runner.join(timeout=CAP_TIMEOUT_S)
+        stop.set()
+        caller.join(timeout=120)
+        if runner.is_alive():
+            raise AssertionError("capacity (a): the controller never finished")
+        result = box["result"]
+        train_s = time.perf_counter() - preempt_at
+        deadline = time.monotonic() + 30
+        while victim.alive and time.monotonic() < deadline:
+            time.sleep(0.05)
+        evs = st.list_events(limit=100000)
+        vh = victim.node_id.hex()
+
+        def first_event(kind, **match):
+            for e in evs:
+                if e.get("kind") == kind and all((e.get("extra") or {}).get(k) == v
+                                                 for k, v in match.items()):
+                    return e
+            raise AssertionError(f"capacity (a): no {kind} event matching {match}")
+
+        announced = first_event("preempt.announced")
+        replace = first_event("autoscaler.replace", replaces=vh)
+        dead = first_event("node.dead")
+        origins = sorted({(e.get("extra") or {}).get("origin") for e in evs
+                          if e.get("kind") == "autoscaler.scale_up"})
+        for r in _replica_engines(handle):
+            launches[RAGGED.name] += int(r.stats().get(f"launches.{RAGGED.name}", 0))
+        live = serve.status()["fleet-llm"]["live_replicas"]
+        goodput = result.goodput
+        text = registry().prometheus_text()
+        for k in KERNELS:
+            launches[k.name] += k.launches
+        by_prompt = {}
+        for p, toks in [(0, first["tokens"])] + calls:
+            by_prompt.setdefault(p, toks)
+        mismatched = sum(1 for p, toks in calls if toks != by_prompt[p])
+        untyped = [e for e in errors if not isinstance(e, RayTpuError)]
+        resumed = [r for r in _CAP_RANKS if r["start"] > 0]
+        log("capacity", f"{card}: (a) fleet: the first call {serve_s:.2f} s after the start "
+            f"(2 replicas, graphs captured at first use); {scaler.stats['scale_ups']} scale-ups "
+            f"({ups_before} before the reclaim; origins {origins}), {scaler.stats['replacements']} "
+            f"replacement(s); run {result.status.value} {train_s:.2f} s after the reclaim, "
+            f"num_preempt_restarts {result.num_preempt_restarts}, num_restarts "
+            f"{result.num_restarts}; announced {announced['ts']:.3f} <= replace "
+            f"{replace['ts']:.3f} <= dead {dead['ts']:.3f}; {len(calls)} calls "
+            f"({mismatched} with tokens unlike their prompt's first), {len(errors)} errors "
+            f"({[type(e).__name__ for e in errors]}), {live} replicas live")
+        for r in _CAP_RANKS:
+            log("capacity", f"  rank {r['rank']} from step {r['start']} ({r['left']}; restored "
+                f"bitwise {r['restored']}): loss " + " ".join(f"{x:.4f}" for x in r["losses"]))
+        log("capacity", f"  goodput {goodput['wall_time_s']:.3f} s: "
+            + ", ".join(f"{b} {s:.3f}" for b, s in goodput["buckets"].items() if s))
+        checks = [
+            (result.status == RunStatus.FINISHED, f"the run ended {result.status} {result.error}"),
+            (result.num_preempt_restarts == 1 and result.num_restarts == 0,
+             f"restarts {result.num_preempt_restarts} / {result.num_restarts}"),
+            (provider.num_preemptions() == 1 and scaler.stats["replacements"] >= 1,
+             "one reclaim and a replacement"),
+            (not victim.alive, "the preempted node never died"),
+            (announced["node"] == vh and dead["node"] == vh
+             and announced["ts"] <= replace["ts"] <= dead["ts"],
+             "preempt.announced <= autoscaler.replace <= node.dead"),
+            ((replace["extra"]["origin"], replace["extra"]["node_type"],
+              replace["extra"]["capacity_class"]) == ("replace", "spot-train", "spot"),
+             f"the replacement's tags {replace['extra']}"),
+            ("pg" in origins and "task" in origins, f"scale-up origins {origins}"),
+            (ups_before >= 3, f"{ups_before} scale-ups before the reclaim"),
+            (not untyped and live == 2, f"untyped errors {untyped}, {live} replicas"),
+            (mismatched == 0 and len(calls) > 0, f"{mismatched} calls unlike their prompt's first"),
+            (abs(sum(goodput["buckets"].values()) - goodput["wall_time_s"])
+             <= 0.05 * goodput["wall_time_s"], "the goodput buckets do not sum to the wall"),
+            (all(name in text for name in ("raytpu_autoscaler_managed_nodes",
+                                           'raytpu_autoscaler_scale_total{direction="up"}',
+                                           "raytpu_autoscaler_preempt_replacements_total")),
+             "the autoscaler's series are missing from the metrics text"),
+            (len(resumed) == 2 and all(r["restored"] for r in resumed),
+             f"resumed ranks {[(r['rank'], r['start'], r['restored']) for r in resumed]}"),
+            (all(np.isfinite(r["losses"]).all() for r in _CAP_RANKS), "a non-finite loss"),
+            (all(launches[k.name] for k in KERNELS), f"a kernel never launched: {launches}"),
+        ]
+        failed = [msg for ok, msg in checks if not ok]
+        if failed:
+            raise AssertionError(f"capacity (a): {failed}")
+        serve.shutdown()
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        ray_tpu_torch.shutdown()
+    log("capacity", f"{card}: (a) {time.perf_counter() - t0:.2f} s, launches {launches}")
+    return launches
+
+
+def _cap_agents_dcn(card: str, wait_jobs) -> dict:
+    """Parts (b) and (c): node agents that demand alone brought up (a GPU
+    agent running the flash forward kernel; GPT-2 124M's train state
+    replicated to it while two optimizer steps write the state in place;
+    then a CPU agent without a CUDA context, started while the GPU agent
+    checks the replicas), both reaped once idle. `wait_jobs()` joins part
+    (d), whose cluster holds CUDA contexts of its own, before the card's
+    contexts are counted. Returns the kernels' launches (this process's and
+    the agent's)."""
+    from ray_tpu_torch.core.capacity import (CapacityAutoscaler, LocalProcessNodeProvider,
+                                             NodeType)
+    from ray_tpu_torch.core.scheduler import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.parallel import CrossSliceReplicator
+
+    t0 = time.perf_counter()
+    before = udfs.live_children()
+    rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0, head=True,
+                            _system_config={"node_heartbeat_s": 0.2})
+    provider = LocalProcessNodeProvider(rt, startup_timeout_s=120.0)
+    launches = {k.name: 0 for k in KERNELS}
+    try:
+        scaler = CapacityAutoscaler(
+            rt.scheduler, provider,
+            [NodeType("gpu1", {"CPU": 1.0, "GPU": 1.0}), NodeType("cpu2", {"CPU": 2.0})],
+            poll_interval_s=0.1, idle_timeout_s=600.0, drain_grace_s=0.5, runtime=rt)
+        scaler.start()
+        check = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(
+            cluster_udfs.flash_fwd_check).remote(SEED + 31, CAP_FLASH_SHAPE), timeout=CAP_TIMEOUT_S)
+        gpu_s = time.perf_counter() - t0
+        launches[FLASH_FWD.name] += check["launches"]
+        atol, rtol, _ = KERNEL_TOL[torch.bfloat16]
+        peer = next(n for n in rt.scheduler.nodes() if n.is_remote)
+        log("capacity", f"{card}: (b) gpu1 agent pid {check['pid']} up and its flash forward "
+            f"run {gpu_s:.2f} s after the start: max |err| {check['max_abs_err']:.3e} against the "
+            f"plain version, {check['launches']} launch")
+        if not (check["pid"] != os.getpid() and check["finite"] and check["launches"] == 1
+                and check["max_abs_err"] <= atol + rtol
+                and peer.labels.get("node_type") == "gpu1"
+                and peer.resources.total.get("GPU") == 1.0):
+            raise AssertionError(f"capacity (b): the gpu1 agent's kernel {check}, {peer.labels}")
+
+        # (c) DCN: the train state at the call reaches the GPU agent bit for bit
+        t1 = time.perf_counter()
+        model = get_config(TRAIN_MODEL)
+        opt = default_optimizer(TRAIN_LR, warmup_steps=2, total_steps=10)
+        state = create_train_state(model, opt, SEED, device="cuda")
+        step_fn = make_train_step(model, opt, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+        batches = [{"tokens": torch.randint(0, model.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                            generator=gen, device="cuda")} for _ in range(6)]
+        for k in KERNELS:
+            k.launches = 0
+
+        def timed_step(batch):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            nonlocal state
+            state, m = step_fn(state, batch)
+            m["loss"].item()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        timed_step(batches[0])  # the first step pays its set-up
+        alone = [timed_step(batches[1]), timed_step(batches[2])]
+        expected = cluster_udfs.leaf_digests(state)
+        exact = CrossSliceReplicator(peer.agent_addr)
+        q8 = CrossSliceReplicator(peer.agent_addr, quantize="int8")
+        try:
+            t = time.perf_counter()
+            exact.replicate_async("gpt2-state", state)
+            submit_s = time.perf_counter() - t
+            q8.replicate_async("gpt2-state-q8", state)
+            t_push = time.perf_counter()
+            in_flight = [timed_step(batches[3]), timed_step(batches[4])]
+            exact.wait(timeout=CAP_TIMEOUT_S)
+            push_s = time.perf_counter() - t_push
+            q8.wait(timeout=CAP_TIMEOUT_S)
+            after = timed_step(batches[5])
+        finally:
+            exact.close()
+            q8.close()
+        for k in KERNELS:
+            launches[k.name] += k.launches
+        # (b), the CPU agent: it boots while the GPU agent checks the replicas.
+        # nvidia-smi lists the card's contexts under pids of another namespace
+        # here: count them (this process's and the gpu1 agent's) before the
+        # cpu2 agent joins and after it ran
+        wait_jobs()
+        apps_before = udfs.compute_app_pids()
+        cpu_ref = ray_tpu_torch.remote(num_cpus=2)(udfs.cuda_state).remote()
+        on_peer = lambda fn, *a: ray_tpu_torch.get(  # noqa: E731
+            ray_tpu_torch.remote(num_cpus=1)(fn).options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(peer.node_id)).remote(*a),
+            timeout=CAP_TIMEOUT_S)
+        got = on_peer(cluster_udfs.replica_digests, "gpt2-state")
+        errs = on_peer(cluster_udfs.replica_q8_errors, "gpt2-state", "gpt2-state-q8")
+        moved = cluster_udfs.leaf_digests(state) != expected
+        raw = exact.stats["raw_bytes"]
+        log("capacity", f"{card}: (c) DCN: {raw / 1e9:.3f} GB of f32 train state "
+            f"({len(expected)} leaves) to the gpu1 agent: replicate_async returned in "
+            f"{submit_s * 1e3:.2f} ms, the exact push done {push_s:.2f} s after it "
+            f"({raw / push_s / 1e9:.3f} GB/s, beside an int8 push of "
+            f"{q8.stats['bytes'] / 1e9:.3f} GB = {q8.stats['bytes'] / q8.stats['raw_bytes']:.4f} "
+            f"of its raw bytes); a step {statistics.median(alone) * 1e3:.2f} ms alone, "
+            f"{' / '.join(f'{x * 1e3:.2f}' for x in in_flight)} ms with the pushes in flight, "
+            f"{after * 1e3:.2f} ms after; the replica equals the state at the call bit for bit: "
+            f"{got['digests'] == expected} (on {got['devices']}); int8 worst relative error "
+            f"{errs['worst_rel']:.5f} over {errs['float_leaves']} float leaves, the rest exact "
+            f"{errs['others_exact']} ({time.perf_counter() - t1:.2f} s)")
+        checks = [
+            (got["digests"] == expected and got["devices"] == ["cpu"] and moved,
+             "the replica is not the state at the call"),
+            (submit_s < 0.05, f"replicate_async took {submit_s:.3f} s"),
+            (q8.stats["bytes"] < CAP_DCN_WIRE * q8.stats["raw_bytes"], "int8 wire bytes"),
+            (errs["worst_rel"] < CAP_DCN_REL and errs["others_exact"], f"int8 errors {errs}"),
+        ]
+        failed = [msg for ok, msg in checks if not ok]
+        if failed:
+            raise AssertionError(f"capacity (c): {failed}")
+        del state, batches, step_fn
+        pid, _, has_cuda = ray_tpu_torch.get(cpu_ref, timeout=CAP_TIMEOUT_S)
+        apps = udfs.compute_app_pids()
+        deadline = time.monotonic() + 30  # a task can finish before its launch is counted
+        while scaler.stats["scale_ups"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        types = {n.labels.get("node_type"): n for n in rt.scheduler.nodes() if n.is_remote}
+        log("capacity", f"{card}: (b) cpu2 agent pid {pid}: CUDA context {has_cuda}, GPU "
+            f"{types['cpu2'].resources.total.get('GPU', 0.0)}; the card's compute apps "
+            f"{apps_before} before it, {apps} after; scale-ups {scaler.stats['scale_ups']}")
+        checks = [
+            (len(apps_before) == 2, f"compute apps {apps_before}: want this process and gpu1's"),
+            (not has_cuda and pid not in apps and len(apps) == len(apps_before),
+             "the cpu2 agent holds a CUDA context"),
+            (types["cpu2"].resources.total.get("GPU", 0.0) == 0.0, "the cpu2 agent's GPU"),
+            (scaler.stats["scale_ups"] == 2, f"{scaler.stats['scale_ups']} scale-ups"),
+        ]
+        failed = [msg for ok, msg in checks if not ok]
+        if failed:
+            raise AssertionError(f"capacity (b): {failed}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        scaler.idle_timeout_s = 0.5  # now both agents may go
+        deadline = time.monotonic() + CAP_TIMEOUT_S
+        while scaler.stats["scale_downs"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        if scaler.stats["scale_downs"] != 2 or provider.pids():
+            raise AssertionError(f"capacity (b): scale-downs {scaler.stats}, agents left "
+                                 f"{provider.pids()}")
+        scaler.stop()
+    finally:
+        provider.shutdown()
+        ray_tpu_torch.shutdown()
+        cfg.reset()
+    left = udfs.wait_no_children(before, timeout=30)
+    if left:
+        raise AssertionError(f"capacity (b): agent processes left {left}")
+    log("capacity", f"{card}: (b) + (c) {time.perf_counter() - t0:.2f} s, both agents reaped "
+        f"once idle; launches {launches}")
+    return launches
+
+
+def _cap_jobs(card: str, tmp: str) -> dict:
+    """Part (d): `launcher` brings up a head without a GPU and a worker with
+    one from a JSON config; a job (`torch_capacity_job.py`) joins it and
+    runs the flash forward kernel on the worker; a sleeping job is
+    stopped; `down` leaves no process with the launch tag. Returns the
+    kernels' launches (the job's, read from its log)."""
+    import re
+    import socket
+
+    from ray_tpu_torch.jobs import JobManager
+    from ray_tpu_torch.launcher import ClusterLauncher, down_pattern, load_config
+
+    t0 = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    path = os.path.join(tmp, "cluster.json")
+    with open(path, "w") as f:
+        json.dump({"head": {"port": port, "num_cpus": 1, "num_gpus": 0},
+                   "workers": [{"host": "localhost", "num_cpus": 1, "num_gpus": 1}],
+                   "provider": "local", "token": "chip-smoke-capacity"}, f)
+    launcher = ClusterLauncher(load_config(path))
+    saved = {k: os.environ.get(k) for k in CAP_LAUNCH_DRAIN}
+    os.environ.update(CAP_LAUNCH_DRAIN)  # the launched nodes inherit it
+    launches = {k.name: 0 for k in KERNELS}
+    try:
+        info = launcher.up(wait_s=CAP_TIMEOUT_S)
+        up_s = time.perf_counter() - t0
+        mgr = JobManager(log_dir=os.path.join(tmp, "jobs"))
+        job = mgr.submit(f"{sys.executable} torch_capacity_job.py --address {info['address']} "
+                         f"--token chip-smoke-capacity --seed {SEED + 51}")
+        sleeper = mgr.submit(f"{sys.executable} -c 'import time; time.sleep(600)'")
+        status = mgr.wait(job, timeout=CAP_TIMEOUT_S)
+        job_s = time.perf_counter() - t0 - up_s
+        stopped = mgr.stop(sleeper)
+        sleeper_status = mgr.wait(sleeper, timeout=60)
+        logs = mgr.logs(job)
+    finally:
+        launcher.down()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    tag = launcher.config["_launch_tag"]
+    pattern = re.compile(down_pattern(tag))
+
+    def tagged():
+        out = []
+        for name in os.listdir("/proc"):
+            if name.isdigit():
+                try:
+                    with open(f"/proc/{name}/cmdline", "rb") as f:
+                        line = f.read().replace(b"\0", b" ").decode(errors="replace")
+                except OSError:
+                    continue
+                if pattern.search(line):
+                    out.append(int(name))
+        return out
+
+    deadline = time.monotonic() + 60
+    while tagged() and time.monotonic() < deadline:
+        time.sleep(0.2)
+    lines = [ln for ln in logs.splitlines() if ln.startswith("capacity-job ")]
+    result = json.loads(lines[-1].split(" ", 1)[1]) if lines else {}
+    launches[FLASH_FWD.name] += result.get("launches", 0)
+    atol, rtol, _ = KERNEL_TOL[torch.bfloat16]
+    log("capacity", f"{card}: (d) `up` {len(info['nodes'])} nodes in {up_s:.2f} s (tag {tag}); "
+        f"the job {status.value} {job_s:.2f} s later: {result}; the sleeping job stopped "
+        f"{stopped} -> {sleeper_status.value}; processes with the tag after `down`: {tagged()} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    checks = [
+        (status.value == "SUCCEEDED" and result, f"the job: {status.value}\n{logs[-3000:]}"),
+        (result.get("launches") == 1 and result.get("finite")
+         and result.get("max_abs_err", 1.0) <= atol + rtol, f"the job's kernel {result}"),
+        (stopped and sleeper_status.value == "STOPPED", "the sleeping job did not stop"),
+        (not tagged(), f"processes with the tag after down: {tagged()}"),
+    ]
+    failed = [msg for ok, msg in checks if not ok]
+    if failed:
+        raise AssertionError(f"capacity (d): {failed}")
+    return launches
+
+
+def phase_capacity(card: str) -> dict:
+    """Cluster mode's capacity plane, jobs, launcher and DCN on GPT-2 124M
+    (see the module docstring, `capacity`): (a) the spot fleet, (b) agents
+    from demand, (c) DCN, (d) jobs and the launcher, on a thread beside (a)
+    and (b). Returns each kernel's launches summed over the parts and their
+    processes."""
+    t0 = time.perf_counter()
+    ray_tpu_torch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_capacity_")
+    # (d) touches nothing of this process's runtime (its cluster and jobs are
+    # processes of their own): it runs on a thread beside (a) and (b)
+    jobs: dict = {}
+
+    def run_jobs():
+        try:
+            jobs["launches"] = _cap_jobs(card, tmp)
+        except BaseException as exc:  # noqa: BLE001 - raised again by wait_jobs
+            jobs["error"] = exc
+
+    jobs_thread = threading.Thread(target=run_jobs, name="chip-smoke-capacity-d", daemon=True)
+
+    def wait_jobs():
+        jobs_thread.join(CAP_TIMEOUT_S)
+        if jobs_thread.is_alive():
+            raise AssertionError("capacity (d): the launched cluster's part did not finish")
+        if "error" in jobs:
+            raise jobs["error"]
+
+    jobs_thread.start()
+    try:
+        parts = {"a": _cap_fleet(card, tmp)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts["bc"] = _cap_agents_dcn(card, wait_jobs)
+        wait_jobs()
+        parts["d"] = jobs["launches"]
+    finally:
+        jobs_thread.join(CAP_TIMEOUT_S)
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k.name: sum(p[k.name] for p in parts.values()) for k in KERNELS}
+    log("capacity", f"phase {time.perf_counter() - t0:.2f} s ({card}); launches {launches}")
+    return dict(launches=launches, by_part=parts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5562,7 +6149,7 @@ def main() -> int:
     del server
     gc.collect()
     torch.cuda.empty_cache()
-    cluster, members, llm, agent = phase_cluster(card, config, prompts, outs)
+    cluster, members, llm, agent = phase_cluster(card, config, prompts)
     head_restart = phase_head_restart(card, prompts, members, llm, agent)
     del llm, agent, members
     gc.collect()
@@ -5588,6 +6175,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     a7 = phase_a7(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    capacity = phase_capacity(card)
     for label, check in fsdp_tp["checks"].items():
         results["flash_attention_fwd"][f"{label}_shape"] = check["forward"]
         for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
@@ -5604,7 +6194,8 @@ def main() -> int:
                    "train": train_launches[k.name], "trainer": trainer["launches"][k.name],
                    "ingest": ingest["launches"][k.name], "process": process["launches"][k.name],
                    "dp": dp["launches"][k.name], "gang": gang["launches"][k.name],
-                   "fsdp_tp": fsdp_tp["launches"][k.name], "a7": a7["launches"][k.name]}
+                   "fsdp_tp": fsdp_tp["launches"][k.name], "a7": a7["launches"][k.name],
+                   "capacity": capacity["launches"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))

@@ -1,6 +1,6 @@
 """Command-line interface: `python -m ray_tpu_torch <command>`.
 
-Port of `ray_tpu/cli.py`'s `start`: start a cluster head
+Port of `ray_tpu/cli.py`'s `start`, `job`, `up` and `down`: start a cluster head
 (`start --head [--port P]`) or join one as a node agent (`start --address
 host:port`), with `--num-cpus`, `--num-gpus`, `--resources`, `--labels`
 and `--token`. A node's `GPU` resource is `torch.cuda.device_count()`
@@ -12,8 +12,14 @@ gracefully (`health.install_preemption_signal_handler`); a second SIGTERM
 changes nothing. `--snapshot-path P` makes the head persist its GCS
 tables (snapshots at P, the WAL at P.wal); `--restore` (with `--head`)
 requires one of them and brings the head back from it on the same port,
-so surviving agents re-register. Every other subcommand of the JAX CLI
-raises NotImplementedError naming ROADMAP A8.
+so surviving agents re-register. `--launch-tag` only marks the command
+line, so the launcher's `down` can find this cluster's processes.
+
+`job submit ENTRYPOINT [--job-id ID] [--wait]`, `job status|logs|stop ID`,
+`job list` and `job wait ID` drive this process's job manager (`jobs.py`);
+`up CONFIG [--no-cuda]` and `down CONFIG` launch and tear down a cluster
+from a YAML or JSON config (`launcher.py`). Every other subcommand of the
+JAX CLI raises NotImplementedError naming ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ import sys
 import time
 
 A8_ITEM = "ROADMAP A8 (libraries and surfaces: cli.py)"
-OTHER_COMMANDS = ("doctor", "config", "status", "job", "up", "down", "logs", "events",
-                  "request", "steps", "postmortem", "timeline", "profile", "dashboard")
+OTHER_COMMANDS = ("doctor", "config", "status", "logs", "events", "request", "steps",
+                  "postmortem", "timeline", "profile", "dashboard")
 
 
 def _process_age_s() -> float:
@@ -102,6 +108,56 @@ def _cmd_start(args) -> int:
     return 0
 
 
+def _cmd_job(args) -> int:
+    from .jobs import default_job_manager
+
+    mgr = default_job_manager()
+    if args.job_cmd == "submit":
+        jid = mgr.submit(args.entrypoint, job_id=args.job_id)
+        print(f"submitted {jid}")
+        if args.wait:
+            status = mgr.wait(jid)
+            print(mgr.logs(jid), end="")
+            print(f"job {jid}: {status.value}")
+            return 0 if status.value == "SUCCEEDED" else 1
+        return 0
+    if args.job_cmd == "list":
+        for info in mgr.list():
+            print(f"{info.job_id}  {info.status.value:9}  {info.entrypoint}")
+        return 0
+    if args.job_cmd == "logs":
+        print(mgr.logs(args.job_id), end="")
+        return 0
+    if args.job_cmd == "status":
+        print(mgr.status(args.job_id).value)
+        return 0
+    if args.job_cmd == "stop":
+        print("stopped" if mgr.stop(args.job_id) else "not running")
+        return 0
+    if args.job_cmd == "wait":
+        status = mgr.wait(args.job_id, timeout=args.timeout)
+        print(status.value)
+        return 0 if status.value == "SUCCEEDED" else 1
+    raise SystemExit(f"unknown job command {args.job_cmd!r}")
+
+
+def _cmd_up(args) -> int:
+    """Launch a cluster from a config file (`launcher.py`)."""
+    from .launcher import up_from_cli
+
+    info = up_from_cli(args.config, no_cuda=args.no_cuda)
+    print(f"cluster up: {len(info['nodes'])} nodes, head at {info['address']}")
+    print(f"connect with: ray_tpu_torch.init(address={info['address']!r})")
+    return 0
+
+
+def _cmd_down(args) -> int:
+    from .launcher import down_from_cli
+
+    print(f"stopped {down_from_cli(args.config)} nodes")
+    return 0
+
+
 def _not_ported(args) -> int:
     raise NotImplementedError(
         f"`python -m ray_tpu_torch {args.command}` is not ported to ray_tpu_torch yet: "
@@ -127,12 +183,34 @@ def build_parser() -> argparse.ArgumentParser:
                     help='node labels as JSON, e.g. \'{"zone": "us-a"}\'')
     st.add_argument("--token", default=None,
                     help="cluster auth token (required off-localhost)")
+    st.add_argument("--launch-tag", default=None,
+                    help="opaque tag in the command line, so the launcher's "
+                         "`down` can target this cluster only")
     st.add_argument("--snapshot-path", default=None,
                     help="GCS snapshot file: the head persists its tables "
                          "here (same as RAY_TPU_GCS_SNAPSHOT_PATH)")
     st.add_argument("--restore", action="store_true",
                     help="with --head: require + replay the snapshot at "
                          "--snapshot-path so surviving agents re-register")
+    jp = sub.add_parser("job", help="submit and inspect jobs")
+    jsub = jp.add_subparsers(dest="job_cmd", required=True)
+    js = jsub.add_parser("submit")
+    js.add_argument("entrypoint")
+    js.add_argument("--job-id")
+    js.add_argument("--wait", action="store_true",
+                    help="block until the job finishes; print its logs")
+    jsub.add_parser("list")
+    for name in ("logs", "status", "stop"):
+        jsub.add_parser(name).add_argument("job_id")
+    jw = jsub.add_parser("wait")
+    jw.add_argument("job_id")
+    jw.add_argument("--timeout", type=float, default=None)
+    up = sub.add_parser("up", help="launch a cluster from a config file")
+    up.add_argument("config", help="cluster YAML or JSON (see ray_tpu_torch/launcher.py)")
+    up.add_argument("--no-cuda", action="store_true",
+                    help="start every node with --num-gpus 0")
+    dn = sub.add_parser("down", help="terminate a cluster started with `up`")
+    dn.add_argument("config")
     for name in OTHER_COMMANDS:
         sp = sub.add_parser(name, help=f"JAX's `{name}` ({A8_ITEM}: raises)")
         sp.add_argument("rest", nargs=argparse.REMAINDER)
@@ -141,7 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return (_cmd_start if args.command == "start" else _not_ported)(args)
+    handlers = {"start": _cmd_start, "job": _cmd_job, "up": _cmd_up, "down": _cmd_down}
+    return handlers.get(args.command, _not_ported)(args)
 
 
 if __name__ == "__main__":

@@ -155,6 +155,26 @@ class ActorRuntime:
 
     def _acquire_placement(self) -> bool:
         """Block until resources are leased; returns False if impossible."""
+        try:
+            return self._acquire_placement_loop()
+        finally:
+            from .capacity import clear_actor_waiting
+
+            clear_actor_waiting(id(self))
+
+    def _capacity_can_provision(self) -> bool:
+        """No live node can ever fit this actor, but a running capacity
+        autoscaler may launch one: then the actor's demand goes to its
+        ledger and the placement loop keeps waiting."""
+        from .capacity import active_autoscaler, note_actor_waiting
+
+        scaler = active_autoscaler()
+        if scaler is None or not scaler.can_provision(self.resources):
+            return False
+        note_actor_waiting(id(self), self.resources, f"actor {self.name} awaiting capacity")
+        return True
+
+    def _acquire_placement_loop(self) -> bool:
         strategy = self.scheduling_strategy
         deadline_warned = False
         while True:
@@ -242,7 +262,7 @@ class ActorRuntime:
                     key=lambda n: n.utilization(),
                 )
                 feasible = [n for n in nodes if n.resources.can_ever_fit(self.resources)]
-                if not feasible and nodes:
+                if not feasible and nodes and not self._capacity_can_provision():
                     self.death_cause = (
                         f"no node can ever satisfy actor resources {self.resources}"
                     )

@@ -886,6 +886,7 @@ class ClusterContext:
             # still heartbeating: (re)join with a fresh client
             node = RemoteNode(NodeID(node_hex), dict(info["resources"]), info["address"],
                               token=self.token, labels=info.get("labels") or {})
+            node.pid = info.get("pid")  # the agent's process (the capacity plane's launches)
             with self._lock:
                 if self._stop.is_set():
                     node.client.close()

@@ -152,6 +152,12 @@ define_flag("pg_reschedule_wait_s", 60.0,
 define_flag("preempt_warning_s", 10.0,
             "Warning window a SIGTERM-preempted node agent announces "
             "before it shuts down (cloud maintenance/spot semantics).")
+define_flag("autoscaler_drain_grace_s", 2.0,
+            "Grace period the capacity plane gives a retiring node "
+            "between the drain mark and forced termination.")
+define_flag("spot_preempt_warning_s", 3.0,
+            "Default warning window SpotNodeProvider preemption "
+            "schedules announce before reclaiming a spot node.")
 
 # process workers (core/worker_pool.py)
 define_flag("worker_idle_timeout_s", 60.0,

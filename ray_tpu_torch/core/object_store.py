@@ -1127,6 +1127,16 @@ class ObjectStore:
 
     # ------------------------------------------------------------------ intro
 
+    def has_primary_copy_at(self, address: str) -> bool:
+        """Whether any object's primary copy lives in the remote store at
+        `address`. The capacity plane does not retire a node whose store
+        still holds one: terminating it would lose the only copy."""
+        if not address:
+            return False
+        with self._lock:
+            entries = list(self._entries.values())
+        return any(e.tier == Tier.REMOTE and e.remote_addr == address for e in entries)
+
     def usage(self) -> Dict[str, int]:
         with self._lock:
             return {

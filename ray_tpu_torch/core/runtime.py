@@ -41,9 +41,10 @@ restore waits one grace window for the restored nodes to re-announce,
 then purges the ones that never did through the same paths a node's
 death takes (`_reconcile_after_restore`). The node stats collector
 (`core/stats.py`) rides the heartbeat; `profile_capture` fans out to the
-selected node agents. Jobs, whose records JAX's snapshot also carries,
-are ROADMAP A6b (jobs and DCN): the port's snapshot holds none, and its
-restore accepts a snapshot without them.
+selected node agents. The snapshot also carries the default job
+manager's records (`jobs.py`, copied under the manager's lock); a
+restore puts them back and marks a job that was PENDING or RUNNING
+FAILED, since its entrypoint process died with the old head.
 """
 
 from __future__ import annotations
@@ -308,16 +309,29 @@ class Runtime:
                             cfg.gcs_snapshot_interval_s)
 
     def _snapshot_gcs(self) -> None:
-        """One snapshot of the durable tables. JAX's `extra` carries the
-        job records; the port has no jobs yet (ROADMAP A6b (jobs and
-        DCN)), so it carries none."""
-        self.gcs.snapshot(self._snapshot_path, extra={})
+        """One snapshot of the durable tables, with the job records in
+        `extra["jobs"]`."""
+        import dataclasses
+
+        from .. import jobs as jobs_mod
+
+        extra = {}
+        mgr = jobs_mod._default_manager
+        if mgr is not None:
+            with mgr._lock:
+                # copies taken under the lock: the watcher thread mutates
+                # the live records, and pickling one mid-write could tear
+                extra["jobs"] = [dataclasses.replace(j, metadata=dict(j.metadata))
+                                 for j in mgr._jobs.values()]
+        self.gcs.snapshot(self._snapshot_path, extra=extra)
 
     def _restore_gcs(self, path: str, wal_path: Optional[str] = None) -> None:
         """Load the snapshot and replay the WAL past it. An unreadable
         snapshot is logged and the head starts fresh, as JAX's does."""
+        from ..jobs import JobStatus, default_job_manager
+
         try:
-            self.gcs.restore(path, wal_path=wal_path)
+            extra = self.gcs.restore(path, wal_path=wal_path)
         except Exception:  # noqa: BLE001 - a bad snapshot must not brick init
             import logging
 
@@ -329,6 +343,12 @@ class Runtime:
 
         emit("INFO", "gcs", f"restored GCS snapshot from {path}", kind="gcs.restored",
              wal_records_applied=self.gcs.last_restore.get("wal_records_applied", 0))
+        for info in (extra or {}).get("jobs", ()):  # job records survive restarts
+            if info.status in (JobStatus.PENDING, JobStatus.RUNNING):
+                info.status = JobStatus.FAILED  # its process died with the old head
+            mgr = default_job_manager()
+            with mgr._lock:
+                mgr._jobs.setdefault(info.job_id, info)
 
     def _snapshot_loop(self, interval: float) -> None:
         from . import chaos as _chaos
@@ -1139,6 +1159,18 @@ class Runtime:
         for ar in doomed:
             ar.kill(no_restart=False, reason=f"node {node_hex[:12]} preempted: {reason}")
         self.scheduler.handle_node_death(node_hex, f"preempted: {reason}")
+
+    def node_pinned(self, node: Node) -> bool:
+        """Whether retiring `node` would destroy live state: an actor
+        hosted there that is not DEAD, or (an agent) an object whose
+        primary copy lives in that node's store. The capacity plane asks
+        this before it selects a node for scale-down."""
+        with self._lock:
+            actors = list(self._actors.values())
+        if any(ar._node is node and ar.state != ActorState.DEAD for ar in actors):
+            return True
+        agent_addr = getattr(node, "agent_addr", None)
+        return bool(agent_addr) and self.object_store.has_primary_copy_at(agent_addr)
 
     def shutdown(self) -> None:
         """Stop the health manager and the memory monitor (joining their

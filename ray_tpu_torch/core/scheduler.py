@@ -41,9 +41,16 @@ dead bundles on surviving nodes (logical or agents) under a budget
 back to RESERVED, or FAILED with the death history once the budget is
 spent. Tasks aimed at a RESCHEDULING group stay queued. A node that
 announced its preemption is draining: task, actor and bundle placement
-skip it. JAX's scheduler also queues demand no node can meet for an
-autoscaler (`pending_demand`, `fail_unprovisionable`), which comes with
-ROADMAP A6b (capacity).
+skip it.
+
+While a capacity autoscaler runs (`core/capacity.py` clears
+`fail_fast_infeasible`), demand that no node can meet stays queued for it
+instead of failing: tasks wait in the queue, an unplaceable group is
+registered PENDING and its rescheduler waits for capacity without
+spending its budget. The autoscaler reads `pending_demand` /
+`pending_task_demand` / `pending_gang_demand` and fails what no node type
+could ever hold (`fail_unprovisionable`). Without one, such demand fails
+at once, as before.
 """
 
 from __future__ import annotations
@@ -229,6 +236,7 @@ class RemoteNode(Node):
                  token: Optional[str] = None, labels: Optional[Dict[str, str]] = None):
         super().__init__(node_id, resources, is_head=False, labels=labels)
         self.agent_addr = agent_addr
+        self.pid: Optional[int] = None  # the agent's process id, from its node entry
         from .rpc import RpcClient
 
         # execute_task returns "accepted" immediately; the timeout bounds
@@ -421,6 +429,10 @@ class ClusterScheduler:
         # task execution threads: dedicated per running task (blocking
         # get() can never deadlock) but REUSED across tasks
         self._task_threads = _ReusableThreadPool()
+        # With an autoscaler attached, "no node can ever satisfy" is a
+        # provisioning signal, not an error: the demand stays queued for
+        # the autoscaler to read. CapacityAutoscaler.start() clears this.
+        self.fail_fast_infeasible = True
 
     # -------------------------------------------------------------- membership
 
@@ -480,6 +492,82 @@ class ClusterScheduler:
             if on_node:
                 out.append(on_node)
         return out
+
+    def pending_demand(self) -> List[ResourceDict]:
+        """Every pending resource demand: queued tasks that no node can
+        take now, plus the unplaced bundles of groups waiting for capacity
+        or rescheduling. The status summary and the capacity plane read
+        the same list."""
+        out = self.pending_task_demand()
+        for gang in self.pending_gang_demand():
+            out.extend(dict(r) for r in gang["bundles"])
+        return out
+
+    def pending_task_demand(self) -> List[ResourceDict]:
+        """The resource requests of queued tasks only."""
+        with self._lock:
+            return [dict(spec.resources) for spec in self._pending]
+
+    def pending_gang_demand(self) -> List[Dict[str, Any]]:
+        """Unplaced placement-group bundles, one entry per group that
+        waits for capacity (PENDING) or reschedules after a host's death,
+        with the bundles that still need a node. The capacity plane plans
+        each entry onto capacity launched together, never piecemeal."""
+        with self._lock:
+            pgs = list(self._placement_groups.values())
+        out: List[Dict[str, Any]] = []
+        for pg in pgs:
+            if pg.removed or pg.state in ("RESERVED", "FAILED", "REMOVED"):
+                continue
+            unplaced = [dict(b.resources) for b in pg.bundles
+                        if b.node is None or not b.node.alive]
+            if unplaced:
+                out.append({"pg": pg.id.hex(), "name": pg.name, "state": pg.state,
+                            "bundles": unplaced})
+        return out
+
+    def fail_unprovisionable(self, can_provision: Callable[[ResourceDict], bool]) -> int:
+        """Fail the queued tasks and waiting groups whose demand
+        `can_provision(resources)` rejects; returns how many. The
+        autoscaler calls it with its node types' coverage: with
+        `fail_fast_infeasible` off, demand that no node type could ever
+        hold would otherwise wait forever."""
+        # the predicate runs outside the lock: it reads the cluster through
+        # methods that take this same (non-reentrant) lock
+        with self._lock:
+            snapshot = list(self._pending)
+        doomed = [spec for spec in snapshot if not can_provision(dict(spec.resources))]
+        removed: List[TaskSpec] = []
+        with self._lock:
+            for spec in doomed:
+                try:
+                    self._pending.remove(spec)
+                    removed.append(spec)
+                except ValueError:
+                    pass  # dispatched while it was judged: not doomed
+        for spec in removed:
+            self._fail_returns(
+                spec,
+                OutOfResourcesError(
+                    f"Task {spec.name} requires {spec.resources}, which no current node "
+                    f"or provisionable node type can satisfy"),
+            )
+        # groups waiting for capacity are judged the same way: a bundle no
+        # node type could ever hold fails the group instead of parking it
+        with self._lock:
+            waiting = [pg for pg in self._placement_groups.values()
+                       if not pg.removed and pg.state in ("PENDING", "RESCHEDULING")]
+        failed_pgs = 0
+        for pg in waiting:
+            impossible = [dict(b.resources) for b in pg.bundles
+                          if (b.node is None or not b.node.alive)
+                          and not can_provision(dict(b.resources))]
+            if impossible:
+                pg.failure_reason = (f"bundle(s) {impossible} exceed every current node "
+                                     f"and provisionable node type")
+                self._pg_transition(pg, "FAILED", pg.failure_reason)
+                failed_pgs += 1
+        return len(removed) + failed_pgs
 
     def head_node(self) -> Node:
         with self._lock:
@@ -582,14 +670,20 @@ class ClusterScheduler:
             acquired: List[Tuple[Node, ResourceDict]] = []
             with self._lock:
                 placement = self._plan_placement_locked(pg)
-                if placement is None:
+                if placement is None and self.fail_fast_infeasible:
                     raise PlacementGroupUnschedulableError(
                         f"Cannot fit bundles {list(bundles)} with strategy "
                         f"{strategy} on nodes "
                         f"{[n.resources.total for n in self._nodes.values() if n.placeable()]}"
                     )
+                if placement is None:
+                    # an autoscaler runs: the group is provisioning demand,
+                    # not an error. It is registered and surfaces whole in
+                    # pending_gang_demand; its rescheduler reserves it once
+                    # capacity lands, without spending the budget
+                    self._placement_groups[pg.id] = pg
                 lost = False
-                for bundle, node in zip(pg.bundles, placement):
+                for bundle, node in zip(pg.bundles, placement or ()):
                     if not node.resources.try_acquire(bundle.resources):
                         # the plan counted every bundle under this lock, so
                         # only a concurrent task acquisition gets here
@@ -604,6 +698,10 @@ class ClusterScheduler:
             if lost:
                 last_err = "concurrent reservation lost"
                 continue
+            if placement is None:
+                self._kick_reschedule(pg, "awaiting capacity (autoscaler attached)",
+                                      [b.index for b in pg.bundles])
+                return pg
             # phase 2, outside the lock (RPCs): prepare the remote bundles
             # at their agents; the hook reserves in order and rolls back
             # its own partial progress on a refusal
@@ -776,17 +874,29 @@ class ClusterScheduler:
                                         f"re-reserved after {attempt} attempt(s)",
                                         reschedules_used=pg.reschedules_used)
                     return
-                from ..util.events import emit
+                # with an autoscaler attached, a shortfall of capacity is a
+                # wait for provisioning, not a failed attempt: the budget
+                # unit is refunded and the retry runs at the base backoff
+                # (fail_unprovisionable fails the impossible groups)
+                waiting_capacity = (not self.fail_fast_infeasible
+                                    and err.startswith("no surviving node"))
+                if waiting_capacity:
+                    pg.reschedules_used -= 1
+                if not waiting_capacity or attempt == 1:
+                    from ..util.events import emit
 
-                emit("WARNING", "placement_groups",
-                     f"placement group {pg.id.hex()[:12]} reschedule attempt {attempt} "
-                     f"failed: {err}", kind="pg.reschedule_failed", pg=pg.id.hex())
-                logger.warning("PG %s reschedule attempt %d failed: %s",
-                               pg.id.hex()[:12], attempt, err)
+                    emit("WARNING", "placement_groups",
+                         f"placement group {pg.id.hex()[:12]} reschedule attempt {attempt} "
+                         f"failed: {err}", kind="pg.reschedule_failed", pg=pg.id.hex())
+                    logger.warning("PG %s reschedule attempt %d failed: %s",
+                                   pg.id.hex()[:12], attempt, err)
                 if pg.reschedules_used >= budget:
                     self._fail_pg(pg, budget)
                     return
-                time.sleep(min(backoff * (2 ** (attempt - 1)), 8.0))
+                if waiting_capacity:
+                    time.sleep(backoff)
+                else:
+                    time.sleep(min(backoff * (2 ** (attempt - 1)), 8.0))
         finally:
             with self._lock:
                 pg._rescheduler_running = False
@@ -994,6 +1104,8 @@ class ClusterScheduler:
         else:
             node = self._pick_node(spec)
             if node is None:
+                if not self.fail_fast_infeasible:
+                    return False  # the autoscaler provisions for this demand
                 # fail fast iff the SAME eligibility _pick_node applies
                 # (alive + hard labels) can never satisfy
                 candidates = self._eligible_nodes(spec)

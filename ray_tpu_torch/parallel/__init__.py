@@ -1,9 +1,8 @@
 """ray_tpu_torch.parallel — meshes over the ranks of a torch.distributed
 job (or, for TP serving, over this process's devices), sharding rules,
 collectives, the explicit FSDP / TP / EP collectives that stand in for
-GSPMD (`spmd.py`) and the pipeline schedules over pp (`pipeline.py`)
-(port of `ray_tpu.parallel`; `dcn.py` comes with ROADMAP A6b (jobs and
-DCN))."""
+GSPMD (`spmd.py`), the pipeline schedules over pp (`pipeline.py`) and
+the cross-slice state replicator (`dcn.py`) (port of `ray_tpu.parallel`)."""
 
 from .collectives import (  # noqa: F401
     CollectiveGroup,
@@ -20,6 +19,7 @@ from .collectives import (  # noqa: F401
     reducescatter,
     shift,
 )
+from .dcn import CrossSliceReplicator, fetch_replica  # noqa: F401
 from .mesh import (  # noqa: F401
     AXIS_ORDER,
     DATA_AXES,

@@ -25,8 +25,10 @@ Under a GCS head outage the loop freezes for `head_outage_grace_s`
 (replica calls still flow, direct to the node agents; scaling needs the
 head), emitting `serve.degraded` on freezing and on resuming, and clears
 the probes issued before the freeze so resuming prunes nothing on stale
-probes. Not ported yet: the cluster autoscaler's demand source
-(`core/capacity`), ROADMAP A6b (capacity).
+probes. The controller is a demand source of the capacity plane
+(`serve:<id>`, `core/capacity.py`): replicas short of the target whose
+resources no placeable node can ever hold are pending demand (origin
+"serve"); shutdown unregisters it.
 """
 
 from __future__ import annotations
@@ -188,6 +190,39 @@ class ServeController:
         self._interval = reconcile_interval_s
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # replica targets no placeable node can host are the capacity
+        # plane's demand (origin "serve"); unregistered in shutdown()
+        from ..core.capacity import register_demand_source
+
+        self._demand_source_name = f"serve:{id(self):x}"
+        register_demand_source(self._demand_source_name, self._pending_capacity_demand)
+
+    def _pending_capacity_demand(self) -> List[Dict[str, Any]]:
+        """DemandLedger source: each deployment's missing replicas whose
+        resources_per_replica fit on no placeable node: reconcile retries
+        them forever, and only new capacity unblocks them."""
+        from ..core import runtime as rt
+
+        if not rt.is_initialized():
+            return []
+        nodes = [n for n in rt.get_runtime().scheduler.nodes() if n.placeable()]
+        with self._lock:
+            states = list(self._states.values())
+        out: List[Dict[str, Any]] = []
+        for state in states:
+            deficit = state.target_replicas - len(state.replicas)
+            if deficit <= 0:
+                continue
+            res = dict(state.deployment.config.resources_per_replica or {"CPU": 1.0})
+            if any(all(n.resources.total.get(k, 0.0) >= v for k, v in res.items())
+                   for n in nodes):
+                continue  # a live node can host it once load drains
+            out.append({
+                "bundles": [dict(res) for _ in range(deficit)],
+                "origin": "serve",
+                "detail": f"{deficit} replica(s) of {state.deployment.name}",
+            })
+        return out
 
     # ------------------------------------------------------------- lifecycle
 
@@ -264,6 +299,9 @@ class ServeController:
         state.replica_set.set_replicas([])
 
     def shutdown(self) -> None:
+        from ..core.capacity import unregister_demand_source
+
+        unregister_demand_source(self._demand_source_name)
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=5)

@@ -5,9 +5,9 @@ checkpoint).
 
 Port of `ray_tpu/train/controller.py`. It drives a gang of thread
 actors (`WorkerGroup`), of processes (`MultihostWorkerGroup`) or of
-process actors on cluster agents (`ClusterWorkerGroup`). JAX's controller
-also advertises a restarting gang's bundles to the capacity plane as
-pending demand; that source comes with ROADMAP A6b (capacity). The
+process actors on cluster agents (`ClusterWorkerGroup`). While the run
+restarts, the next gang's bundles are the capacity plane's pending demand
+(the `train:<run>` source, `core/capacity.py`). The
 preemption pipeline below listens on this process's control-store
 pub/sub, where `Runtime.preempt_node` announces a logical node and every
 cluster member relays the notices of node agents (`core/cluster.py`).
@@ -172,16 +172,35 @@ class TrainController:
         self.goodput = GoodputAccountant(self.run_config.name)
         self.goodput.begin("init")
         unsubscribe = self._subscribe_preemption()
-        # JAX's controller registers the restarting gang's bundles as a
-        # capacity-plane demand source here; the capacity plane comes with
-        # the autoscaler (ROADMAP A6b (capacity))
+        # while the run restarts, its next gang is pending demand even
+        # before the new placement group is queued (the ledger drops it
+        # once the group exists)
+        from ..core.capacity import register_demand_source, unregister_demand_source
+
+        source_name = f"train:{self.run_config.name}"
+        register_demand_source(source_name, self._pending_capacity_demand)
         try:
             with tracing.span("train.run", run=self.run_config.name) as run_span:
                 result = self._run_traced(run_span)
         finally:
             self.goodput.finish()
+            unregister_demand_source(source_name)
             unsubscribe()
         return result
+
+    def _pending_capacity_demand(self) -> List[Dict[str, Any]]:
+        """DemandLedger source: the next gang's bundles while a restart
+        is pending, origin "train"; empty while the gang runs and after
+        the run ends."""
+        if self.status != RunStatus.RESTARTING:
+            return []
+        per_worker = self.scaling.worker_resources()
+        return [{
+            "bundles": [dict(per_worker) for _ in range(self.decide_num_workers())],
+            "origin": "train",
+            "detail": f"gang restart of run {self.run_config.name}",
+            "gang": True,
+        }]
 
     # ------------------------------------------------------------- preemption
 

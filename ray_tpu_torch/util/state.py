@@ -9,8 +9,9 @@ to every node agent (`ClusterContext.fanout_nodes`). `node_stats` carries
 this process's collector (`core/stats.py`) and every member's snapshot
 from the GCS node table; `head_summary` reports the head's durability
 (epoch, WAL, snapshot, restore, reconciliation) and each node's
-buffered-federation depth. The capacity autoscaler is not ported
-(`autoscaler` reads None).
+buffered-federation depth; `autoscaler_summary` reports the running
+capacity autoscaler (`core/capacity.py`), and the summary and the status
+report carry the scheduler's pending demand.
 """
 
 from __future__ import annotations
@@ -127,7 +128,9 @@ def summary() -> Dict[str, Any]:
         "tasks_failed": sum(1 for e in events if not e["ok"]),
         "object_store": runtime.object_store.usage(),
         "scheduler": dict(runtime.scheduler.stats),
-        "autoscaler": None,  # no capacity autoscaler runs in one process
+        "pending_tasks": len(runtime.scheduler.pending_task_demand()),
+        "pending_demand": len(runtime.scheduler.pending_demand()),
+        "autoscaler": autoscaler_summary(),
         "node_stats": node_stats(),
     }
 
@@ -167,6 +170,15 @@ def head_summary() -> Optional[Dict[str, Any]]:
             out["federation_lag"] = lag
         out["head_outage_s"] = round(ctx.gcs.outage_s(), 2)
     return out
+
+
+def autoscaler_summary() -> Optional[Dict[str, Any]]:
+    """status() of the running capacity autoscaler, or None when none
+    runs in this process."""
+    from ..core.capacity import active_autoscaler
+
+    scaler = active_autoscaler()
+    return scaler.status() if scaler is not None else None
 
 
 def cluster_metrics(raw: bool = False):
@@ -249,6 +261,27 @@ def status_report(verbose: bool = False) -> str:
                         f"{_fmt_bytes(last.get('bytes', 0))}"
                     )
                 lines.append("    " + "; ".join(parts))
+    task_demand = runtime.scheduler.pending_task_demand()
+    gang_demand = runtime.scheduler.pending_gang_demand()
+    lines.append("")
+    if task_demand:
+        lines.append(f"Pending tasks: {len(task_demand)} (demand: {task_demand[:8]}"
+                     f"{'...' if len(task_demand) > 8 else ''})")
+    else:
+        lines.append("Pending tasks: 0")
+    if gang_demand:
+        lines.append(f"Pending gang demand: {len(gang_demand)} group(s)")
+        for gang in gang_demand[:4]:
+            lines.append(f"  pg {gang['pg'][:12]} [{gang['state']}] {gang['name'] or ''}: "
+                         f"{len(gang['bundles'])} bundle(s) unplaced")
+    scaler = s["autoscaler"]
+    if scaler is not None:
+        classes = ", ".join(f"{k}={v}" for k, v in sorted(scaler["per_class"].items()))
+        lines.append(
+            f"Autoscaler: {scaler['managed_nodes']} managed node(s) ({classes or 'none'}), "
+            f"{scaler['retiring']} retiring, {scaler['pending_demands']} pending demand(s), "
+            f"ups={scaler['scale_ups']} downs={scaler['scale_downs']} "
+            f"replacements={scaler['replacements']} blocked={scaler['blocked']}")
     actors = runtime.list_actors()
     actor_states: Dict[str, int] = {}
     for a in actors:

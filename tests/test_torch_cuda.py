@@ -1476,3 +1476,119 @@ def test_cluster_gang_on_two_agents_matches_one_process(cuda):
     last = [m for m, _, rank, _ in reports if rank == 0][-1]["launches"]
     n_layers = config["model_overrides"]["n_layers"]
     assert last == [[n_layers * 3] * 3] * 2, last
+
+
+@pytest.mark.cuda
+def test_autoscaled_gpu_agent_runs_flash_and_cpu_agent_holds_no_context(cuda):
+    """The capacity plane on the card: a num_gpus=1 task brings up a `gpu1`
+    agent (`LocalProcessNodeProvider` starts it with `--num-gpus 1`), whose
+    flash forward kernel returns a CUDA result equal bit for bit to this
+    process's kernel on the same inputs and within bf16's tolerance of the
+    plain version; a num_cpus=2 task brings up a `cpu2` agent that
+    advertises no GPU and holds no CUDA context (torch.cuda is not
+    initialised there, and nvidia-smi's count of contexts does not grow);
+    both agents are reaped once idle."""
+    import torch_cluster_udfs as C
+    import torch_process_udfs as U
+    import ray_tpu_torch
+    from ray_tpu_torch.core.capacity import (CapacityAutoscaler, LocalProcessNodeProvider,
+                                             NodeType)
+    from ray_tpu_torch.core.config import cfg
+    from ray_tpu_torch.ops.attention import _flash_fwd_plain
+
+    before = U.live_children()
+    rt = ray_tpu_torch.init(num_cpus=1, num_gpus=0, head=True,
+                            _system_config={"node_heartbeat_s": 0.2})
+    provider = LocalProcessNodeProvider(rt)
+    try:
+        scaler = CapacityAutoscaler(
+            rt.scheduler, provider,
+            [NodeType("gpu1", {"CPU": 1.0, "GPU": 1.0}), NodeType("cpu2", {"CPU": 2.0})],
+            poll_interval_s=0.1, idle_timeout_s=600.0, runtime=rt)
+        scaler.start()
+        shape = (2, 12, 256, 64)
+        got = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(C.flash_fwd_out).remote(
+            11, shape), timeout=300)
+        check = ray_tpu_torch.get(ray_tpu_torch.remote(num_gpus=1)(C.flash_fwd_check).remote(
+            11, shape), timeout=300)
+        assert got.is_cuda and check["pid"] != os.getpid() and check["launches"] == 1
+        want = C.flash_fwd_out(11, shape)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        gen = torch.Generator(device="cpu").manual_seed(11)
+        q, k, v = (torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
+                   for _ in range(3))
+        ref, _ = _flash_fwd_plain(q, k, v, True, 1.0 / 8.0)
+        torch.testing.assert_close(got.float(), ref.float(), atol=TOLS[torch.bfloat16],
+                                   rtol=TOLS[torch.bfloat16])
+        # nvidia-smi may list the contexts under pids of another namespace
+        # (a container): count them before and after the cpu2 agent ran
+        apps_before = U.compute_app_pids()
+        pid, has_torch, has_cuda = ray_tpu_torch.get(
+            ray_tpu_torch.remote(num_cpus=2)(U.cuda_state).remote(), timeout=300)
+        assert has_torch and not has_cuda
+        apps = U.compute_app_pids()
+        assert pid not in apps and len(apps) == len(apps_before) >= 2
+        types = {n.labels.get("node_type"): n for n in rt.scheduler.nodes() if n.is_remote}
+        assert types["cpu2"].resources.total.get("GPU", 0.0) == 0.0
+        assert types["gpu1"].resources.total["GPU"] == 1.0
+        assert scaler.stats["scale_ups"] == 2
+        scaler.idle_timeout_s = 0.5
+        deadline = time.monotonic() + 60
+        while scaler.stats["scale_downs"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert scaler.stats["scale_downs"] == 2 and provider.pids() == []
+        scaler.stop()
+    finally:
+        provider.shutdown()
+        ray_tpu_torch.shutdown()
+        cfg.reset()
+    assert U.wait_no_children(before, timeout=30) == []
+
+
+@pytest.mark.cuda
+def test_cuda_state_written_in_place_replicates_as_at_the_call(cuda):
+    """DCN on the card: a CUDA train state (the port's TrainState) written
+    in place right after replicate_async reaches the peer as it was at the
+    call, bit for bit, as CPU tensors."""
+    import torch_cluster_udfs as C
+    import torch_process_udfs as U
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.scheduler import NodeAffinitySchedulingStrategy
+    from ray_tpu_torch.parallel import CrossSliceReplicator
+    from ray_tpu_torch.train.lm import AdamWState, TrainState
+
+    before = U.live_children()
+    c = Cluster(head_node_args={"num_cpus": 1, "num_gpus": 0})
+    try:
+        c.add_node(num_cpus=1, num_gpus=0)
+        c.wait_for_nodes(2)
+        peer = next(n for n in c.runtime.scheduler.nodes() if n.is_remote)
+        gen = torch.Generator(device="cpu").manual_seed(9)
+        params = {"w": torch.randn(2048, 2048, generator=gen).cuda(),
+                  "e": torch.randn(4096, 256, generator=gen).to("cuda", torch.bfloat16)}
+        state = TrainState(step=3, params=params, opt_state=AdamWState(
+            count=3, mu={k: torch.zeros_like(v) for k, v in params.items()},
+            nu={k: torch.ones_like(v) for k, v in params.items()}))
+        expected = C.leaf_digests(state)
+        rep = CrossSliceReplicator(peer.agent_addr)
+        try:
+            t0 = time.perf_counter()
+            rep.replicate_async("card-state", state)
+            submit_s = time.perf_counter() - t0
+            with torch.no_grad():
+                for tree in (state.params, state.opt_state.mu, state.opt_state.nu):
+                    for v in tree.values():
+                        v.mul_(3.0).add_(1.0)
+            assert rep.wait(timeout=120)
+        finally:
+            rep.close()
+        assert submit_s < 0.05, submit_s
+        got = ray_tpu_torch.get(ray_tpu_torch.remote(num_cpus=1)(C.replica_digests).options(
+            scheduling_strategy=NodeAffinitySchedulingStrategy(peer.node_id)).remote(
+                "card-state"), timeout=120)
+        assert got["digests"] == expected and got["devices"] == ["cpu"]
+        assert C.leaf_digests(state) != expected
+    finally:
+        c.shutdown()
+    assert U.wait_no_children(before) == []

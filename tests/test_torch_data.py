@@ -30,6 +30,7 @@ import ray_tpu
 import ray_tpu_torch
 import torch_process_udfs as U
 from ray_tpu import data as jdata
+from ray_tpu.core import config as jconfig
 from ray_tpu.core import runtime as jruntime
 from ray_tpu.data import dataset as jdataset
 from ray_tpu.data import executor as jexecutor
@@ -39,6 +40,7 @@ from ray_tpu.util import Full as JFull
 from ray_tpu.util import Queue as JQueue
 from ray_tpu.util import state as jstate
 from ray_tpu_torch import data as tdata
+from ray_tpu_torch.core import config as tconfig
 from ray_tpu_torch.core import runtime as truntime
 from ray_tpu_torch.data import dataset as tdataset
 from ray_tpu_torch.data import executor as texecutor
@@ -85,6 +87,10 @@ def _no_runtime_left():
     yield
     for pkg in PKGS:
         pkg.rt.shutdown()
+    # an init's _system_config (native_store, shm_min_bytes) would outlive
+    # the test in this process and reach the next file's stores
+    jconfig.cfg.reset()
+    tconfig.cfg.reset()
     assert not truntime.is_initialized() and not jruntime.is_initialized()
 
 

@@ -29,6 +29,14 @@ the function.
   greedy request through the agent's engine and its dense check),
   `reset_counts` and `stats` (the launches since the reset and the card's
   allocated bytes).
+- the capacity plane, jobs and DCN (`tests/test_torch_dcn.py`,
+  `tests/test_torch_cuda.py`, `chip_smoke.py`'s `capacity` phase):
+  `replica` / `replica_field` fetch a replicated pytree on the agent that
+  holds it, `replica_digests` hashes its leaves and `replica_q8_errors`
+  holds an int8 replica against the exact one there; `flash_fwd_check`
+  launches the flash forward kernel on an agent's card and returns its
+  error against the plain version, the pid and the launch count, and
+  `flash_fwd_out` returns the kernel's output itself.
 - the cluster-hosted gangs (`train.ClusterWorkerGroup`): `gang_steps`, a
   toy checkpoint-aware loop (`tests/test_torch_cluster_pg.py`'s re-mesh
   drill), and `gang_lm`, data-parallel `LMTrainer` steps with checkpoints
@@ -46,6 +54,155 @@ import numpy as np
 
 
 # ----------------------------------------------------------------- tasks
+
+
+def replica(key: str):
+    """The pytree replicated to this node under `key` (parallel/dcn)."""
+    from ray_tpu_torch.parallel import fetch_replica
+
+    return fetch_replica(key)
+
+
+def replica_field(key: str, name: str):
+    return replica(key)[name]
+
+
+def leaf_digests(tree) -> dict:
+    """{path: (dtype, shape, blake2b of the bytes)} of a pytree's tensor
+    and array leaves, so two processes can compare trees bit for bit
+    without shipping them."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    out = {}
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}/{i}")
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name), f"{path}/{f.name}")
+        elif isinstance(x, torch.Tensor):
+            t = x.detach().cpu().contiguous()
+            raw = (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
+            out[path] = (str(t.dtype), tuple(t.shape), hashlib.blake2b(raw.tobytes()).hexdigest())
+        elif isinstance(x, np.ndarray):
+            out[path] = (x.dtype.str, x.shape, hashlib.blake2b(x.tobytes()).hexdigest())
+        else:
+            out[path] = repr(x)
+
+    walk(tree, "")
+    return out
+
+
+def replica_digests(key: str) -> dict:
+    """`leaf_digests` of the replica under `key`, with the device of every
+    tensor leaf (the replica materializes on the CPU)."""
+    import torch
+
+    tree = replica(key)
+    devices = set()
+
+    def note(x):
+        if isinstance(x, torch.Tensor):
+            devices.add(str(x.device))
+        elif isinstance(x, dict):
+            for v in x.values():
+                note(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                note(v)
+        elif hasattr(x, "__dataclass_fields__"):
+            for name in x.__dataclass_fields__:
+                note(getattr(x, name))
+
+    note(tree)
+    return {"digests": leaf_digests(tree), "devices": sorted(devices), "pid": os.getpid()}
+
+
+def replica_q8_errors(exact_key: str, q8_key: str) -> dict:
+    """Each float leaf's largest error in the int8 replica against the
+    exact one (both on this node), over the leaf's largest magnitude, and
+    whether every other leaf arrived exact."""
+    import torch
+
+    exact, q8 = leaf_tensors(replica(exact_key)), leaf_tensors(replica(q8_key))
+    worst, exact_others = {}, True
+    for path, a in exact.items():
+        b = q8[path]
+        if isinstance(a, torch.Tensor) and a.is_floating_point() and a.numel() >= 4096:
+            denom = max(float(a.abs().max()), 1e-9)
+            worst[path] = float((b.float() - a.float()).abs().max()) / denom
+            exact_others &= b.dtype == a.dtype and tuple(b.shape) == tuple(a.shape)
+        elif isinstance(a, torch.Tensor):
+            exact_others &= bool(torch.equal(a, b))
+        else:
+            exact_others &= a == b
+    return {"worst_rel": max(worst.values()), "float_leaves": len(worst),
+            "others_exact": bool(exact_others)}
+
+
+def leaf_tensors(tree, path: str = "") -> dict:
+    """{path: leaf} of a pytree of dicts, sequences and dataclasses."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(leaf_tensors(v, f"{path}/{k}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(leaf_tensors(v, f"{path}/{i}"))
+    elif hasattr(tree, "__dataclass_fields__"):
+        for name in tree.__dataclass_fields__:
+            out.update(leaf_tensors(getattr(tree, name), f"{path}/{name}"))
+    else:
+        out[path] = tree
+    return out
+
+
+def flash_fwd_check(seed: int, shape, dtype: str = "bfloat16", causal: bool = True,
+                    device: str = "cuda") -> dict:
+    """The flash forward kernel on this process's card against its plain
+    version on the same inputs (made from `seed`): the largest error, the
+    kernel's launches in this call, this pid, and whether the two outputs
+    are bitwise equal. On device="cpu" the wrapper takes the plain version
+    (a CPU rehearsal: no launch)."""
+    import torch
+
+    from ray_tpu_torch.ops import FLASH_FWD
+    from ray_tpu_torch.ops.attention import _flash_fwd_plain, flash_attention_with_lse
+
+    b, h, s, d = shape
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(device, getattr(torch, dtype))
+               for _ in range(3))
+    before = FLASH_FWD.launches
+    out, _ = flash_attention_with_lse(q, k, v, causal=causal)
+    launches = FLASH_FWD.launches - before
+    ref, _ = _flash_fwd_plain(q, k, v, causal, 1.0 / d ** 0.5)
+    return {"max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "bitwise": bool(torch.equal(out, ref)), "launches": launches,
+            "pid": os.getpid(), "finite": bool(torch.isfinite(out).all()),
+            "device": torch.cuda.get_device_name(0) if out.is_cuda else "cpu"}
+
+
+def flash_fwd_out(seed: int, shape, dtype: str = "bfloat16", causal: bool = True):
+    """The flash forward kernel's output on inputs made from `seed` (a
+    CUDA tensor: it lands on the caller's card)."""
+    import torch
+
+    from ray_tpu_torch.ops.attention import flash_attention_with_lse
+
+    b, h, s, d = shape
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to("cuda", getattr(torch, dtype))
+               for _ in range(3))
+    return flash_attention_with_lse(q, k, v, causal=causal)[0]
 
 
 def pid() -> int:
@@ -399,10 +556,11 @@ def dense_check_stats(params, config, prompts, outs, picks, tail_gap: float) -> 
 class ClusterLLM:
     """`chip_smoke.py`'s cluster phase, hosted on a node agent's card:
     Llama-3-8B's paged `LLMServer` (bf16 weights from `seed`, every pass
-    captured up front), the serve phase's requests submitted together,
-    and the dense check on this node, where the weights are."""
+    captured up front; `n_layers` cuts its depth), the serve phase's
+    requests submitted together, and the dense check on this node, where
+    the weights are."""
 
-    def __init__(self, model: str, seed: int, max_slots: int):
+    def __init__(self, model: str, seed: int, max_slots: int, n_layers=None):
         import torch
 
         from ray_tpu_torch.models import get_config
@@ -410,6 +568,8 @@ class ClusterLLM:
 
         t0 = time.perf_counter()
         self.config = get_config(model).replace(param_dtype=torch.bfloat16)
+        if n_layers is not None:
+            self.config = self.config.replace(n_layers=n_layers)
         self.server = LLMServer(
             self.config, engine_config=PagedEngineConfig(max_slots=max_slots, precompile=True,
                                                          paged=PagedConfig()),

@@ -6,7 +6,8 @@
 process of a `MultihostWorkerGroup` (module-level, so the worker
 protocol's standard pickle sends it by reference). For each sync mode
 it builds `LMTrainer(mesh_spec=MeshSpec(dp=n))` on the rank's CUDA device
-from the phase's seed and optimizer, feeds it `lm_batch_iterator(
+from the phase's seed and optimizer (`model_overrides` replace fields of
+the named config: the phase's depth cut), feeds it `lm_batch_iterator(
 sharding=data_sharding(mesh))` over the same global window every step,
 and reports through `train.report`: the losses, each step's wall time
 (ended by a device synchronisation), the wire's bytes and seconds by
@@ -89,7 +90,7 @@ def dp_rank(config: dict) -> int:
     from ray_tpu_torch.train.lm import _rows_k
 
     rank, n = dist.get_rank(), dist.get_world_size()
-    model = get_config(config["model"])
+    model = get_config(config["model"]).replace(**config.get("model_overrides", {}))
     tokens = np.asarray(config["tokens"])
     steps, block = config["steps"], cfg.dp_quant_block
     for mode in config["modes"]:
