@@ -128,7 +128,9 @@ nonzero and no result line is printed):
              (1%), decode_mfu in (0, 1.05] beside the MFU of the block's
              measured replay, tick_seconds beside the replay and dispatch
              times; the user path (ray_tpu_torch.init(num_gpus=1),
-             serve.run(build_llm_app(params=..., paged=True)), the 8
+             serve.run(build_llm_app(params=..., paged=True)) on the serve
+             weights' first OBSERVE_USER_LAYERS (8) layers, a depth cut for
+             the script's time limit), the 8
              requests streamed through the handle under state.profile():
              device "ok", the capture's ragged device kernels (> 0, at most
              the engine's count for the window) on the wall clock inside
@@ -172,7 +174,7 @@ nonzero and no result line is printed):
              after one host copy on the agent; a no-op actor's call round
              trip (p50 / p90 us over CLUSTER_CALLS calls). (b) An actor
              with num_gpus=1 (torch_cluster_udfs.ClusterLLM) builds
-             LLMServer at Llama-3-8B's width and CLUSTER_LAYERS (8) of its
+             LLMServer at Llama-3-8B's width and CLUSTER_LAYERS (4) of its
              32 layers (bf16 from SEED, max_slots 8, precompile; a depth
              cut for the script's time limit) on the agent,
              serves the 8 prompts submitted together (the counts set to 0
@@ -310,7 +312,7 @@ nonzero and no result line is printed):
              start; the flash forward kernel must launch in (a) and (b).
 
 9. dp      — data-parallel GPT-2 124M across processes (its width at DP_LAYERS,
-             6 of its 12 layers: a depth cut for the script's
+             3 of its 12 layers: a depth cut for the script's
              time limit; the gang phase runs the same): a TrainController
              drives a MultihostWorkerGroup of 2 processes on the one card
              over gloo (NCCL refuses two ranks on one device); each rank
@@ -330,7 +332,7 @@ nonzero and no result line is printed):
              f32 + sharded update within 1e-5 of f32 at every step, each
              int8 run's final loss within DP_INT8_FINAL_ATOL of f32's, every
              stage-1 residual at most half its block's step, the bytes
-             equal to dp_sync_bytes, 6 x 10 launches of each flash kernel
+             equal to dp_sync_bytes, 3 x 10 launches of each flash kernel
              per rank and mode; a rank that hangs past the phase's timeout
              fails it. Two ranks on one card measure correctness and the
              sync's cost over this transport, not scaling.
@@ -468,6 +470,33 @@ nonzero and no result line is printed):
              worker (SUCCEEDED, its log holds the result), and stops a
              sleeping job (STOPPED); after `down` no process carries the
              tag.
+   libraries — Tune, RLlib, Workflow and the surfaces in a head runtime
+             (init(head=True), GPU 1.0): (a) a Tuner with
+             PopulationBasedTraining over GPT-2 124M's learning rate (full
+             width and depth, f32 masters, bf16 compute, one fixed batch of
+             TRAIN_BATCH x TRAIN_SEQ + 1 from the seed): two trials at once
+             on the card ({CPU 1, GPU 0.5} each), the trainable
+             torch_tune_trainables.gpt2_pbt (create_train_state /
+             make_train_step on "cuda", a loss every step, the whole
+             TrainState checkpointed through the tune session every
+             LIB_TUNE_CKPT_EVERY steps); both trials TERMINATED, at least one
+             exploit, each exploiting trial's restored state equal to a state
+             the donor saved at that step (fingerprints of every tensor's
+             bits) and to none of its own, each flash kernel launched 12 x the
+             steps taken (every incarnation's), printing each trial's step ms
+             and the checkpoint clones' seconds. (b) PPO and DQN with JAX's
+             test settings, learners on the card, rollout workers on the CPU:
+             JAX's reward bounds, iterations a second and one update's ms,
+             no kernel launched. (c) a workflow of 3 steps: q, k, v made on
+             the card at the Llama check's shape (B 1, GQA 32/8, S 931, D
+             128, bf16), the flash forward kernel on them (held against the
+             plain version), a flaky step that fails once and retries; run
+             again on the same storage: no kernel launched, the result bit
+             equal and on the card. (d) `python -m ray_tpu_torch doctor`
+             names the card and shows GPU 1.0; `status` and `events` as
+             observers of the live head; the dashboard's /api/node_stats
+             shows the cuda block with allocated bytes above 0; a POST
+             /api/jobs job ends SUCCEEDED.
 
 The line before the last lists every kernel with its launches on the main
 paths (serve: phases 4-5; spec; dense; overload; deploy; observe; tp_serve: the
@@ -482,7 +511,8 @@ split by mode as fsdp_tp_launches_by_mode: (a) f32, (a2) and (b) bf16;
 a7: phase 11's ranks and ViT, also split by part as a7_launches_by_part;
 capacity: (a)'s replicas (engine replays + wrapper launches) and ranks,
 (b)'s and (d)'s flash forward in the agent and the job's worker (counted
-there and returned), (c)'s train steps;
+there and returned), (c)'s train steps; libraries: (a)'s Tuner fit; libraries_workflow: (c)'s
+two runs (also split by run as libraries_workflow_launches_by_run);
 each counted from zero just before it, profiled repeats, first calls
 and references left out), its error against the plain version and its
 times; the last line is {"ok": true, "device": {...}}. Needs one CUDA
@@ -505,6 +535,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -530,6 +561,7 @@ from ray_tpu_torch.ops.attention import (
     _flash_bwd_plain,
     _flash_fwd_cuda,
     _flash_fwd_plain,
+    flash_attention,
     flash_attention_with_lse,
 )
 from ray_tpu_torch.ops.ragged_paged_attention import (
@@ -540,7 +572,13 @@ from ray_tpu_torch.ops.ragged_paged_attention import (
 import ray_tpu_torch
 import torch_cluster_udfs as cluster_udfs
 import torch_process_udfs as udfs
-from ray_tpu_torch import serve
+import torch_tune_trainables as tune_trainables
+from ray_tpu_torch import serve, tune, workflow
+from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+from ray_tpu_torch.jobs import default_job_manager
+from ray_tpu_torch.rllib import DQNConfig, PPOConfig
+from ray_tpu_torch.rllib import dqn as rl_dqn
+from ray_tpu_torch.rllib import ppo as rl_ppo
 from ray_tpu_torch.core.config import cfg
 from ray_tpu_torch.core.runtime import get_runtime
 from ray_tpu_torch.core.exceptions import BackPressureError, RequestTimeoutError
@@ -633,7 +671,7 @@ DEPLOY_B_REQUESTS = 16  # deployment B: 2 dense replicas x 8 slots
 CLUSTER_CPU_BYTES = 1 << 30  # the CPU tensor an agent task returns
 CLUSTER_CUDA_NUMEL = 128 << 20  # the CUDA tensor it returns: 256 MiB of bf16
 CLUSTER_CALLS = 200  # no-op actor calls timed one after another
-CLUSTER_LAYERS = 8  # the agent's Llama-3-8B: its width, 8 of 32 layers (a depth cut)
+CLUSTER_LAYERS = 4  # the agent's Llama-3-8B: its width, 4 of 32 layers (a depth cut)
 TRAIN_MODEL = "gpt2-small"
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 TRAIN_STEPS = 20
@@ -2424,6 +2462,14 @@ OBSERVE_LOOSE_SLO_S = 60.0  # the one no request violates
 OBSERVE_CHECK_PERIOD_S = 0.2  # the SLO monitor's check period in the phase
 OBSERVE_CAPTURE_S = 1.5  # the profile capture around the streamed requests
 OBSERVE_ALIGN_S = 0.05  # device events lie in the capture window +- this
+OBSERVE_USER_LAYERS = 8  # the user path's deployment: Llama-3-8B's width at 8 layers (a depth cut)
+
+
+def _depth_cut(config, params, n_layers: int) -> tuple:
+    """(config, params) of the model's first `n_layers` layers: views of the
+    stacked blocks, no copy."""
+    return (config.replace(n_layers=n_layers),
+            dict(params, blocks={k: v[:n_layers] for k, v in params["blocks"].items()}))
 
 
 def _marks_on(on: bool) -> None:
@@ -2817,7 +2863,8 @@ def phase_observe(server, config, prompts) -> dict:
     steps["timelines"], t0 = time.perf_counter() - t0, time.perf_counter()
     gauges = _observe_gauges(engine, config)
     steps["gauges"], t0 = time.perf_counter() - t0, time.perf_counter()
-    user = _observe_user_path(config, engine.params, prompts, path)
+    user = _observe_user_path(*_depth_cut(config, engine.params, OBSERVE_USER_LAYERS), prompts,
+                              path)
     steps["user path"], t0 = time.perf_counter() - t0, time.perf_counter()
     _observe_chunk_prefill(config, engine.params)
     steps["chunk prefill"] = time.perf_counter() - t0
@@ -4707,7 +4754,7 @@ def _process_health(card: str) -> dict:
 
 DP_RANKS = 2  # two processes on the one card, over gloo (NCCL refuses two ranks on a device)
 DP_STEPS = 10
-DP_LAYERS = 6  # GPT-2 124M's width at 6 of its 12 layers, dp's and the gang's (a depth cut)
+DP_LAYERS = 3  # GPT-2 124M's width at 3 of its 12 layers, dp's and the gang's (a depth cut)
 DP_MODES = ("f32", "int8", "f32+shard", "int8+shard")
 DP_TIMEOUT_S = 240  # every collective of the gang, and its start-up
 DP_PHASE_TIMEOUT_S = 420  # the whole gang run: a hung rank fails the phase
@@ -6118,6 +6165,334 @@ def phase_capacity(card: str) -> dict:
     return dict(launches=launches, by_part=parts)
 
 
+LIB_TUNE_STEPS = 6  # each trial's train steps
+LIB_TUNE_CKPT_EVERY = 2  # steps between a trial's checkpoints (the whole TrainState)
+LIB_TUNE_INTERVAL = 4  # PBT's perturbation_interval, in reports
+LIB_TUNE_LRS = (1e-4, 1e-7)  # the grid: the second trial hardly moves, so it exploits
+LIB_TUNE_MUTATIONS = [1e-5, 1e-4, 1e-3, 3e-3]
+LIB_SETTLE_S = 30.0  # the trials' threads end within this after fit returns
+LIB_PPO = dict(env="cartpole", num_workers=2, num_envs_per_worker=8, rollout_len=128, lr=3e-3,
+               num_epochs=4, seed=0)  # JAX's test settings (tests/test_rllib.py)
+LIB_PPO_ITERS = 25
+LIB_DQN = dict(env="cartpole", num_workers=2, num_envs_per_worker=8, rollout_len=64, lr=1e-3,
+               updates_per_iter=48, learning_starts=512, eps_decay_iters=12, seed=0)
+LIB_DQN_ITERS = 30
+LIB_TIMEOUT_S = 120  # each CLI command of (d)
+
+
+class _TimedTuner(tune.Tuner):
+    """The port's Tuner, timing each PBT checkpoint clone."""
+
+    clone_s: list = []
+
+    def _clone_checkpoint(self, donor, victim) -> None:
+        t0 = time.perf_counter()
+        super()._clone_checkpoint(donor, victim)
+        self.clone_s.append(time.perf_counter() - t0)
+
+
+def _settled_launches() -> tuple:
+    """(launches by kernel, steps taken) once neither changes for 1 s: the
+    trials' threads have ended."""
+    deadline = time.monotonic() + LIB_SETTLE_S
+    prev = None
+    while True:
+        torch.cuda.synchronize()
+        now = ({k.name: k.launches for k in KERNELS}, tune_trainables.steps_taken())
+        if now == prev:
+            return now
+        if time.monotonic() > deadline:
+            raise AssertionError(f"libraries (a): the trials' steps did not settle: {now}")
+        prev = now
+        time.sleep(1.0)
+
+
+def _lib_report_tag(r: dict) -> str:
+    return (f"{r['step']}" + (f"r{r['restored_step']}" if "restored_step" in r else "")
+            + ("c" if "fingerprint" in r else "")
+            + (f":{r['loss']:.4f}" if "loss" in r else ""))
+
+
+def _lib_tune(card: str, tmp: str) -> dict:
+    config = get_config(TRAIN_MODEL)
+    pbt = tune.PopulationBasedTraining(
+        metric="loss", mode="min", perturbation_interval=LIB_TUNE_INTERVAL,
+        hyperparam_mutations={"lr": LIB_TUNE_MUTATIONS}, quantile_fraction=0.5, seed=SEED)
+    tuner = _TimedTuner(
+        tune_trainables.gpt2_pbt,
+        param_space={"lr": tune.grid_search(list(LIB_TUNE_LRS)), "model": TRAIN_MODEL,
+                     "seed": SEED, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "steps": LIB_TUNE_STEPS, "ckpt_every": LIB_TUNE_CKPT_EVERY,
+                     "device": "cuda"},
+        tune_config=tune.TuneConfig(metric="loss", mode="min", scheduler=pbt, max_concurrent=2,
+                                    resources_per_trial={"CPU": 1.0, "GPU": 0.5},
+                                    storage_path=os.path.join(tmp, "tune")))
+    tune_trainables.reset_steps()
+    _TimedTuner.clone_s = []
+    torch.cuda.synchronize()
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    trials = list(tuner.fit())
+    wall = time.perf_counter() - t0
+    launches, taken = _settled_launches()
+    for t in trials:
+        steps_ms = [r["step_ms"] for r in t.history if "step_ms" in r]
+        log("libraries", f"(a) {t.trial_id}: {t.status.value}, lr {t.config['lr']:g} now, "
+            f"{t.num_exploits} exploit(s), reports (step, r = restored from, c = checkpoint: loss) "
+            f"{[_lib_report_tag(r) for r in t.history]}, final loss "
+            f"{t.last_result.get('loss', float('nan')):.4f}, step ms median "
+            f"{statistics.median(steps_ms[1:] or steps_ms):.2f} (first {steps_ms[0]:.2f}, "
+            f"max {max(steps_ms):.2f}) ({card})")
+    if [t.status.value for t in trials] != ["TERMINATED", "TERMINATED"]:
+        raise AssertionError(f"libraries (a): trials {[(t.status.value, t.error) for t in trials]}")
+    if pbt.num_exploits < 1:
+        raise AssertionError("libraries (a): PBT never exploited")
+    saved = {t.trial_id: {(r["step"], tuple(map(tuple, r["fingerprint"])))
+                          for r in t.history if "fingerprint" in r} for t in trials}
+    restores = []
+    for t in trials:
+        others = set().union(*(v for k, v in saved.items() if k != t.trial_id))
+        for r in t.history:
+            if "restored_fingerprint" in r:
+                key = (r["restored_step"], tuple(map(tuple, r["restored_fingerprint"])))
+                if key not in others or key in saved[t.trial_id]:
+                    raise AssertionError(f"libraries (a): {t.trial_id} restored a state at step "
+                                         f"{r['restored_step']} that no donor saved")
+                restores.append((t.trial_id, r["restored_step"]))
+    if len(restores) != sum(t.num_exploits for t in trials):
+        raise AssertionError(f"libraries (a): {len(restores)} restores for "
+                             f"{sum(t.num_exploits for t in trials)} exploits")
+    steps = sum(taken.values())
+    for kernel in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
+        if launches[kernel.name] != config.n_layers * steps:
+            raise AssertionError(f"libraries (a): {kernel.name} launched {launches[kernel.name]} "
+                                 f"times in {steps} steps, want {config.n_layers} per step")
+    if launches[RAGGED.name]:
+        raise AssertionError("libraries (a): the ragged kernel ran in training")
+    log("libraries", f"(a) PBT over {TRAIN_MODEL}'s lr {list(LIB_TUNE_LRS)}: fit {wall:.2f} s, "
+        f"{pbt.num_exploits} exploit(s), restores {restores} equal to the donor's saved state "
+        f"bit for bit (fingerprints), clones {[round(x, 3) for x in _TimedTuner.clone_s]} s, "
+        f"{steps} steps taken {sorted(taken.values())}, launches {launches} = "
+        f"{config.n_layers} x steps ({card})")
+    return launches
+
+
+def _lib_rllib(card: str) -> None:
+    for k in KERNELS:
+        k.launches = 0
+    algo = PPOConfig(**LIB_PPO, device="cuda").build()
+    try:
+        t0 = time.perf_counter()
+        first = result = None
+        for _ in range(LIB_PPO_ITERS):
+            result = algo.train()
+            if first is None and result["episodes_this_iter"] > 0:
+                first = result["episode_reward_mean"]
+        wall = time.perf_counter() - t0
+        if not result["episode_reward_mean"] > max(60.0, 2 * first):
+            raise AssertionError(f"libraries (b): PPO's reward {first} -> "
+                                 f"{result['episode_reward_mean']}, want > max(60, 2 x first)")
+        rollouts = ray_tpu_torch.get([w.rollout.remote() for w in algo.workers])
+        stacked = {k: torch.from_numpy(np.stack([r[k] for r in rollouts])).to(algo.device)
+                   for k in ("obs", "actions", "logp", "values", "rewards", "dones",
+                             "last_value")}
+        perms = algo.draw_permutations()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        algo.opt_state, _ = rl_ppo.ppo_update(algo.params, algo.opt, algo.opt_state, stacked,
+                                              perms, algo.config)
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        algo.stop()
+    log("libraries", f"(b) PPO {LIB_PPO_ITERS} iterations: reward {first:.1f} -> "
+        f"{result['episode_reward_mean']:.1f}, {LIB_PPO_ITERS / wall:.3f} iterations/s, one "
+        f"update ({algo.config.num_epochs} x {algo.config.num_minibatches} Adam steps on the "
+        f"card) {update_ms:.2f} ms ({card})")
+    algo = DQNConfig(**LIB_DQN, device="cuda").build()
+    try:
+        t0 = time.perf_counter()
+        recent = []
+        for _ in range(LIB_DQN_ITERS):
+            result = algo.train()
+            if result["episodes_this_iter"] > 0:
+                recent.append(result["episode_reward_mean"])
+        wall = time.perf_counter() - t0
+        tail = float(np.mean(recent[-5:]))
+        if not (result["buffer_size"] > 512 and result["num_updates"] > 0 and tail > 60.0):
+            raise AssertionError(f"libraries (b): DQN buffer {result['buffer_size']}, updates "
+                                 f"{result['num_updates']}, tail reward {tail}")
+        batches = algo.sample_batches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        algo.opt_state, _, _ = rl_dqn.dqn_update_k(algo.params, algo.target_params, algo.opt,
+                                                   algo.opt_state, batches, algo.config.gamma)
+        torch.cuda.synchronize()
+        update_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        algo.stop()
+    launched = {k.name: k.launches for k in KERNELS}
+    if any(launched.values()):
+        raise AssertionError(f"libraries (b): the MLP learners launched {launched}")
+    log("libraries", f"(b) DQN {LIB_DQN_ITERS} iterations: tail reward {tail:.1f}, "
+        f"{LIB_DQN_ITERS / wall:.3f} iterations/s, one update_k "
+        f"({LIB_DQN['updates_per_iter']} Adam steps on the card) {update_ms:.2f} ms ({card})")
+
+
+@workflow.step
+def lib_qkv(seed: int):
+    """q, k, v at the Llama check's shape on the card, from the seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, hq, hkv, s_len, d = FLASH_SHAPES["llama"]
+    return tuple(torch.randn(b, h, s_len, d, generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for h in (hq, hkv, hkv))
+
+
+@workflow.step
+def lib_attend(qkv):
+    q, k, v = qkv
+    return flash_attention(q, k, v, causal=True)
+
+
+@workflow.step(max_retries=2)
+def lib_flaky_summary(out, attempts_path: str):
+    n = int(open(attempts_path).read()) if os.path.exists(attempts_path) else 0
+    with open(attempts_path, "w") as f:
+        f.write(str(n + 1))
+    if n == 0:
+        raise RuntimeError("the flaky step fails its first attempt")
+    return {"out": out, "sum": float(out.float().sum())}
+
+
+def _lib_workflow(card: str, tmp: str) -> dict:
+    attempts = os.path.join(tmp, "flaky_attempts")
+    dag = lib_flaky_summary.step(lib_attend.step(lib_qkv.step(SEED)), attempts)
+    runs, results = {}, []
+    for run in ("first_run", "resumed_run"):
+        for k in KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        results.append(workflow.run(dag, storage=os.path.join(tmp, "workflow"),
+                                    workflow_id="libraries"))
+        torch.cuda.synchronize()
+        runs[run] = {k.name: k.launches for k in KERNELS}
+        log("libraries", f"(c) {run}: {time.perf_counter() - t0:.3f} s, launches {runs[run]}, "
+            f"steps done {workflow.list_completed(os.path.join(tmp, 'workflow'), 'libraries')}")
+    first, again = results
+    q, k, v = lib_qkv(SEED)
+    ref = _flash_fwd_plain(q, k, v, True, 1.0 / math.sqrt(q.shape[-1]))[0]
+    err = (first["out"].float() - ref.float()).abs().max().item()
+    atol, rtol, _ = KERNEL_TOL[torch.bfloat16]
+    if not torch.allclose(first["out"].float(), ref.float(), atol=atol, rtol=rtol):
+        raise AssertionError(f"libraries (c): the workflow's flash output is {err} off the "
+                             "plain version")
+    if runs["first_run"][FLASH_FWD.name] != 1 or any(
+            n for name, n in runs["first_run"].items() if name != FLASH_FWD.name):
+        raise AssertionError(f"libraries (c): the first run launched {runs['first_run']}")
+    if any(runs["resumed_run"].values()):
+        raise AssertionError(f"libraries (c): the resumed run launched {runs['resumed_run']}")
+    if not (again["out"].is_cuda and torch.equal(first["out"], again["out"])
+            and again["sum"] == first["sum"]):
+        raise AssertionError("libraries (c): the resumed run's result differs from the first's")
+    if open(attempts).read() != "2":
+        raise AssertionError("libraries (c): the flaky step did not retry exactly once")
+    log("libraries", f"(c) 3 steps, the flaky one retried once; max error {err:.3g} against "
+        f"the plain version; resumed result bit equal, on {again['out'].device} ({card})")
+    return runs
+
+
+def _lib_cli(*args) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _lib_cli_start(rt) -> dict:
+    """(d)'s CLI commands, started at the phase's start: each process
+    imports torch for seconds, beside (a)-(c)."""
+    gcs = rt.cluster.gcs_address
+    return {"doctor": _lib_cli("doctor"),
+            "status": _lib_cli("--no-cuda", "status", "--address", gcs),
+            "events": _lib_cli("--no-cuda", "events", "--address", gcs, "--limit", "20")}
+
+
+def _lib_surfaces(card: str, procs: dict) -> None:
+    t0 = time.perf_counter()
+    url = start_dashboard(port=0)
+    try:
+        with urllib.request.urlopen(url + "/api/node_stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        # this process's node holds the card's tensors; the observers hold none
+        blocks = [d for node in stats.values() for d in node.get("cuda", ())]
+        if not blocks or not all(d["memory_allocated_bytes"] > 0 for d in blocks):
+            raise AssertionError(f"libraries (d): /api/node_stats' cuda block: {blocks}")
+        req = urllib.request.Request(
+            url + "/api/jobs", data=json.dumps({"entrypoint": f"{sys.executable} -c "
+                                                              "'print(40 + 2)'"}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            job_id = json.loads(r.read())["job_id"]
+        mgr = default_job_manager()
+        status = mgr.wait(job_id, timeout=LIB_TIMEOUT_S).value
+        if status != "SUCCEEDED" or "42" not in mgr.logs(job_id):
+            raise AssertionError(f"libraries (d): the REST job ended {status}: {mgr.logs(job_id)}")
+    finally:
+        stop_dashboard()
+    out = {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=LIB_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"libraries (d): `{name}` did not answer in {LIB_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"libraries (d): `{name}` exited {proc.returncode}: {stderr}")
+        out[name] = stdout
+    name = torch.cuda.get_device_name(0)
+    if name not in out["doctor"] or "'GPU': 1.0" not in out["doctor"]:
+        raise AssertionError(f"libraries (d): doctor said {out['doctor']!r}")
+    if "ALIVE" not in out["status"] or "Nodes:" not in out["status"]:
+        raise AssertionError(f"libraries (d): status said {out['status']!r}")
+    log("libraries", f"(d) doctor names {name!r} with GPU 1.0; status: "
+        f"{[l for l in out['status'].splitlines() if l.startswith('Nodes:')]}; events: "
+        f"{len(out['events'].splitlines())} line(s); /api/node_stats cuda allocated "
+        f"{[d['memory_allocated_bytes'] for d in blocks]} B; REST job {job_id} SUCCEEDED "
+        f"({time.perf_counter() - t0:.2f} s, {card})")
+
+
+def phase_libraries(card: str) -> dict:
+    """Tune, RLlib, Workflow and the surfaces (see the module docstring,
+    `libraries`). Returns the Tuner's launches and the workflow's, by run."""
+    t0 = time.perf_counter()
+    ray_tpu_torch.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_libraries_")
+    rt = ray_tpu_torch.init(head=True)
+    procs: dict = {}
+    try:
+        if ray_tpu_torch.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"libraries: the head advertises "
+                                 f"{ray_tpu_torch.cluster_resources()}")
+        procs = _lib_cli_start(rt)
+        tuned = _lib_tune(card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _lib_rllib(card)
+        runs = _lib_workflow(card, tmp)
+        _lib_surfaces(card, procs)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    workflow_launches = {k.name: sum(r[k.name] for r in runs.values()) for k in KERNELS}
+    log("libraries", f"phase {time.perf_counter() - t0:.2f} s ({card})")
+    return dict(launches=tuned, workflow=workflow_launches, workflow_by_run=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6178,6 +6553,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     capacity = phase_capacity(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    libraries = phase_libraries(card)
     for label, check in fsdp_tp["checks"].items():
         results["flash_attention_fwd"][f"{label}_shape"] = check["forward"]
         for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
@@ -6195,13 +6573,17 @@ def main() -> int:
                    "ingest": ingest["launches"][k.name], "process": process["launches"][k.name],
                    "dp": dp["launches"][k.name], "gang": gang["launches"][k.name],
                    "fsdp_tp": fsdp_tp["launches"][k.name], "a7": a7["launches"][k.name],
-                   "capacity": capacity["launches"][k.name]}
+                   "capacity": capacity["launches"][k.name],
+                   "libraries": libraries["launches"][k.name],
+                   "libraries_workflow": libraries["workflow"][k.name]}
         kernels.append(dict(
             name=k.name, route="cuda", source=SOURCES[k.name], replaces=REPLACES[k.name],
             launches=sum(by_path.values()), launches_by_path=by_path, **results[k.name]))
         if k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ):
             kernels[-1]["fsdp_tp_launches_by_mode"] = {m: n[k.name] for m, n in by_mode.items()}
             kernels[-1]["a7_launches_by_part"] = {p: n[k.name] for p, n in a7["by_part"].items()}
+        kernels[-1]["libraries_workflow_launches_by_run"] = {
+            run: n[k.name] for run, n in libraries["workflow_by_run"].items()}
         if k is RAGGED:
             kernels[-1]["serve_launches_by_kind"] = ragged_split
             kernels[-1]["serve_device_kernels_profiled_repeat"] = profiled

@@ -403,6 +403,19 @@ class RayTpuConfig:
             else:
                 self._overrides.pop(name, None)
 
+    def describe(self) -> str:
+        """Human-readable flag table (used by the CLI)."""
+        lines = []
+        for flag in sorted(_REGISTRY.values(), key=lambda f: f.name):
+            cur = getattr(self, flag.name)
+            mark = "" if cur == flag.default else "  [overridden]"
+            lines.append(
+                f"{flag.name} = {cur!r}{mark}\n"
+                f"    {flag.doc} (env: {flag.env_var}, "
+                f"default: {flag.default!r})"
+            )
+        return "\n".join(lines)
+
 
 cfg = RayTpuConfig()
 

@@ -1141,11 +1141,14 @@ class PagedLLMEngine:
                 continue
             offset = slot.prefill_offset
             first_page = offset // ps
-            # a prefix hit can leave first_page chunk-misaligned, so the
-            # chunk's page window may brush the block-table cap: grow only
-            # to the cap; window pages past it stay scratch-mapped, and only
-            # pad rows land there
-            if not self._grow(idx, slot, min(first_page + cp, maxp), reason="prefill_growth"):
+            # grow only to the pages the chunk's real tokens need (JAX grows
+            # the whole chunk window, so a resumed lane's last chunk could
+            # need more pages than the pool holds), and never past the
+            # block-table cap; window pages past either stay scratch-mapped,
+            # and only pad rows land there
+            end = min(offset + ct, len(slot.request.prompt))
+            if not self._grow(idx, slot, min(first_page + cp, -(-end // ps), maxp),
+                              reason="prefill_growth"):
                 continue
             slot.stalled = False
             work.append((idx, offset, first_page))

@@ -248,6 +248,25 @@ def status_report(verbose: bool = False) -> str:
                 f"{_fmt_bytes(store.get('device_bytes', 0))} device"
                 f" in {store.get('num_objects', 0)} object(s)"
             )
+            wp = snap.get("worker_pool", {})
+            tq = snap.get("task_queues", {})
+            lines.append(
+                f"    worker pool: {wp.get('busy', 0)} busy / "
+                f"{wp.get('idle', 0)} idle; queues: "
+                + " ".join(f"{k}={v}" for k, v in sorted(tq.items()))
+            )
+            lines.append(
+                f"    cpu: {snap.get('cpu_percent', 0.0):.1f}%  "
+                f"rss: {_fmt_bytes(snap.get('rss_bytes', 0))}"
+            )
+            for dev in snap.get("cuda", ()):
+                lines.append(
+                    f"    cuda[{dev.get('id')}] {dev.get('kind')}: allocated "
+                    f"{_fmt_bytes(dev.get('memory_allocated_bytes', 0))}, reserved "
+                    f"{_fmt_bytes(dev.get('memory_reserved_bytes', 0))} of "
+                    f"{_fmt_bytes(dev.get('memory_total_bytes', 0))} "
+                    f"duty={dev.get('duty', 0.0):.2f}"
+                )
             prof = snap.get("profiling") or {}
             if verbose and prof:
                 parts = ["profiler: server not available (torch.profiler has none)"]

@@ -342,16 +342,19 @@ class TestSharedCluster:
 
     def test_probe_agent_and_cli(self, shared, capsys):
         """health.probe_agent answers over the agent's RPC address; the CLI's
-        other subcommands raise naming ROADMAP A8, and `--restore` without
-        `--head` is refused with JAX's message."""
+        `status` reports the live cluster (every node, agents included) and
+        leaves this process's runtime up, and `--restore` without `--head`
+        is refused with JAX's message."""
         from ray_tpu_torch.core.health import probe_agent
 
         assert all(probe_agent(n) for n in _remote_nodes(shared))
         assert probe_agent(shared.runtime.scheduler.head_node())
         from ray_tpu_torch.cli import main
 
-        with pytest.raises(NotImplementedError, match="A8"):
-            main(["status"])
+        n = len(shared.runtime.scheduler.nodes())
+        assert main(["--no-cuda", "status"]) == 0
+        assert f"Nodes: {n} ({n} ALIVE)" in capsys.readouterr().out
+        assert all(probe_agent(node) for node in _remote_nodes(shared))
         assert main(["start", "--address", shared.address, "--restore"]) == 2
         assert "--restore only applies to --head" in capsys.readouterr().err
 

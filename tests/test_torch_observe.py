@@ -168,6 +168,11 @@ def test_paged_spec_rollback_marks_match_jax(manual):
     assert "engine.decode_block" not in _phases(marks)
 
 
+def _preempted(marks):
+    """The arguments of a request's engine.preempted mark."""
+    return next(m for m in marks if m[0] == "engine.preempted")[2]
+
+
 def test_paged_preempt_and_resume_marks_match_jax(manual):
     """One slot: a priority-1 request parks the decoding lane (preempted,
     with its pages and generated count), then the victim resumes; the
@@ -191,12 +196,17 @@ def test_paged_preempt_and_resume_marks_match_jax(manual):
         return _marks(name, "r-victim"), _marks(name, "r-high"), kinds
 
     seen = _drive_paged(manual(max_slots=1, decode_block_steps=2), drill)
+    # the parked page count differs by rule: JAX grows the prompt's second
+    # chunk (offset 16) to its whole page window (4 pages), the port only to
+    # the pages the 20-token prompt needs (3), where the 3 decoded
+    # positions also fit
+    pages = [_preempted(s[0]).pop("pages") for s in seen]
+    assert pages == [4, 3]
     assert seen[0] == seen[1]
     victim, high, kinds = seen[1]
     phases = _phases(victim)
     assert phases.index("engine.preempted") < phases.index("engine.resumed") < len(phases) - 1
-    preempted = next(m for m in victim if m[0] == "engine.preempted")
-    assert preempted[2] == {"lane": 0, "pages": 4, "generated": 3}
+    assert _preempted(victim) == {"lane": 0, "generated": 3}
     assert kinds == ["serve.lane_preempted", "serve.lane_resumed"]
     assert _phases(high)[-1] == "engine.finished"
 

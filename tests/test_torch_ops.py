@@ -350,7 +350,11 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         "import ray_tpu_torch.core.chaos, ray_tpu_torch.train.cluster_gang\n"
         "import ray_tpu_torch.core.capacity, ray_tpu_torch.core.autoscaler, ray_tpu_torch.jobs\n"
         "import ray_tpu_torch.launcher, ray_tpu_torch.parallel.dcn, torch_capacity_job\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu'))\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.tune.tuner, ray_tpu_torch.workflow\n"
+        "import ray_tpu_torch.rllib, ray_tpu_torch.rllib.ppo, ray_tpu_torch.rllib.dqn\n"
+        "import ray_tpu_torch.dashboard, torch_tune_trainables\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ray_tpu', 'optax', 'cloudpickle'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

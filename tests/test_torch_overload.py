@@ -355,25 +355,37 @@ def test_slot_wedge_preempts_and_the_victim_resumes_token_exact(manual, llama):
     """One slot, a low-priority lane decoding with nothing in flight: a
     priority-1 submit parks it at once (its emitted tokens folded into its
     prompt, its pages freed) and takes the slot; the victim resumes after
-    it and both streams equal the unpreempted greedy reference."""
+    it and both streams equal the unpreempted greedy reference.
+
+    The parked lane's page count differs by rule: JAX grows a prefill chunk
+    to its whole page window (the 20-token prompt's second chunk, at offset
+    16, takes pages 2-3: 4 pages), the port only to the pages the prompt
+    needs (3); the 5 emitted tokens' positions 20-23 fit in page 2, so the
+    port parks 3 pages and its pool then has one page more free."""
     vp, hp = _prompt(4, 20), _prompt(5, 8)
-    seen = []
+    seen, page_counts = [], []
     for _, engine in manual(max_slots=1, decode_block_steps=2):
         victim, vout, high = _wedge(engine, vp, 14, 5, hp, 4)
         engine._admit()
         parked = victim._request
-        obs = [engine.metrics["lane_preemptions"], engine.metrics["preempted_pages"],
+        page_counts.append((engine.metrics["preempted_pages"], engine.allocator.available))
+        obs = [engine.metrics["lane_preemptions"],
                engine.slots[0].request is high._request, parked.parked, len(parked.prompt),
-               parked.max_tokens, len(engine._fair), engine.allocator.available]
+               parked.max_tokens, len(engine._fair)]
         hout = []
         _run(engine, [victim, high], [vout, hout])
         obs += [vout, hout, engine.metrics["lane_resumes"], _pool_full(engine)]
         seen.append(obs)
     assert seen[0] == seen[1]
-    (preemptions, pages, high_seated, parked, plen, remaining, queued, free,
+    # free pages after the head's admission: the port's pool gets the
+    # victim's 3 pages back, not 4, and the head's 8-token prompt takes 1
+    # page, not its chunk window's 2
+    (jax_pages, jax_free), (pages, free) = page_counts
+    assert (jax_pages, pages, free) == (4.0, 3.0, jax_free)
+    (preemptions, high_seated, parked, plen, remaining, queued,
      vout, hout, resumes, full) = seen[1]
     assert (preemptions, resumes, high_seated, parked, queued) == (1.0, 1.0, True, True, 1)
-    assert plen == 20 + len(vout[:5]) and remaining == 14 - 5 and pages == 4.0
+    assert plen == 20 + len(vout[:5]) and remaining == 14 - 5
     assert vout == _greedy(llama, vp, 14) and hout == _greedy(llama, hp, 4) and full
 
 
@@ -439,6 +451,43 @@ def test_page_pressure_preempts_with_a_slot_free(manual, llama):
     assert free == 1 and emitted > 0 and preemptions == 1.0 and seated and parked_slot_free
     assert vout == _greedy(llama, vp, 16) and hout == _greedy(llama, hp, 4)
     assert resumes == 1.0 and stalls >= 1.0 and full
+
+
+def test_lane_parked_past_a_chunk_boundary_resumes_without_truncation(manual, llama):
+    """The setup above with the victim parked past 48 tokens (40 + 9
+    emitted): its resumed prompt's last chunk starts at offset 48, page 6.
+    JAX grows that chunk to its whole window (pages 6-7: 8 pages of the 7)
+    and stalls for good; the port grows
+    only to the 7 pages the 49 tokens need, so the victim resumes and ends
+    token-exact with its 16 tokens, the head too, and the pool full again."""
+    vp, hp = [(i * 7 + 3) % 97 for i in range(40)], [201, 202, 203, 204, 205, 206, 207, 208]
+    seen = []
+    for name, engine in manual(max_slots=2, decode_block_steps=2, max_inflight_blocks=1,
+                               pc=dict(num_pages=8)):
+        victim = engine.submit(vp, max_tokens=16, tenant="bulk", priority=0)
+        vout = []
+        _decode_until(engine, victim, vout, 9)
+        high = engine.submit(hp, max_tokens=4, tenant="paid", priority=1)
+        engine._admit()
+        obs = [engine.metrics["lane_preemptions"], len(victim._request.prompt)]
+        hout = []
+        if name == "jax":
+            for _ in range(100):
+                _step(engine)
+            ended = [_collect(victim, vout), _collect(high, hout)]
+            obs += [ended, engine.metrics["page_stalls"] > 0, engine.metrics["lane_resumes"]]
+        else:
+            _run(engine, [victim, high], [vout, hout])
+            obs += [engine.metrics["lane_resumes"], _pool_full(engine)]
+        seen.append(obs + [vout, hout])
+    (jpre, jplen, jended, jstalled, jresumes, jvout, jhout), \
+        (pre, plen, resumes, full, vout, hout) = seen
+    assert (jpre, pre) == (1.0, 1.0) and jplen == plen > 48
+    # JAX: the head ends, the victim's re-prefill waits on an 8th page forever
+    assert jended == [False, True] and jstalled and jresumes == 1.0 and len(jvout) < 16
+    assert jhout == _greedy(llama, hp, 4)
+    assert vout == _greedy(llama, vp, 16) and hout == _greedy(llama, hp, 4)
+    assert resumes == 1.0 and full
 
 
 def test_preemption_config_gate(manual, llama):
